@@ -1,0 +1,666 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+Phases, in order; any failed check exits non-zero and prints no ok line:
+
+1. Build the CUDA gain kernels from ``src/repro_torch/kernels/csrc``.
+2. Hold each kernel against its plain-torch version on the card: the
+   ragged shapes of the reference's kernel tests in float32 and bf16, and
+   the main path's full shape (with and without a model, shared and
+   per-run Phi, with and without the channel keep mask, all six modes),
+   plus a bitwise repeat of every launch; time kernel, plain version and
+   (for gain_matvec) ``torch.matmul`` with CUDA events.
+3. Run Algorithm 1's batched sweep in three cells (``CELLS``) under each
+   kernel step backend and once on plain torch, and compare them; each
+   kernel's launch counter must equal its expected count in its sweep:
+   - ``heterogeneity-mixed`` / ``heterogeneity-homogeneous``: the repo's
+     documented heterogeneity study at its own scale
+     (``benchmarks/heterogeneity.py``: 64 garnets, S=20, 4 agents of which
+     2 or 0 junk, T=10, N=150, 2 modes x 4 lambdas x 2 seeds = 1024 runs);
+   - ``wide-192``: a full-width stress size of the same study, a 4-instance
+     garnet family (S=256, A=4, b=3), 64-agent fleets with 16 junk agents,
+     T=128, six modes x 4 lambdas x 1 rho x 2 seeds = 192 runs, N=100.
+
+Every line before the last is one JSON object (device, build, kernels,
+sweeps); the last is ``{"ok": true, "device": {...}}``.  Run it from the
+repository root with no arguments: ``python3 chip_smoke.py``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+from typing import NamedTuple, Optional
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(REPO, "src")
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and the float32
+# rate outside the tensor cores, which is what these kernels use.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
+WEIGHT_TOL = 1e-5      # weights / gains / statistics (tests/parity.py)
+RATE_TOL = 1e-6        # comm_rate
+# random ragged kernel inputs (normal phi, g and a non-PSD Phi) sum with
+# cancellation, so the summation order shows above 1e-5; the reference's
+# own kernel tests hold these cases at 2e-4 (tests/test_kernels.py)
+KERNEL_TOL = 2e-4
+
+MODES = ("theoretical", "practical", "norm", "random", "always", "never")
+# eps as a fraction of the max stable step 1/lambda_max(Phi), for a cell
+# without a fixed eps: at 1/2 the wide cell's junk agents' one-state
+# batches blow the always/random/norm runs up to inf within N=100 steps,
+# at 1/32 every mode stays finite
+EPS_FRACTION = 1.0 / 32
+
+
+class Cell(NamedTuple):
+    """One sweep configuration (PERF.md "Cells")."""
+
+    name: str
+    envs: int             # garnet instances (the env grid axis)
+    states: int           # S = n, the tabular feature width
+    agents: int           # m
+    junk: int             # junk agents per fleet
+    samples: int          # T per agent per step
+    iters: int            # N
+    modes: tuple
+    lambdas: tuple
+    rhos: tuple
+    seeds: tuple
+    eps: Optional[float]  # None: EPS_FRACTION of the max stable step
+
+    @property
+    def runs(self):
+        return (self.envs * len(self.modes) * len(self.lambdas)
+                * len(self.rhos) * len(self.seeds))
+
+
+LAMBDAS = (1e-4, 1e-3, 1e-2, 1e-1)      # np.logspace(-4, -1, 4)
+# benchmarks/heterogeneity.py _scale(smoke=False), EPS and RHO, one cell per
+# fleet class of that study
+HET_MIXED = Cell("heterogeneity-mixed", 64, 20, 4, 2, 10, 150,
+                 ("theoretical", "practical"), LAMBDAS, (0.999,), (0, 1),
+                 0.4)
+HET_HOMOGENEOUS = HET_MIXED._replace(name="heterogeneity-homogeneous",
+                                     junk=0)
+# the same study at full width: the main path's kernel shape.  Every cell
+# takes the garnet defaults A=4, b=3, gamma=0.95.
+WIDE = Cell("wide-192", 4, 256, 64, 16, 128, 100, MODES, LAMBDAS, (0.95,),
+            (0, 1), None)
+CELLS = (HET_MIXED, HET_HOMOGENEOUS, WIDE)
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Timing and bounds
+# ---------------------------------------------------------------------------
+
+
+def time_ms(fn, reps=20, warmup=3):
+    """Median of ``reps`` CUDA-event timings of ``fn()`` after warm-up."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def bound(bytes_moved, flops):
+    """Least time (ms) for the work: bytes over HBM rate vs float32 ops."""
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def rel_err(got, want, scale=None):
+    """max |got - want| / scale and the max abs error.  ``scale`` defaults
+    to |want| + 1, the scale-normalized error of tests/test_kernels.py.
+    A gain is a difference of terms of size eps ||g||^2 that may nearly
+    cancel, so gains pass the size of their terms (``gain_scale``)."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    scale = want.abs() + 1.0 if scale is None else scale
+    return float((diff / scale).max()), float(diff.max())
+
+
+def gain_scale(stats, eps, num_samples):
+    """Per agent, the summed size of every term a gain is built from."""
+    s = stats.abs()
+    scale = eps * s[..., 0] + eps**2 * s[..., 1] / num_samples
+    if stats.shape[-1] == 4:
+        scale = scale + eps * s[..., 2] + eps**2 * s[..., 3]
+    return scale + 1.0
+
+
+class KernelLog:
+    def __init__(self):
+        self.max_abs = 0.0
+        self.max_rel = 0.0
+        self.cases = 0
+        self.repeat_bitwise = True
+        self.tie_flips = 0
+
+    def close(self, name, got, want, tol, scale=None):
+        rel, ab = rel_err(got, want, scale)
+        self.max_rel = max(self.max_rel, rel)
+        self.max_abs = max(self.max_abs, ab)
+        check(rel <= tol, f"{name}: error {rel:.3g} over tolerance {tol}")
+
+    def repeat(self, name, fn):
+        import torch
+        a, b = fn(), fn()
+        a = a if isinstance(a, tuple) else (a,)
+        b = b if isinstance(b, tuple) else (b,)
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        self.repeat_bitwise &= same
+        check(same, f"{name}: two launches on the same inputs differ")
+
+    def decisions(self, name, got_a, want_a, want_g, thresh, tol, scale=None):
+        """Exact transmit decisions, except flips whose oracle gain sits
+        within tolerance of -threshold (reported, not failed)."""
+        diff = got_a != want_a
+        if bool(diff.any()):
+            scale = want_g.abs() + 1.0 if scale is None else scale
+            margin = (want_g + thresh).abs() / scale
+            worst = float(margin[diff].max())
+            check(worst <= tol,
+                  f"{name}: {int(diff.sum())} decisions differ, margin {worst:.3g}")
+            self.tie_flips += int(diff.sum())
+
+
+def kernel_phase(dev):
+    import torch
+    from repro_torch.kernels import gain as K
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator().manual_seed(0)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen).to(dtype).to(dev)
+
+    logs = {k: KernelLog() for k in ("gain_matvec", "gain_family_stats",
+                                     "megastep")}
+
+    # -- gain_matvec / practical_gain: the reference kernel tests' shapes,
+    #    plus the main path's (R, m) batch
+    lg = logs["gain_matvec"]
+    for T, n in [(10, 6), (100, 25), (257, 130), (1024, 512)]:
+        for dt in (torch.float32, torch.bfloat16):
+            for batch in ((), (3, 2)):
+                phi, g = randn(*batch, T, n, dtype=dt), randn(*batch, n, dtype=dt)
+                lg.close(f"gain_matvec {batch} {T}x{n} {dt}",
+                         K.gain_matvec(phi, g), ref.gain_matvec_ref(phi, g), KERNEL_TOL)
+                lg.close(f"practical_gain {batch} {T}x{n} {dt}",
+                         K.practical_gain(phi, g, 0.5),
+                         ref.practical_gain_ref(phi, g, 0.5), KERNEL_TOL)
+                lg.repeat("gain_matvec", lambda: K.gain_matvec(phi, g))
+                lg.cases += 1
+
+    # -- gain_family_stats: ragged agent blocks, both variants, per-run Phi
+    lf = logs["gain_family_stats"]
+    for m, T, n in [(1, 10, 6), (2, 8, 25), (8, 128, 256), (13, 100, 30),
+                    (33, 257, 130)]:
+        for dt in (torch.float32, torch.bfloat16):
+            phi, g = randn(m, T, n, dtype=dt), randn(m, n, dtype=dt)
+            gj, pm = randn(n), randn(n, n)
+            lf.close(f"family {m}x{T}x{n} {dt}", K.gain_family_stats(phi, g, gj, pm),
+                     ref.gain_family_stats_ref(phi, g, gj, pm), KERNEL_TOL)
+            got2 = K.gain_family_stats(phi, g)
+            lf.close(f"family 2-col {m}x{T}x{n} {dt}", got2,
+                     ref.gain_family_stats_ref(phi, g), KERNEL_TOL)
+            lf.repeat("gain_family_stats",
+                      lambda: K.gain_family_stats(phi, g, gj, pm))
+            lf.cases += 2
+    G, m, T, n = 3, 5, 12, 9
+    phi, g = randn(G, m, T, n), randn(G, m, n)
+    gj, pm = randn(G, n), randn(G, n, n)
+    lf.close("family per-run Phi", K.gain_family_stats(phi, g, gj, pm),
+             ref.gain_family_stats_ref(phi, g, gj, pm), KERNEL_TOL)
+    lf.cases += 1
+
+    # -- megastep: every mode, with/without model, deliver, per-run Phi
+    lm = logs["megastep"]
+
+    def mega_case(name, R, m, T, n, dt, with_model, per_run_pm, deliver):
+        phi, g = randn(R, m, T, n, dtype=dt), randn(R, m, n, dtype=dt)
+        w = randn(R, n)
+        arand = torch.randint(0, 2, (R, m), generator=gen).float().to(dev)
+        gj = randn(R, n) if with_model else None
+        pm = (randn(R, n, n) if per_run_pm else randn(n, n)) if with_model else None
+        dl = (torch.randint(0, 2, (R, m), generator=gen).float().to(dev)
+              if deliver else None)
+        thresh = 0.8 * float(g.float().abs().median())
+        for mode in range(6):
+            if mode == 0 and not with_model:
+                continue
+            ctl = torch.tensor([[thresh, float(mode)]], device=dev).repeat(R, 1)
+            got = K.megastep_call(phi, g, w, ctl, arand, gj, pm, dl, eps=0.5)
+            want = ref.megastep_ref(phi, g, w, ctl, arand, gj, pm, dl, eps=0.5)
+            label = f"megastep {name} mode {mode}"
+            lm.decisions(label, got[1], want[1], want[2], thresh, KERNEL_TOL)
+            if bool((got[1] == want[1]).all()):
+                lm.close(label + " w_next", got[0], want[0], KERNEL_TOL)
+            lm.close(label + " gains", got[2], want[2], KERNEL_TOL)
+            lm.cases += 1
+        lm.repeat("megastep", lambda: K.megastep_call(
+            phi, g, w, ctl, arand, gj, pm, dl, eps=0.5))
+
+    for m, T, n in [(2, 8, 25), (5, 37, 23), (33, 129, 30)]:
+        for dt in (torch.float32, torch.bfloat16):
+            mega_case(f"{m}x{T}x{n} {dt}", 2, m, T, n, dt, True, False, False)
+    mega_case("model-free", 2, 5, 20, 9, torch.float32, False, False, False)
+    mega_case("per-run Phi + deliver", 3, 5, 12, 9, torch.float32, True, True,
+              True)
+    return logs
+
+
+def full_shape_phase(dev, logs):
+    """Each kernel at the main path's shape: agreement, bitwise repeat and
+    timings of kernel, plain version and (gain_matvec) torch.matmul."""
+    import torch
+    from repro_torch.kernels import gain as K
+    from repro_torch.kernels import ref
+
+    R, m, T, n = WIDE.runs, WIDE.agents, WIDE.samples, WIDE.states
+    gen = torch.Generator(device=dev).manual_seed(1)
+    # one-hot feature rows, as the tabular envs produce
+    x = torch.randint(0, n, (R, m, T), device=dev, generator=gen)
+    phi = torch.nn.functional.one_hot(x, n).float()
+    g = torch.randn(R, m, n, device=dev, generator=gen)
+    w = torch.randn(R, n, device=dev, generator=gen)
+    gj = torch.randn(R, n, device=dev, generator=gen)
+    pm = torch.eye(n, device=dev).expand(R, n, n).contiguous() / n
+    # a distinct, non-symmetric Phi per run, so that a wrong per-run offset
+    # shows (the tabular envs' Phi is I/S for every run)
+    pm_rand = torch.randn(R, n, n, device=dev, generator=gen) / n
+    arand = (torch.rand(R, m, device=dev, generator=gen) < 0.5).float()
+    deliver = (torch.rand(R, m, device=dev, generator=gen) < 0.7).float()
+    out = {}
+
+    # gain_matvec: projection + eq. 15 over all R*m agents in one launch
+    lg = logs["gain_matvec"]
+    lg.close("gain_matvec full", K.gain_matvec(phi, g), ref.gain_matvec_ref(phi, g), WEIGHT_TOL)
+    lg.close("practical_gain full", K.practical_gain(phi, g, 8.0),
+             ref.practical_gain_ref(phi, g, 8.0), WEIGHT_TOL)
+    lg.repeat("gain_matvec full", lambda: K.practical_gain(phi, g, 8.0))
+    b_ms, b_by = bound(nbytes(phi, g) + R * m * T * 4, 2 * R * m * T * n)
+    out["gain_matvec"] = dict(
+        ms=time_ms(lambda: K.gain_matvec(phi, g)),
+        plain_ms=time_ms(lambda: ref.gain_matvec_ref(phi, g)),
+        library_ms=time_ms(lambda: torch.matmul(phi, g.unsqueeze(-1))),
+        bound_ms=b_ms, bound_by=b_by)
+
+    lf = logs["gain_family_stats"]
+    lf.close("family full", K.gain_family_stats(phi, g, gj, pm),
+             ref.gain_family_stats_ref(phi, g, gj, pm), WEIGHT_TOL)
+    lf.close("family full per-run random Phi",
+             K.gain_family_stats(phi, g, gj, pm_rand),
+             ref.gain_family_stats_ref(phi, g, gj, pm_rand), WEIGHT_TOL)
+    lf.close("family full 2-col", K.gain_family_stats(phi, g),
+             ref.gain_family_stats_ref(phi, g), WEIGHT_TOL)
+    lf.repeat("family full", lambda: K.gain_family_stats(phi, g, gj, pm))
+    fam_flops = 2 * R * m * (T * n + T + 2 * n + n * n)
+    b_ms, b_by = bound(nbytes(phi, g, gj, pm) + R * m * 4 * 4, fam_flops)
+    out["gain_family_stats"] = dict(
+        ms=time_ms(lambda: K.gain_family_stats(phi, g, gj, pm)),
+        plain_ms=time_ms(lambda: ref.gain_family_stats_ref(phi, g, gj, pm)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+    lm = logs["megastep"]
+    modes = torch.arange(R, device=dev) % 6
+    for dl in (None, deliver):
+        for pmx in (pm, pm[0].contiguous(), pm_rand):
+            stats = ref.gain_family_stats_ref(phi, g, gj, pmx)
+            gains0 = ref.gains_from_stats_ref(stats, modes.unsqueeze(-1), 8.0, T)
+            # ~half transmit; the midpoint of two middle |gains|, so that no
+            # oracle gain sits exactly on its threshold
+            mid = gains0.abs().sort(dim=-1).values[:, m // 2 - 1: m // 2 + 1]
+            thresh = mid.mean(dim=-1)
+            ctl = torch.stack([thresh, modes.float()], -1).contiguous()
+            got = K.megastep_call(phi, g, w, ctl, arand, gj, pmx, dl, eps=8.0)
+            want = ref.megastep_ref(phi, g, w, ctl, arand, gj, pmx, dl, eps=8.0)
+            label = (f"megastep full deliver={dl is not None} "
+                     f"pm={tuple(pmx.shape)} random={pmx is pm_rand}")
+            scale = gain_scale(stats, 8.0, T)
+            lm.decisions(label, got[1], want[1], want[2], thresh.unsqueeze(-1),
+                         WEIGHT_TOL, scale)
+            same = (got[1] == want[1]).all(dim=-1)
+            lm.close(label + " w_next", got[0][same], want[0][same], WEIGHT_TOL)
+            lm.close(label + " gains", got[2], want[2], WEIGHT_TOL, scale)
+            lm.cases += 1
+    lm.repeat("megastep full", lambda: K.megastep_call(
+        phi, g, w, ctl, arand, gj, pm, deliver, eps=8.0))
+    mega_bytes = nbytes(phi, g, w, ctl, arand, gj, pm) + (R * n + 2 * R * m) * 4
+    b_ms, b_by = bound(mega_bytes, fam_flops + 2 * R * m * n)
+    out["megastep"] = dict(
+        ms=time_ms(lambda: K.megastep_call(phi, g, w, ctl, arand, gj, pm,
+                                           eps=8.0)),
+        plain_ms=time_ms(lambda: ref.megastep_ref(phi, g, w, ctl, arand, gj,
+                                                  pm, eps=8.0)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: the full-width sweep on every step backend
+# ---------------------------------------------------------------------------
+
+
+def sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+# kernel each step backend runs, and its launches per sweep step
+EXPECT = {"reference": ("gain_matvec", 1), "fused": ("gain_family_stats", 1),
+          "megastep": ("megastep", 2)}
+
+
+def sweep_phase(dev, cell):
+    """One cell under every kernel step backend and once on plain torch."""
+    import numpy as np
+    import torch
+    from repro_torch.core.algorithm1 import ParamSampler, TraceSpec
+    from repro_torch.envs import (family_sampler_fn, garnet_env_family,
+                                  garnet_fleet_sets)
+    from repro_torch.experiments import SweepSpec, run_sweep
+    from repro_torch.kernels import gain as K
+
+    w0 = np.zeros(cell.states, np.float32)
+    envs, fam = garnet_env_family(cell.envs, num_states=cell.states,
+                                  device=dev)
+    fleets = garnet_fleet_sets(envs, w0, cell.agents, num_junk=cell.junk)
+    eps = (cell.eps if cell.eps is not None else
+           EPS_FRACTION * envs[0].vfa_problem(w0).max_stable_stepsize())
+    sampler = ParamSampler(family_sampler_fn(cell.samples), None)
+    G, N = cell.runs, cell.iters
+    results, lines, launches = {}, [], {}
+    for step, gain in (("reference", "reference"), ("reference", "kernel"),
+                       ("fused", "kernel"), ("megastep", "kernel")):
+        spec = SweepSpec(modes=cell.modes, lambdas=cell.lambdas,
+                         seeds=cell.seeds, rhos=cell.rhos, eps=eps,
+                         num_iterations=N, num_agents=cell.agents,
+                         trace=TraceSpec(alphas=True, gains=True),
+                         step_backend=step, gain_backend=gain)
+        sync(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()                     # the main path starts here
+        t0 = time.perf_counter()
+        res = run_sweep(spec, sampler, w0, env_sets=fam, fleet_sets=fleets,
+                        device=dev)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        counts = dict(K.LAUNCHES)              # ... and ends here
+        label = f"{cell.name} {step}/{gain}"
+        if gain == "kernel":
+            name, per_step = EXPECT[step]
+            check(counts[name] == per_step * N,
+                  f"{label}: {name} launched {counts[name]} times, "
+                  f"expected {per_step * N}")
+            check(sum(counts.values()) == counts[name],
+                  f"{label}: other kernels launched: {counts}")
+            launches[name] = counts[name]
+        else:
+            check(sum(counts.values()) == 0, f"{label}: launched {counts}")
+        tr = res.trace
+        check(tuple(tr.final_weights.shape)
+              == (cell.envs, len(cell.modes), len(cell.lambdas),
+                  len(cell.rhos), len(cell.seeds), cell.states),
+              f"{label}: final weights shape {tuple(tr.final_weights.shape)}")
+        check(bool(torch.isfinite(tr.final_weights).all())
+              and bool(torch.isfinite(res.j_final).all()),
+              f"{label}: non-finite weights or J")
+        results[(step, gain)] = res
+        lines.append(dict(
+            cell=cell.name, sweep=f"{step}+{gain}", runs=G,
+            agents=cell.agents, junk=cell.junk, samples=cell.samples,
+            states=cell.states, iterations=N, eps=eps, wall_s=wall,
+            run_agent_steps_per_s=G * cell.agents * N / wall,
+            peak_mem_bytes=(int(torch.cuda.max_memory_allocated())
+                            if dev.type == "cuda" else None),
+            launches=counts))
+
+    oracle = results[("reference", "reference")]
+    # lambda_k of every flattened run, in grid order (env, mode, lam, rho, seed)
+    grid = tuple(oracle.comm_rate.shape)
+    thresholds = np.broadcast_to(
+        spec.thresholds()[None, None, :, :, None, :],
+        grid + (N,)).reshape(-1, N)
+    for key, res in results.items():
+        if key == ("reference", "reference"):
+            continue
+        cmp = compare_sweeps(res, oracle, thresholds, cell)
+        next(l for l in lines if l["sweep"] == "+".join(key)).update(cmp)
+    lines[0].update(comm_rate_mean=float(oracle.comm_rate.mean()),
+                    j_final_mean=float(oracle.j_final.mean()))
+    mega = next(l for l in lines if l["sweep"] == "megastep+kernel")
+    lines.append({"cell": cell.name, "step_breakdown_ms": dict(
+        step_breakdown(dev, cell, fam, fleets, eps),
+        sweep_step_ms=mega["wall_s"] / N * 1e3)})
+    return lines, launches
+
+
+def compare_sweeps(got, ref, thresholds, cell):
+    """Decisions exact per run up to its first flip; a flip whose oracle gain
+    sits within tolerance of -lambda_k is a tie (counted, its run set
+    aside); every other run must match at the parity tolerances."""
+    import torch
+    ga, ra = got.trace.alphas, ref.trace.alphas           # (..., N, m)
+    flat = lambda x: x.reshape(-1, *x.shape[-2:])
+    ga, ra, rg = flat(ga), flat(ra), flat(ref.trace.gains)
+    # a gain nearly cancels terms of size eps ||g||^2 (see rel_err): its
+    # error is measured against the run's largest gain
+    run_scale = rg.abs().amax(dim=(1, 2)) + 1.0
+    diff = (ga != ra)
+    runs_flipped = diff.any(dim=(1, 2))
+    tie_margin = 0.0
+    for r in torch.nonzero(runs_flipped).flatten().tolist():
+        k = int(torch.nonzero(diff[r].any(dim=-1))[0])
+        agents = diff[r, k]
+        gain = rg[r, k][agents]
+        lam_k = float(thresholds[r, k])
+        margin = float(((gain + lam_k).abs() / run_scale[r]).max())
+        check(margin <= WEIGHT_TOL,
+              f"{cell.name} run {r} step {k}: decision differs, "
+              f"gain margin {margin:.3g}")
+        tie_margin = max(tie_margin, margin)
+    keep = ~runs_flipped
+    check(bool(keep.any()), f"{cell.name}: every run's decisions flipped")
+    fw = lambda res: res.trace.final_weights.reshape(-1, cell.states)
+    w_rel, w_abs = rel_err(fw(got)[keep], fw(ref)[keep])
+    check(w_rel <= WEIGHT_TOL, f"{cell.name}: final weights differ by {w_rel:.3g}")
+    g_rel = rel_err(flat(got.trace.gains)[keep], rg[keep],
+                    run_scale[keep, None, None])[0]
+    per_agent = lambda x: x.reshape(-1, cell.agents)[keep]
+    for field in ("gain_mean", "gain_min", "gain_max"):
+        g_rel = max(g_rel, rel_err(per_agent(getattr(got.trace, field)),
+                                   per_agent(getattr(ref.trace, field)),
+                                   run_scale[keep, None])[0])
+    check(g_rel <= WEIGHT_TOL, f"{cell.name}: gain statistics differ by {g_rel:.3g}")
+    rate = float((got.comm_rate.flatten()[keep]
+                  - ref.comm_rate.flatten()[keep]).abs().max())
+    check(rate <= RATE_TOL, f"{cell.name}: comm_rate differs by {rate:.3g}")
+    check(bool(torch.equal(per_agent(got.trace.tx_counts),
+                           per_agent(ref.trace.tx_counts))),
+          f"{cell.name}: tx_counts differ outside tie-flipped runs")
+    return dict(vs_plain=dict(weights_max_rel=w_rel, weights_max_abs=w_abs,
+                              gains_max_rel=g_rel, comm_rate_max_abs=rate,
+                              tie_flipped_runs=int(runs_flipped.sum()),
+                              tie_margin_max=tie_margin))
+
+
+def step_breakdown(dev, cell, fam, fleets, eps):
+    """CUDA-event times of each stage of one megastep+kernel sweep step of
+    ``cell``, as the engine runs it: the grid's distinct sample streams
+    (one per env and seed) drawn once, gathered to every run, then
+    gradients, grad J, the random-mode draw and the megastep kernel."""
+    import torch
+    from repro_torch import random as trandom
+    from repro_torch.core import vfa
+    from repro_torch.core.algorithm1 import ProblemTerms
+    from repro_torch.envs import family_sampler_fn
+    from repro_torch.kernels import gain as K
+
+    G, E, S = cell.runs, cell.envs, len(cell.seeds)
+    m, T, nmodes = cell.agents, cell.samples, len(cell.modes)
+    # grid order (env, mode, lam, rho, seed): run -> (env, seed) stream
+    run = torch.arange(G, device=dev)
+    env_of, seed_of = run // (G // E), run % S
+    mode_of = run // (G // E // nmodes) % nmodes
+    stream_env = torch.arange(E, device=dev).repeat_interleave(S)
+    stream_seed = torch.arange(S, device=dev).repeat(E)
+    inv = env_of * S + seed_of
+    keys = trandom.keys(cell.seeds).to(dev)[stream_seed]
+    rngs = trandom.split(trandom.split(keys, cell.iters)[:, 0], m + 1)
+    env = {k: v[stream_env] for k, v in fam.params.items()}
+    params = {k: v.to(dev)[stream_env] for k, v in fleets.items()}
+    fn = family_sampler_fn(T)
+    phi_u, y_u = fn(env, params, rngs[:, :m])
+    phi, y = phi_u[inv], y_u[inv]
+    w = torch.zeros(G, cell.states, device=dev)
+    terms = ProblemTerms(*(t[env_of] for t in fam.terms))
+    grads = vfa.stochastic_gradient(w.unsqueeze(1), phi, y)
+    gj = terms.grad(w)
+    arand = trandom.bernoulli(rngs[inv][:, m], 0.5, (m,)).float()
+    ctl = torch.stack([torch.full((G,), 1e-3, device=dev),
+                       mode_of.float()], -1).contiguous()
+    stages = {
+        "sample_distinct_streams": lambda: fn(env, params, rngs[:, :m]),
+        "gather_to_runs": lambda: (phi_u[inv], y_u[inv]),
+        "stochastic_gradients": lambda: vfa.stochastic_gradient(
+            w.unsqueeze(1), phi, y),
+        "grad_j": lambda: terms.grad(w),
+        "random_mode_draw": lambda: trandom.bernoulli(
+            rngs[inv][:, m], 0.5, (m,)),
+        "megastep_kernel": lambda: K.megastep_call(
+            phi, grads, w, ctl, arand, gj, terms.phi_matrix, eps=eps),
+    }
+    out = {name: time_ms(stage, reps=10) for name, stage in stages.items()}
+    out["sum_ms"] = sum(out.values())
+    return out
+
+
+REPLACES = {
+    "gain_matvec": "src/repro/kernels/gain.py:144",
+    "gain_family_stats": "src/repro/kernels/gain.py:241",
+    "megastep": "src/repro/kernels/gain.py:428",
+}
+
+
+def kernel_lines(logs, timings, launches):
+    """One record per kernel: the ``kernels`` line of the output.
+    ``launches`` sums the kernel's launches over every cell's sweeps."""
+    kernels = []
+    for name, log in logs.items():
+        t = timings[name]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/gain.cu",
+            replaces=REPLACES[name], launches=launches.get(name, 0),
+            max_abs_err=log.max_abs, max_rel_err=log.max_rel,
+            tolerance=dict(ragged=KERNEL_TOL, main_path=WEIGHT_TOL),
+            repeat_bitwise=log.repeat_bitwise,
+            decision_tie_flips=log.tie_flips, cases=log.cases,
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"]))
+    return kernels
+
+
+def device_line():
+    import torch
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    emit({"device": {"nvidia_smi": card, "name": torch.cuda.get_device_name(0),
+                     "count": torch.cuda.device_count(),
+                     "torch": torch.__version__, "cuda": torch.version.cuda,
+                     "python": sys.version.split()[0]}})
+
+
+def main():
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        raise SmokeFailure("src/repro_torch not found beside chip_smoke.py")
+    sys.path.insert(0, SRC)
+    import torch
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is false: needs a GPU")
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device_line()
+
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    made = build.build(force=True)
+    build.load()
+    regs = [l.strip() for l in made.log.splitlines()
+            if "registers" in l or "Compiling entry" in l]
+    emit({"build": {"seconds": time.perf_counter() - t0,
+                    "nvcc_seconds": made.seconds, "ptxas": regs}})
+
+    logs = kernel_phase(dev)
+    timings = full_shape_phase(dev, logs)
+    sweeps, launches = [], {}
+    for cell in CELLS:
+        lines, counts = sweep_phase(dev, cell)
+        sweeps += lines
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+    kernels = kernel_lines(logs, timings, launches)
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} never ran on the main path")
+    emit({"kernels": kernels})
+    for line in sweeps:
+        emit(line)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+if __name__ == "__main__":
+    try:
+        main()
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,31 @@
+"""PyTorch/CUDA port of the ``repro`` package for one NVIDIA H100.
+
+Module for module it mirrors ``repro`` (``repro_torch/core/algorithm1.py``
+ports ``repro/core/algorithm1.py``, and so on) and is held against it by
+the ``tests/test_torch_*.py`` parity tests.  It imports torch and numpy
+only: where it needs code that ``repro`` also has, it keeps its own copy.
+
+Every entry point takes ``device=`` and defaults to ``"cuda"``; on a
+machine without a GPU it raises unless the caller asks for the CPU
+explicitly (``device="cpu"``, as the tests do).  The gain kernels are
+hand-written CUDA (``repro_torch/kernels/csrc/gain.cu``), built on first
+use by ``repro_torch.kernels.build``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` or, by default, cuda.
+
+    Raises when CUDA is asked for (explicitly or by default) and there is
+    none, so a run never drops to the CPU without the caller saying so.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain-torch path")
+    return dev

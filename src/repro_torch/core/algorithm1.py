@@ -1,0 +1,376 @@
+"""Algorithm 1's inner loop (paper §II-B, §III-IV), ported from
+``repro/core/algorithm1.py``.
+
+``gated_sgd_core`` runs N gated-SGD iterations for a batch of runs at once:
+the run axis is a leading tensor dimension (the reference vmaps a per-run
+core over it), the scan over iterations is a Python loop, and the trigger
+mode, thresholds and random-transmit probability are per-run data, so one
+code path serves every cell of a sweep grid.  A single run is the same
+core with R = 1 (pass an unbatched key).
+
+This slice ports the perfect channel with a stateless (i.i.d.) sampler.
+The lossy channel (``channel=``) is ROADMAP queue 1 item 7, Markovian
+sampling (``sampler_state=``) item 8; both raise ``NotImplementedError``.
+The reference's ``jax.lax.optimization_barrier`` has no counterpart: torch
+runs eagerly and folds nothing.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple, Optional, Union
+
+import torch
+
+from repro_torch import random as trandom
+from repro_torch import resolve_device
+from repro_torch.core import gain_dispatch
+from repro_torch.core import server as server_lib
+from repro_torch.core import vfa as vfa_lib
+from repro_torch.core.trigger import TriggerConfig, should_transmit
+
+MODES = gain_dispatch.MODES
+MODE_IDS = {name: i for i, name in enumerate(MODES)}
+
+# sample_all(rngs (R, m, 2)) -> (phi (R, m, T, n), targets (R, m, T))
+SampleAll = Callable[[torch.Tensor], tuple]
+
+
+class ParamSampler(NamedTuple):
+    """One batched sampling function plus stacked per-agent parameters.
+
+    ``fn(params, rngs) -> (phi (R, m, T, n), targets (R, m, T))`` draws
+    every agent's local batch of every run; ``params`` is a dict whose
+    tensors carry the agent axis (m, ...) — or (R, m, ...) when the runs'
+    fleets differ — and ``rngs`` is (R, m, 2).
+    """
+
+    fn: Callable
+    params: object
+
+    @property
+    def num_agents(self) -> int:
+        if not self.params:
+            raise ValueError(
+                "ParamSampler.params is empty (e.g. None): such samplers "
+                "only carry the fn for run_sweep(param_sets=...) and cannot "
+                "be used where a concrete fleet is required")
+        return int(next(iter(self.params.values())).shape[0])
+
+
+class InnerTrace(NamedTuple):
+    """Per-iteration trace (leading run axis when batched, then N)."""
+
+    weights: torch.Tensor      # (..., N+1, n) w_0..w_N
+    alphas: torch.Tensor       # (..., N, m) transmit decisions
+    gains: torch.Tensor        # (..., N, m) evaluated gains
+    comm_rate: torch.Tensor    # (...,) (1/N) sum_k mean_i alpha_k^i (eq. 7)
+
+
+class TraceSpec(NamedTuple):
+    """What the streaming loop keeps besides the O(1) running summaries."""
+
+    j_trajectory: bool = False
+    alphas: bool = False
+    gains: bool = False
+
+
+class SummaryTrace(NamedTuple):
+    """Streaming counterpart of ``InnerTrace``: running summaries only."""
+
+    final_weights: torch.Tensor          # (..., n) w_N
+    comm_rate: torch.Tensor              # (...,) eq. 7
+    tx_counts: torch.Tensor              # (..., m)
+    gain_mean: torch.Tensor              # (..., m)
+    gain_min: torch.Tensor               # (..., m)
+    gain_max: torch.Tensor               # (..., m)
+    j_final: Optional[torch.Tensor]      # (...,) exact J(w_N), with terms
+    j_trajectory: Optional[torch.Tensor]  # (..., N)
+    alphas: Optional[torch.Tensor]       # (..., N, m)
+    gains: Optional[torch.Tensor]        # (..., N, m)
+
+
+SUMMARY_TRACE = TraceSpec()
+
+
+def resolve_trace(trace) -> Union[str, TraceSpec]:
+    """Normalize the trace policy: 'full' | 'summary' | TraceSpec."""
+    if trace == "full":
+        return "full"
+    if trace == "summary":
+        return SUMMARY_TRACE
+    if isinstance(trace, TraceSpec):
+        return trace
+    raise ValueError(
+        f"trace must be 'full', 'summary' or a TraceSpec, got {trace!r}")
+
+
+class ProblemTerms(NamedTuple):
+    """The exact problem as sufficient statistics.
+
+    J(w) = w^T Phi w - 2 b^T w + c0, grad J = 2 (Phi w - b).  Leaves are
+    shared ((n, n), (n,), ()) or per run ((R, n, n), (R, n), (R,)); ``grad``
+    and ``objective`` take weights (..., n).
+    """
+
+    phi_matrix: torch.Tensor
+    bvec: torch.Tensor
+    c0: torch.Tensor
+
+    @classmethod
+    def from_problem(cls, problem: vfa_lib.VFAProblem) -> "ProblemTerms":
+        b = torch.einsum("s,si->i", problem.d_weights * problem.targets,
+                         problem.phi_matrix)
+        c0 = torch.sum(problem.d_weights * problem.targets**2)
+        return cls(phi_matrix=problem.second_moment(), bvec=b, c0=c0)
+
+    def grad(self, w: torch.Tensor) -> torch.Tensor:
+        return 2.0 * ((self.phi_matrix @ w.unsqueeze(-1)).squeeze(-1)
+                      - self.bvec)
+
+    def objective(self, w: torch.Tensor) -> torch.Tensor:
+        pw = (self.phi_matrix @ w.unsqueeze(-1)).squeeze(-1)
+        return (w * pw).sum(-1) - 2.0 * (self.bvec * w).sum(-1) + self.c0
+
+    def to(self, device) -> "ProblemTerms":
+        return ProblemTerms(*(t.to(device) for t in self))
+
+
+@dataclasses.dataclass(frozen=True)
+class GatedSGDConfig:
+    trigger: TriggerConfig
+    eps: float
+    num_agents: int
+    mode: str = "practical"
+    random_tx_prob: float = 0.5
+    # 'reference' | 'kernel'; None reads REPRO_TORCH_GAIN_BACKEND
+    gain_backend: Optional[str] = None
+    # 'reference' | 'fused' | 'megastep'; None reads REPRO_TORCH_STEP_BACKEND
+    step_backend: Optional[str] = None
+
+    def __post_init__(self):
+        if self.mode not in MODES:
+            raise ValueError(f"mode must be one of {MODES}, got {self.mode!r}")
+        if (self.gain_backend is not None
+                and self.gain_backend not in gain_dispatch.BACKENDS):
+            raise ValueError(
+                f"gain_backend must be one of {gain_dispatch.BACKENDS}, "
+                f"got {self.gain_backend!r}")
+        if (self.step_backend is not None
+                and self.step_backend not in gain_dispatch.STEP_BACKENDS):
+            raise ValueError(
+                f"step_backend must be one of {gain_dispatch.STEP_BACKENDS}, "
+                f"got {self.step_backend!r}")
+
+
+def _runs(x, R: int, device, dtype) -> torch.Tensor:
+    """A per-run scalar as an (R,) tensor (a shared value is broadcast)."""
+    return torch.as_tensor(x, device=device).to(dtype).expand(R)
+
+
+def refuse_unported(channel=None, channel_caps=None, sampler_state=None):
+    """The parts of Algorithm 1 later slices of the port bring."""
+    if channel is not None or channel_caps is not None:
+        raise NotImplementedError(
+            "the lossy-edge channel is not ported yet (ROADMAP queue 1 "
+            "item 7); run with channel=None")
+    if sampler_state is not None:
+        raise NotImplementedError(
+            "Markovian sampling (sampler_state=) is not ported yet (ROADMAP "
+            "queue 1 item 8)")
+
+
+def gated_sgd_core(
+    rng: torch.Tensor,
+    w0: torch.Tensor,
+    mode_id,
+    thresholds: torch.Tensor,
+    tx_prob,
+    sample_all: SampleAll,
+    eps: float,
+    num_agents: int,
+    terms: Optional[ProblemTerms] = None,
+    gain_backend: Optional[str] = None,
+    trace: Union[str, TraceSpec] = "full",
+    step_backend: Optional[str] = None,
+    channel=None,
+    channel_caps=None,
+    sampler_state=None,
+    device=None,
+) -> Union[InnerTrace, SummaryTrace]:
+    """Branchless inner loop of Algorithm 1 (lines 5-9) for R runs at once.
+
+    Args:
+      rng:        (R, 2) run keys, or one (2,) key for a single run (then
+                  every output drops its run axis).
+      w0:         (n,) shared or (R, n) initial weights.
+      mode_id:    int or (R,) trigger-mode ids (``MODES``).
+      thresholds: (N,) shared or (R, N) per-iteration lambda_k.
+      tx_prob:    float or (R,) random-mode transmit probability.
+      sample_all: ``rngs (R, m, 2) -> (phi (R, m, T, n), targets (R, m, T))``.
+      terms:      exact ``ProblemTerms`` (shared or per-run leaves), needed
+                  by the theoretical mode and for J summaries.
+      device:     where to run (default cuda; raises without a GPU unless
+                  the caller passes "cpu").
+
+    Per step: one ``split`` per run into m agent keys and the random-mode
+    key (``rngs[-1]``, as the reference), the agents' batches and
+    stochastic gradients, then the gain family, the eq. 9 trigger and the
+    eq. 6 update through ``gain_dispatch`` ("megastep" does all three in
+    one dispatch).  Both trace policies run the same step body.
+    """
+    refuse_unported(channel, channel_caps, sampler_state)
+    dev = resolve_device(device)
+    step_backend_r = gain_dispatch._resolve_step(step_backend)
+    trace = resolve_trace(trace)
+    rng = torch.as_tensor(rng).to(dev)
+    single = rng.dim() == 1
+    if single:
+        rng = rng.unsqueeze(0)
+    R, m = rng.shape[0], num_agents
+    thresholds = torch.as_tensor(thresholds, dtype=torch.float32).to(dev)
+    if thresholds.dim() == 1:
+        thresholds = thresholds.expand(R, -1)
+    N = thresholds.shape[-1]
+    w = torch.as_tensor(w0, dtype=torch.float32).to(dev).expand(R, -1)
+    w = w.contiguous()         # steps return new weights, never write w
+    modes = _runs(mode_id, R, dev, torch.int64)
+    tx_p = _runs(tx_prob, R, dev, torch.float32)
+    if terms is not None:
+        terms = terms.to(dev)
+    phi_matrix = terms.phi_matrix if terms is not None else None
+
+    def step_body(w, k, rng_k):
+        rngs = trandom.split(rng_k, m + 1)                 # (R, m+1, 2)
+        phi_b, targets_b = sample_all(rngs[:, :m])
+        grads = vfa_lib.stochastic_gradient(w.unsqueeze(1), phi_b, targets_b)
+        grad_j = terms.grad(w) if terms is not None else None
+        # rngs[:, -1] feeds the random-mode draw on every step backend, so
+        # the sample streams match the reference's bit for bit
+        alpha_rand = trandom.bernoulli(
+            rngs[:, m], tx_p.unsqueeze(-1), (m,)).float()
+        if step_backend_r == "megastep":
+            return gain_dispatch.megastep(
+                modes, w, grads, phi_b, eps, thresholds[:, k], alpha_rand,
+                grad_j, phi_matrix, backend=gain_backend)
+        gains = gain_dispatch.mode_gains(
+            modes, grads, phi_b, eps, grad_j, phi_matrix,
+            backend=gain_backend, step_backend=step_backend)
+        gate = should_transmit(gains, thresholds[:, k].unsqueeze(-1))
+        alphas = gain_dispatch.select_alphas(modes, gate, alpha_rand)
+        return server_lib.server_update(w, grads, alphas, eps), alphas, gains
+
+    step_keys = trandom.split(rng, N)                      # (R, N, 2)
+    full = trace == "full"
+    if full:
+        ws, alist, glist = [w], [], []
+    else:
+        tx_counts = torch.zeros((R, m), device=dev)
+        gain_sum = torch.zeros((R, m), device=dev)
+        gain_min = torch.full((R, m), float("inf"), device=dev)
+        gain_max = torch.full((R, m), float("-inf"), device=dev)
+        j_traj, alist, glist = [], [], []
+    for k in range(N):
+        w, alphas, gains = step_body(w, k, step_keys[:, k])
+        if full:
+            ws.append(w)
+            alist.append(alphas)
+            glist.append(gains)
+            continue
+        tx_counts = tx_counts + alphas
+        gain_sum = gain_sum + gains
+        gain_min = torch.minimum(gain_min, gains)
+        gain_max = torch.maximum(gain_max, gains)
+        if trace.j_trajectory and terms is not None:
+            j_traj.append(terms.objective(w))
+        if trace.alphas:
+            alist.append(alphas)
+        if trace.gains:
+            glist.append(gains)
+
+    def stack(xs):
+        return torch.stack(xs, dim=1) if xs else None
+
+    if full:
+        alphas_s = stack(alist)
+        out = InnerTrace(weights=stack(ws), alphas=alphas_s,
+                         gains=stack(glist),
+                         comm_rate=alphas_s.mean(dim=(1, 2)))
+    else:
+        out = SummaryTrace(
+            final_weights=w,
+            comm_rate=tx_counts.sum(-1) / (N * m),
+            tx_counts=tx_counts,
+            gain_mean=gain_sum / N,
+            gain_min=gain_min,
+            gain_max=gain_max,
+            j_final=terms.objective(w) if terms is not None else None,
+            j_trajectory=stack(j_traj),
+            alphas=stack(alist),
+            gains=stack(glist))
+    if single:
+        out = type(out)(*(None if x is None else x[0] for x in out))
+    return out
+
+
+def make_sample_all(sampler, num_agents: int, device=None) -> SampleAll:
+    """Adapt a ``ParamSampler`` (or a batched ``rngs -> batch`` callable)
+    to the core's interface; the fleet's params move to ``device`` once."""
+    if isinstance(sampler, ParamSampler):
+        if sampler.num_agents != num_agents:
+            raise ValueError(
+                f"ParamSampler carries {sampler.num_agents} agents, "
+                f"config says {num_agents}")
+        params = {k: torch.as_tensor(v).to(device)
+                  for k, v in sampler.params.items()}
+
+        def sample_all(rngs):
+            return sampler.fn({k: v.expand((rngs.shape[0],) + v.shape)
+                               for k, v in params.items()}, rngs)
+        return sample_all
+    if callable(sampler):
+        return sampler
+    raise TypeError("sampler must be a ParamSampler or a batched callable "
+                    "rngs (R, m, 2) -> (phi, targets)")
+
+
+def run_gated_sgd(
+    rng: torch.Tensor,
+    w0: torch.Tensor,
+    sampler,
+    cfg: GatedSGDConfig,
+    problem: Optional[vfa_lib.VFAProblem] = None,
+    trace: Union[str, TraceSpec] = "full",
+    device=None,
+) -> Union[InnerTrace, SummaryTrace]:
+    """One inner run of Algorithm 1 (lines 5-9) for N iterations, m agents.
+
+    ``rng`` is one (2,) key (``repro_torch.random.key(seed)``); the result
+    carries no run axis.  ``problem`` is needed by the theoretical mode.
+    """
+    if cfg.mode == "theoretical" and problem is None:
+        raise ValueError("theoretical mode needs the exact VFAProblem")
+    dev = resolve_device(device)
+    terms = ProblemTerms.from_problem(problem) if problem is not None else None
+    return gated_sgd_core(
+        rng, w0,
+        mode_id=MODE_IDS[cfg.mode],
+        thresholds=cfg.trigger.schedule(),
+        tx_prob=cfg.random_tx_prob,
+        sample_all=make_sample_all(sampler, cfg.num_agents, dev),
+        eps=cfg.eps,
+        num_agents=cfg.num_agents,
+        terms=terms,
+        gain_backend=cfg.gain_backend,
+        trace=trace,
+        step_backend=cfg.step_backend,
+        device=dev,
+    )
+
+
+def performance_metric(trace: InnerTrace, lam: float,
+                       problem: vfa_lib.VFAProblem) -> torch.Tensor:
+    """The paper's criterion (8): lam * comm_rate + J(w_N)."""
+    w = trace.weights[-1]
+    return lam * trace.comm_rate + problem.objective(w.to(
+        problem.phi_matrix.device))

@@ -1,0 +1,246 @@
+"""Wrappers of the CUDA gain kernels (``csrc/gain.cu``), ported from the
+Pallas kernels of ``repro/kernels/gain.py``.
+
+Each wrapper takes tensors on one device.  For CPU tensors it returns its
+plain-torch version (``repro_torch.kernels.ref``); for CUDA tensors it checks
+dtype, shape and contiguity, allocates the outputs, launches the kernel on
+the current stream and raises if the launch failed — it never falls back.
+``LAUNCHES`` counts kernel launches per wrapper (only where a kernel is
+launched; ``megastep`` launches two per call), so a run can show that it
+went through the kernels.
+
+Unlike the Pallas entries there is no ``custom_vmap`` rule: the wrappers
+take the leading batch (run) axis directly, and one call is one launch over
+every agent of every run.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build as _build
+from repro_torch.kernels import ref
+
+# Column order of the (..., m, 4) stats array gain_family_stats emits.
+STAT_GNORM2, STAT_SUMPROJ2, STAT_GDOTJ, STAT_QUAD = range(4)
+
+LAUNCHES = {"gain_matvec": 0, "gain_family_stats": 0, "megastep": 0}
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# gate_update_kernel keeps m + 1 floats in (default-size) shared memory
+_MAX_AGENTS = 48 * 1024 // 4 - 1
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _on_cuda(*tensors) -> bool:
+    devs = {t.device for t in tensors if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"kernel inputs span devices {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    return True
+
+
+def _need(t: torch.Tensor, name: str, shape, dtypes=(torch.float32,)):
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {t.dtype} not in {dtypes}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check(code: int, name: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {code}")
+
+
+def _terms(grad_j, phi_matrix, batch, n):
+    """Validate per-run or shared model terms; returns their strides per
+    run (0 for a term every run shares)."""
+    batch = tuple(batch)
+    if grad_j.dim() == 1:
+        _need(grad_j, "grad_j", (n,))
+    else:
+        _need(grad_j, "grad_j", batch + (n,))
+    if phi_matrix.dim() == 2:
+        _need(phi_matrix, "phi_matrix", (n, n))
+    else:
+        _need(phi_matrix, "phi_matrix", batch + (n, n))
+    return (0 if grad_j.dim() == 1 else n,
+            0 if phi_matrix.dim() == 2 else n * n)
+
+
+# ---------------------------------------------------------------------------
+# gain_matvec / practical_gain  (Pallas: gain.py::gain_matvec, practical_gain)
+# ---------------------------------------------------------------------------
+
+
+def _matvec_launch(phi, g, eps, want_proj):
+    *batch, T, n = phi.shape
+    _need(phi, "phi", phi.shape, tuple(_DTYPES))
+    _need(g, "g", tuple(batch) + (n,), (phi.dtype,))
+    agents = phi.numel() // max(T * n, 1)
+    proj = (torch.empty(tuple(batch) + (T,), dtype=torch.float32,
+                        device=phi.device) if want_proj else None)
+    gain = torch.empty(tuple(batch), dtype=torch.float32, device=phi.device)
+    if agents:
+        LAUNCHES["gain_matvec"] += 1
+        _check(_build.load().gain_matvec_launch(
+            _ptr(phi), _ptr(g), _DTYPES[phi.dtype], agents, T, n, float(eps),
+            _ptr(proj), _ptr(gain), _stream(phi)), "gain_matvec")
+    return proj, gain
+
+
+def gain_matvec(phi: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """proj = phi @ g per leading index: phi (..., T, n), g (..., n) -> (..., T)."""
+    if not _on_cuda(phi, g):
+        return ref.gain_matvec_ref(phi, g)
+    return _matvec_launch(phi, g, 1.0, True)[0]
+
+
+def practical_gain(phi: torch.Tensor, g: torch.Tensor,
+                   eps: float = 1.0) -> torch.Tensor:
+    """Eq. 15 per leading index: -eps ||g||^2 + eps^2 (1/T) sum_t (phi_t.g)^2."""
+    if not _on_cuda(phi, g):
+        return ref.practical_gain_ref(phi, g, eps)
+    return _matvec_launch(phi, g, eps, False)[1]
+
+
+# ---------------------------------------------------------------------------
+# gain_family_stats  (Pallas: gain.py::gain_family_stats)
+# ---------------------------------------------------------------------------
+
+
+def gain_family_stats(phi: torch.Tensor, g: torch.Tensor,
+                      grad_j: Optional[torch.Tensor] = None,
+                      phi_matrix: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """Per-agent gain-family statistics in one pass.
+
+    phi (*B, m, T, n) and g (*B, m, n), float32 or bf16; grad_j (n,) or
+    (*B, n) and phi_matrix (n, n) or (*B, n, n), float32.  Returns
+    (*B, m, 4) ``[||g||^2, sum_t (phi_t.g)^2, g.grad_J, g^T Phi g]`` with a
+    model, else the (*B, m, 2) prefix from a variant that never reads Phi.
+    """
+    with_model = grad_j is not None and phi_matrix is not None
+    if not _on_cuda(phi, g, grad_j if with_model else None,
+                    phi_matrix if with_model else None):
+        return ref.gain_family_stats_ref(phi, g, grad_j if with_model else None,
+                                         phi_matrix if with_model else None)
+    *batch, m, T, n = phi.shape
+    _need(phi, "phi", phi.shape, tuple(_DTYPES))
+    _need(g, "g", tuple(batch) + (m, n), (phi.dtype,))
+    cols = 4 if with_model else 2
+    gj, pm = (grad_j, phi_matrix) if with_model else (None, None)
+    gj_stride, pm_stride = (_terms(gj, pm, batch, n) if with_model
+                            else (0, 0))
+    out = torch.empty(tuple(batch) + (m, cols), dtype=torch.float32,
+                      device=phi.device)
+    agents = out.numel() // cols
+    if agents:
+        LAUNCHES["gain_family_stats"] += 1
+        _check(_build.load().gain_family_stats_launch(
+            _ptr(phi), _ptr(g), _DTYPES[phi.dtype], _ptr(gj), gj_stride,
+            _ptr(pm), pm_stride, agents, m, T, n, cols, _ptr(out),
+            _stream(phi)), "gain_family_stats")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# megastep  (Pallas: gain.py::megastep_call / megastep)
+# ---------------------------------------------------------------------------
+
+
+def megastep_call(phi: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
+                  ctl: torch.Tensor, alpha_rand: torch.Tensor,
+                  grad_j: Optional[torch.Tensor] = None,
+                  phi_matrix: Optional[torch.Tensor] = None,
+                  deliver: Optional[torch.Tensor] = None, *,
+                  eps: float):
+    """One whole gated-SGD inner step for R runs.
+
+    Args (leading axis R = runs):
+      phi:        (R, m, T, n) float32 or bf16 feature batches.
+      g:          (R, m, n) stochastic gradients, phi's dtype.
+      w:          (R, n) float32 server weights.
+      ctl:        (R, 2) float32 ``[threshold, mode_id]``.
+      alpha_rand: (R, m) float32 pre-drawn bernoulli decisions.
+      grad_j:     (R, n) exact grad J(w), or None.
+      phi_matrix: (n, n) shared or (R, n, n) per-run Phi, or None.
+      deliver:    optional (R, m) 0/1 channel keep mask: the update
+                  aggregates ``alphas * deliver``; alphas stay the attempts.
+
+    Returns ``(w_next (R, n), alphas (R, m), gains (R, m))``.
+    """
+    with_model = grad_j is not None and phi_matrix is not None
+    if not _on_cuda(phi, g, w, ctl, alpha_rand, deliver,
+                    grad_j if with_model else None,
+                    phi_matrix if with_model else None):
+        return ref.megastep_ref(phi, g, w, ctl, alpha_rand,
+                                grad_j if with_model else None,
+                                phi_matrix if with_model else None,
+                                deliver, eps=eps)
+    if phi.dim() != 4:
+        raise ValueError(f"phi must be (R, m, T, n), got {tuple(phi.shape)}")
+    R, m, T, n = phi.shape
+    if m > _MAX_AGENTS:
+        raise ValueError(f"megastep takes at most {_MAX_AGENTS} agents, got {m}")
+    _need(phi, "phi", phi.shape, tuple(_DTYPES))
+    _need(g, "g", (R, m, n), (phi.dtype,))
+    _need(w, "w", (R, n))
+    _need(ctl, "ctl", (R, 2))
+    _need(alpha_rand, "alpha_rand", (R, m))
+    if deliver is not None:
+        _need(deliver, "deliver", (R, m))
+    cols = 4 if with_model else 2
+    gj, pm = (grad_j, phi_matrix) if with_model else (None, None)
+    gj_stride = pm_stride = 0
+    if with_model:
+        if grad_j.dim() != 2:
+            raise ValueError("megastep takes a per-run grad_j (R, n)")
+        gj_stride, pm_stride = _terms(gj, pm, (R,), n)
+    dev = phi.device
+    stats = torch.empty((R, m, cols), dtype=torch.float32, device=dev)
+    w_next = torch.empty((R, n), dtype=torch.float32, device=dev)
+    alphas = torch.empty((R, m), dtype=torch.float32, device=dev)
+    gains = torch.empty((R, m), dtype=torch.float32, device=dev)
+    if R * m:
+        # one C entry, two kernels: family statistics, then gate and update
+        LAUNCHES["megastep"] += 2
+        _check(_build.load().megastep_launch(
+            _ptr(phi), _ptr(g), _DTYPES[phi.dtype], _ptr(w), _ptr(ctl),
+            _ptr(alpha_rand), _ptr(deliver), _ptr(gj), gj_stride, _ptr(pm),
+            pm_stride, R, m, T, n, cols, float(eps), _ptr(stats),
+            _ptr(w_next), _ptr(alphas), _ptr(gains), _stream(phi)),
+            "megastep")
+    return w_next, alphas, gains
+
+
+def megastep(phi: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
+             ctl: torch.Tensor, alpha_rand: torch.Tensor,
+             grad_j: Optional[torch.Tensor] = None,
+             phi_matrix: Optional[torch.Tensor] = None,
+             deliver: Optional[torch.Tensor] = None, *, eps: float):
+    """Per-run (no leading R axis) whole step: ``megastep_call`` at R = 1."""
+    one = lambda x: None if x is None else x.unsqueeze(0)
+    out = megastep_call(one(phi), one(g), one(w), one(ctl), one(alpha_rand),
+                        one(grad_j), phi_matrix, one(deliver), eps=eps)
+    return tuple(x[0] for x in out)

@@ -1,0 +1,220 @@
+"""Counter-based random streams that reproduce ``jax.random`` bit for bit.
+
+JAX's default generator is threefry2x32 in the *partitionable* layout: a
+draw of shape ``s`` from key ``k`` hashes the 64-bit row-major index of
+every element, split into (hi, lo) 32-bit words, under ``k``; ``split``
+and ``fold_in`` are the same hash at counters ``(0, i)`` and ``(0, data)``.
+Because the hash is a pure function of (key, counter), this module keeps
+keys as data — integer tensors of shape ``(..., 2)`` — so one call draws
+for every run and agent of a sweep at once, the written-out counterpart of
+``jax.vmap`` over key arrays.
+
+Torch has no shifts for ``uint32`` on the CPU, so every word is an
+``int64`` tensor holding a value in ``[0, 2**32)`` and each operation is
+masked back to 32 bits.
+
+What matches ``jax.random`` exactly: the raw bits, ``key``, ``split``,
+``fold_in``, ``uniform``, ``bernoulli`` and ``randint``.  ``categorical``
+(Gumbel-argmax) and ``normal`` (inverse error function) follow JAX's own
+algorithms on the same bits, but their ``log`` / ``log1p`` are torch's,
+which may differ from XLA's in the last ulp: ``normal`` agrees within a
+few ulp, ``categorical`` exactly except at argmax near-ties.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+
+MASK32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+_F32_ONE_BITS = 0x3F800000
+_F32_TINY = torch.finfo(torch.float32).tiny
+# largest float32 below -1's neighbour towards zero: jax's normal() lower edge
+_NORMAL_LO = -0.99999994
+
+
+def key(seed: int, device=None) -> torch.Tensor:
+    """``jax.random.key(seed)``'s data: ``[seed >> 32, seed & 0xFFFFFFFF]``."""
+    seed = int(seed)
+    hi = (seed >> 32) & MASK32 if not -2**31 <= seed < 2**31 else 0
+    return torch.tensor([hi, seed & MASK32], dtype=torch.int64, device=device)
+
+
+def keys(seeds: Sequence[int], device=None) -> torch.Tensor:
+    """Stacked ``key(s)`` for each seed: (len(seeds), 2)."""
+    return torch.stack([key(s, device) for s in seeds])
+
+
+def threefry2x32(k0: torch.Tensor, k1: torch.Tensor,
+                 x0: torch.Tensor, x1: torch.Tensor):
+    """The 20-round Threefry-2x32 hash of counters (x0, x1) under (k0, k1).
+
+    All four are int64 tensors of 32-bit words, broadcast together; the
+    result is the pair of hashed words.  Works in place on two full-size
+    buffers so a draw of N elements holds three N-sized tensors at most.
+    """
+    k2 = k0 ^ k1 ^ _PARITY
+    ks = (k0, k1, k2)
+    x0 = (x0 + k0) & MASK32
+    x1 = (x1 + k1) & MASK32
+    x0, x1 = torch.broadcast_tensors(x0, x1)
+    x0, x1 = x0.contiguous(), x1.contiguous()
+    tmp = torch.empty_like(x1)
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0.add_(x1).bitwise_and_(MASK32)
+            torch.bitwise_left_shift(x1, r, out=tmp)
+            x1.bitwise_right_shift_(32 - r).bitwise_or_(tmp)
+            x1.bitwise_and_(MASK32).bitwise_xor_(x0)
+        x0.add_(ks[(i + 1) % 3]).bitwise_and_(MASK32)
+        x1.add_(ks[(i + 2) % 3] + (i + 1)).bitwise_and_(MASK32)
+    return x0, x1
+
+
+def _hash_at(keys_: torch.Tensor, lo: torch.Tensor):
+    """Hash counters ``(0, lo)`` (shape ``c``) under keys ``(*B, 2)``:
+    returns two (*B, *c) word tensors."""
+    nb = keys_.dim() - 1
+    view = keys_.shape[:-1] + (1,) * lo.dim()
+    k0 = keys_[..., 0].reshape(view)
+    k1 = keys_[..., 1].reshape(view)
+    lo = lo.reshape((1,) * nb + lo.shape)
+    return threefry2x32(k0, k1, torch.zeros_like(lo), lo)
+
+
+def split(keys_: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split`` of every key: (*B, 2) -> (*B, num, 2)."""
+    ctr = torch.arange(num, dtype=torch.int64, device=keys_.device)
+    b0, b1 = _hash_at(keys_, ctr)
+    return torch.stack([b0, b1], dim=-1)
+
+
+def fold_in(keys_: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)`` of every key: (*B, 2) -> (*B, 2)."""
+    ctr = torch.tensor([int(data) & MASK32], dtype=torch.int64,
+                       device=keys_.device)
+    b0, b1 = _hash_at(keys_, ctr)
+    return torch.stack([b0[..., 0], b1[..., 0]], dim=-1)
+
+
+def random_bits(keys_: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.bits(key, shape)`` (uint32 words as int64): (*B, *shape)."""
+    shape = tuple(shape)
+    if math.prod(shape) >= 2**32:
+        raise NotImplementedError("draws of 2**32 or more values per key")
+    idx = torch.arange(math.prod(shape), dtype=torch.int64,
+                       device=keys_.device)
+    b0, b1 = _hash_at(keys_, idx)
+    return b0.bitwise_xor_(b1).reshape(keys_.shape[:-1] + shape)
+
+
+def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
+    """Mantissa trick: 23 high bits under exponent 0 -> float32 in [0, 1)."""
+    fb = (bits >> 9) | _F32_ONE_BITS
+    return fb.to(torch.int32).view(torch.float32) - 1.0
+
+
+def _scale(floats: torch.Tensor, minval: float, maxval: float):
+    lo = torch.tensor(minval, dtype=torch.float32, device=floats.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=floats.device)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def uniform(keys_: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform`` (float32): (*B, *shape)."""
+    return _scale(_bits_to_unit(random_bits(keys_, shape)), minval, maxval)
+
+
+def bernoulli(keys_: torch.Tensor, p, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)``: ``uniform < p`` (bool).
+
+    ``p`` is a float or a float32 tensor broadcastable to (*B, *shape).
+    """
+    u = uniform(keys_, shape)
+    if not torch.is_tensor(p):
+        p = torch.tensor(p, dtype=torch.float32, device=u.device)
+    return u < p.to(torch.float32)
+
+
+def randint(keys_: torch.Tensor, shape: Sequence[int], minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint`` (int32 semantics, int64 result): (*B, *shape).
+
+    Two 32-bit draws per value, from ``split(key)``, folded into the span
+    with JAX's multiplier identity.
+    """
+    span = max(int(maxval) - int(minval), 1)
+    sub = split(keys_, 2)
+    hb = random_bits(sub[..., 0, :], shape)
+    lb = random_bits(sub[..., 1, :], shape)
+    mult = (2 ** 16 % span) ** 2 % span
+    off = (((hb % span) * mult) & MASK32) + (lb % span)
+    return int(minval) + (off & MASK32) % span
+
+
+def gumbel(keys_: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.gumbel`` (float32, mode="low"): (*B, *shape),
+    ``-log(-log(uniform(tiny, 1)))``."""
+    return uniform(keys_, shape, _F32_TINY, 1.0).log_().neg_().log_().neg_()
+
+
+def categorical(keys_: torch.Tensor, logits: torch.Tensor,
+                shape: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=-1, shape)`` per key.
+
+    ``logits`` is (*B, *batch, K) with B the key batch; ``shape`` (default
+    ``batch``) is each key's result shape and may add leading sample dims,
+    exactly as JAX's ``shape`` argument.  Gumbel-argmax over K, first index
+    on ties.  Returns (*B, *shape) int64.
+    """
+    nb = keys_.dim() - 1
+    batch = tuple(logits.shape[nb:-1])
+    shape = batch if shape is None else tuple(shape)
+    prefix = shape[:len(shape) - len(batch)]
+    K = logits.shape[-1]
+    g = gumbel(keys_, prefix + batch + (K,))
+    lg = logits.reshape(logits.shape[:nb] + (1,) * len(prefix)
+                        + logits.shape[nb:])
+    return torch.argmax(g.add_(lg), dim=-1)
+
+
+# Giles' single-precision erfinv coefficients, as XLA expands erf_inv
+_ERFINV_W_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                 -4.39150654e-06, 0.00021858087, -0.00125372503,
+                 -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_W_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                 -0.00367342844, 0.00573950773, -0.0076224613,
+                 0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """float32 inverse error function by XLA's algorithm (Giles 2010).
+
+    The Horner steps run as fused multiply-adds (exact float64 product and
+    sum, one rounding to float32), which tracks XLA's CPU code to a few ulp;
+    ``torch.erfinv`` uses another approximation and differs by up to ~1e-5.
+    """
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0).double()
+
+    def coef(i):
+        return torch.where(lt, _ERFINV_W_LT5[i], _ERFINV_W_GE5[i]).float()
+
+    p = coef(0)
+    for i in range(1, len(_ERFINV_W_LT5)):
+        p = (coef(i).double() + p.double() * w).float()
+    big = torch.finfo(torch.float32).max
+    return torch.where(x.abs() == 1, x * big, p * x)
+
+
+def normal(keys_: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.normal`` (float32): ``sqrt(2) * erfinv(uniform(lo, 1))``."""
+    u = uniform(keys_, shape, _NORMAL_LO, 1.0)
+    return erfinv(u) * torch.tensor(math.sqrt(2), dtype=torch.float32,
+                                    device=u.device)
