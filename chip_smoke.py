@@ -3,7 +3,7 @@
 
 Phases, in order; any failed check exits non-zero and prints no ok line:
 
-1. Build the CUDA gain kernels from ``src/repro_torch/kernels/csrc``.
+1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc``.
 2. Hold each kernel against its plain-torch version on the card: the
    ragged shapes of the reference's kernel tests in float32 and bf16, and
    the main path's full shape (with and without a model, shared and
@@ -20,9 +20,26 @@ Phases, in order; any failed check exits non-zero and prints no ok line:
    - ``wide-192``: a full-width stress size of the same study, a 4-instance
      garnet family (S=256, A=4, b=3), 64-agent fleets with 16 junk agents,
      T=128, six modes x 4 lambdas x 1 rho x 2 seeds = 192 runs, N=100.
+4. Hold flash attention and the SSD chunk tile (the LM substrate's two
+   kernels) against their plain versions on the card: the reference's
+   own test cases at their tolerances (tests/test_kernels.py:175-213) and
+   the serving slice's shapes in float32 and bf16, plus a bitwise repeat
+   of every launch; time kernel, plain version and (flash)
+   ``scaled_dot_product_attention``.
+5. Serve the LM substrate at full width in two cells (``SERVE_CELLS``):
+   ``serve-mamba2-370m`` (the SSD kernel's path) and ``serve-yi-6b`` (the
+   flash kernel's path), random weights from a seeded generator.  Each
+   first checks the float32 model at a 1024-token prompt (kernel vs plain
+   prefill within 1e-4 of the max logit; decode vs prefill at t = 3 and
+   1023 within 2e-3) and compares kernel and plain prefill in bf16, then
+   runs the main path in bf16: ``build_prefill_step`` at 8192 tokens (cut
+   from ``prefill_32k``'s 32768 x 32) three times and ``serve`` at batch
+   4, 64 + 32 tokens, with the kernel's launch count held to layers x
+   prefill calls; last, one prefill under ``torch.profiler``.
 
 Every line before the last is one JSON object (device, build, kernels,
-sweeps); the last is ``{"ok": true, "device": {...}}``.  Run it from the
+sweeps, serving cells) except the card's ``nvidia-smi`` name and power
+limit; the last is ``{"ok": true, "device": {...}}``.  Run it from the
 repository root with no arguments: ``python3 chip_smoke.py``.
 """
 
@@ -30,6 +47,7 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -38,10 +56,13 @@ from typing import NamedTuple, Optional
 REPO = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(REPO, "src")
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and the float32
-# rate outside the tensor cores, which is what these kernels use.
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, the float32
+# rate outside the tensor cores (what the gain and SSD kernels' function
+# is computed in) and the dense bf16 tensor-core rate (attention on bf16
+# inputs).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 
 WEIGHT_TOL = 1e-5      # weights / gains / statistics (tests/parity.py)
 RATE_TOL = 1e-6        # comm_rate
@@ -132,10 +153,11 @@ def time_ms(fn, reps=20, warmup=3):
     return times[len(times) // 2]
 
 
-def bound(bytes_moved, flops):
-    """Least time (ms) for the work: bytes over HBM rate vs float32 ops."""
+def bound(bytes_moved, flops, peak_flops=PEAK_F32_FLOPS):
+    """Least time (ms) for the work: bytes over HBM rate vs ops over the
+    peak rate of their type (float32 unless given)."""
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -401,7 +423,6 @@ def sweep_phase(dev, cell):
     from repro_torch.envs import (family_sampler_fn, garnet_env_family,
                                   garnet_fleet_sets)
     from repro_torch.experiments import SweepSpec, run_sweep
-    from repro_torch.kernels import gain as K
 
     w0 = np.zeros(cell.states, np.float32)
     envs, fam = garnet_env_family(cell.envs, num_states=cell.states,
@@ -422,13 +443,13 @@ def sweep_phase(dev, cell):
         sync(dev)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
-        K.reset_launches()                     # the main path starts here
+        reset_all_launches()                   # the main path starts here
         t0 = time.perf_counter()
         res = run_sweep(spec, sampler, w0, env_sets=fam, fleet_sets=fleets,
                         device=dev)
         sync(dev)
         wall = time.perf_counter() - t0
-        counts = dict(K.LAUNCHES)              # ... and ends here
+        counts = all_launches()                # ... and ends here
         label = f"{cell.name} {step}/{gain}"
         if gain == "kernel":
             name, per_step = EXPECT[step]
@@ -578,25 +599,441 @@ def step_breakdown(dev, cell, fam, fleets, eps):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 4: the LM substrate's kernels (flash attention, SSD chunk tile)
+# ---------------------------------------------------------------------------
+
+# tests/test_kernels.py:175-181 (flash), :196 (SSD tile), :213 (ssd_chunked)
+FLASH_CASES = (
+    dict(B=2, L=64, H=4, KVH=4, D=32, causal=True, window=0),
+    dict(B=1, L=128, H=8, KVH=2, D=64, causal=True, window=0),
+    dict(B=2, L=100, H=4, KVH=1, D=16, causal=True, window=32),
+    dict(B=1, L=96, H=2, KVH=2, D=128, causal=False, window=0),
+    dict(B=1, L=160, H=2, KVH=1, D=64, causal=True, window=64),
+)
+FLASH_TOL = {"float32": 3e-4, "bfloat16": 3e-2}
+SSD_TILE_CASE = dict(B=2, nc=3, Q=32, H=4, P=16, N=8)
+SSD_TILE_TOL = 1e-4
+SSD_CHUNKED_CASES = ((64, 32), (200, 64), (128, 128))
+SSD_CHUNKED_TOL = 2e-4
+# The slice's shapes: yi-6b prefill attention at B=1, L=8192 (32 query
+# heads, 4 kv heads, d=128) and the mamba2-370m prefill tile at B=4,
+# L=8192 (64 chunks of Q=128, 32 heads of P=64, N=128).
+FLASH_SLICE = dict(B=1, L=8192, H=32, KVH=4, D=128, causal=True, window=0)
+SSD_SLICE = dict(B=4, nc=64, Q=128, H=32, P=64, N=128)
+
+
+def _randn(gen, shape):
+    import torch
+    return torch.randn(*shape, generator=gen)
+
+
+def _flash_inputs(gen, dev, c, dtype):
+    return tuple(_randn(gen, (c["B"], c["L"], heads, c["D"])).to(dtype).to(dev)
+                 for heads in (c["H"], c["KVH"], c["KVH"]))
+
+
+def _ssd_inputs(gen, dev, c, bc_dtype):
+    B, nc, Q, H, P, N = (c[k] for k in ("B", "nc", "Q", "H", "P", "N"))
+    dtx = _randn(gen, (B, nc, Q, H, P)).to(dev)
+    cum = (-_randn(gen, (B, nc, Q, H)).abs().cumsum(dim=2) * 0.1).to(dev)
+    bm = _randn(gen, (B, nc, Q, N)).to(bc_dtype).to(dev)
+    cm = _randn(gen, (B, nc, Q, N)).to(bc_dtype).to(dev)
+    return dtx, cum, bm, cm
+
+
+def flash_work(c, itemsize):
+    """Bytes (q, k, v read once, o written once) and operations (two
+    products over the visible (query, key) pairs)."""
+    B, L, H, KVH, D = (c[k] for k in ("B", "L", "H", "KVH", "D"))
+    pairs = L * (L + 1) // 2 if c["causal"] else L * L
+    return (itemsize * (2 * B * L * H * D + 2 * B * L * KVH * D),
+            4 * B * H * pairs * D)
+
+
+def ssd_work(c, bc_itemsize):
+    """Bytes (dtx, cum, B, C read once; y, states written once) and
+    operations (C B^T once per chunk, y and the state per head)."""
+    B, nc, Q, H, P, N = (c[k] for k in ("B", "nc", "Q", "H", "P", "N"))
+    chunks = B * nc
+    moved = (4 * chunks * (2 * Q * H * P + Q * H + H * N * P)
+             + bc_itemsize * 2 * chunks * Q * N)
+    return moved, chunks * (2 * Q * Q * N + H * (2 * Q * Q * P + 2 * N * Q * P))
+
+
+def empty_cache(dev):
+    import gc
+    import torch
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def lm_kernel_phase(dev):
+    """Flash attention and the SSD tile against their plain versions: the
+    reference's test cases at their tolerances and the slice's shapes in
+    float32 and bf16, a bitwise repeat of every launch, and timings of
+    kernel, plain version and (flash) scaled_dot_product_attention."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.models import ssm
+
+    gen = torch.Generator().manual_seed(2)
+    logs = {"flash_attention": KernelLog(), "ssd_chunk_tiles": KernelLog()}
+    timings = {}
+
+    lf = logs["flash_attention"]
+    for c in FLASH_CASES + (FLASH_SLICE,):
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = _flash_inputs(gen, dev, c, dt)
+            kw = dict(causal=c["causal"], window=c["window"])
+            tol = FLASH_TOL[str(dt).split(".")[-1]]
+            label = f"flash {c} {dt}"
+            lf.close(label, FA.flash_attention(q, k, v, **kw),
+                     ref.flash_attention_ref(q, k, v, **kw), tol)
+            lf.repeat(label, lambda: FA.flash_attention(q, k, v, **kw))
+            lf.cases += 1
+    # timed at the slice shape in the serving cells' dtype (bf16, last above)
+    sdpa = lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, enable_gqa=True)
+    lf.close("flash slice vs scaled_dot_product_attention",
+             FA.flash_attention(q, k, v), sdpa().transpose(1, 2),
+             FLASH_TOL["bfloat16"])
+    b_ms, b_by = bound(*flash_work(FLASH_SLICE, 2), PEAK_BF16_FLOPS)
+    timings["flash_attention"] = dict(
+        ms=time_ms(lambda: FA.flash_attention(q, k, v), reps=10),
+        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v), reps=5,
+                         warmup=1),
+        library_ms=time_ms(sdpa, reps=10), bound_ms=b_ms, bound_by=b_by)
+    del q, k, v
+    empty_cache(dev)
+
+    ls = logs["ssd_chunk_tiles"]
+    for c, dts in ((SSD_TILE_CASE, (torch.float32,)),
+                   (SSD_SLICE, (torch.float32, torch.bfloat16))):
+        for dt in dts:
+            dtx, cum, bm, cm = _ssd_inputs(gen, dev, c, dt)
+            y, st = SS.ssd_chunk_tiles(dtx, cum, bm, cm)
+            yr, sr = ref.ssd_chunk_ref(dtx, cum, bm, cm)
+            label = f"ssd tile {c} {dt}"
+            ls.close(label + " y", y, yr, SSD_TILE_TOL)
+            ls.close(label + " state", st, sr, SSD_TILE_TOL)
+            ls.repeat(label, lambda: SS.ssd_chunk_tiles(dtx, cum, bm, cm))
+            ls.cases += 1
+            del y, st, yr, sr
+    # timed at the slice shape with bf16 B and C, as the bf16 model gives them
+    b_ms, b_by = bound(*ssd_work(SSD_SLICE, 2))
+    timings["ssd_chunk_tiles"] = dict(
+        ms=time_ms(lambda: SS.ssd_chunk_tiles(dtx, cum, bm, cm), reps=10),
+        plain_ms=time_ms(lambda: ref.ssd_chunk_ref(dtx, cum, bm, cm), reps=5,
+                         warmup=1),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    del dtx, cum, bm, cm
+    empty_cache(dev)
+
+    B, H, P, N = 2, 4, 16, 8
+    for L, chunk in SSD_CHUNKED_CASES:
+        xh = _randn(gen, (B, L, H, P)).to(dev)
+        dt_ = (_randn(gen, (B, L, H)).abs() * 0.1).to(dev)
+        a = -_randn(gen, (H,)).abs().to(dev)
+        bm, cm = _randn(gen, (B, L, N)).to(dev), _randn(gen, (B, L, N)).to(dev)
+        y1, h1 = SS.ssd_chunked(xh, dt_, a, bm, cm, chunk=chunk)
+        y2, h2 = ssm.ssd_chunked(xh, dt_, a, bm, cm, chunk=chunk)
+        label = f"ssd_chunked L={L} chunk={chunk}"
+        ls.close(label + " y", y1, y2, SSD_CHUNKED_TOL)
+        ls.close(label + " state", h1, h2, SSD_CHUNKED_TOL)
+        ls.repeat(label, lambda: SS.ssd_chunked(xh, dt_, a, bm, cm, chunk=chunk))
+        ls.cases += 1
+    return logs, timings
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the LM substrate's serving path at full width
+# ---------------------------------------------------------------------------
+
+
+class ServeCell(NamedTuple):
+    """One serving configuration (PERF.md "Cells")."""
+
+    name: str
+    arch: str
+    kernel: str            # the ported TPU kernel this cell's prefill runs
+    prefill_batch: int     # cut from prefill_32k's 32 (configs/base.py)
+    prefill_len: int       # cut from prefill_32k's 32768
+    serve_batch: int
+    prompt_len: int
+    gen_len: int
+
+
+SERVE_CELLS = (
+    ServeCell("serve-mamba2-370m", "mamba2-370m", "ssd_chunk_tiles",
+              4, 8192, 4, 64, 32),
+    ServeCell("serve-yi-6b", "yi-6b", "flash_attention", 1, 8192, 4, 64, 32),
+)
+CUDA_KERNEL_NAMES = {"flash_attention": "flash_kernel",
+                     "ssd_chunk_tiles": "ssd_chunk_kernel"}
+# cuBLAS's and CUTLASS's matrix-product kernels (nvjet: cuBLAS on Hopper)
+MATMUL_KERNEL_WORDS = ("gemm", "nvjet", "xmma", "cutlass", "matmul")
+PREFILL_CALLS = 3          # one warm-up, two timed
+CHECK_LEN = 1024           # float32 full-width correctness prompt
+CHECK_BATCH = 2
+KERNEL_VS_PLAIN_TOL = 1e-4     # of the logits' max |value|, float32
+DECODE_TOL = 2e-3              # rtol = atol, tests/test_models_smoke.py:67-103
+
+
+def _lm_kernels():
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import gain as K
+    from repro_torch.kernels import ssd_scan as SS
+    return K, FA, SS
+
+
+def reset_all_launches():
+    for mod in _lm_kernels():
+        mod.reset_launches()
+
+
+def all_launches():
+    return {k: v for mod in _lm_kernels() for k, v in mod.LAUNCHES.items()}
+
+
+def _all_logits(model, tokens, use_kernels):
+    """(B, L, V) float32 logits of every position, through the kernels or
+    through the plain versions."""
+    import torch
+    model.use_kernels = use_kernels
+    try:
+        with torch.inference_mode():
+            hidden, _ = model.hidden_states(tokens)
+            return (hidden @ model.head()).float()
+    finally:
+        model.use_kernels = True
+
+
+def float32_checks(dev, cell, tokens):
+    """Full width in float32: kernel vs plain prefill, and decode vs prefill
+    (the reference's contract, now with the kernel on one side).  Returns
+    the line's fields and the plain float32 logits of every position."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(cell.arch), dtype="float32")
+    model = build_model(cfg, dev, seed=0)
+    prefill = build_prefill_step(model, cfg, dev)
+    plain = _all_logits(model, tokens, use_kernels=False)
+    kern = prefill(tokens)[0]
+    scale = float(plain[:, -1].abs().max())
+    kvp = float((kern - plain[:, -1]).abs().max())
+    check(bool(torch.isfinite(kern).all()) and kvp <= KERNEL_VS_PLAIN_TOL * scale,
+          f"{cell.name} float32: kernel vs plain prefill differ by {kvp:.3g} "
+          f"(max |logit| {scale:.3g}, tolerance {KERNEL_VS_PLAIN_TOL} of it)")
+
+    B, L = tokens.shape
+    step, init_cache = build_serve_step(
+        model, cfg, ShapeConfig("check", L, B, "decode"), dev)
+    cache = init_cache()
+    decode_err = {}
+    for t in range(L):
+        logits, cache = step(cache, tokens[:, t], t)
+        if t in (3, L - 1):
+            want = kern if t == L - 1 else prefill(tokens[:, :t + 1])[0]
+            err = float(((logits - want).abs()
+                         / (DECODE_TOL + DECODE_TOL * want.abs())).max())
+            check(err <= 1.0, f"{cell.name} float32: decode at t={t} vs "
+                  f"prefill is {err:.3g} of its {DECODE_TOL} tolerance")
+            decode_err[str(t)] = float((logits - want).abs().max())
+    del model, prefill, step, cache
+    empty_cache(dev)
+    return dict(kernel_vs_plain_max_abs=kvp, max_abs_logit=scale,
+                decode_vs_prefill_max_abs=decode_err), plain
+
+
+def bf16_comparison(model, tokens, plain32):
+    """Kernel vs plain prefill in bf16, over every position, beside the
+    plain bf16 path's own distance from float32 (its yardstick)."""
+    kern = _all_logits(model, tokens, use_kernels=True)
+    plain = _all_logits(model, tokens, use_kernels=False)
+    top1 = lambda a, b: float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    out = dict(kernel_vs_plain_max_abs=float((kern - plain).abs().max()),
+               kernel_vs_plain_top1=top1(kern, plain),
+               plain_vs_float32_max_abs=float((plain - plain32).abs().max()),
+               plain_vs_float32_top1=top1(plain, plain32),
+               max_abs_logit=float(plain.abs().max()))
+    # both paths accumulate attention / the SSD in float32 and round to bf16
+    # at the same places, so the kernel may move the bf16 model's logits no
+    # further than bf16 itself moves them from the float32 model
+    check(out["kernel_vs_plain_max_abs"] <= out["plain_vs_float32_max_abs"],
+          f"bf16 kernel vs plain prefill {out['kernel_vs_plain_max_abs']:.3g} "
+          f"exceeds bf16's own error {out['plain_vs_float32_max_abs']:.3g}")
+    return out
+
+
+def prefill_breakdown(dev, prefill, tokens, kernel_name):
+    """Device time of one prefill by kernel class from a torch.profiler
+    trace (the ported kernel, matrix products, the rest) and the device's
+    idle share of the wall time; "not measured" if the trace has no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prefill(tokens)
+        sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups = {"kernel_ms": 0.0, "matmul_ms": 0.0, "other_ms": 0.0}
+    by_name = {}
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0.0)) / 1e3
+        name = evt.key.lower()
+        by_name[evt.key[:80]] = by_name.get(evt.key[:80], 0.0) + ms
+        if kernel_name in name:
+            groups["kernel_ms"] += ms
+        elif any(w in name for w in MATMUL_KERNEL_WORDS):
+            groups["matmul_ms"] += ms
+        else:
+            groups["other_ms"] += ms
+    busy = sum(groups.values())
+    if busy == 0:
+        return {"device_time": "not measured", "wall_ms": wall_ms}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return dict(groups, device_busy_ms=busy, wall_ms=wall_ms,
+                device_idle_share=max(0.0, 1 - busy / wall_ms),
+                top_kernels_ms=dict(top))
+
+
+def serve_phase(dev, cell):
+    """One serving cell: the float32 full-width checks and the bf16
+    comparison, then the main path — prefill at the cell's length and
+    ``serve`` — with the launch counts reset just before and read after,
+    then one profiled prefill."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import build_model
+
+    cfg = get_config(cell.arch)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (CHECK_BATCH, CHECK_LEN),
+                           generator=gen, device=dev)
+    f32, plain32 = float32_checks(dev, cell, tokens)
+
+    model = build_model(cfg, dev, seed=0)   # bf16: the float32 draws, rounded
+    prefill = build_prefill_step(model, cfg, dev)
+    bf16 = bf16_comparison(model, tokens, plain32)
+    del plain32
+    empty_cache(dev)
+
+    big = torch.randint(0, cfg.vocab_size, (cell.prefill_batch, cell.prefill_len),
+                        generator=gen, device=dev)
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()                           # the main path starts here
+    times = []
+    for _ in range(PREFILL_CALLS):
+        sync(dev)
+        t0 = time.perf_counter()
+        logits, _ = prefill(big)
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak_prefill = (int(torch.cuda.max_memory_allocated())
+                    if dev.type == "cuda" else None)
+    check(tuple(logits.shape) == (cell.prefill_batch, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"{cell.name}: prefill logits {tuple(logits.shape)} not finite")
+    del model, prefill, logits                     # serve builds its own
+    empty_cache(dev)
+    res = serve(cfg, batch=cell.serve_batch, prompt_len=cell.prompt_len,
+                gen_len=cell.gen_len, seed=0, device=dev)
+    counts = all_launches()                        # ... and ends here
+    expect = cfg.num_layers * PREFILL_CALLS
+    check(counts[cell.kernel] == expect,
+          f"{cell.name}: {cell.kernel} launched {counts[cell.kernel]} times, "
+          f"expected {expect} (layers x prefill calls)")
+    check(sum(counts.values()) == counts[cell.kernel],
+          f"{cell.name}: other kernels launched: {counts}")
+    toks = res["tokens"]
+    check(tuple(toks.shape) == (cell.serve_batch, cell.gen_len)
+          and bool(((toks >= 0) & (toks < cfg.padded_vocab)).all())
+          and bool(torch.isfinite(res["logits"]).all()),
+          f"{cell.name}: serve gave tokens {tuple(toks.shape)} or bad logits")
+    peak = (int(torch.cuda.max_memory_allocated()) if dev.type == "cuda"
+            else None)
+    served = dict(batch=cell.serve_batch, prompt_len=cell.prompt_len,
+                  gen_len=cell.gen_len, prompt_steps_s=res["prefill_s"],
+                  decode_s=res["decode_s"],
+                  decode_tokens_per_s=cell.serve_batch * cell.gen_len
+                  / res["decode_s"])
+    del res
+    empty_cache(dev)
+    model = build_model(cfg, dev, seed=0)
+    breakdown = prefill_breakdown(dev, build_prefill_step(model, cfg, dev),
+                                  big, CUDA_KERNEL_NAMES[cell.kernel])
+    del model
+    empty_cache(dev)
+    prefill_ms = statistics.median(times[1:])     # the first is the warm-up
+    line = dict(
+        cell=cell.name, arch=cell.arch, dtype=cfg.dtype,
+        layers=cfg.num_layers, d_model=cfg.d_model,
+        reduced=[f"prefill length {cell.prefill_len} of prefill_32k's 32768",
+                 f"prefill batch {cell.prefill_batch} of prefill_32k's 32",
+                 "random weights (seeded torch.Generator)"],
+        prefill_batch=cell.prefill_batch, prefill_len=cell.prefill_len,
+        prefill_ms=prefill_ms, prefill_ms_all=times,
+        prefill_tokens_per_s=cell.prefill_batch * cell.prefill_len
+        / (prefill_ms / 1e3),
+        serve=served,
+        peak_mem_bytes_prefill=peak_prefill, peak_mem_bytes=peak,
+        launches=counts, expected_launches=expect,
+        float32_check=dict(f32, prompt=[CHECK_BATCH, CHECK_LEN],
+                           tolerance=dict(kernel_vs_plain=KERNEL_VS_PLAIN_TOL,
+                                          decode_vs_prefill=DECODE_TOL)),
+        bf16_check=bf16, prefill_breakdown=breakdown)
+    return line, {cell.kernel: counts[cell.kernel]}
+
+
 REPLACES = {
     "gain_matvec": "src/repro/kernels/gain.py:144",
     "gain_family_stats": "src/repro/kernels/gain.py:241",
     "megastep": "src/repro/kernels/gain.py:428",
+    "flash_attention": "src/repro/kernels/flash_attention.py:75",
+    "ssd_chunk_tiles": "src/repro/kernels/ssd_scan.py:53",
 }
+CSRC = "src/repro_torch/kernels/csrc/"
+SOURCES = {"gain_matvec": CSRC + "gain.cu", "gain_family_stats": CSRC + "gain.cu",
+           "megastep": CSRC + "gain.cu",
+           "flash_attention": CSRC + "flash_attention.cu",
+           "ssd_chunk_tiles": CSRC + "ssd_scan.cu"}
+TOLERANCES = {"flash_attention": dict(FLASH_TOL),
+              "ssd_chunk_tiles": dict(tile=SSD_TILE_TOL, chunked=SSD_CHUNKED_TOL)}
 
 
 def kernel_lines(logs, timings, launches):
     """One record per kernel: the ``kernels`` line of the output.
-    ``launches`` sums the kernel's launches over every cell's sweeps."""
+    ``launches`` sums the kernel's launches over every cell's main path."""
     kernels = []
     for name, log in logs.items():
         t = timings[name]
         kernels.append(dict(
             name=name, route="cuda",
-            source="src/repro_torch/kernels/csrc/gain.cu",
+            source=SOURCES[name],
             replaces=REPLACES[name], launches=launches.get(name, 0),
             max_abs_err=log.max_abs, max_rel_err=log.max_rel,
-            tolerance=dict(ragged=KERNEL_TOL, main_path=WEIGHT_TOL),
+            tolerance=TOLERANCES.get(
+                name, dict(ragged=KERNEL_TOL, main_path=WEIGHT_TOL)),
             repeat_bitwise=log.repeat_bitwise,
             decision_tie_flips=log.tie_flips, cases=log.cases,
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
@@ -635,23 +1072,31 @@ def main():
     made = build.build(force=True)
     build.load()
     regs = [l.strip() for l in made.log.splitlines()
-            if "registers" in l or "Compiling entry" in l]
+            if any(w in l for w in ("registers", "spill", "Compiling entry"))]
     emit({"build": {"seconds": time.perf_counter() - t0,
                     "nvcc_seconds": made.seconds, "ptxas": regs}})
 
     logs = kernel_phase(dev)
     timings = full_shape_phase(dev, logs)
-    sweeps, launches = [], {}
+    lines, launches = [], {}
     for cell in CELLS:
-        lines, counts = sweep_phase(dev, cell)
-        sweeps += lines
+        cell_lines, counts = sweep_phase(dev, cell)
+        lines += cell_lines
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+    lm_logs, lm_timings = lm_kernel_phase(dev)
+    logs.update(lm_logs)
+    timings.update(lm_timings)
+    for cell in SERVE_CELLS:
+        line, counts = serve_phase(dev, cell)
+        lines.append(line)
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
     kernels = kernel_lines(logs, timings, launches)
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never ran on the main path")
     emit({"kernels": kernels})
-    for line in sweeps:
+    for line in lines:
         emit(line)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

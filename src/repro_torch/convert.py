@@ -7,6 +7,8 @@ reference's ``ProblemTerms`` and ``EnvFamily`` become the port's types of
 the same name.  PRNG keys cross as their data (``jax.random.key_data``), a
 (..., 2) uint32 array the port's ``random`` module reads as int64 words.
 ``to_numpy`` goes back, so both packages can compute from one set of inputs.
+``model_from_jax`` loads an LM's parameter tree (as numpy) into the port's
+``nn.Module`` of the same config.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from repro_torch.core.algorithm1 import ProblemTerms
 from repro_torch.envs.base import EnvFamily
+from repro_torch.models import build_model
 
 _NAMED = {"ProblemTerms": ProblemTerms, "EnvFamily": EnvFamily}
 
@@ -59,3 +62,57 @@ def to_numpy(tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_numpy(v) for v in tree)
     return np.asarray(tree)
+
+
+def _tensor(leaf) -> torch.Tensor:
+    """One array as a tensor of the same dtype (bf16 included)."""
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True))
+
+
+def state_dict_from_jax(params: dict) -> dict:
+    """The reference's LM parameter tree -> the port module's state_dict.
+
+    Nested dict keys join with "."; the stacked ``blocks`` leaves (leading
+    layer axis, consumed by ``lax.scan`` in the reference) are split along
+    axis 0 into ``blocks.<i>.<...>`` of the ``nn.ModuleList``.  Dtypes are
+    kept.
+    """
+    flat = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}.")
+            else:
+                flat[f"{prefix}{k}"] = _tensor(v)
+
+    walk(params, "")
+    out = {}
+    for key, t in flat.items():
+        if key.startswith("blocks."):
+            for i in range(t.shape[0]):
+                out[f"blocks.{i}.{key[len('blocks.'):]}"] = t[i]
+        else:
+            out[key] = t
+    return out
+
+
+def model_from_jax(cfg, params_np: dict, device="cpu"):
+    """The port's model of ``cfg`` holding the reference's parameters
+    ``params_np`` (its ``model.init`` tree as numpy), on ``device``."""
+    model = build_model(cfg, device)
+    sd = state_dict_from_jax(params_np)
+    own = model.state_dict()
+    if set(sd) != set(own):
+        raise ValueError(f"parameter trees differ: missing "
+                         f"{sorted(set(own) - set(sd))}, extra "
+                         f"{sorted(set(sd) - set(own))}")
+    for k, t in sd.items():
+        if t.dtype != own[k].dtype or t.shape != own[k].shape:
+            raise ValueError(f"{k}: {t.dtype} {tuple(t.shape)} != "
+                             f"{own[k].dtype} {tuple(own[k].shape)}")
+    model.load_state_dict(sd)
+    return model

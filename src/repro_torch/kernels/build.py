@@ -1,10 +1,12 @@
 """Build the CUDA kernels from this package's sources and load them.
 
-``nvcc`` compiles ``csrc/gain.cu`` for ``sm_90a`` into a shared library with
-a plain C interface, which ``ctypes`` loads (no PyTorch headers, so a build
-takes seconds).  The build runs at first use, into ``_build/`` beside this
-file (or ``REPRO_TORCH_BUILD_DIR``); the library's name carries a hash of
-the source and flags, so an edited source is rebuilt and never mixed with
+``nvcc`` compiles every source in ``csrc/`` (``SOURCES``) for ``sm_90a``:
+one ``nvcc -c`` per source, all started together, then one ``nvcc
+-shared`` link of the objects into one shared library with a plain C
+interface, which ``ctypes`` loads (no PyTorch headers, so a build takes
+seconds).  The build runs at first use, into ``_build/`` beside this file
+(or ``REPRO_TORCH_BUILD_DIR``); the library's name carries a hash of every
+source and the flags, so an edited source is rebuilt and never mixed with
 an old binary.
 """
 
@@ -21,9 +23,9 @@ from pathlib import Path
 from typing import NamedTuple, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("gain.cu",)
+SOURCES = ("gain.cu", "ssd_scan.cu", "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIB = None
 
@@ -59,7 +61,7 @@ def _digest() -> str:
 
 
 def library_path() -> Path:
-    return build_dir() / f"libgain_{_digest()}.so"
+    return build_dir() / f"librepro_torch_kernels_{_digest()}.so"
 
 
 def build(force: bool = False) -> Build:
@@ -69,17 +71,27 @@ def build(force: bool = False) -> Build:
         return Build(out, None, "")
     nvcc = nvcc_path()
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return Build(out, time.perf_counter() - t0, proc.stderr + proc.stdout)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [os.path.join(tmp, f"{Path(s).stem}.o") for s in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj,
+                                   str(CSRC / src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [(s, p.returncode, log) for s, p, log
+                  in zip(SOURCES, procs, logs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{s} ({rc}):\n{log}" for s, rc, log in failed))
+        lib = os.path.join(tmp, out.name)
+        link = subprocess.run([nvcc, "-shared", "-Xcompiler", "-fPIC", "-o",
+                               lib, *objs], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+        os.replace(lib, out)
+    return Build(out, time.perf_counter() - t0, "".join(logs))
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -89,8 +101,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                              i, i, p, p]
     lib.megastep_launch.argtypes = [p, p, i, p, p, p, p, p, ll, p, ll, i, i,
                                     i, i, i, d, p, p, p, p, p]
+    lib.ssd_chunk_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p, p]
+    lib.flash_attention_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, i,
+                                           p, p]
     for fn in (lib.gain_matvec_launch, lib.gain_family_stats_launch,
-               lib.megastep_launch):
+               lib.megastep_launch, lib.ssd_chunk_launch,
+               lib.flash_attention_launch):
         fn.restype = ctypes.c_int
     return lib
 

@@ -22,6 +22,11 @@ import torch
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels import ref
+from repro_torch.kernels.common import check as _check
+from repro_torch.kernels.common import need as _need
+from repro_torch.kernels.common import on_cuda as _on_cuda
+from repro_torch.kernels.common import ptr as _ptr
+from repro_torch.kernels.common import stream as _stream
 
 # Column order of the (..., m, 4) stats array gain_family_stats emits.
 STAT_GNORM2, STAT_SUMPROJ2, STAT_GDOTJ, STAT_QUAD = range(4)
@@ -36,40 +41,6 @@ _MAX_AGENTS = 48 * 1024 // 4 - 1
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def _on_cuda(*tensors) -> bool:
-    devs = {t.device for t in tensors if t is not None}
-    if len(devs) != 1:
-        raise ValueError(f"kernel inputs span devices {sorted(map(str, devs))}")
-    dev = devs.pop()
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
-    return True
-
-
-def _need(t: torch.Tensor, name: str, shape, dtypes=(torch.float32,)):
-    if t.dtype not in dtypes:
-        raise TypeError(f"{name}: dtype {t.dtype} not in {dtypes}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _check(code: int, name: str) -> None:
-    if code != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {code}")
 
 
 def _terms(grad_j, phi_matrix, batch, n):

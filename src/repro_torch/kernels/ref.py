@@ -1,10 +1,11 @@
-"""Plain-torch oracles of the three gain kernels, ported from
+"""Plain-torch oracles of the port's kernels, ported from
 ``repro/kernels/ref.py``.
 
-These are the semantics; ``repro_torch.kernels.gain`` runs them for CPU
-tensors and ``chip_smoke.py`` holds the CUDA kernels against them on the
-card.  All take leading batch dims where the reference vmaps, compute in
-float32 and never use TF32.
+These are the semantics; the wrappers (``repro_torch.kernels.gain``,
+``.flash_attention``, ``.ssd_scan``) run them for CPU tensors and
+``chip_smoke.py`` holds the CUDA kernels against them on the card.  All
+take leading batch dims where the reference vmaps, compute in float32 and
+never use TF32.
 """
 
 from __future__ import annotations
@@ -118,3 +119,55 @@ def megastep_ref(phi: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
     upd = (torch.einsum("...m,...mn->...n", eff, gf)
            / torch.clamp(eff.sum(-1, keepdim=True), min=1.0))
     return w.float() - eps * upd, alphas, gains
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: (B, Lq, H, d); k/v: (B, Lk, KVH, d) with KVH | H (GQA: query head
+    h reads kv head h // (H / KVH)).  Positions are arange(L); masked
+    scores take -1e30.  Returns (B, Lq, H, d) in q's dtype."""
+    _full_f32()
+    B, Lq, H, D = q.shape
+    Lk, KVH = k.shape[1], k.shape[2]
+    if KVH != H:
+        k = k.repeat_interleave(H // KVH, dim=2)
+        v = v.repeat_interleave(H // KVH, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * D**-0.5
+    qp = torch.arange(Lq, device=q.device)[:, None]
+    kp = torch.arange(Lk, device=q.device)[None, :]
+    mask = torch.ones((Lq, Lk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kp <= qp
+    if window > 0:
+        mask &= kp > qp - window
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return out.to(q.dtype)
+
+
+def ssd_chunk_ref(dtx: torch.Tensor, cum: torch.Tensor, b: torch.Tensor,
+                  c: torch.Tensor):
+    """Intra-chunk SSD tiles over the full batch.
+
+    dtx (B, nc, Q, H, P) decayed inputs; cum (B, nc, Q, H) inclusive cumsum
+    of the log-decay; b/c (B, nc, Q, N), shared by the heads.  Returns
+    (y_intra (B, nc, Q, H, P) in dtx's dtype, states (B, nc, H, N, P) f32):
+
+      y[i]  = sum_{j<=i} (c_i . b_j) exp(cum_i - cum_j) dtx_j
+      state = sum_j exp(cum_Q - cum_j) b_j (x) dtx_j
+    """
+    _full_f32()
+    Q = dtx.shape[2]
+    x = dtx.float().permute(0, 1, 3, 2, 4)                 # (B, nc, H, Q, P)
+    cm = cum.float().permute(0, 1, 3, 2)                   # (B, nc, H, Q)
+    bf, cf = b.float(), c.float()
+    seg = cm[..., :, None] - cm[..., None, :]              # (B, nc, H, Q, Q)
+    tril = torch.ones((Q, Q), dtype=torch.bool, device=dtx.device).tril()
+    decay = torch.where(tril, torch.exp(torch.where(
+        tril, seg, torch.full_like(seg, -float("inf")))), torch.zeros_like(seg))
+    gbc = (cf @ bf.transpose(-1, -2)).unsqueeze(2) * decay
+    y = (gbc @ x).permute(0, 1, 3, 2, 4)                   # (B, nc, Q, H, P)
+    w = torch.exp(cm[..., -1:] - cm)                       # (B, nc, H, Q)
+    state = (bf.unsqueeze(2) * w.unsqueeze(-1)).transpose(-1, -2) @ x
+    return y.to(dtx.dtype).contiguous(), state.contiguous()

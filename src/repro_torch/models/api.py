@@ -1,0 +1,33 @@
+"""Model factory, ported from ``repro/models/api.py``: ModelConfig -> module.
+
+Every model exposes the reference's serving surface as methods of an
+``nn.Module`` that holds its weights:
+  prefill(tokens, prefix_emb) -> (logits, aux)
+  init_cache(batch, seq_len) / decode_step(cache, token, t)
+  cache_len(seq_len)
+The port serves the ssm and dense families; the others raise.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import NOT_PORTED_ITEM
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.ssm_model import MambaLM
+from repro_torch.models.transformer import Transformer
+
+
+def build_model(cfg: ModelConfig, device=None, seed: int = 0):
+    """The model of ``cfg`` with random weights drawn from a
+    ``torch.Generator`` seeded with ``seed`` on ``device`` (default cuda;
+    raises without a GPU unless ``device="cpu"``)."""
+    dev = resolve_device(device)
+    if cfg.is_encdec or cfg.arch_type not in ("ssm", "dense"):
+        raise NotImplementedError(
+            f"the {cfg.arch_type!r} family ({cfg.name}) is not ported to "
+            f"repro_torch yet ({NOT_PORTED_ITEM})")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cls = MambaLM if cfg.arch_type == "ssm" else Transformer
+    return cls(cfg, gen)

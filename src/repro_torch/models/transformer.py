@@ -1,0 +1,120 @@
+"""Decoder-only dense transformer (yi-6b family), ported from
+``repro/models/transformer.py`` as an ``nn.Module``.
+
+Supported: GQA + RoPE, sliding window, swiglu/relu2/gelu MLPs, tied
+embeddings.  The reference's MoE MLPs, vision/audio prefix embeddings and
+frontends are not ported yet: they raise ``NotImplementedError`` naming
+their ROADMAP item.  Layers are an ``nn.ModuleList`` (the reference stacks
+them on a leading axis for ``lax.scan``); prefill runs the flash-attention
+kernel per layer unless ``use_kernels`` is False, and decode threads a
+per-layer KV cache that is updated in place.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs import NOT_PORTED_ITEM
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.layers import (apply_mlp, embed_tokens, init_embedding,
+                                       init_mlp, model_dtype, param,
+                                       param_dict, rms_norm, truncated_normal)
+
+NOT_PORTED = f"not ported to repro_torch yet ({NOT_PORTED_ITEM})"
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator):
+        super().__init__()
+        dt = model_dtype(cfg)
+        self.ln1 = param(torch.ones((cfg.d_model,), device=gen.device))
+        self.ln2 = param(torch.ones((cfg.d_model,), device=gen.device))
+        self.attn = param_dict(attn_lib.init_attention(
+            gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.resolved_head_dim, dt))
+        self.mlp = param_dict(init_mlp(gen, cfg.d_model, cfg.d_ff,
+                                       cfg.mlp_activation, dt))
+
+
+class Transformer(nn.Module):
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator):
+        super().__init__()
+        if cfg.is_moe:
+            raise NotImplementedError(f"MoE MLPs are {NOT_PORTED}")
+        if cfg.frontend != "none":
+            raise NotImplementedError(f"the {cfg.frontend} frontend is {NOT_PORTED}")
+        self.cfg = cfg
+        self.use_kernels = True
+        dt = model_dtype(cfg)
+        self.embed = param(init_embedding(gen, cfg.padded_vocab, cfg.d_model, dt))
+        self.blocks = nn.ModuleList(Block(cfg, gen) for _ in range(cfg.num_layers))
+        self.final_norm = param(torch.ones((cfg.d_model,), device=gen.device))
+        if not cfg.tie_embeddings:
+            self.lm_head = param(truncated_normal(
+                gen, (cfg.d_model, cfg.padded_vocab), cfg.d_model**-0.5, dt))
+
+    def head(self) -> torch.Tensor:
+        return self.embed.T if self.cfg.tie_embeddings else self.lm_head
+
+    def hidden_states(self, tokens: torch.Tensor,
+                      prefix_emb: Optional[torch.Tensor] = None):
+        """Embed and run all blocks.  Returns (final-normed hidden, aux 0)."""
+        if prefix_emb is not None:
+            raise NotImplementedError(f"prefix embeddings are {NOT_PORTED}")
+        cfg = self.cfg
+        h = embed_tokens(self.embed, tokens)
+        L = h.shape[1]
+        positions = torch.arange(L, device=h.device)
+        for block in self.blocks:
+            a_in = rms_norm(h, block.ln1, cfg.norm_eps)
+            h = h + attn_lib.attention_block(
+                block.attn, a_in, positions, cfg.rope_theta, causal=True,
+                window=cfg.sliding_window, chunk=cfg.attn_chunk,
+                use_chunked=L > 512, use_kernel=self.use_kernels)
+            m_in = rms_norm(h, block.ln2, cfg.norm_eps)
+            h = h + apply_mlp(block.mlp, m_in, cfg.mlp_activation)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        return rms_norm(h, self.final_norm, cfg.norm_eps), aux
+
+    # -- serving ---------------------------------------------------------------
+
+    def cache_len(self, seq_len: int) -> int:
+        if self.cfg.sliding_window > 0:
+            return min(seq_len, self.cfg.sliding_window)
+        return seq_len
+
+    def init_cache(self, batch: int, seq_len: int) -> dict:
+        """{"k", "v"}: (layers, B, S, KV, hd) in the model's dtype."""
+        cfg = self.cfg
+        one = attn_lib.init_kv_cache(batch, self.cache_len(seq_len),
+                                     cfg.num_kv_heads, cfg.resolved_head_dim,
+                                     model_dtype(cfg), self.embed.device)
+        return {k: v.expand((cfg.num_layers,) + v.shape).clone()
+                for k, v in one.items()}
+
+    def decode_step(self, cache: dict, token: torch.Tensor, t: int):
+        """One token for the whole batch.  token: (B,) int; t: position.
+        Returns (logits (B, V) f32, cache); the cache is updated in place."""
+        cfg = self.cfg
+        h = embed_tokens(self.embed, token)[:, None, :]          # (B, 1, d)
+        for i, block in enumerate(self.blocks):
+            a_in = rms_norm(h, block.ln1, cfg.norm_eps)
+            a_out, _ = attn_lib.decode_attention_block(
+                block.attn, a_in, {k: v[i] for k, v in cache.items()}, t,
+                cfg.rope_theta, window=cfg.sliding_window,
+                chunk=cfg.attn_chunk, use_chunked=not cfg.decode_dense_attn)
+            h = h + a_out
+            m_in = rms_norm(h, block.ln2, cfg.norm_eps)
+            h = h + apply_mlp(block.mlp, m_in, cfg.mlp_activation)
+        h = rms_norm(h, self.final_norm, cfg.norm_eps)
+        return (h[:, 0, :] @ self.head()).float(), cache
+
+    def prefill(self, tokens: torch.Tensor,
+                prefix_emb: Optional[torch.Tensor] = None):
+        """Process a full prompt; returns (last-position logits f32, aux)."""
+        hidden, aux = self.hidden_states(tokens, prefix_emb)
+        return (hidden[:, -1, :] @ self.head()).float(), aux

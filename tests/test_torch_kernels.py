@@ -202,7 +202,7 @@ def test_build_refuses_without_nvcc(monkeypatch, tmp_path):
     missing library: without a CUDA compiler it raises."""
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
     assert build.library_path().parent == tmp_path
-    assert build.library_path().name.startswith("libgain_")
+    assert build.library_path().name.startswith("librepro_torch_kernels_")
     monkeypatch.setattr(build, "nvcc_path", lambda: (_ for _ in ()).throw(
         RuntimeError("nvcc not found")))
     with pytest.raises(RuntimeError, match="nvcc"):

@@ -1,0 +1,193 @@
+"""The port's serving path (configs, models, steps, serve) against repro.
+
+Reduced configs of the two families the port serves — mamba2-370m (ssm,
+the SSD tile kernel's path) and yi-6b (dense, the flash kernel's path),
+the latter also with 2 kv heads of 4 so that GQA is covered (``reduced()``
+keeps 4 of 4) — are built by the reference, and its parameters carried into
+the port with ``convert.model_from_jax``.  On shared numpy tokens: prefill
+logits and ten decode steps' logits match the reference at 1e-4, greedy
+tokens are equal, the port's ``generate`` (what ``serve`` runs) yields the
+reference serve loop's tokens, and the port's decode reproduces its own
+prefill (tests/test_models_smoke.py's contract, 2e-3).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+jnp = jax.numpy
+
+from repro.configs import get_config as jget_config  # noqa: E402
+from repro.configs.base import ShapeConfig as JShape  # noqa: E402
+from repro.launch.mesh import make_host_mesh  # noqa: E402
+from repro.launch.steps import build_serve_step as jbuild_serve_step  # noqa: E402
+from repro.models import build_model as jbuild_model  # noqa: E402
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.convert import model_from_jax  # noqa: E402
+from repro_torch.launch.serve import generate, serve  # noqa: E402
+from repro_torch.launch.steps import build_prefill_step, build_serve_step  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+
+TOL = 1e-4
+DECODE_TOL = 2e-3
+B, T = 2, 10
+CONFIGS = {"mamba2-370m": {}, "yi-6b": {}, "yi-6b-gqa": {"num_kv_heads": 2}}
+
+
+def _configs(name):
+    arch = name.removesuffix("-gqa")
+    jc = dataclasses.replace(jget_config(arch).reduced(), **CONFIGS[name])
+    tc = dataclasses.replace(get_config(arch).reduced(), **CONFIGS[name])
+    return jc, tc
+
+
+@pytest.fixture(scope="module", params=list(CONFIGS))
+def pair(request):
+    """(reference cfg, model, params; port cfg, model; tokens)."""
+    jc, tc = _configs(request.param)
+    jm = jbuild_model(jc)
+    params = jm.init(jax.random.key(3))
+    model = model_from_jax(tc, jax.tree.map(np.asarray, params))
+    tokens = np.random.default_rng(5).integers(
+        0, jc.vocab_size, (B, T)).astype(np.int32)
+    return jc, jm, params, tc, model, tokens
+
+
+def _tt(tokens):
+    return torch.from_numpy(tokens).long()
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), rtol=tol, atol=tol)
+
+
+def test_configs_are_the_references(pair):
+    jc, _, _, tc, _, _ = pair
+    assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
+
+
+def test_prefill_logits_match_reference(pair):
+    jc, jm, params, tc, model, tokens = pair
+    want, _ = jm.prefill(params, jnp.asarray(tokens))
+    got, aux = build_prefill_step(model, tc, device="cpu")(_tt(tokens))
+    assert got.dtype == torch.float32 and got.shape == (B, tc.padded_vocab)
+    _close(got, want, TOL)
+
+
+def test_decode_steps_and_greedy_tokens_match_reference(pair):
+    jc, jm, params, tc, model, tokens = pair
+    jcache = jm.init_cache(B, T)
+    jstep = jax.jit(jm.decode_step)
+    step, init_cache = build_serve_step(model, tc, ShapeConfig("t", T, B, "decode"),
+                                        device="cpu")
+    cache = init_cache()
+    for t in range(T):
+        want, jcache = jstep(params, jcache, jnp.asarray(tokens[:, t]), jnp.int32(t))
+        got, cache = step(cache, _tt(tokens[:, t]), t)
+        _close(got, want, TOL)
+        np.testing.assert_array_equal(got.argmax(-1).numpy(),
+                                      np.asarray(want).argmax(-1))
+
+
+def test_generate_yields_the_reference_serve_tokens(pair):
+    """The reference's serve loop (repro/launch/serve.py: prefill by
+    stepping decode, then greedy) against the port's, same params and
+    prompt."""
+    jc, jm, params, tc, model, tokens = pair
+    prompt, gen_len = 6, 5
+    max_len = prompt + gen_len
+    step = jbuild_serve_step(jm, jc, make_host_mesh(1),
+                             JShape("serve", max_len, B, "decode"))[0]
+    cache = jm.init_cache(B, max_len)
+    for t in range(prompt):
+        logits, cache = step(params, cache, jnp.asarray(tokens[:, t]), jnp.int32(t))
+    out, cur = [], jnp.argmax(logits, axis=-1).astype(jnp.int32)
+    for t in range(prompt, max_len):
+        out.append(cur)
+        logits, cache = step(params, cache, cur, jnp.int32(t))
+        cur = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+    want = np.stack([np.asarray(x) for x in out], axis=1)
+    res = generate(model, tc, _tt(tokens[:, :prompt]), gen_len, device="cpu")
+    np.testing.assert_array_equal(res["tokens"].numpy(), want)
+    _close(res["logits"], logits, TOL)
+
+
+def test_decode_matches_own_prefill(pair):
+    """tests/test_models_smoke.py:67-103 on the port: decode logits at t ==
+    prefill logits of the length-(t+1) prompt."""
+    _, _, _, tc, model, tokens = pair
+    prefill = build_prefill_step(model, tc, device="cpu")
+    step, init_cache = build_serve_step(model, tc, ShapeConfig("t", T, B, "decode"),
+                                        device="cpu")
+    cache = init_cache()
+    for t in range(T):
+        logits, cache = step(cache, _tt(tokens[:, t]), t)
+        if t in (3, T - 1):
+            _close(logits, prefill(_tt(tokens[:, :t + 1]))[0], DECODE_TOL)
+
+
+def test_plain_and_kernel_paths_agree(pair):
+    """``use_kernels=False`` runs the plain SSD / attention of the model
+    modules instead of the kernel's module: the same logits."""
+    _, _, _, tc, model, tokens = pair
+    with torch.inference_mode():
+        kern = model.prefill(_tt(tokens))[0]
+        model.use_kernels = False
+        try:
+            plain = model.prefill(_tt(tokens))[0]
+        finally:
+            model.use_kernels = True
+    _close(kern, plain, TOL)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "yi-6b"])
+def test_serve_runs_on_cpu(arch):
+    cfg = get_config(arch).reduced()
+    res = serve(cfg, batch=2, prompt_len=5, gen_len=3, seed=1, device="cpu")
+    assert res["tokens"].shape == (2, 3)
+    assert bool(torch.isfinite(res["logits"]).all())
+    again = serve(cfg, batch=2, prompt_len=5, gen_len=3, seed=1, device="cpu")
+    assert torch.equal(res["tokens"], again["tokens"])
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device exists")
+    cfg = get_config("mamba2-370m").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve(cfg, batch=1, prompt_len=2, gen_len=1)
+    model = build_model(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_prefill_step(model, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_serve_step(model, cfg, ShapeConfig("t", 4, 1, "decode"))
+
+
+def test_unported_archs_and_families_raise():
+    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
+        get_config("mixtral-8x7b")
+    moe = dataclasses.replace(get_config("yi-6b").reduced(), arch_type="moe",
+                              num_experts=4, experts_per_token=2)
+    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
+        build_model(moe, device="cpu")
+
+
+def test_model_from_jax_keeps_dtypes_and_splits_layers():
+    """A bf16 parameter tree crosses bit for bit: matrices stay bf16, norms
+    float32, and layer i of the stacked ``blocks`` becomes ``blocks.<i>``."""
+    jc = dataclasses.replace(jget_config("yi-6b").reduced(), dtype="bfloat16")
+    tc = dataclasses.replace(get_config("yi-6b").reduced(), dtype="bfloat16")
+    params = jbuild_model(jc).init(jax.random.key(4))
+    sd = model_from_jax(tc, jax.tree.map(np.asarray, params)).state_dict()
+    assert sd["blocks.1.attn.wq"].dtype == torch.bfloat16
+    assert sd["blocks.0.ln1"].dtype == torch.float32
+    want = np.asarray(params["blocks"]["attn"]["wq"][1].astype(jnp.float32))
+    np.testing.assert_array_equal(sd["blocks.1.attn.wq"].float().numpy(), want)
