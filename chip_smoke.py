@@ -25,7 +25,14 @@ Phases, in order; any failed check exits non-zero and prints no ok line:
    own test cases at their tolerances (tests/test_kernels.py:175-213) and
    the serving slice's shapes in float32 and bf16, plus a bitwise repeat
    of every launch; time kernel, plain version and (flash)
-   ``scaled_dot_product_attention``.
+   ``scaled_dot_product_attention``.  Flash attention has two routes:
+   bf16 at head dims 64 and 128 runs ``flash_wgmma_kernel`` (tensor
+   cores; the main path's), everything else ``flash_kernel`` (float32 on
+   CUDA cores); each case is checked to have launched its route's kernel,
+   and the float32 route is reported inside the flash record.  The
+   tensor-core route is also held within one bf16 ulp of the reference
+   computed in float32 (``bf16_ulps``), a check that a single bf16 P
+   fails (``tools/flash_single_p.py``).
 5. Serve the LM substrate at full width in two cells (``SERVE_CELLS``):
    ``serve-mamba2-370m`` (the SSD kernel's path) and ``serve-yi-6b`` (the
    flash kernel's path), random weights from a seeded generator.  Each
@@ -70,6 +77,9 @@ RATE_TOL = 1e-6        # comm_rate
 # cancellation, so the summation order shows above 1e-5; the reference's
 # own kernel tests hold these cases at 2e-4 (tests/test_kernels.py)
 KERNEL_TOL = 2e-4
+# gain_matvec and torch.matmul at the main path's shape: alternating trials,
+# enough pairs to read a win rate and the trials' spread
+MATVEC_TRIALS = 10
 
 MODES = ("theoretical", "practical", "norm", "random", "always", "never")
 # eps as a fraction of the max stable step 1/lambda_max(Phi), for a cell
@@ -197,6 +207,7 @@ class KernelLog:
         self.cases = 0
         self.repeat_bitwise = True
         self.tie_flips = 0
+        self.extra = {}        # kernel-specific fields of its record
 
     def close(self, name, got, want, tol, scale=None):
         rel, ab = rel_err(got, want, scale)
@@ -242,10 +253,14 @@ def kernel_phase(dev):
     # -- gain_matvec / practical_gain: the reference kernel tests' shapes,
     #    plus the main path's (R, m) batch
     lg = logs["gain_matvec"]
-    for T, n in [(10, 6), (100, 25), (257, 130), (1024, 512)]:
+    passes = lg.extra["passes"] = {"vector": 0, "scalar": 0}
+    for T, n in [(10, 6), (100, 25), (257, 130), (128, 256), (1024, 512),
+                 (33, 1040)]:
         for dt in (torch.float32, torch.bfloat16):
             for batch in ((), (3, 2)):
                 phi, g = randn(*batch, T, n, dtype=dt), randn(*batch, n, dtype=dt)
+                vec = K.matvec_vector_pass(n, dt, phi.data_ptr(), g.data_ptr())
+                passes["vector" if vec else "scalar"] += 1
                 lg.close(f"gain_matvec {batch} {T}x{n} {dt}",
                          K.gain_matvec(phi, g), ref.gain_matvec_ref(phi, g), KERNEL_TOL)
                 lg.close(f"practical_gain {batch} {T}x{n} {dt}",
@@ -335,17 +350,28 @@ def full_shape_phase(dev, logs):
     deliver = (torch.rand(R, m, device=dev, generator=gen) < 0.7).float()
     out = {}
 
-    # gain_matvec: projection + eq. 15 over all R*m agents in one launch
+    # gain_matvec: projection + eq. 15 over all R*m agents in one launch,
+    # through the kernel's vector pass
     lg = logs["gain_matvec"]
+    check(K.matvec_vector_pass(n, phi.dtype, phi.data_ptr(), g.data_ptr()),
+          "gain_matvec: the main path's shape does not take the vector pass")
     lg.close("gain_matvec full", K.gain_matvec(phi, g), ref.gain_matvec_ref(phi, g), WEIGHT_TOL)
     lg.close("practical_gain full", K.practical_gain(phi, g, 8.0),
              ref.practical_gain_ref(phi, g, 8.0), WEIGHT_TOL)
     lg.repeat("gain_matvec full", lambda: K.practical_gain(phi, g, 8.0))
     b_ms, b_by = bound(nbytes(phi, g) + R * m * T * 4, 2 * R * m * T * n)
+    # kernel and torch.matmul timed in alternating trials; the record keeps
+    # every trial's median, so the comparison shows its spread
+    trials = {"ms": [], "library_ms": []}
+    for _ in range(MATVEC_TRIALS):
+        trials["ms"].append(time_ms(lambda: K.gain_matvec(phi, g)))
+        trials["library_ms"].append(
+            time_ms(lambda: torch.matmul(phi, g.unsqueeze(-1))))
+    lg.extra["trials"] = trials
     out["gain_matvec"] = dict(
-        ms=time_ms(lambda: K.gain_matvec(phi, g)),
+        ms=statistics.median(trials["ms"]),
         plain_ms=time_ms(lambda: ref.gain_matvec_ref(phi, g)),
-        library_ms=time_ms(lambda: torch.matmul(phi, g.unsqueeze(-1))),
+        library_ms=statistics.median(trials["library_ms"]),
         bound_ms=b_ms, bound_by=b_by)
 
     lf = logs["gain_family_stats"]
@@ -612,6 +638,12 @@ FLASH_CASES = (
     dict(B=1, L=160, H=2, KVH=1, D=64, causal=True, window=64),
 )
 FLASH_TOL = {"float32": 3e-4, "bfloat16": 3e-2}
+# The tensor-core route's bf16 output against the reference computed in
+# float32 on the same (bf16-valued) inputs, in bf16 ulps (``bf16_ulps``):
+# rounding the float32 result to bf16 costs at most half an ulp, so a
+# kernel that keeps float32 P's accuracy reads about 0.5 and one that
+# rounds P to a single bf16 reads well above 1 (PERF.md section 6).
+FLASH_ULP_LIMIT = 1.0
 SSD_TILE_CASE = dict(B=2, nc=3, Q=32, H=4, P=16, N=8)
 SSD_TILE_TOL = 1e-4
 SSD_CHUNKED_CASES = ((64, 32), (200, 64), (128, 128))
@@ -640,6 +672,18 @@ def _ssd_inputs(gen, dev, c, bc_dtype):
     bm = _randn(gen, (B, nc, Q, N)).to(bc_dtype).to(dev)
     cm = _randn(gen, (B, nc, Q, N)).to(bc_dtype).to(dev)
     return dtx, cum, bm, cm
+
+
+def bf16_ulps(got, want):
+    """max |got - want| in bf16 ulps of |want| (``want`` in float32).  |want|
+    is floored at 1/16 of its row's rms over the head dim, so an element
+    that cancels to near zero is measured on its row's scale."""
+    import torch
+    want = want.float()
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    scale = torch.maximum(want.abs(), rms / 16).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(scale)) - 7)
+    return float(((got.float() - want).abs() / ulp).max())
 
 
 def flash_work(c, itemsize):
@@ -685,17 +729,48 @@ def lm_kernel_phase(dev):
     logs = {"flash_attention": KernelLog(), "ssd_chunk_tiles": KernelLog()}
     timings = {}
 
-    lf = logs["flash_attention"]
+    # the flash_attention record is the tensor-core route's (the main path's);
+    # flash_kernel, the float32 route, is held and timed beside it
+    lf, simt = logs["flash_attention"], KernelLog()
+    ulp_check = lf.extra["bf16_ulp_check"] = dict(
+        max_ulps=0.0, cases=0, limit=FLASH_ULP_LIMIT)
     for c in FLASH_CASES + (FLASH_SLICE,):
         for dt in (torch.float32, torch.bfloat16):
             q, k, v = _flash_inputs(gen, dev, c, dt)
             kw = dict(causal=c["causal"], window=c["window"])
             tol = FLASH_TOL[str(dt).split(".")[-1]]
             label = f"flash {c} {dt}"
-            lf.close(label, FA.flash_attention(q, k, v, **kw),
-                     ref.flash_attention_ref(q, k, v, **kw), tol)
-            lf.repeat(label, lambda: FA.flash_attention(q, k, v, **kw))
-            lf.cases += 1
+            route = (FA.WGMMA if dt == torch.bfloat16 and c["D"] in (64, 128)
+                     else FA.SIMT)
+            log = lf if route is FA.WGMMA else simt
+            FA.reset_launches()
+            got = FA.flash_attention(q, k, v, **kw)
+            check(FA.LAUNCHES[route.counter] == 1
+                  and sum(FA.LAUNCHES.values()) == 1,
+                  f"{label}: launches {FA.LAUNCHES}, expected one {route.kernel}")
+            log.close(label, got, ref.flash_attention_ref(q, k, v, **kw), tol)
+            if route is FA.WGMMA:
+                want32 = ref.flash_attention_ref(q.float(), k.float(),
+                                                 v.float(), **kw)
+                ulps = bf16_ulps(got, want32)
+                check(ulps <= FLASH_ULP_LIMIT,
+                      f"{label}: {ulps:.3f} bf16 ulps from the float32 "
+                      f"reference, limit {FLASH_ULP_LIMIT}")
+                ulp_check["max_ulps"] = max(ulp_check["max_ulps"], ulps)
+                ulp_check["cases"] += 1
+                del want32
+            log.repeat(label, lambda: FA.flash_attention(q, k, v, **kw))
+            log.cases += 1
+            del got
+            if c is FLASH_SLICE and dt == torch.float32:
+                b_ms, b_by = bound(*flash_work(FLASH_SLICE, 4))
+                simt_time = dict(ms=time_ms(lambda: FA.flash_attention(q, k, v),
+                                            reps=5, warmup=1),
+                                 bound_ms=b_ms, bound_by=b_by)
+    lf.extra["float32_route"] = dict(
+        kernel=FA.SIMT.kernel, cases=simt.cases, max_abs_err=simt.max_abs,
+        max_rel_err=simt.max_rel, repeat_bitwise=simt.repeat_bitwise,
+        tolerance=dict(FLASH_TOL), slice_dtype="float32", **simt_time)
     # timed at the slice shape in the serving cells' dtype (bf16, last above)
     sdpa = lambda: F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -762,6 +837,7 @@ class ServeCell(NamedTuple):
     name: str
     arch: str
     kernel: str            # the ported TPU kernel this cell's prefill runs
+    counter: str           # the launch counter of its CUDA kernel
     prefill_batch: int     # cut from prefill_32k's 32 (configs/base.py)
     prefill_len: int       # cut from prefill_32k's 32768
     serve_batch: int
@@ -771,10 +847,12 @@ class ServeCell(NamedTuple):
 
 SERVE_CELLS = (
     ServeCell("serve-mamba2-370m", "mamba2-370m", "ssd_chunk_tiles",
-              4, 8192, 4, 64, 32),
-    ServeCell("serve-yi-6b", "yi-6b", "flash_attention", 1, 8192, 4, 64, 32),
+              "ssd_chunk_tiles", 4, 8192, 4, 64, 32),
+    # bf16 prefill at head dim 128: the tensor-core route, never flash_kernel
+    ServeCell("serve-yi-6b", "yi-6b", "flash_attention",
+              "flash_attention_wgmma", 1, 8192, 4, 64, 32),
 )
-CUDA_KERNEL_NAMES = {"flash_attention": "flash_kernel",
+CUDA_KERNEL_NAMES = {"flash_attention": "flash_wgmma_kernel",
                      "ssd_chunk_tiles": "ssd_chunk_kernel"}
 # cuBLAS's and CUTLASS's matrix-product kernels (nvjet: cuBLAS on Hopper)
 MATMUL_KERNEL_WORDS = ("gemm", "nvjet", "xmma", "cutlass", "matmul")
@@ -960,10 +1038,10 @@ def serve_phase(dev, cell):
                 gen_len=cell.gen_len, seed=0, device=dev)
     counts = all_launches()                        # ... and ends here
     expect = cfg.num_layers * PREFILL_CALLS
-    check(counts[cell.kernel] == expect,
-          f"{cell.name}: {cell.kernel} launched {counts[cell.kernel]} times, "
+    check(counts[cell.counter] == expect,
+          f"{cell.name}: {cell.counter} launched {counts[cell.counter]} times, "
           f"expected {expect} (layers x prefill calls)")
-    check(sum(counts.values()) == counts[cell.kernel],
+    check(sum(counts.values()) == counts[cell.counter],
           f"{cell.name}: other kernels launched: {counts}")
     toks = res["tokens"]
     check(tuple(toks.shape) == (cell.serve_batch, cell.gen_len)
@@ -1002,7 +1080,7 @@ def serve_phase(dev, cell):
                            tolerance=dict(kernel_vs_plain=KERNEL_VS_PLAIN_TOL,
                                           decode_vs_prefill=DECODE_TOL)),
         bf16_check=bf16, prefill_breakdown=breakdown)
-    return line, {cell.kernel: counts[cell.kernel]}
+    return line, {cell.kernel: counts[cell.counter]}
 
 
 REPLACES = {
@@ -1023,7 +1101,11 @@ TOLERANCES = {"flash_attention": dict(FLASH_TOL),
 
 def kernel_lines(logs, timings, launches):
     """One record per kernel: the ``kernels`` line of the output.
-    ``launches`` sums the kernel's launches over every cell's main path."""
+    ``launches`` sums the kernel's launches over every cell's main path.
+    A log's ``extra`` fields join its record: the flash record nests its
+    float32 route (``flash_kernel``), which the main path never launches,
+    and its bf16 ulp check; gain_matvec's counts the passes its checked
+    cases took and keeps its alternating trials against torch.matmul."""
     kernels = []
     for name, log in logs.items():
         t = timings[name]
@@ -1037,7 +1119,7 @@ def kernel_lines(logs, timings, launches):
             repeat_bitwise=log.repeat_bitwise,
             decision_tie_flips=log.tie_flips, cases=log.cases,
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-            bound_by=t["bound_by"], library_ms=t["library_ms"]))
+            bound_by=t["bound_by"], library_ms=t["library_ms"], **log.extra))
     return kernels
 
 
@@ -1070,11 +1152,16 @@ def main():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     made = build.build(force=True)
-    build.load()
+    lib = build.load()
     regs = [l.strip() for l in made.log.splitlines()
             if any(w in l for w in ("registers", "spill", "Compiling entry"))]
+    # ptxas reports static shared memory only; flash_wgmma_kernel's is
+    # dynamic, so its bytes per block come from the library
     emit({"build": {"seconds": time.perf_counter() - t0,
-                    "nvcc_seconds": made.seconds, "ptxas": regs}})
+                    "nvcc_seconds": made.seconds, "ptxas": regs,
+                    "flash_wgmma_dynamic_smem_bytes": {
+                        d: lib.flash_attention_wgmma_smem_bytes(d)
+                        for d in (64, 128)}}})
 
     logs = kernel_phase(dev)
     timings = full_shape_phase(dev, logs)

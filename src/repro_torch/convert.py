@@ -8,7 +8,9 @@ the same name.  PRNG keys cross as their data (``jax.random.key_data``), a
 (..., 2) uint32 array the port's ``random`` module reads as int64 words.
 ``to_numpy`` goes back, so both packages can compute from one set of inputs.
 ``model_from_jax`` loads an LM's parameter tree (as numpy) into the port's
-``nn.Module`` of the same config.
+``nn.Module`` of the same config.  Like every entry point of the port, the
+functions that make tensors default to ``device="cuda"`` and raise without
+a GPU (``repro_torch.resolve_device``); the tests pass ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core.algorithm1 import ProblemTerms
 from repro_torch.envs.base import EnvFamily
 from repro_torch.models import build_model
@@ -23,28 +26,32 @@ from repro_torch.models import build_model
 _NAMED = {"ProblemTerms": ProblemTerms, "EnvFamily": EnvFamily}
 
 
-def to_torch(tree, device="cpu"):
+def to_torch(tree, device=None):
     """Numpy-convertible leaves -> tensors on ``device``; structure kept."""
+    return _to_torch(tree, resolve_device(device))
+
+
+def _to_torch(tree, device: torch.device):
     if tree is None:
         return None
     if torch.is_tensor(tree):
         return tree.to(device)
     if isinstance(tree, dict):
-        return {k: to_torch(v, device) for k, v in tree.items()}
+        return {k: _to_torch(v, device) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         cls = _NAMED.get(type(tree).__name__)
         if cls is None:
             raise TypeError(f"no port counterpart for {type(tree).__name__}")
-        return cls(*(to_torch(v, device) for v in tree))
+        return cls(*(_to_torch(v, device) for v in tree))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(to_torch(v, device) for v in tree)
+        return type(tree)(_to_torch(v, device) for v in tree)
     arr = np.asarray(tree)
     if arr.dtype == np.uint32:
         arr = arr.astype(np.int64)
     return torch.from_numpy(np.array(arr, copy=True)).to(device)
 
 
-def key_to_torch(key_data, device="cpu") -> torch.Tensor:
+def key_to_torch(key_data, device=None) -> torch.Tensor:
     """Threefry key data (..., 2) uint32 -> the port's int64 key tensor."""
     return to_torch(np.asarray(key_data, np.uint32), device)
 
@@ -100,9 +107,10 @@ def state_dict_from_jax(params: dict) -> dict:
     return out
 
 
-def model_from_jax(cfg, params_np: dict, device="cpu"):
+def model_from_jax(cfg, params_np: dict, device=None):
     """The port's model of ``cfg`` holding the reference's parameters
-    ``params_np`` (its ``model.init`` tree as numpy), on ``device``."""
+    ``params_np`` (its ``model.init`` tree as numpy), on ``device``
+    (default cuda; raises without a GPU unless ``device="cpu"``)."""
     model = build_model(cfg, device)
     sd = state_dict_from_jax(params_np)
     own = model.state_dict()

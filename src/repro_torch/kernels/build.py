@@ -96,7 +96,7 @@ def build(force: bool = False) -> Build:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, ll, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
-    lib.gain_matvec_launch.argtypes = [p, p, i, i, i, i, d, p, p, p]
+    lib.gain_matvec_launch.argtypes = [p, p, i, i, i, i, d, i, p, p, p]
     lib.gain_family_stats_launch.argtypes = [p, p, i, p, ll, p, ll, i, i, i,
                                              i, i, p, p]
     lib.megastep_launch.argtypes = [p, p, i, p, p, p, p, p, ll, p, ll, i, i,
@@ -104,9 +104,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ssd_chunk_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p, p]
     lib.flash_attention_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, i,
                                            p, p]
+    lib.flash_attention_wgmma_launch.argtypes = [p, p, p, i, i, i, i, i, i,
+                                                 i, p, p]
+    lib.flash_attention_wgmma_smem_bytes.argtypes = [i]
     for fn in (lib.gain_matvec_launch, lib.gain_family_stats_launch,
                lib.megastep_launch, lib.ssd_chunk_launch,
-               lib.flash_attention_launch):
+               lib.flash_attention_launch, lib.flash_attention_wgmma_launch,
+               lib.flash_attention_wgmma_smem_bytes):
         fn.restype = ctypes.c_int
     return lib
 

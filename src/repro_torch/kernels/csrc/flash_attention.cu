@@ -1,8 +1,8 @@
-// Hopper (sm_90a) kernel for blockwise online-softmax attention with GQA,
+// Hopper (sm_90a) kernels for blockwise online-softmax attention with GQA,
 // causal and sliding-window masks, bound to Python through a plain C
-// interface and ctypes (repro_torch/kernels/flash_attention.py).  It
-// replaces the Pallas TPU kernel
-// src/repro/kernels/flash_attention.py::flash_attention (_flash_kernel).
+// interface and ctypes (repro_torch/kernels/flash_attention.py).  Both
+// replace the Pallas TPU kernel
+// src/repro/kernels/flash_attention.py::flash_attention (_flash_kernel):
 //
 //   o[b, i, h] = sum_j softmax_j(q_i . k_j d^-1/2 | mask) v_j,
 //   kv head of query head h = h / (H / KVH),
@@ -10,33 +10,70 @@
 //
 // masked scores take -1e30, the running max, normalizer and accumulator
 // are float32, and the output is in q's dtype.  Positions are arange(L) on
-// both sides, so the kernel takes Lq == Lk (the wrapper checks).
+// both sides, so the kernels take Lq == Lk (the wrapper checks).  The
+// wrapper routes bf16 inputs with head dim 64 or 128 to flash_wgmma_kernel
+// and everything else (float32, and bf16 at d = 16 or 32) to flash_kernel.
 //
-// What bounds it on an H100.  At yi-6b's prefill (B = 1, L = 8192, 32
+// What bounds them on an H100.  At yi-6b's prefill (B = 1, L = 8192, 32
 // query heads, 4 kv heads, d = 128) causal attention is about 5.5e11
 // operations against 151 MB of q, k, v and o, so the arithmetic bounds it:
-// 0.56 ms on bf16 tensor cores (989 TFLOP/s), 8.2 ms on float32 CUDA cores
-// (67 TFLOP/s).  This first kernel is the simple correct one: every
-// product runs in float32 on CUDA cores (bf16 inputs are widened on load;
-// float32 inputs get true float32, never TF32), so it cannot beat the
-// 8.2 ms floor; wgmma and TMA are a later kernel's work.
+// 0.556 ms on bf16 tensor cores (989 TFLOP/s), 8.2 ms on float32 CUDA cores
+// (67 TFLOP/s).
 //
-// Design.  One block per (q tile of 64 rows, query head, batch row), 256
-// threads in a 16 x 16 grid; thread (ty, tx) owns score rows ty + 16 r and
-// columns tx + 16 c (r, c < 4) and output columns tx + 16 c (c < d / 16),
-// so neighbouring threads read neighbouring shared-memory words and the
-// 16 threads of one row are one half-warp, which reduces the row's max
-// and sum with a fixed xor butterfly.  The sequential kv axis of the
-// Pallas grid is the loop inside the block: a 64-row K and V tile is
-// staged in shared memory, the 64 x 64 scores stay in registers, the
-// probabilities go through shared memory into P V.  Causal and window
-// masks let the loop skip kv tiles that no row of the q tile can see
-// (exact: every row sees its own position, so a skipped tile would only
-// have added terms that the online rescale multiplies by exp(-1e30) = 0),
-// which halves the causal work; q tiles are scheduled longest first.  GQA
-// reads the shared kv head in place, never expanded.  No atomics: two
-// launches give bitwise-equal outputs.
+// flash_wgmma_kernel (bf16, d = 64 or 128): both products on the tensor
+// cores, so it can run below the 8.2 ms CUDA-core floor, which flash_kernel
+// cannot.  One block per (query head, q tile of 128 rows, batch row), two
+// warpgroups of 64 rows each.  Q (once) and every 64-key K and V tile
+// arrive by TMA into 128-byte-swizzled shared memory, tracked by
+// mbarriers; the K/V tiles go through a ring of kStages = 2 stages that
+// both warpgroups read, and one thread issues the loads of tile t + 2 as
+// soon as both are done with tile t, so a tile's copy overlaps the
+// previous tile's arithmetic.  At d = 128 a block takes 96 KB of shared
+// memory, so two blocks (four warpgroups) share an SM and one block's
+// softmax overlaps another's products.  (One warpgroup per block, one
+// warpgroup with 128-key tiles, a 3- or 4-stage ring at one block per SM,
+// and releasing a stage per warpgroup instead of by one block barrier were
+// all slower on the H100.)  The tensor maps are 4-D over (d, heads, L,
+// B), so rows past L read as zeros within their own batch row.  S = Q K^T
+// is wgmma m64n64k16 with both operands in shared memory (K-major: d
+// contiguous); d^-1/2 (times log2 e, for exp2) is applied to the float32
+// scores after the product, never to bf16 Q.
+// The online softmax runs in the accumulator registers: a thread holds two
+// rows, each row spread over the 4 threads of a quad, reduced by a fixed
+// xor order.  P V is wgmma m64n{d}k16 with P from registers (the S
+// accumulator layout is the A-fragment layout) and V from shared memory
+// (MN-major: the transpose bit).  P enters as a hi/lo pair of bf16,
+// P_hi = bf16(P), P_lo = bf16(P - P_hi), O += P_hi V + P_lo V: the
+// reference multiplies a float32 P by V, and a single bf16 P would add a
+// rounding that neither the reference nor the plain path has.  The split
+// costs 1.5x the tensor-core products of a single bf16 P (8.3e11 instead
+// of 5.5e11 operations at the slice shape: 0.83 ms at the bf16 peak).
+// Masks are evaluated only on tiles that some row of the warpgroup cannot
+// fully see; tiles no row can see are skipped (exact, as in flash_kernel),
+// and q tiles run longest first (the q tile is the slower grid axis, so
+// every head of a tile is dispatched before the next shorter tile).  No
+// atomics: two launches give bitwise-equal outputs.
+//
+// flash_kernel (float32 inputs, and bf16 at d = 16 or 32): every product in
+// float32 on CUDA cores (bf16 inputs are widened on load; float32 inputs
+// get true float32, never TF32), so it cannot beat the 8.2 ms floor; it is
+// the checked float32 route.  One block per (q tile of 64 rows, query head,
+// batch row), 256 threads in a 16 x 16 grid; thread (ty, tx) owns score
+// rows ty + 16 r and columns tx + 16 c (r, c < 4) and output columns
+// tx + 16 c (c < d / 16), so neighbouring threads read neighbouring
+// shared-memory words and the 16 threads of one row are one half-warp,
+// which reduces the row's max and sum with a fixed xor butterfly.  The
+// sequential kv axis of the Pallas grid is the loop inside the block: a
+// 64-row K and V tile is staged in shared memory, the 64 x 64 scores stay
+// in registers, the probabilities go through shared memory into P V.
+// Causal and window masks let the loop skip kv tiles that no row of the q
+// tile can see (exact: every row sees its own position, so a skipped tile
+// would only have added terms that the online rescale multiplies by
+// exp(-1e30) = 0), which halves the causal work; q tiles are scheduled
+// longest first.  GQA reads the shared kv head in place, never expanded.
+// No atomics: two launches give bitwise-equal outputs.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -231,6 +268,408 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, int B,
   }
 }
 
+// ---------------------------------------------------------------------------
+// flash_wgmma_kernel: bf16 on the tensor cores (wgmma), K/V through TMA.
+// ---------------------------------------------------------------------------
+namespace wg {
+
+constexpr int kRows = 64;        // q rows of one warpgroup (wgmma's M)
+constexpr int kWarpgroups = 2;   // consumer warpgroups of a block
+constexpr int kQRows = kWarpgroups * kRows;   // q rows of a block
+constexpr int kBlockN = 64;      // keys of a K/V tile (S = m64n64)
+constexpr int kThreadsWg = 128 * kWarpgroups;
+constexpr int kAtom = 64;        // bf16 columns of one 128-byte swizzle atom
+constexpr int kAtomBytes = 128;
+constexpr int kStages = 2;       // K/V ring
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory, every region 1024-byte aligned (a 128-byte swizzle repeats
+// every 8 rows).  A (rows x d) bf16 tile is d / 64 column blocks ("atoms")
+// of rows x 128 bytes, one TMA box each, as wgmma's 128-byte-swizzled
+// layouts want them.
+template <int D>
+struct Layout {
+  static constexpr int kQBytes = kQRows * D * 2;
+  static constexpr int kTileBytes = kBlockN * D * 2;
+  static constexpr int kK = kQBytes;
+  static constexpr int kV = kK + kStages * kTileBytes;
+  static constexpr int kBar = kV + kStages * kTileBytes;   // q, full[kStages]
+  static constexpr int kBytes = kBar + 8 * (1 + kStages) + 1024;  // + align
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One TMA box of a 4-D (d, heads, L, B) tensor map into shared memory.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d0, int head,
+                                         int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(head),
+      "r"(row), "r"(batch)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (16-byte units), layout type 1 (SWIZZLE_128B).
+// K-major operands (Q, K): rows 128 B apart, 8-row groups 1024 B apart
+// (SBO); LBO unused.  MN-major V: SBO steps 8 keys (1024 B), LBO the next
+// 64 columns of d (the next atom).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// Keep the compiler from moving accumulator accesses across an async wgmma.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WG_D8(i)                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_D32 WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+#define WG_D64 WG_D32, WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56)
+#define WG_R32                                                            \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31"
+#define WG_R64                                                              \
+  WG_R32                                                                    \
+  ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
+  "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "   \
+  "%60, %61, %62, %63"
+
+// d (+)= A B for a 64 x 64 tile, A and B from shared memory, both K-major.
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                       int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_R32
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_D32
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (+)= A B, A from registers (four bf16x2 per thread, the layout of a
+// 64 x 16 slice of an m64 accumulator), B from shared memory, MN-major
+// (transpose bit set).
+template <int N>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                       uint64_t b, int accumulate);
+template <>
+__device__ __forceinline__ void mma_rs<64>(float (&d)[32], const uint32_t (&a)[4],
+                                           uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_R32
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void mma_rs<128>(float (&d)[64], const uint32_t (&a)[4],
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_R64
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_D64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// q, o (B, L, H, D); k, v (B, L, KVH, D) bf16, all contiguous; the tensor
+// maps describe q, k and v.  Block (h, q tile, b), kWarpgroups warpgroups.
+template <int D>
+__global__ void __launch_bounds__(kThreadsWg)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap, int L, int H,
+                   int KVH, int causal, int window, float scale_log2,
+                   __nv_bfloat16* __restrict__ o) {
+  using Lay = Layout<D>;
+  constexpr int kAtoms = D / kAtom;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base, sk = base + Lay::kK, sv = base + Lay::kV;
+  const uint32_t bar_q = base + Lay::kBar;
+  auto bar_full = [&](int st) { return bar_q + 8u * (1 + st); };
+
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kQRows;   // longest first
+  const int kvh = h / (H / KVH);
+  const int tid = threadIdx.x, wgi = tid / 128;
+  const int lane = tid % 32, quad = lane / 4, t4 = lane % 4;
+  // this thread's two rows of the block's q tile
+  const int row_a = q0 + wgi * kRows + ((tid % 128) / 32) * 16 + quad;
+
+  // kv tiles that some row of the block's q tile can see
+  const int q_last = min(q0 + kQRows, L) - 1;
+  const int k_end = causal ? q_last + 1 : L;
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) / kBlockN * kBlockN : 0;
+  const int n_tiles = (k_end - k_begin + kBlockN - 1) / kBlockN;
+
+  auto load_kv = [&](int st, int k0) {
+    mbar_expect_tx(bar_full(st), 2 * Lay::kTileBytes);
+#pragma unroll
+    for (int a = 0; a < kAtoms; ++a) {
+      const uint32_t off = st * Lay::kTileBytes + a * kBlockN * kAtomBytes;
+      tma_load(sk + off, &kmap, bar_full(st), a * kAtom, kvh, k0, b);
+      tma_load(sv + off, &vmap, bar_full(st), a * kAtom, kvh, k0, b);
+    }
+  };
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < kStages; ++st) mbar_init(bar_full(st), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, Lay::kQBytes);
+#pragma unroll
+    for (int a = 0; a < kAtoms; ++a)
+      tma_load(sq + a * kQRows * kAtomBytes, &qmap, bar_q, a * kAtom, h, q0, b);
+    for (int st = 0; st < kStages && st < n_tiles; ++st)
+      load_kv(st, k_begin + st * kBlockN);
+  }
+
+  float acc[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  // rows of this warpgroup, for the test of a fully visible tile
+  const int wg_first = q0 + wgi * kRows, wg_last = wg_first + kRows - 1;
+  const uint32_t q_wg = sq + wgi * kRows * kAtomBytes;
+
+  mbar_wait(bar_q, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % kStages;
+    const int k0 = k_begin + t * kBlockN;
+    mbar_wait(bar_full(st), (t / kStages) & 1);
+    const uint32_t k_st = sk + st * Lay::kTileBytes;
+    const uint32_t v_st = sv + st * Lay::kTileBytes;
+
+    // S = Q K^T over d in steps of 16 (32 bytes inside a 128-byte atom)
+    float s[kBlockN / 2];
+#pragma unroll
+    for (int e = 0; e < kBlockN / 2; ++e) s[e] = 0.f;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      mma_ss(s, desc(q_wg + (kk / 4) * kQRows * kAtomBytes + off, 16, 1024),
+             desc(k_st + (kk / 4) * kBlockN * kAtomBytes + off, 16, 1024),
+             kk > 0);
+    }
+    wg_commit();
+    wg_wait0();
+    fence_regs(s);
+
+    // scale (log2 domain) and mask; only tiles a row cannot fully see
+    const bool full = k0 + kBlockN <= L &&
+                      (!causal || k0 + kBlockN - 1 <= wg_first) &&
+                      (window <= 0 || k0 > wg_last - window);
+#pragma unroll
+    for (int e = 0; e < kBlockN / 2; ++e) {
+      float x = s[e] * scale_log2;
+      if (!full) {
+        const int i = row_a + 8 * ((e % 4) / 2);
+        const int j = k0 + 8 * (e / 4) + 2 * t4 + (e % 2);
+        bool vis = j < L;
+        if (causal) vis = vis && j <= i;
+        if (window > 0) vis = vis && j > i - window;
+        if (!vis) x = kNegInf;
+      }
+      s[e] = x;
+    }
+
+    // online softmax over the quad of each row, fixed xor order
+    float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int e = 0; e < kBlockN / 2; ++e)
+      mx[(e % 4) / 2] = fmaxf(mx[(e % 4) / 2], s[e]);
+    float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = exp2f(m_run[r] - mx[r]);
+      m_run[r] = mx[r];
+    }
+#pragma unroll
+    for (int e = 0; e < kBlockN / 2; ++e) {
+      const float p = exp2f(s[e] - mx[(e % 4) / 2]);
+      s[e] = p;
+      sum[(e % 4) / 2] += p;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      l_run[r] = l_run[r] * corr[r] + sum[r];
+    }
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) acc[e] *= corr[(e % 4) / 2];
+
+    // P as hi/lo bf16 A fragments: k-step kk takes s[8 kk .. 8 kk + 7]
+    uint32_t p_hi[kBlockN / 16][4], p_lo[kBlockN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBlockN / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float x0 = s[8 * kk + 2 * r], x1 = s[8 * kk + 2 * r + 1];
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+        const float2 hf = __bfloat1622float2(hi);
+        p_hi[kk][r] = *reinterpret_cast<const uint32_t*>(&hi);
+        p_lo[kk][r] = pack_bf16(x0 - hf.x, x1 - hf.y);
+      }
+
+    // O += P_hi V + P_lo V over the tile's keys in steps of 16 (2 KB of V)
+    fence_regs(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBlockN / 16; ++kk) {
+      const uint64_t bv =
+          desc(v_st + kk * 16 * kAtomBytes, kBlockN * kAtomBytes, 1024);
+      mma_rs<D>(acc, p_hi[kk], bv, 1);
+      mma_rs<D>(acc, p_lo[kk], bv, 1);
+    }
+    wg_commit();
+    wg_wait0();
+    fence_regs(acc);
+
+    __syncthreads();   // every warpgroup is done with stage st
+    if (tid == 0 && t + kStages < n_tiles) load_kv(st, k0 + kStages * kBlockN);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = row_a + 8 * r;
+    if (i >= L) continue;
+    const float l = fmaxf(l_run[r], 1e-30f);
+    __nv_bfloat16* dst = o + (((int64_t)b * L + i) * H + h) * D + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * r] / l, acc[4 * j + 2 * r + 1] / l);
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime, so the link needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D (d, heads, L, B) map of a contiguous (B, L, heads, d) bf16 tensor,
+// read in boxes of 64 columns of d x rows positions of one head and batch
+// row; positions past L read as zeros.
+bool tensor_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int D,
+                int heads, int L, int B, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)L,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)L * heads * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kAtom, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, int B, int L,
+                   int H, int KVH, int causal, int window, void* o,
+                   cudaStream_t s) {
+  using Lay = Layout<D>;
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  CUtensorMap qm, km, vm;
+  if (!tensor_map(enc, &qm, q, D, H, L, B, kQRows) ||
+      !tensor_map(enc, &km, k, D, KVH, L, B, kBlockN) ||
+      !tensor_map(enc, &vm, v, D, KVH, L, B, kBlockN))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_wgmma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::kBytes);
+  if (err != cudaSuccess) return err;
+  const float scale_log2 = (float)(kLog2e / sqrt((double)D));
+  dim3 grid(H, (L + kQRows - 1) / kQRows, B);
+  flash_wgmma_kernel<D><<<grid, kThreadsWg, Lay::kBytes, s>>>(
+      qm, km, vm, L, H, KVH, causal, window, scale_log2,
+      static_cast<__nv_bfloat16*>(o));
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
 }  // namespace
 
 extern "C" {
@@ -247,6 +686,29 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
           : dispatch<__nv_bfloat16>(q, k, v, B, L, H, KVH, D, causal, window,
                                     o, s);
   return (int)err;
+}
+
+// bf16 q, k, v and o with D 64 or 128, on the tensor cores.
+int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
+                                 int B, int L, int H, int KVH, int D,
+                                 int causal, int window, void* o,
+                                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (KVH < 1 || H % KVH) return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 64: return (int)wg::launch<64>(q, k, v, B, L, H, KVH, causal, window, o, s);
+    case 128: return (int)wg::launch<128>(q, k, v, B, L, H, KVH, causal, window, o, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory of one flash_wgmma_kernel block at head dim D.
+int flash_attention_wgmma_smem_bytes(int D) {
+  switch (D) {
+    case 64: return wg::Layout<64>::kBytes;
+    case 128: return wg::Layout<128>::kBytes;
+    default: return -1;
+  }
 }
 
 }  // extern "C"

@@ -6,7 +6,8 @@
 //   matvec_gain_kernel   <- gain_matvec (_matvec_kernel) + practical_gain.
 //       proj_t = phi_t . g and eq. 15, -eps ||g||^2 + eps^2 sum_t proj_t^2 / T,
 //       for every agent of every run in one launch (the leading batch axis
-//       replaces the per-agent vmap of gain_dispatch.mode_gains).
+//       replaces the per-agent vmap of gain_dispatch.mode_gains).  Its phi
+//       pass has a design of its own (below).
 //   family_stats_kernel  <- gain_family_stats (_family_kernel).
 //       Per agent [||g||^2, sum_t proj_t^2, g.gradJ, g^T Phi g], or the
 //       2-column prefix, which never reads Phi or grad J.
@@ -42,6 +43,29 @@
 // stream 8 MB per block through 192 blocks on 132 SMs (a 1.45-wave tail,
 // one block per SM), while agent groups fill the card; the statistics
 // round trip through device memory is 4 floats per agent.
+//
+// matvec_gain_kernel's phi pass.  The generic pass (projection_sq, kept by
+// family_stats_kernel and the ragged shapes) makes 4-byte loads, reloads
+// g[j] for every row and has one row per warp in flight, and sq_norm reads
+// g a second time; at the main path's shape it ran at 76 % of the HBM
+// bound.  The vector pass (projection_sq_vec) takes n % (16 / sizeof(T))
+// == 0 and 16-byte-aligned phi and g; the wrapper's Python predicate
+// (kernels/gain.py::matvec_vector_pass) picks the pass and the launcher
+// refuses the vector pass where its loads would not be whole and aligned.
+// A lane loads its slice of g once into registers (kHeldVecs = 2 16-byte
+// vectors: 256 columns float32, 512 bf16 a warp; at n = 256 float32 that is
+// 8 floats a lane), takes ||g||^2 from those same registers, and then
+// streams kRowsInFlight = 8 consecutive rows per warp with every 16-byte
+// load of the group issued before the group's sums (64 KB of phi in flight
+// per 256-thread block at n = 256), then one fixed xor butterfly per row;
+// lanes 0-7 store the group's eight projections together (32 contiguous
+// bytes).  phi's loads skip L1 and ask L2 for 256-byte prefetches: it is
+// read once (g, reused by every row, stays cached).  Timed on the H100 at
+// the main path's shape, this beat 4 rows in flight, cached phi loads, an
+// L2 prefetch that still fills L1, a persistent grid, 128 or 512 threads,
+// and per-warp row tiles with one store each.  Columns past
+// the held ones loop in chunks of 32 16-byte vectors whose g is read again
+// with each row, from L1.  One instantiation per dtype.
 //
 // Determinism: no atomics.  Each lane sums its strided elements in index
 // order with fmaf, warps reduce by a fixed xor butterfly (every lane ends
@@ -133,10 +157,128 @@ __device__ float sq_norm(const T* __restrict__ g, int n, float* red) {
   return block_sum(s, red);
 }
 
-// ---------------------------------------------------------------------------
-// gain_matvec / practical_gain: one block per agent.
-// ---------------------------------------------------------------------------
+// 16 bytes at p (16-byte aligned).  g goes through L1 (every row reuses
+// it); phi is read once, so it streams past L1 with a 256-byte L2 prefetch.
+__device__ __forceinline__ uint4 load_cached(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+__device__ __forceinline__ uint4 load_stream(const void* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0,%1,%2,%3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// 16 bytes of T widened to float.
 template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  static constexpr int kN = 4;
+  __device__ static void widen(uint4 v, float (&x)[4]) {
+    x[0] = __uint_as_float(v.x); x[1] = __uint_as_float(v.y);
+    x[2] = __uint_as_float(v.z); x[3] = __uint_as_float(v.w);
+  }
+};
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  __device__ static void widen(uint4 v, float (&x)[8]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
+  }
+};
+
+constexpr int kRowsInFlight = 8;   // consecutive rows a warp streams at once
+constexpr int kHeldVecs = 2;       // 16-byte vectors of g a lane holds
+
+// The vector pass of one agent: returns {sum_t proj_t^2 (rows in order
+// per warp, then warp order), ||g||^2} and writes proj when asked.  Lane
+// l holds g's columns (l + 32 c) V .. + V - 1, c < kHeldVecs, in
+// registers; columns past those, in chunks of 32 V, are read again with
+// each row (from L1).
+template <typename T>
+__device__ float2 projection_sq_vec(const T* __restrict__ phi,
+                                    const T* __restrict__ g, int rows, int n,
+                                    float* __restrict__ proj, float* red) {
+  constexpr int V = Vec16<T>::kN;
+  constexpr int kHeld = 32 * V * kHeldVecs;   // columns of g in registers
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float gr[kHeldVecs][V];
+  float g2 = 0.f;
+#pragma unroll
+  for (int c = 0; c < kHeldVecs; ++c) {
+    const int col = (lane + 32 * c) * V;
+    if (col < n) {
+      Vec16<T>::widen(load_cached(g + col), gr[c]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < V; ++i) gr[c][i] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < V; ++i) g2 = fmaf(gr[c][i], gr[c][i], g2);
+  }
+  for (int col = kHeld + lane * V; col < n; col += 32 * V) {
+    float x[V];
+    Vec16<T>::widen(load_cached(g + col), x);
+#pragma unroll
+    for (int i = 0; i < V; ++i) g2 = fmaf(x[i], x[i], g2);
+  }
+
+  float sq = 0.f;
+  for (int t0 = warp * kRowsInFlight; t0 < rows;
+       t0 += kWarps * kRowsInFlight) {
+    float acc[kRowsInFlight];
+#pragma unroll
+    for (int r = 0; r < kRowsInFlight; ++r) {
+      // a row past the end repeats the last row; its sum is dropped below
+      const T* row = phi + (size_t)min(t0 + r, rows - 1) * n;
+      acc[r] = 0.f;
+#pragma unroll
+      for (int c = 0; c < kHeldVecs; ++c) {
+        const int col = (lane + 32 * c) * V;
+        if (col < n) {
+          float x[V];
+          Vec16<T>::widen(load_stream(row + col), x);
+#pragma unroll
+          for (int i = 0; i < V; ++i) acc[r] = fmaf(x[i], gr[c][i], acc[r]);
+        }
+      }
+      for (int col = kHeld + lane * V; col < n; col += 32 * V) {
+        float x[V], y[V];
+        Vec16<T>::widen(load_stream(row + col), x);
+        Vec16<T>::widen(load_cached(g + col), y);
+#pragma unroll
+        for (int i = 0; i < V; ++i) acc[r] = fmaf(x[i], y[i], acc[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRowsInFlight; ++r) acc[r] = warp_sum(acc[r]);
+    // lanes 0..7 store the group's consecutive rows (32 contiguous bytes)
+    float mine = acc[0];
+#pragma unroll
+    for (int r = 1; r < kRowsInFlight; ++r)
+      if (lane == r) mine = acc[r];
+    if (proj != nullptr && lane < kRowsInFlight && t0 + lane < rows)
+      proj[t0 + lane] = mine;
+#pragma unroll
+    for (int r = 0; r < kRowsInFlight; ++r)
+      if (t0 + r < rows) sq = fmaf(acc[r], acc[r], sq);
+  }
+  return make_float2(block_sum_of_warps(sq, red), warp_sum(g2));
+}
+
+// ---------------------------------------------------------------------------
+// gain_matvec / practical_gain: one block per agent, through the generic
+// pass (ragged n) or the vector pass.
+// ---------------------------------------------------------------------------
+template <typename T, bool kVector>
 __global__ void __launch_bounds__(kThreads)
 matvec_gain_kernel(const T* __restrict__ phi, const T* __restrict__ g,
                    int rows, int n, float neg_eps, float eps2,
@@ -144,13 +286,44 @@ matvec_gain_kernel(const T* __restrict__ phi, const T* __restrict__ g,
   __shared__ float red[kWarps + 1];
   const size_t b = blockIdx.x;
   const T* gb = g + b * n;
-  const float sp = projection_sq(phi + b * rows * n, gb, rows, n,
-                                 proj == nullptr ? nullptr : proj + b * rows,
-                                 red);
-  const float gg = sq_norm(gb, n, red);
+  const T* phib = phi + b * rows * n;
+  float* pb = proj == nullptr ? nullptr : proj + b * rows;
+  float sp, gg;
+  if constexpr (!kVector) {
+    sp = projection_sq(phib, gb, rows, n, pb, red);
+    gg = sq_norm(gb, n, red);
+  } else {
+    const float2 r = projection_sq_vec<T>(phib, gb, rows, n, pb, red);
+    sp = r.x;
+    gg = r.y;
+  }
   if (gain != nullptr && threadIdx.x == 0)
     gain[b] = __fadd_rn(__fmul_rn(neg_eps, gg),
                         __fdiv_rn(__fmul_rn(eps2, sp), (float)rows));
+}
+
+// The vector pass needs whole 16-byte vectors in every row (n % V == 0)
+// and 16-byte-aligned phi and g; it is refused otherwise.
+template <typename T>
+cudaError_t launch_matvec(const void* phi, const void* g, int agents,
+                          int rows, int n, int vector, float neg_eps,
+                          float eps2, void* proj, void* gain,
+                          cudaStream_t s) {
+  const T* ph = static_cast<const T*>(phi);
+  const T* gg = static_cast<const T*>(g);
+  float* pj = static_cast<float*>(proj);
+  float* gn = static_cast<float*>(gain);
+  if (!vector) {
+    matvec_gain_kernel<T, false><<<agents, kThreads, 0, s>>>(
+        ph, gg, rows, n, neg_eps, eps2, pj, gn);
+  } else {
+    if (n % Vec16<T>::kN != 0 || reinterpret_cast<uintptr_t>(phi) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(g) % 16 != 0)
+      return cudaErrorInvalidValue;
+    matvec_gain_kernel<T, true><<<agents, kThreads, 0, s>>>(
+        ph, gg, rows, n, neg_eps, eps2, pj, gn);
+  }
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -319,21 +492,20 @@ void launch_family(const void* phi, const void* g, const float* grad_j,
 // returns cudaGetLastError() after its launches (0 on success).
 extern "C" {
 
+// vector: 1 for the vector pass, 0 for the generic pass
+// (kernels/gain.py::matvec_vector_pass decides).
 int gain_matvec_launch(const void* phi, const void* g, int dtype, int agents,
-                       int rows, int n, double eps, void* proj, void* gain,
-                       void* stream) {
+                       int rows, int n, double eps, int vector, void* proj,
+                       void* gain, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float neg_eps = (float)(-eps), eps2 = (float)(eps * eps);
-  if (dtype == 0)
-    matvec_gain_kernel<float><<<agents, kThreads, 0, s>>>(
-        static_cast<const float*>(phi), static_cast<const float*>(g), rows, n,
-        neg_eps, eps2, static_cast<float*>(proj), static_cast<float*>(gain));
-  else
-    matvec_gain_kernel<__nv_bfloat16><<<agents, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(phi),
-        static_cast<const __nv_bfloat16*>(g), rows, n, neg_eps, eps2,
-        static_cast<float*>(proj), static_cast<float*>(gain));
-  return (int)cudaGetLastError();
+  const cudaError_t err =
+      dtype == 0 ? launch_matvec<float>(phi, g, agents, rows, n, vector,
+                                        neg_eps, eps2, proj, gain, s)
+                 : launch_matvec<__nv_bfloat16>(phi, g, agents, rows, n,
+                                                vector, neg_eps, eps2,
+                                                proj, gain, s);
+  return (int)err;
 }
 
 int gain_family_stats_launch(const void* phi, const void* g, int dtype,

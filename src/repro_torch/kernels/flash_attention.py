@@ -1,4 +1,4 @@
-"""Wrapper of the CUDA flash-attention kernel (``csrc/flash_attention.cu``),
+"""Wrapper of the CUDA flash-attention kernels (``csrc/flash_attention.cu``),
 ported from the Pallas kernel of ``repro/kernels/flash_attention.py``.
 
 Blockwise online-softmax attention with GQA (query head h reads kv head
@@ -6,17 +6,28 @@ h // (H / KVH), never expanded), causal and sliding-window masks from the
 absolute positions arange(L), float32 running statistics and the output in
 q's dtype.  For CPU tensors ``flash_attention`` returns the plain version
 (``ref.flash_attention_ref``); for CUDA tensors it checks them, launches
-the kernel on the current stream and raises if the launch failed — it
-never falls back.  ``LAUNCHES`` counts launches.  The kernel is
-forward-only (a CUDA input that requires grad raises) and takes Lq == Lk,
-head dims 16, 32, 64 and 128, and float32 or bf16.
+one of two kernels on the current stream and raises if the launch failed —
+it never falls back.  The kernels are forward-only (a CUDA input that
+requires grad raises) and take Lq == Lk.
+
+Routing (``route``), by dtype and head dim:
+
+- bf16 with head dim 64 or 128 -> ``flash_wgmma_kernel``: both products on
+  the tensor cores (wgmma), K/V tiles by TMA, P entering P V as a hi/lo
+  pair of bf16.  Counted in ``LAUNCHES["flash_attention_wgmma"]``.  Its
+  inputs must start on 16-byte boundaries (TMA).
+- everything else it takes (float32 at head dims 16, 32, 64, 128; bf16 at
+  16 and 32) -> ``flash_kernel``: float32 on CUDA cores, never TF32, the
+  checked float32 route.  Counted in ``LAUNCHES["flash_attention_simt"]``.
 
 The reference's ``block_q`` / ``block_k`` are TPU tile sizes; the CUDA
-kernel's tiles are fixed (64 x 64) and the results do not depend on them,
-so the port's signature leaves them out.
+kernels' tiles are fixed and the results do not depend on them, so the
+port's signature leaves them out.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -24,21 +35,37 @@ from repro_torch.kernels import build as _build
 from repro_torch.kernels import ref
 from repro_torch.kernels.common import check, forward_only, need, on_cuda, ptr, stream
 
-LAUNCHES = {"flash_attention": 0}
+
+class Route(NamedTuple):
+    kernel: str     # the CUDA kernel's name (as a profiler trace shows it)
+    counter: str    # its key in LAUNCHES
+
+
+WGMMA = Route("flash_wgmma_kernel", "flash_attention_wgmma")
+SIMT = Route("flash_kernel", "flash_attention_simt")
+LAUNCHES = {WGMMA.counter: 0, SIMT.counter: 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
+WGMMA_HEAD_DIMS = (64, 128)
 
 
 def reset_launches() -> None:
-    LAUNCHES["flash_attention"] = 0
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: (B, Lq, H, d); k/v: (B, Lk, KVH, d), KVH | H.  Returns (B, Lq, H, d)."""
-    if not on_cuda(q, k, v):
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+def route(dtype: torch.dtype, head_dim: int) -> Route:
+    """The kernel a CUDA call with this dtype and head dim launches."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return WGMMA
+    return SIMT
+
+
+def cuda_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Route:
+    """Check q, k and v against what the kernels take and return the route
+    a CUDA call takes; raise on anything else.  Reads only shapes, dtypes,
+    strides and addresses, so it runs on tensors of any device."""
     forward_only("flash_attention", q, k, v)
     if q.dim() != 4:
         raise ValueError(f"q must be (B, L, H, d), got {tuple(q.shape)}")
@@ -51,9 +78,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     need(q, "q", (B, L, H, D), tuple(_DTYPES))
     need(k, "k", (B, L, KVH, D), (q.dtype,))    # Lk == Lq
     need(v, "v", (B, L, KVH, D), (q.dtype,))
+    r = route(q.dtype, D)
+    if r is WGMMA and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: bf16 q, k and v must start on "
+                         "16-byte boundaries (TMA)")
+    return r
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: (B, Lq, H, d); k/v: (B, Lk, KVH, d), KVH | H.  Returns (B, Lq, H, d)."""
+    if not on_cuda(q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    r = cuda_route(q, k, v)
+    B, L, H, D = q.shape
+    KVH = k.shape[2]
     out = torch.empty_like(q)
-    if out.numel():
-        LAUNCHES["flash_attention"] += 1
+    if not out.numel():
+        return out
+    LAUNCHES[r.counter] += 1
+    if r is WGMMA:
+        check(_build.load().flash_attention_wgmma_launch(
+            ptr(q), ptr(k), ptr(v), B, L, H, KVH, D, int(causal), int(window),
+            ptr(out), stream(q)), "flash_attention (wgmma)")
+    else:
         check(_build.load().flash_attention_launch(
             ptr(q), ptr(k), ptr(v), _DTYPES[q.dtype], B, L, H, KVH, D,
             int(causal), int(window), ptr(out), stream(q)), "flash_attention")

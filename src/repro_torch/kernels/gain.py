@@ -64,19 +64,34 @@ def _terms(grad_j, phi_matrix, batch, n):
 # ---------------------------------------------------------------------------
 
 
+def matvec_vector_pass(n: int, dtype: torch.dtype, *addresses: int) -> bool:
+    """Whether ``gain_matvec`` / ``practical_gain`` launch the kernel's
+    vector pass for rows of ``n`` elements of ``dtype`` at these data
+    addresses (else its generic pass): it needs whole 16-byte vectors in
+    every row (n a multiple of 4 float32 or 8 bf16) and 16-byte-aligned
+    phi and g."""
+    return (n > 0 and n % (16 // dtype.itemsize) == 0
+            and all(a % 16 == 0 for a in addresses))
+
+
 def _matvec_launch(phi, g, eps, want_proj):
     *batch, T, n = phi.shape
     _need(phi, "phi", phi.shape, tuple(_DTYPES))
     _need(g, "g", tuple(batch) + (n,), (phi.dtype,))
     agents = phi.numel() // max(T * n, 1)
-    proj = (torch.empty(tuple(batch) + (T,), dtype=torch.float32,
-                        device=phi.device) if want_proj else None)
-    gain = torch.empty(tuple(batch), dtype=torch.float32, device=phi.device)
+    # the kernel writes only the output asked for
+    proj = gain = None
+    if want_proj:
+        proj = torch.empty(tuple(batch) + (T,), dtype=torch.float32,
+                           device=phi.device)
+    else:
+        gain = torch.empty(tuple(batch), dtype=torch.float32, device=phi.device)
     if agents:
         LAUNCHES["gain_matvec"] += 1
+        vec = matvec_vector_pass(n, phi.dtype, phi.data_ptr(), g.data_ptr())
         _check(_build.load().gain_matvec_launch(
             _ptr(phi), _ptr(g), _DTYPES[phi.dtype], agents, T, n, float(eps),
-            _ptr(proj), _ptr(gain), _stream(phi)), "gain_matvec")
+            int(vec), _ptr(proj), _ptr(gain), _stream(phi)), "gain_matvec")
     return proj, gain
 
 

@@ -61,16 +61,16 @@ def problem():
     tenv = tgarnet.GarnetMDP(num_states=S, seed=2)
     jparams = jgarnet.garnet_fleet_sets([jenv], w0, M, num_junk=1)
     jparams = jax.tree.map(lambda x: x[0], jparams)
-    tparams = convert.to_torch(jparams)
+    tparams = convert.to_torch(jparams, device="cpu")
     jterms = ja1.ProblemTerms.from_problem(jenv.vfa_problem(w0))
     thresholds = np.stack([np.asarray(JTrig(lam, 0.95, N).schedule())
                            for lam in (1e-3, 1e-2, 1e-3, 1e-2, 1e-3, 1e-2)])
     jkeys = jax.random.split(jax.random.key(5), 6)
     return dict(w0=w0, jenv=jenv, tenv=tenv, jparams=jparams,
                 tparams=tparams, jterms=jterms,
-                tterms=convert.to_torch(jterms), thresholds=thresholds,
+                tterms=convert.to_torch(jterms, device="cpu"), thresholds=thresholds,
                 jkeys=jkeys,
-                tkeys=convert.key_to_torch(jax.random.key_data(jkeys)),
+                tkeys=convert.key_to_torch(jax.random.key_data(jkeys), device="cpu"),
                 modes=np.arange(6))
 
 

@@ -30,7 +30,7 @@ def _eq(got, want):
 
 def _keys(R, m, seed=7):
     jk = jax.random.split(jax.random.key(seed), R * m).reshape(R, m)
-    return jk, convert.key_to_torch(jax.random.key_data(jk))
+    return jk, convert.key_to_torch(jax.random.key_data(jk), device="cpu")
 
 
 @pytest.mark.parametrize("kw", [dict(num_states=12), dict(

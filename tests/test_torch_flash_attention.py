@@ -6,10 +6,22 @@ tests/test_kernels.py runs it (interpret mode) and against
 ``repro.kernels.ref.flash_attention_ref``, over the five cases of
 tests/test_kernels.py:175-181 in float32 and bf16 at that test's
 tolerances (3e-4 / 3e-2, rtol = atol).  Both sides get the same numpy
-inputs.  The CUDA kernel runs only on the card (chip_smoke.py); here the
+inputs.  The CUDA kernels run only on the card (chip_smoke.py); here the
 wrapper must refuse, not fall back, on any non-CPU tensor.
+
+The tensor-core route (bf16, head dims 64 and 128) is held on the CPU
+through ``_emulate_wgmma``, a plain-torch emulation of its arithmetic: bf16
+q and k, float32 scores scaled after the product, the online softmax over
+64-key tiles in the exp2 domain, P split into a hi/lo pair of bf16 and
+float32 accumulation.  Its float32 output (before the kernel's rounding to
+bf16) must agree with the reference on the same bf16-rounded inputs at the
+float32 tolerance; a single bf16 P must not.  The emulation also shows
+that chip_smoke.py's bf16 ulp check of the kernel can fail: rounded to
+bf16, the hi/lo split passes it and a single bf16 P does not.
 """
 
+import importlib.util
+import pathlib
 import zlib
 
 import numpy as np
@@ -83,7 +95,8 @@ def test_cpu_tensors_never_count_launches(rng):
     tflash.reset_launches()
     _, q = _pair(rng, (1, 8, 2, 16), "f32")
     tflash.flash_attention(q, q, q)
-    assert tflash.LAUNCHES == {"flash_attention": 0}
+    assert tflash.LAUNCHES == {"flash_attention_wgmma": 0,
+                               "flash_attention_simt": 0}
 
 
 def test_non_cpu_tensors_raise_instead_of_falling_back():
@@ -92,6 +105,165 @@ def test_non_cpu_tensors_raise_instead_of_falling_back():
         tflash.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="span devices"):
         tflash.flash_attention(q, torch.zeros((1, 8, 2, 16)), q)
+
+
+WGMMA_CASES = [c for c in CASES if c["D"] in (64, 128)]
+
+
+def _emulate_wgmma(q, k, v, *, causal, window, split=True, block_k=64):
+    """float32 output of flash_wgmma_kernel's arithmetic before its final
+    rounding to bf16; q, k, v hold bf16 values (as any float dtype)."""
+    B, L, H, D = q.shape
+    rep = H // k.shape[2]
+    k = k.repeat_interleave(rep, dim=2).bfloat16().float()
+    v = v.repeat_interleave(rep, dim=2).bfloat16().float()
+    q = q.bfloat16().float()
+    m = torch.full((B, H, L, 1), -1e30)
+    l = torch.zeros((B, H, L, 1))
+    acc = torch.zeros((B, H, L, D))
+    pos = torch.arange(L)
+    scale_log2 = D**-0.5 * 1.4426950408889634
+    for k0 in range(0, L, block_k):
+        kv = slice(k0, min(k0 + block_k, L))
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k[:, kv]) * scale_log2
+        j = pos[kv][None, :]
+        vis = torch.ones((L, j.shape[1]), dtype=torch.bool)
+        if causal:
+            vis &= j <= pos[:, None]
+        if window > 0:
+            vis &= j > pos[:, None] - window
+        s = torch.where(vis, s, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        hi = p.bfloat16().float()
+        parts = (hi, (p - hi).bfloat16().float()) if split else (hi,)
+        acc = acc * corr
+        for part in parts:
+            acc = acc + torch.einsum("bhqk,bkhd->bhqd", part, v[:, kv])
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).permute(0, 2, 1, 3)
+
+
+def _bf16_case(rng, c):
+    """q, k, v with bf16 values, as float32 (jax, torch) pairs."""
+    return [_pair(rng, (c["B"], c["Lq"], h, c["D"]), "bf16")
+            for h in (c["H"], c["KVH"], c["KVH"])]
+
+
+def _jax_f32(pairs):
+    return [j.astype(jnp.float32) for j, _ in pairs]
+
+
+@pytest.mark.parametrize("case", WGMMA_CASES, ids=lambda c: "-".join(
+    f"{k}{v}" for k, v in c.items()))
+def test_tensor_core_arithmetic_matches_reference(rng, case):
+    """The hi/lo P split keeps the route at the float32 tolerance of the
+    reference on the same bf16 inputs (3e-4, tests/test_kernels.py)."""
+    c = case
+    pairs = _bf16_case(rng, c)
+    kw = dict(causal=c["causal"], window=c["window"])
+    got = _emulate_wgmma(*(t.float() for _, t in pairs), **kw).numpy()
+    qj, kj, vj = _jax_f32(pairs)
+    pallas = jflash(qj, kj, vj, block_q=32, block_k=32, interpret=True, **kw)
+    for want in (pallas, jref.flash_attention_ref(qj, kj, vj, **kw)):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.parametrize("case", WGMMA_CASES, ids=lambda c: "-".join(
+    f"{k}{v}" for k, v in c.items()))
+def test_single_bf16_p_leaves_the_float32_tolerance(rng, case):
+    """With P rounded once to bf16 (FA2/FA3/SDPA's choice) the same inputs
+    land measurably farther from the reference: beyond 3e-4, and more than
+    ten times the hi/lo split's distance."""
+    c = case
+    pairs = _bf16_case(rng, c)
+    kw = dict(causal=c["causal"], window=c["window"])
+    inputs = [t.float() for _, t in pairs]
+    want = np.asarray(jref.flash_attention_ref(*_jax_f32(pairs), **kw))
+    err = {split: float(np.abs(_emulate_wgmma(*inputs, split=split, **kw)
+                               .numpy() - want).max())
+           for split in (True, False)}
+    assert err[False] > 3e-4
+    assert err[False] > 10 * err[True]
+
+
+def _chip_smoke():
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("case", WGMMA_CASES, ids=lambda c: "-".join(
+    f"{k}{v}" for k, v in c.items()))
+def test_bf16_ulp_check_sees_a_single_bf16_p(rng, case):
+    """chip_smoke.bf16_ulps, as the card's check applies it to the kernel's
+    bf16 output: the hi/lo split's rounded output stays within
+    FLASH_ULP_LIMIT of the float32 reference, a single bf16 P's does not,
+    while both stay inside FLASH_TOL's |want| + 1 scale."""
+    smoke = _chip_smoke()
+    c = case
+    inputs = [t.float() for _, t in _bf16_case(rng, c)]
+    kw = dict(causal=c["causal"], window=c["window"])
+    want = tref.flash_attention_ref(*inputs, **kw)
+    ulps = {}
+    for split in (True, False):
+        got = _emulate_wgmma(*inputs, split=split, **kw).bfloat16()
+        ulps[split] = smoke.bf16_ulps(got, want)
+        assert smoke.rel_err(got, want)[0] <= smoke.FLASH_TOL["bfloat16"]
+    assert ulps[True] <= smoke.FLASH_ULP_LIMIT < ulps[False]
+
+
+@pytest.mark.parametrize("dtype,dim,route", [
+    (torch.bfloat16, 64, "WGMMA"), (torch.bfloat16, 128, "WGMMA"),
+    (torch.bfloat16, 16, "SIMT"), (torch.bfloat16, 32, "SIMT"),
+    (torch.float32, 16, "SIMT"), (torch.float32, 32, "SIMT"),
+    (torch.float32, 64, "SIMT"), (torch.float32, 128, "SIMT")])
+def test_routing_table(dtype, dim, route):
+    want = getattr(tflash, route)
+    assert tflash.route(dtype, dim) == want
+    _, q = _pair(np.random.default_rng(0), (1, 8, 4, dim), "f32")
+    q = q.to(dtype)
+    assert tflash.cuda_route(q, q[:, :, :2].contiguous(),
+                             q[:, :, :2].contiguous()) == want
+    assert tflash.WGMMA == ("flash_wgmma_kernel", "flash_attention_wgmma")
+    assert tflash.SIMT == ("flash_kernel", "flash_attention_simt")
+    assert set(tflash.LAUNCHES) == {tflash.WGMMA.counter, tflash.SIMT.counter}
+
+
+def test_cuda_route_refuses_what_the_kernels_do_not_take():
+    """The checks a CUDA call runs before it launches (shapes, dtypes,
+    layout and, for TMA, 16-byte-aligned bf16 inputs)."""
+    q = torch.zeros((1, 8, 4, 64), dtype=torch.bfloat16)
+    kv = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        tflash.cuda_route(*(torch.zeros((1, 8, 2, 48)),) * 3)
+    with pytest.raises(ValueError, match="must divide"):
+        tflash.cuda_route(q, torch.zeros((1, 8, 3, 64), dtype=torch.bfloat16),
+                          torch.zeros((1, 8, 3, 64), dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="shape"):
+        tflash.cuda_route(q, kv[:, :4].contiguous(), kv[:, :4].contiguous())
+    with pytest.raises(TypeError, match="dtype"):
+        tflash.cuda_route(q, kv.float(), kv.float())
+    with pytest.raises(TypeError, match="dtype"):
+        tflash.cuda_route(q.half(), kv.half(), kv.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        tflash.cuda_route(q, kv, torch.zeros((1, 2, 8, 64),
+                                             dtype=torch.bfloat16).transpose(1, 2))
+    flat = torch.zeros(q.numel() + 8, dtype=torch.bfloat16)
+    odd = flat[1:1 + q.numel()].view(q.shape)   # 2 bytes past an aligned start
+    assert flat.data_ptr() % 16 == 0
+    with pytest.raises(ValueError, match="16-byte"):
+        tflash.cuda_route(odd, kv, kv)
+    # float32 takes flash_kernel, which has no alignment rule
+    flat32 = torch.zeros(q.numel() + 1)
+    odd32 = flat32[1:].view(q.shape)           # 4 bytes past an aligned start
+    assert tflash.cuda_route(odd32, kv.float(), kv.float()) == tflash.SIMT
+    with pytest.raises(RuntimeError, match="forward-only"):
+        tflash.cuda_route(q.float().requires_grad_(), kv.float(), kv.float())
 
 
 @pytest.mark.cuda

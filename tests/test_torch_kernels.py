@@ -51,11 +51,21 @@ def _close(got, want, tol=TOL):
     np.testing.assert_allclose(got / scale, want / scale, rtol=0, atol=tol)
 
 
-@pytest.mark.parametrize("T,n", [(10, 6), (257, 130)])
+# (T, n) -> whether matvec_gain_kernel takes its vector pass (else the
+# generic scalar pass) for 16-byte-aligned float32 / bf16 rows
+MATVEC_PASSES = {(10, 6): (False, False), (257, 130): (False, False),
+                 (128, 256): (True, True), (64, 512): (True, True)}
+
+
+@pytest.mark.parametrize("T,n", list(MATVEC_PASSES))
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_gain_matvec_and_practical_gain(rng, T, n, dt):
+    """Ragged widths (the kernel's scalar pass) and n = 256, 512 (its vector
+    pass), with the pass the wrapper would launch pinned."""
     phi_j, phi_t = _pair(rng, (T, n), dt)
     g_j, g_t = _pair(rng, (n,), dt)
+    assert tk.matvec_vector_pass(n, DTYPES[dt][1], phi_t.data_ptr(),
+                                 g_t.data_ptr()) == MATVEC_PASSES[(T, n)][dt == "bf16"]
     got = tk.gain_matvec(phi_t, g_t)
     assert got.dtype == torch.float32 and got.shape == (T,)
     _close(got, jref.gain_matvec_ref(phi_j, g_j))
@@ -63,6 +73,25 @@ def test_gain_matvec_and_practical_gain(rng, T, n, dt):
     gp = tk.practical_gain(phi_t, g_t, 0.5)
     _close(gp, jref.practical_gain_ref(phi_j, g_j, 0.5))
     _close(gp, jk.practical_gain(phi_j, g_j, eps=0.5))
+
+
+@pytest.mark.parametrize("n,dtype,addresses,vector", [
+    (256, torch.float32, (0, 0), True), (512, torch.float32, (0, 0), True),
+    (128, torch.float32, (0, 0), True), (4, torch.float32, (0, 0), True),
+    (260, torch.float32, (0, 0), True), (1024, torch.float32, (0, 0), True),
+    (1028, torch.float32, (0, 0), True), (130, torch.float32, (0, 0), False),
+    (25, torch.float32, (0, 0), False), (6, torch.float32, (0, 0), False),
+    (256, torch.bfloat16, (0, 0), True), (512, torch.bfloat16, (0, 0), True),
+    (2048, torch.bfloat16, (0, 0), True), (2056, torch.bfloat16, (0, 0), True),
+    (252, torch.bfloat16, (0, 0), False), (130, torch.bfloat16, (0, 0), False),
+    (256, torch.float32, (4, 0), False), (256, torch.float32, (0, 8), False),
+    (256, torch.bfloat16, (16, 32), True), (0, torch.float32, (0, 0), False),
+    (4096, torch.float32, (0, 0), True), (8, torch.bfloat16, (0, 48), True)])
+def test_matvec_vector_loads_predicate(n, dtype, addresses, vector):
+    """The wrapper's choice of pass: the vector pass wherever every row is
+    whole 16-byte vectors and phi and g are 16-byte aligned, at any n (past
+    the columns whose g a lane holds in registers it loops over chunks)."""
+    assert tk.matvec_vector_pass(n, dtype, *addresses) is vector
 
 
 def test_gain_matvec_takes_the_run_and_agent_axes(rng):

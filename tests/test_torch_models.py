@@ -28,6 +28,7 @@ from repro.models import build_model as jbuild_model  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch import convert  # noqa: E402
 from repro_torch.convert import model_from_jax  # noqa: E402
 from repro_torch.launch.serve import generate, serve  # noqa: E402
 from repro_torch.launch.steps import build_prefill_step, build_serve_step  # noqa: E402
@@ -52,7 +53,7 @@ def pair(request):
     jc, tc = _configs(request.param)
     jm = jbuild_model(jc)
     params = jm.init(jax.random.key(3))
-    model = model_from_jax(tc, jax.tree.map(np.asarray, params))
+    model = model_from_jax(tc, jax.tree.map(np.asarray, params), device="cpu")
     tokens = np.random.default_rng(5).integers(
         0, jc.vocab_size, (B, T)).astype(np.int32)
     return jc, jm, params, tc, model, tokens
@@ -186,8 +187,24 @@ def test_model_from_jax_keeps_dtypes_and_splits_layers():
     jc = dataclasses.replace(jget_config("yi-6b").reduced(), dtype="bfloat16")
     tc = dataclasses.replace(get_config("yi-6b").reduced(), dtype="bfloat16")
     params = jbuild_model(jc).init(jax.random.key(4))
-    sd = model_from_jax(tc, jax.tree.map(np.asarray, params)).state_dict()
+    sd = model_from_jax(tc, jax.tree.map(np.asarray, params),
+                        device="cpu").state_dict()
     assert sd["blocks.1.attn.wq"].dtype == torch.bfloat16
     assert sd["blocks.0.ln1"].dtype == torch.float32
     want = np.asarray(params["blocks"]["attn"]["wq"][1].astype(jnp.float32))
     np.testing.assert_array_equal(sd["blocks.1.attn.wq"].float().numpy(), want)
+
+
+def test_model_from_jax_defaults_to_cuda():
+    """Conversion is an entry point like ``build_model``: without a device it
+    asks for cuda, and raises on a machine without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device exists")
+    jc, tc = _configs("yi-6b")
+    params = jax.tree.map(np.asarray, jbuild_model(jc).init(jax.random.key(4)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model_from_jax(tc, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.to_torch({"w": np.zeros(2, np.float32)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.key_to_torch(np.zeros((1, 2), np.uint32))

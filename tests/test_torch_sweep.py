@@ -46,8 +46,8 @@ def inputs():
     jenvs, jfam = jgarnet.garnet_env_family(E, num_states=S)
     jfleet = jgarnet.garnet_fleet_sets(jenvs, w0, M, num_junk=JUNK)
     return dict(w0=w0, jfam=jfam, jfleet=jfleet,
-                tfam=convert.to_torch(jfam),
-                tfleet=convert.to_torch(jfleet))
+                tfam=convert.to_torch(jfam, device="cpu"),
+                tfleet=convert.to_torch(jfleet, device="cpu"))
 
 
 def _jax(inputs, **kw):
@@ -241,10 +241,10 @@ def test_convert_round_trip(inputs):
                                       np.asarray(v))
     key = jax.random.split(jax.random.key(9), 3)
     np.testing.assert_array_equal(
-        convert.key_to_torch(jax.random.key_data(key)).numpy(),
+        convert.key_to_torch(jax.random.key_data(key), device="cpu").numpy(),
         np.asarray(jax.random.key_data(key)).astype(np.int64))
     with pytest.raises(TypeError):
-        convert.to_torch(_Unknown(1))
+        convert.to_torch(_Unknown(1), device="cpu")
 
 
 class _Unknown(tuple):
