@@ -20,11 +20,11 @@ Phases, in order; any failed check exits non-zero and prints no ok line:
    - ``wide-192``: a full-width stress size of the same study, a 4-instance
      garnet family (S=256, A=4, b=3), 64-agent fleets with 16 junk agents,
      T=128, six modes x 4 lambdas x 1 rho x 2 seeds = 192 runs, N=100.
-4. Hold flash attention and the SSD chunk tile (the LM substrate's two
-   kernels) against their plain versions on the card: the reference's
-   own test cases at their tolerances (tests/test_kernels.py:175-213) and
-   the serving slice's shapes in float32 and bf16, plus a bitwise repeat
-   of every launch; time kernel, plain version and (flash)
+4. Hold flash attention and the SSD kernels (the LM substrate's) against
+   their plain versions on the card: the reference's own test cases at
+   their tolerances (tests/test_kernels.py:175-213) and the serving
+   slice's shapes in float32 and bf16, plus a bitwise repeat of every
+   launch; time kernel, plain version and (flash)
    ``scaled_dot_product_attention``.  Flash attention has two routes:
    bf16 at head dims 64 and 128 runs ``flash_wgmma_kernel`` (tensor
    cores; the main path's), everything else ``flash_kernel`` (float32 on
@@ -32,16 +32,26 @@ Phases, in order; any failed check exits non-zero and prints no ok line:
    and the float32 route is reported inside the flash record.  The
    tensor-core route is also held within one bf16 ulp of the reference
    computed in float32 (``bf16_ulps``), a check that a single bf16 P
-   fails (``tools/flash_single_p.py``).
+   fails (``tools/flash_single_p.py``).  The SSD tile has two routes too:
+   Q in {64, 128} with N, P in {64, 128} runs ``ssd_chunk_wgmma_kernel``
+   (tensor cores; the main path's), the reference's small case and other
+   shapes ``ssd_chunk_kernel`` (float32 CUDA cores, reported inside the
+   tile's record).  The tile is held at ``SSD_TILE_TOL`` at the slice, at
+   a smaller case with a partial head group and at the route's other
+   shapes; the inter-chunk pass (``ssd_state_pass_kernel``) alone at the
+   slice, and the whole ``ssd_chunked`` (tile + pass) against the plain
+   chunked SSD at the reference's cases, at L=1000 (a padded last chunk)
+   and at the slice.
 5. Serve the LM substrate at full width in two cells (``SERVE_CELLS``):
-   ``serve-mamba2-370m`` (the SSD kernel's path) and ``serve-yi-6b`` (the
-   flash kernel's path), random weights from a seeded generator.  Each
+   ``serve-mamba2-370m`` (the SSD kernels' path: per layer one tensor-core
+   tile and one state pass) and ``serve-yi-6b`` (the flash kernel's
+   path), random weights from a seeded generator.  Each
    first checks the float32 model at a 1024-token prompt (kernel vs plain
    prefill within 1e-4 of the max logit; decode vs prefill at t = 3 and
    1023 within 2e-3) and compares kernel and plain prefill in bf16, then
    runs the main path in bf16: ``build_prefill_step`` at 8192 tokens (cut
    from ``prefill_32k``'s 32768 x 32) three times and ``serve`` at batch
-   4, 64 + 32 tokens, with the kernel's launch count held to layers x
+   4, 64 + 32 tokens, with each kernel's launch count held to layers x
    prefill calls; last, one prefill under ``torch.profiler``.
 
 Every line before the last is one JSON object (device, build, kernels,
@@ -653,6 +663,21 @@ SSD_CHUNKED_TOL = 2e-4
 # L=8192 (64 chunks of Q=128, 32 heads of P=64, N=128).
 FLASH_SLICE = dict(B=1, L=8192, H=32, KVH=4, D=128, causal=True, window=0)
 SSD_SLICE = dict(B=4, nc=64, Q=128, H=32, P=64, N=128)
+# Tile cases beside the slice that the tensor-core route takes: a partial
+# head group (12 heads = 8 + 4), Q = 64 with P = 128 and N = 64, and
+# Q = N = P = 128 (bf16: w dtx after y, "two-phase"; float32 B/C: the
+# float32 route, whose pieces do not fit a block).
+SSD_TILE_SHAPES = (dict(B=1, nc=3, Q=128, H=12, P=64, N=128),
+                   dict(B=1, nc=2, Q=64, H=3, P=128, N=64),
+                   dict(B=1, nc=2, Q=128, H=3, P=128, N=128))
+# ssd_chunked at the slice's widths with a padded last chunk (1000 = 7 x
+# 128 + 104), and at the slice itself
+SSD_CHUNKED_WIDE = (dict(B=1, L=1000, H=32, P=64, N=128),
+                    dict(B=4, L=8192, H=32, P=64, N=128))
+# A bf16 output (the state pass's in the bf16 model, and ssd_chunked's on
+# bf16 inputs) against the float32 reference on the same inputs, in bf16
+# ulps (``bf16_ulps``): rounding a float32-accurate result costs half an ulp.
+SSD_ULP_LIMIT = 1.0
 
 
 def _randn(gen, shape):
@@ -697,12 +722,39 @@ def flash_work(c, itemsize):
 
 def ssd_work(c, bc_itemsize):
     """Bytes (dtx, cum, B, C read once; y, states written once) and
-    operations (C B^T once per chunk, y and the state per head)."""
+    operations in float32 (C B^T once per chunk, y and the state per
+    head, as ssd_chunk_kernel computes them on CUDA cores)."""
     B, nc, Q, H, P, N = (c[k] for k in ("B", "nc", "Q", "H", "P", "N"))
     chunks = B * nc
     moved = (4 * chunks * (2 * Q * H * P + Q * H + H * N * P)
              + bc_itemsize * 2 * chunks * Q * N)
     return moved, chunks * (2 * Q * Q * N + H * (2 * Q * Q * P + 2 * N * Q * P))
+
+
+def ssd_tensor_core_ops(c, bc_itemsize):
+    """Tensor-core operations of ssd_chunk_wgmma_kernel's bf16 pieces on
+    the pairs the decay lets through (j <= i): C B^T (six products of three
+    pieces for float32 B/C, one for bf16), y (six) and the state (six, or
+    three with bf16 B)."""
+    B, nc, Q, H, P, N = (c[k] for k in ("B", "nc", "Q", "H", "P", "N"))
+    pairs = Q * (Q + 1) // 2
+    bc_products = 6 if bc_itemsize == 4 else 1
+    state_products = 6 if bc_itemsize == 4 else 3
+    return B * nc * (bc_products * 2 * pairs * N
+                     + H * (6 * 2 * pairs * P + state_products * 2 * N * Q * P))
+
+
+def ssd_state_pass_work(c, c_itemsize, y_itemsize, length=None):
+    """Bytes (y_intra, the states, cum, C read once; y and the final state
+    written once) and float32 operations (C . h per chunk, the combine and
+    the state update) of the inter-chunk pass."""
+    B, nc, Q, H, P, N = (c[k] for k in ("B", "nc", "Q", "H", "P", "N"))
+    L = nc * Q if length is None else length
+    moved = (4 * (B * nc * Q * H * P + B * nc * H * N * P + B * nc * Q * H
+                  + B * H * N * P)
+             + c_itemsize * B * nc * Q * N + y_itemsize * B * L * H * P)
+    ops = 2 * B * nc * H * (Q * N * P + N * P + Q * P)
+    return moved, ops
 
 
 def empty_cache(dev):
@@ -726,7 +778,8 @@ def lm_kernel_phase(dev):
     from repro_torch.models import ssm
 
     gen = torch.Generator().manual_seed(2)
-    logs = {"flash_attention": KernelLog(), "ssd_chunk_tiles": KernelLog()}
+    logs = {"flash_attention": KernelLog(), "ssd_chunk_tiles": KernelLog(),
+            "ssd_state_pass": KernelLog()}
     timings = {}
 
     # the flash_attention record is the tensor-core route's (the main path's);
@@ -787,21 +840,82 @@ def lm_kernel_phase(dev):
     del q, k, v
     empty_cache(dev)
 
-    ls = logs["ssd_chunk_tiles"]
-    for c, dts in ((SSD_TILE_CASE, (torch.float32,)),
-                   (SSD_SLICE, (torch.float32, torch.bfloat16))):
-        for dt in dts:
-            dtx, cum, bm, cm = _ssd_inputs(gen, dev, c, dt)
-            y, st = SS.ssd_chunk_tiles(dtx, cum, bm, cm)
-            yr, sr = ref.ssd_chunk_ref(dtx, cum, bm, cm)
-            label = f"ssd tile {c} {dt}"
-            ls.close(label + " y", y, yr, SSD_TILE_TOL)
-            ls.close(label + " state", st, sr, SSD_TILE_TOL)
-            ls.repeat(label, lambda: SS.ssd_chunk_tiles(dtx, cum, bm, cm))
-            ls.cases += 1
-            del y, st, yr, sr
+    ssd_tile_phase(dev, gen, logs, timings)
+    ssd_pass_phase(dev, gen, logs, timings)
+    ssd_chunked_phase(dev, gen, logs)
+    return logs, timings
+
+
+def _ssd_launch(label, counter, fn):
+    """``fn()`` with the SSD launch counts reset; check that exactly the
+    launches ``counter`` names ({key: count}) ran."""
+    from repro_torch.kernels import ssd_scan as SS
+    SS.reset_launches()
+    out = fn()
+    want = {k: counter.get(k, 0) for k in SS.LAUNCHES}
+    check(dict(SS.LAUNCHES) == want,
+          f"{label}: launches {SS.LAUNCHES}, expected {want}")
+    return out
+
+
+def ssd_tile_phase(dev, gen, logs, timings):
+    """The tile on both routes: the reference's case (float32 route), the
+    slice and ``SSD_TILE_SHAPES`` in float32 and bf16 B/C at
+    ``SSD_TILE_TOL``, the tensor-core cases also with dtx formed on load
+    (``ssd_chunk_tiles_xdt``, the main path's entry), a bitwise repeat of
+    each, and the slice's times."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as SS
+
+    lt, simt = logs["ssd_chunk_tiles"], KernelLog()
+    cases = [(SSD_TILE_CASE, torch.float32)] + [
+        (c, dt) for c in (SSD_SLICE,) + SSD_TILE_SHAPES
+        for dt in (torch.float32, torch.bfloat16)]
+    for c, dt in cases:
+        dtx, cum, bm, cm = _ssd_inputs(gen, dev, c, dt)
+        r = SS.route(c["Q"], c["N"], c["P"], dt)
+        log = lt if r is SS.WGMMA else simt
+        label = f"ssd tile {c} {dt} ({r.kernel})"
+        y, st = _ssd_launch(label, {r.counter: 1},
+                            lambda: SS.ssd_chunk_tiles(dtx, cum, bm, cm))
+        yr, sr = ref.ssd_chunk_ref(dtx, cum, bm, cm)
+        log.close(label + " y", y, yr, SSD_TILE_TOL)
+        log.close(label + " state", st, sr, SSD_TILE_TOL)
+        log.repeat(label, lambda: SS.ssd_chunk_tiles(dtx, cum, bm, cm))
+        log.cases += 1
+        del y, st, yr, sr
+        if r is SS.WGMMA:      # and with dtx = dt xh formed on load
+            xh, dts = dtx.to(dt), dtx[..., 0].abs() * 0.1
+            dtx2 = dts[..., None] * xh.float()
+            label += " dtx on load"
+            run = lambda: SS.ssd_chunk_tiles_xdt(xh, dts, cum, bm, cm)
+            y, st = _ssd_launch(label, {r.counter: 1}, run)
+            yr, sr = ref.ssd_chunk_ref(dtx2, cum, bm, cm)
+            log.close(label + " y", y, yr, SSD_TILE_TOL)
+            log.close(label + " state", st, sr, SSD_TILE_TOL)
+            log.repeat(label, run)
+            log.cases += 1
+            del xh, dts, dtx2, y, st, yr, sr
+    check(all(SS.route(*(SSD_SLICE[k] for k in "QNP"), dt) is SS.WGMMA
+              for dt in (torch.float32, torch.bfloat16)),
+          "ssd tile: the slice does not take the tensor-core route")
     # timed at the slice shape with bf16 B and C, as the bf16 model gives them
-    b_ms, b_by = bound(*ssd_work(SSD_SLICE, 2))
+    dtx, cum, bm, cm = _ssd_inputs(gen, dev, SSD_SLICE, torch.bfloat16)
+    moved, f32_ops = ssd_work(SSD_SLICE, 2)
+    b_ms, b_by = bound(moved, ssd_tensor_core_ops(SSD_SLICE, 2),
+                       PEAK_BF16_FLOPS)
+    lt.extra.update(
+        kernel=SS.WGMMA.kernel,
+        bound_f32_cuda_cores_ms=bound(moved, f32_ops)[0],
+        tensor_core_ops=ssd_tensor_core_ops(SSD_SLICE, 2),
+        float32_route=dict(kernel=SS.SIMT.kernel, cases=simt.cases,
+                           max_abs_err=simt.max_abs, max_rel_err=simt.max_rel,
+                           repeat_bitwise=simt.repeat_bitwise))
+    xh, dts = dtx.bfloat16(), dtx[..., 0].abs() * 0.1
+    lt.extra["dtx_on_load_ms"] = time_ms(
+        lambda: SS.ssd_chunk_tiles_xdt(xh, dts, cum, bm, cm), reps=10)
+    del xh, dts
     timings["ssd_chunk_tiles"] = dict(
         ms=time_ms(lambda: SS.ssd_chunk_tiles(dtx, cum, bm, cm), reps=10),
         plain_ms=time_ms(lambda: ref.ssd_chunk_ref(dtx, cum, bm, cm), reps=5,
@@ -810,20 +924,112 @@ def lm_kernel_phase(dev):
     del dtx, cum, bm, cm
     empty_cache(dev)
 
-    B, H, P, N = 2, 4, 16, 8
-    for L, chunk in SSD_CHUNKED_CASES:
-        xh = _randn(gen, (B, L, H, P)).to(dev)
+
+def ssd_pass_phase(dev, gen, logs, timings):
+    """The inter-chunk pass alone at the slice: float32 C and output at
+    ``SSD_CHUNKED_TOL``, bf16 C and output within ``SSD_ULP_LIMIT`` bf16
+    ulps of the float32 reference, a padded length, a bitwise repeat, and
+    the bf16 case's times."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as SS
+
+    lp = logs["ssd_state_pass"]
+    c = SSD_SLICE
+    B, nc, Q, H, P, N = (c[k] for k in ("B", "nc", "Q", "H", "P", "N"))
+    y_intra = _randn(gen, (B, nc, Q, H, P)).to(dev)
+    states = _randn(gen, (B, nc, H, N, P)).to(dev)
+    cum = (-_randn(gen, (B, nc, Q, H)).abs().cumsum(dim=2) * 0.1).to(dev)
+    c32 = _randn(gen, (B, nc, Q, N)).to(dev)
+    ulps = lp.extra["bf16_ulp_check"] = dict(max_ulps=0.0, cases=0,
+                                             limit=SSD_ULP_LIMIT)
+    for cdt, ydt, length in ((torch.float32, torch.float32, nc * Q),
+                             (torch.float32, torch.float32, nc * Q - 24),
+                             (torch.bfloat16, torch.bfloat16, nc * Q)):
+        cm = c32.to(cdt)
+        label = f"ssd state pass C {cdt} y {ydt} length {length}"
+        run = lambda: SS.ssd_state_pass(y_intra, states, cum, cm, length, ydt)
+        y, h = _ssd_launch(label, {SS.STATE_PASS.counter: 1}, run)
+        yr, hr = ref.ssd_state_pass_ref(y_intra, states, cum, cm, length,
+                                        torch.float32)
+        check(tuple(y.shape) == (B, length, H, P) and y.dtype == ydt,
+              f"{label}: y {tuple(y.shape)} {y.dtype}")
+        lp.close(label + " state", h, hr, SSD_CHUNKED_TOL)
+        if ydt == torch.float32:
+            lp.close(label + " y", y, yr, SSD_CHUNKED_TOL)
+        else:
+            u = bf16_ulps(y, yr)
+            check(u <= SSD_ULP_LIMIT, f"{label}: {u:.3f} bf16 ulps from the "
+                  f"float32 reference, limit {SSD_ULP_LIMIT}")
+            ulps["max_ulps"] = max(ulps["max_ulps"], u)
+            ulps["cases"] += 1
+        lp.repeat(label, run)
+        lp.cases += 1
+        del y, h, yr, hr
+    b_ms, b_by = bound(*ssd_state_pass_work(c, 2, 2))
+    timings["ssd_state_pass"] = dict(
+        ms=time_ms(lambda: SS.ssd_state_pass(y_intra, states, cum, cm, nc * Q,
+                                             torch.bfloat16), reps=10),
+        plain_ms=time_ms(lambda: ref.ssd_state_pass_ref(
+            y_intra, states, cum, cm, nc * Q, torch.bfloat16), reps=5,
+            warmup=1),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    del y_intra, states, cum, c32, cm
+    empty_cache(dev)
+
+
+def ssd_chunked_phase(dev, gen, logs):
+    """The whole ``ssd_chunked`` (tile + state pass, two launches a call)
+    against the plain chunked SSD: the reference's cases at
+    ``SSD_CHUNKED_TOL``, and ``SSD_CHUNKED_WIDE`` in float32 (at that
+    tolerance) and bf16 (within ``SSD_ULP_LIMIT`` of the plain path in
+    float32 on the same bf16 values); the slice's times go into the tile's
+    record."""
+    import torch
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.models import ssm
+
+    lt, lp = logs["ssd_chunk_tiles"], logs["ssd_state_pass"]
+    cases = [(dict(B=2, L=L, H=4, P=16, N=8), chunk, torch.float32)
+             for L, chunk in SSD_CHUNKED_CASES]
+    cases += [(c, 128, dt) for c in SSD_CHUNKED_WIDE
+              for dt in (torch.float32, torch.bfloat16)]
+    ulps = 0.0
+    for c, chunk, dt in cases:
+        B, L, H, P, N = (c[k] for k in ("B", "L", "H", "P", "N"))
+        xh = _randn(gen, (B, L, H, P)).to(dt).to(dev)
         dt_ = (_randn(gen, (B, L, H)).abs() * 0.1).to(dev)
         a = -_randn(gen, (H,)).abs().to(dev)
-        bm, cm = _randn(gen, (B, L, N)).to(dev), _randn(gen, (B, L, N)).to(dev)
-        y1, h1 = SS.ssd_chunked(xh, dt_, a, bm, cm, chunk=chunk)
-        y2, h2 = ssm.ssd_chunked(xh, dt_, a, bm, cm, chunk=chunk)
-        label = f"ssd_chunked L={L} chunk={chunk}"
-        ls.close(label + " y", y1, y2, SSD_CHUNKED_TOL)
-        ls.close(label + " state", h1, h2, SSD_CHUNKED_TOL)
-        ls.repeat(label, lambda: SS.ssd_chunked(xh, dt_, a, bm, cm, chunk=chunk))
-        ls.cases += 1
-    return logs, timings
+        bm = _randn(gen, (B, L, N)).to(dt).to(dev)
+        cm = _randn(gen, (B, L, N)).to(dt).to(dev)
+        Q = min(chunk, L)
+        tile = SS.route(Q, N, P, dt)
+        label = f"ssd_chunked {c} chunk={chunk} {dt} ({tile.kernel})"
+        run = lambda: SS.ssd_chunked(xh, dt_, a, bm, cm, chunk=chunk)
+        y1, h1 = _ssd_launch(label, {tile.counter: 1,
+                                     SS.STATE_PASS.counter: 1}, run)
+        y2, h2 = ssm.ssd_chunked(xh.float(), dt_, a, bm.float(), cm.float(),
+                                 chunk=chunk)
+        check(y1.dtype == dt, f"{label}: y dtype {y1.dtype}")
+        lp.close(label + " state", h1, h2, SSD_CHUNKED_TOL)
+        if dt == torch.float32:
+            lp.close(label + " y", y1, y2, SSD_CHUNKED_TOL)
+        else:
+            u = bf16_ulps(y1, y2)
+            check(u <= SSD_ULP_LIMIT, f"{label}: {u:.3f} bf16 ulps from the "
+                  f"float32 plain path, limit {SSD_ULP_LIMIT}")
+            ulps = max(ulps, u)
+        lp.repeat(label, run)
+        lp.cases += 1
+        if c is SSD_CHUNKED_WIDE[-1] and dt == torch.bfloat16:
+            lt.extra["ssd_chunked_slice"] = dict(
+                dtype="bfloat16",
+                ms=time_ms(run, reps=10),
+                plain_ms=time_ms(lambda: ssm.ssd_chunked(
+                    xh, dt_, a, bm, cm, chunk=chunk), reps=3, warmup=1))
+        del xh, dt_, bm, cm, y1, h1, y2, h2
+        empty_cache(dev)
+    lt.extra["ssd_chunked_bf16_ulps"] = ulps
 
 
 # ---------------------------------------------------------------------------
@@ -836,8 +1042,8 @@ class ServeCell(NamedTuple):
 
     name: str
     arch: str
-    kernel: str            # the ported TPU kernel this cell's prefill runs
-    counter: str           # the launch counter of its CUDA kernel
+    kernels: tuple         # the kernel records this cell's prefill runs
+    counters: tuple        # their launch counters, in the same order
     prefill_batch: int     # cut from prefill_32k's 32 (configs/base.py)
     prefill_len: int       # cut from prefill_32k's 32768
     serve_batch: int
@@ -846,14 +1052,18 @@ class ServeCell(NamedTuple):
 
 
 SERVE_CELLS = (
-    ServeCell("serve-mamba2-370m", "mamba2-370m", "ssd_chunk_tiles",
-              "ssd_chunk_tiles", 4, 8192, 4, 64, 32),
+    # per layer one tensor-core tile and one state pass, never ssd_chunk_kernel
+    ServeCell("serve-mamba2-370m", "mamba2-370m",
+              ("ssd_chunk_tiles", "ssd_state_pass"),
+              ("ssd_chunk_tiles_wgmma", "ssd_state_pass"), 4, 8192, 4, 64, 32),
     # bf16 prefill at head dim 128: the tensor-core route, never flash_kernel
-    ServeCell("serve-yi-6b", "yi-6b", "flash_attention",
-              "flash_attention_wgmma", 1, 8192, 4, 64, 32),
+    ServeCell("serve-yi-6b", "yi-6b", ("flash_attention",),
+              ("flash_attention_wgmma",), 1, 8192, 4, 64, 32),
 )
+# the CUDA kernel a record's main path launches, as a profiler trace names it
 CUDA_KERNEL_NAMES = {"flash_attention": "flash_wgmma_kernel",
-                     "ssd_chunk_tiles": "ssd_chunk_kernel"}
+                     "ssd_chunk_tiles": "ssd_chunk_wgmma_kernel",
+                     "ssd_state_pass": "ssd_state_pass_kernel"}
 # cuBLAS's and CUTLASS's matrix-product kernels (nvjet: cuBLAS on Hopper)
 MATMUL_KERNEL_WORDS = ("gemm", "nvjet", "xmma", "cutlass", "matmul")
 PREFILL_CALLS = 3          # one warm-up, two timed
@@ -954,11 +1164,11 @@ def bf16_comparison(model, tokens, plain32):
     return out
 
 
-def prefill_breakdown(dev, prefill, tokens, kernel_name):
+def prefill_breakdown(dev, prefill, tokens, kernel_names):
     """Device time of one prefill by kernel class from a torch.profiler
-    trace (the ported kernel, matrix products, the rest) and the device's
-    idle share of the wall time; "not measured" if the trace has no device
-    time."""
+    trace (the ported kernels ``kernel_names``, together and each, matrix
+    products, the rest) and the device's idle share of the wall time; "not
+    measured" if the trace has no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     sync(dev)
@@ -968,6 +1178,7 @@ def prefill_breakdown(dev, prefill, tokens, kernel_name):
         sync(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups = {"kernel_ms": 0.0, "matmul_ms": 0.0, "other_ms": 0.0}
+    per_kernel = dict.fromkeys(kernel_names, 0.0)
     by_name = {}
     for evt in prof.key_averages():
         if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
@@ -976,8 +1187,10 @@ def prefill_breakdown(dev, prefill, tokens, kernel_name):
                      getattr(evt, "self_cuda_time_total", 0.0)) / 1e3
         name = evt.key.lower()
         by_name[evt.key[:80]] = by_name.get(evt.key[:80], 0.0) + ms
-        if kernel_name in name:
+        ported = [k for k in kernel_names if k in name]
+        if ported:
             groups["kernel_ms"] += ms
+            per_kernel[ported[0]] += ms
         elif any(w in name for w in MATMUL_KERNEL_WORDS):
             groups["matmul_ms"] += ms
         else:
@@ -985,8 +1198,9 @@ def prefill_breakdown(dev, prefill, tokens, kernel_name):
     busy = sum(groups.values())
     if busy == 0:
         return {"device_time": "not measured", "wall_ms": wall_ms}
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return dict(groups, device_busy_ms=busy, wall_ms=wall_ms,
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return dict(groups, kernels_ms=per_kernel, device_busy_ms=busy,
+                wall_ms=wall_ms,
                 device_idle_share=max(0.0, 1 - busy / wall_ms),
                 top_kernels_ms=dict(top))
 
@@ -1038,10 +1252,11 @@ def serve_phase(dev, cell):
                 gen_len=cell.gen_len, seed=0, device=dev)
     counts = all_launches()                        # ... and ends here
     expect = cfg.num_layers * PREFILL_CALLS
-    check(counts[cell.counter] == expect,
-          f"{cell.name}: {cell.counter} launched {counts[cell.counter]} times, "
-          f"expected {expect} (layers x prefill calls)")
-    check(sum(counts.values()) == counts[cell.counter],
+    for counter in cell.counters:
+        check(counts[counter] == expect,
+              f"{cell.name}: {counter} launched {counts[counter]} times, "
+              f"expected {expect} (layers x prefill calls)")
+    check(sum(counts.values()) == expect * len(cell.counters),
           f"{cell.name}: other kernels launched: {counts}")
     toks = res["tokens"]
     check(tuple(toks.shape) == (cell.serve_batch, cell.gen_len)
@@ -1059,7 +1274,8 @@ def serve_phase(dev, cell):
     empty_cache(dev)
     model = build_model(cfg, dev, seed=0)
     breakdown = prefill_breakdown(dev, build_prefill_step(model, cfg, dev),
-                                  big, CUDA_KERNEL_NAMES[cell.kernel])
+                                  big, tuple(CUDA_KERNEL_NAMES[k]
+                                             for k in cell.kernels))
     del model
     empty_cache(dev)
     prefill_ms = statistics.median(times[1:])     # the first is the warm-up
@@ -1080,7 +1296,7 @@ def serve_phase(dev, cell):
                            tolerance=dict(kernel_vs_plain=KERNEL_VS_PLAIN_TOL,
                                           decode_vs_prefill=DECODE_TOL)),
         bf16_check=bf16, prefill_breakdown=breakdown)
-    return line, {cell.kernel: counts[cell.counter]}
+    return line, {k: counts[c] for k, c in zip(cell.kernels, cell.counters)}
 
 
 REPLACES = {
@@ -1089,14 +1305,24 @@ REPLACES = {
     "megastep": "src/repro/kernels/gain.py:428",
     "flash_attention": "src/repro/kernels/flash_attention.py:75",
     "ssd_chunk_tiles": "src/repro/kernels/ssd_scan.py:53",
+    "ssd_state_pass": "src/repro/kernels/ssd_scan.py:133",
+}
+# a record that replaces code of the reference other than a Pallas kernel
+REPLACES_NOTE = {
+    "ssd_state_pass": "XLA code around the Pallas tile in ssd_chunked_pallas "
+                      "(the inter-chunk lax.scan :133-140 and the inter-chunk "
+                      "output term :143-145), not a Pallas kernel",
 }
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"gain_matvec": CSRC + "gain.cu", "gain_family_stats": CSRC + "gain.cu",
            "megastep": CSRC + "gain.cu",
            "flash_attention": CSRC + "flash_attention.cu",
-           "ssd_chunk_tiles": CSRC + "ssd_scan.cu"}
+           "ssd_chunk_tiles": CSRC + "ssd_scan.cu",
+           "ssd_state_pass": CSRC + "ssd_scan.cu"}
 TOLERANCES = {"flash_attention": dict(FLASH_TOL),
-              "ssd_chunk_tiles": dict(tile=SSD_TILE_TOL, chunked=SSD_CHUNKED_TOL)}
+              "ssd_chunk_tiles": dict(tile=SSD_TILE_TOL),
+              "ssd_state_pass": dict(chunked=SSD_CHUNKED_TOL,
+                                     bf16_ulps=SSD_ULP_LIMIT)}
 
 
 def kernel_lines(logs, timings, launches):
@@ -1104,15 +1330,22 @@ def kernel_lines(logs, timings, launches):
     ``launches`` sums the kernel's launches over every cell's main path.
     A log's ``extra`` fields join its record: the flash record nests its
     float32 route (``flash_kernel``), which the main path never launches,
-    and its bf16 ulp check; gain_matvec's counts the passes its checked
-    cases took and keeps its alternating trials against torch.matmul."""
+    and its bf16 ulp check; the SSD tile's nests its float32 route
+    (``ssd_chunk_kernel``), its float32 CUDA-core bound and the whole
+    ``ssd_chunked``'s times at the slice; gain_matvec's counts the passes
+    its checked cases took and keeps its alternating trials against
+    torch.matmul.  A record that replaces no Pallas kernel says so in
+    ``replaces_note``."""
     kernels = []
     for name, log in logs.items():
         t = timings[name]
         kernels.append(dict(
             name=name, route="cuda",
             source=SOURCES[name],
-            replaces=REPLACES[name], launches=launches.get(name, 0),
+            replaces=REPLACES[name],
+            **({"replaces_note": REPLACES_NOTE[name]}
+               if name in REPLACES_NOTE else {}),
+            launches=launches.get(name, 0),
             max_abs_err=log.max_abs, max_rel_err=log.max_rel,
             tolerance=TOLERANCES.get(
                 name, dict(ragged=KERNEL_TOL, main_path=WEIGHT_TOL)),
@@ -1155,13 +1388,21 @@ def main():
     lib = build.load()
     regs = [l.strip() for l in made.log.splitlines()
             if any(w in l for w in ("registers", "spill", "Compiling entry"))]
-    # ptxas reports static shared memory only; flash_wgmma_kernel's is
-    # dynamic, so its bytes per block come from the library
+    # ptxas reports static shared memory only; the tensor-core kernels' and
+    # the state pass's is dynamic, so their bytes per block (at the slices'
+    # shapes for the SSD, bf16 B/C) and blocks per SM come from the library
     emit({"build": {"seconds": time.perf_counter() - t0,
                     "nvcc_seconds": made.seconds, "ptxas": regs,
                     "flash_wgmma_dynamic_smem_bytes": {
                         d: lib.flash_attention_wgmma_smem_bytes(d)
-                        for d in (64, 128)}}})
+                        for d in (64, 128)},
+                    "ssd_chunk_wgmma_dynamic_smem_bytes":
+                        lib.ssd_chunk_wgmma_smem_bytes(128, 128, 64, 1),
+                    "ssd_state_pass_dynamic_smem_bytes":
+                        lib.ssd_state_pass_smem_bytes(128, 128, 1),
+                    "blocks_per_sm": {
+                        "ssd_chunk_wgmma_kernel": lib.ssd_blocks_per_sm(0),
+                        "ssd_state_pass_kernel": lib.ssd_blocks_per_sm(1)}}})
 
     logs = kernel_phase(dev)
     timings = full_shape_phase(dev, logs)

@@ -55,8 +55,9 @@ def nvcc_path() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update((CSRC / name).read_bytes())
+    for path in [CSRC / name for name in SOURCES] + sorted(CSRC.glob("*.cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -102,6 +103,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.megastep_launch.argtypes = [p, p, i, p, p, p, p, p, ll, p, ll, i, i,
                                     i, i, i, d, p, p, p, p, p]
     lib.ssd_chunk_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p, p]
+    lib.ssd_chunk_wgmma_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, p,
+                                           p, p]
+    lib.ssd_chunk_wgmma_xdt_launch.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                               i, p, p, p]
+    lib.ssd_chunk_wgmma_smem_bytes.argtypes = [i, i, i, i]
+    lib.ssd_state_pass_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
+                                          i, p, p, p]
+    lib.ssd_state_pass_smem_bytes.argtypes = [i, i, i]
+    lib.ssd_blocks_per_sm.argtypes = [i]
     lib.flash_attention_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, i,
                                            p, p]
     lib.flash_attention_wgmma_launch.argtypes = [p, p, p, i, i, i, i, i, i,
@@ -109,6 +119,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.flash_attention_wgmma_smem_bytes.argtypes = [i]
     for fn in (lib.gain_matvec_launch, lib.gain_family_stats_launch,
                lib.megastep_launch, lib.ssd_chunk_launch,
+               lib.ssd_chunk_wgmma_launch, lib.ssd_chunk_wgmma_xdt_launch,
+               lib.ssd_chunk_wgmma_smem_bytes,
+               lib.ssd_state_pass_launch, lib.ssd_state_pass_smem_bytes,
+               lib.ssd_blocks_per_sm,
                lib.flash_attention_launch, lib.flash_attention_wgmma_launch,
                lib.flash_attention_wgmma_smem_bytes):
         fn.restype = ctypes.c_int

@@ -78,6 +78,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -273,13 +275,13 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, int B,
 // ---------------------------------------------------------------------------
 namespace wg {
 
+using namespace hopper;   // kAtom, kAtomBytes, mbarriers, TMA, wgmma
+
 constexpr int kRows = 64;        // q rows of one warpgroup (wgmma's M)
 constexpr int kWarpgroups = 2;   // consumer warpgroups of a block
 constexpr int kQRows = kWarpgroups * kRows;   // q rows of a block
 constexpr int kBlockN = 64;      // keys of a K/V tile (S = m64n64)
 constexpr int kThreadsWg = 128 * kWarpgroups;
-constexpr int kAtom = 64;        // bf16 columns of one 128-byte swizzle atom
-constexpr int kAtomBytes = 128;
 constexpr int kStages = 2;       // K/V ring
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -296,132 +298,6 @@ struct Layout {
   static constexpr int kBar = kV + kStages * kTileBytes;   // q, full[kStages]
   static constexpr int kBytes = kBar + 8 * (1 + kStages) + 1024;  // + align
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One TMA box of a 4-D (d, heads, L, B) tensor map into shared memory.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int d0, int head,
-                                         int row, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(head),
-      "r"(row), "r"(batch)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets (16-byte units), layout type 1 (SWIZZLE_128B).
-// K-major operands (Q, K): rows 128 B apart, 8-row groups 1024 B apart
-// (SBO); LBO unused.  MN-major V: SBO steps 8 keys (1024 B), LBO the next
-// 64 columns of d (the next atom).
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-// Keep the compiler from moving accumulator accesses across an async wgmma.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define WG_D8(i)                                                          \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define WG_D32 WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
-#define WG_D64 WG_D32, WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56)
-#define WG_R32                                                            \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
-  "%30, %31"
-#define WG_R64                                                              \
-  WG_R32                                                                    \
-  ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
-  "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "   \
-  "%60, %61, %62, %63"
-
-// d (+)= A B for a 64 x 64 tile, A and B from shared memory, both K-major.
-__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b,
-                                       int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_R32
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : WG_D32
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d (+)= A B, A from registers (four bf16x2 per thread, the layout of a
-// 64 x 16 slice of an m64 accumulator), B from shared memory, MN-major
-// (transpose bit set).
-template <int N>
-__device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
-                                       uint64_t b, int accumulate);
-template <>
-__device__ __forceinline__ void mma_rs<64>(float (&d)[32], const uint32_t (&a)[4],
-                                           uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_R32
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WG_D32
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
-}
-template <>
-__device__ __forceinline__ void mma_rs<128>(float (&d)[64], const uint32_t (&a)[4],
-                                            uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_R64
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : WG_D64
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // q, o (B, L, H, D); k, v (B, L, KVH, D) bf16, all contiguous; the tensor
 // maps describe q, k and v.  Block (h, q tile, b), kWarpgroups warpgroups.
@@ -563,11 +439,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int kk = 0; kk < kBlockN / 16; ++kk)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        const float x0 = s[8 * kk + 2 * r], x1 = s[8 * kk + 2 * r + 1];
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
-        const float2 hf = __bfloat1622float2(hi);
-        p_hi[kk][r] = *reinterpret_cast<const uint32_t*>(&hi);
-        p_lo[kk][r] = pack_bf16(x0 - hf.x, x1 - hf.y);
+        uint32_t pieces[2];
+        split_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], pieces);
+        p_hi[kk][r] = pieces[0];
+        p_lo[kk][r] = pieces[1];
       }
 
     // O += P_hi V + P_lo V over the tile's keys in steps of 16 (2 KB of V)

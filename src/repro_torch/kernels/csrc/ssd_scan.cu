@@ -1,45 +1,123 @@
-// Hopper (sm_90a) kernel for the Mamba2 SSD intra-chunk tile
-// (arXiv:2405.21060 §6), bound to Python through a plain C interface and
-// ctypes (repro_torch/kernels/ssd_scan.py).  It replaces the Pallas TPU
-// kernel src/repro/kernels/ssd_scan.py::ssd_chunk_tiles (_ssd_chunk_kernel).
-// For every (batch x chunk, head) it computes
+// Hopper (sm_90a) kernels for the Mamba2 SSD (arXiv:2405.21060 §6), bound
+// to Python through a plain C interface and ctypes
+// (repro_torch/kernels/ssd_scan.py).  Two of them replace the Pallas TPU
+// kernel src/repro/kernels/ssd_scan.py::ssd_chunk_tiles (_ssd_chunk_kernel),
+// the intra-chunk tile: for every (batch x chunk, head)
 //
 //   y[i]  = sum_{j<=i} (C_i . B_j) exp(cum_i - cum_j) dtx_j      (Q x P)
 //   state = sum_j exp(cum_Q - cum_j) B_j (x) dtx_j                (N x P)
 //
-// with the decay masked before the exponential, all in float32 (B and C
-// arrive in the model's dtype and are widened on load).
+// with the decay masked before the exponential and float32 accumulation (B
+// and C arrive in the model's dtype).  The wrapper routes Q in {64, 128}
+// and N, P in {64, 128} to ssd_chunk_wgmma_kernel (tensor cores) and every
+// other shape up to 128 to ssd_chunk_kernel (float32 CUDA cores).  The
+// third, ssd_state_pass_kernel, replaces the XLA code around the Pallas
+// tile in ssd_chunked_pallas (the inter-chunk lax.scan and the inter-chunk
+// output term, src/repro/kernels/ssd_scan.py:133-145):
 //
-// What bounds it on an H100.  At mamba2-370m's prefill (B = 4, L = 8192:
-// 256 chunks x 32 heads, Q = 128, N = 128, P = 64) the tile moves about
-// 0.82 GB (dtx, y and the states at 268 MB each) against 3.5e10 float32
-// operations once C B^T is shared by the heads, so the float32 rate
-// (67 TFLOP/s outside the tensor cores; the reference computes in float32,
-// so TF32 tensor cores are not an option) bounds it, not device memory.
+//   y_c[i] = y_intra_c[i] + exp(cum_c,i) C_c,i . h_{c-1},
+//   h_c    = exp(cum_c,Q) h_{c-1} + state_c,    h_{-1} = 0,
 //
-// Design.  B and C are shared by all heads (ngroups = 1), so the Q x Q
-// Gram matrix G = C B^T depends only on the chunk.  The Pallas grid
-// (B*nc, H) recomputes it for every head, which is half of its operations.
-// Here one block takes kHeads = 8 heads of one chunk: it computes G once
-// into registers, then for each head forms G * decay in shared memory and
-// runs the two products.  One block per chunk and all 32 heads would make
-// G once per chunk, but gives only 256 blocks for 132 SMs (two waves, the
-// second half empty); 8 heads per block gives 1,024 blocks and computes G
-// 4 times per chunk instead of 32.  Q = 128 and N = 128 in float32 make B
-// and C 64 KB each, above the 48 KB static limit, so the block uses
-// dynamic shared memory (B, then C aliased with G * decay, dtx of one head
-// and cum: 165 KB at the full shape, set with cudaFuncSetAttribute).
+// written straight into the (B, L, H, P) output in its dtype, pad rows
+// dropped, and the final state h.
 //
-// Every product is a 256-thread register tile: thread (ty, tx) of a 16 x 16
-// grid owns rows ty + 16 r and columns tx + 16 c (r, c < 8), so one block
-// covers up to 128 x 128 outputs and neighbouring threads read
-// neighbouring shared-memory words.  Rows of B, C and G * decay are padded
-// by one float so that a column walk does not hit one bank.  Each output
-// is a fixed-order fmaf chain, so two launches give bitwise-equal results.
+// What bounds them on an H100.  At mamba2-370m's prefill (B = 4, L = 8192:
+// 256 chunks x 32 heads, Q = 128, N = 128, P = 64, bf16 B and C) the tile
+// moves about 0.82 GB (dtx, y and the states at 268 MB each): 0.245 ms at
+// 3.35 TB/s (0.62 GB when the tile reads the model's bf16 x and dt in
+// place of dtx).  Its 3.5e10 float32 operations take 0.53 ms on CUDA cores
+// (67 TFLOP/s), which bounds ssd_chunk_kernel; as the bf16 pieces below,
+// on the pairs the decay lets through, they are 1.0e11 tensor-core
+// operations (989 TFLOP/s): 0.11 ms, so the tensor-core tile is bound by
+// memory.  The state pass moves 0.69 GB (y_intra and the states read, y
+// written in bf16; 0.205 ms) and does 1.7e10 float32 operations for C . h
+// on CUDA cores (0.26 ms): it is bound by operations.
+//
+// ssd_chunk_wgmma_kernel.  One block of two warpgroups takes kHeadsTc = 8
+// heads of one chunk.  B and C are shared by the heads (ngroups = 1), so
+// G = C B^T is made once per block, on the tensor cores, and stays in the
+// accumulator registers: warpgroup w holds rows 64 w .. 64 w + 63 and only
+// the 64-column halves that its rows can see (j <= i), so at Q = 128 the
+// first warpgroup skips a quarter of G and of the y product.  For each head:
+//   - dtx (Q x P float32), or the model's x (in B's dtype) and dt, arrives
+//     by cp.async in a staging buffer, issued while the previous head's
+//     products run (one head ahead), with the head's cum (and dt;
+//     double-buffered by head);
+//   - the block splits dtx (formed as dt x, rounded as the plain path
+//     rounds it) into bf16 pieces in 128-byte-swizzled shared memory,
+//     MN-major (P contiguous), and likewise w_j dtx_j with
+//     w_j = exp(cum_Q - cum_j), so that a bf16 B^T needs no split;
+//   - each warpgroup forms G * decay in registers (masked before the
+//     exponential), one 64-column half at a time, splits it into pieces of
+//     A fragments in place (the accumulator layout is the A-fragment
+//     layout, as P in flash_wgmma_kernel) and runs y on wgmma (A from
+//     registers, dtx with the transpose bit);
+//   - the state is B^T (w dtx): A = B^T read from B's own tiles as an
+//     MN-major operand.
+// Arithmetic.  Every float32 operand enters the tensor cores as three bf16
+// pieces x = x_0 + x_1 + x_2 (each remainder exact in float32, so the
+// pieces carry float32's 24 bits), and a product of two such operands is
+// the six products x_a y_b with a + b < 3; the terms dropped are below
+// 2^-24 of the product.  A bf16 operand (B and C in the bf16 model) enters
+// as it is: C B^T is one exact product, B^T (w dtx) three.  A hi/lo pair
+// (two pieces, three products) keeps about 16 bits, which the random
+// inputs of the reference's tile test show: the sums cancel, and y lands
+// outside the 1e-4 tolerance (tests/test_torch_ssd.py emulates both).  The pieces cost 2x the tensor-core products of a hi/lo
+// pair, which stays below the time of the bytes.
+// Accumulation order.  wgmma adds each k16 block into the float32
+// accumulator with its own alignment, so an addition into a large
+// accumulator costs about 2^-23 of it; with the 48 additions of six
+// products over 8 k-steps in k order the tile was farther from a float64
+// reference than the plain float32 path.  So the products run smallest
+// first (pieces a + b = 2, then 1, then 0), and y keeps the main product
+// (piece 0 x piece 0) in an accumulator of its own, added to the rest
+// once at the end, which puts the tile below the plain path
+// (tools/ssd_probe.py); y is made 64 columns at a time so that both
+// accumulators fit the registers.
+// Shared memory: B's pieces, C's pieces (dead after G, then the six tiles
+// of dtx and w dtx), the staging buffer, cum and dt: 163 KB at the slice
+// with bf16 B/C, one block per SM (G, the A fragments and the accumulators
+// take most of a thread's registers; PERF.md has the counts).
+// Where dtx's and w dtx's tiles and the staging buffer do not fit beside B
+// (bf16 at P = 128), w dtx is split into dtx's tiles after the y product
+// instead ("two-phase") and the next head is fetched after that; float32
+// B/C at Q = N = P = 128 fits neither way, and the wrapper routes it to
+// ssd_chunk_kernel.  Fixed order, no atomics: two launches give
+// bitwise-equal results.
+//
+// ssd_state_pass_kernel.  One block per (P slice of 32 columns, head,
+// batch row) walks the chunks in order, carrying h (N x 32, float32) in
+// shared memory, twice: h_{c-1} is read while h_c is written, so a chunk
+// needs one block barrier.  Chunk c + 1's C arrives by cp.async into the
+// other half of a double buffer while chunk c computes; each thread's rows
+// of y_intra, the state and cum are loaded into registers before C . h
+// and used after it.  C . h runs on CUDA cores in float32 (thread (ty, tx)
+// of a 32 x 8 grid owns rows ty + 32 r and 4 consecutive columns; C's rows
+// are padded by 16 bytes so that the four rows a warp reads fall in
+// distinct banks).  With bf16 C a block takes 100 KB of shared memory, so
+// two share an SM and the slice's 256 blocks run in one wave.  Fixed
+// order, no atomics.
+//
+// ssd_chunk_kernel (every other tile shape; float32 on CUDA cores).  One
+// block takes kHeads = 8 heads of one chunk: it computes G once into
+// registers, then for each head forms G * decay in shared memory and runs
+// the two products.  8 heads per block gives 1,024 blocks at the slice and
+// computes G 4 times per chunk instead of 32.  Q = 128 and N = 128 in
+// float32 make B and C 64 KB each, above the 48 KB static limit, so the
+// block uses dynamic shared memory (B, then C aliased with G * decay, dtx of
+// one head and cum: 165 KB at the full shape).  Every product is a 256-
+// thread register tile: thread (ty, tx) of a 16 x 16 grid owns rows
+// ty + 16 r and columns tx + 16 c (r, c < 8), so one block covers up to
+// 128 x 128 outputs and neighbouring threads read neighbouring shared-memory
+// words.  Rows of B, C and G * decay are padded by one float so that a
+// column walk does not hit one bank.  Each output is a fixed-order fmaf
+// chain, so two launches give bitwise-equal results.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -222,7 +300,572 @@ cudaError_t launch(const float* dtx, const float* cum, const void* bm,
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// ssd_chunk_wgmma_kernel: the tile on the tensor cores (wgmma).
+// ---------------------------------------------------------------------------
+namespace tc {
+
+using namespace hopper;
+
+constexpr int kWarpgroups = 2;
+constexpr int kThreadsTc = 128 * kWarpgroups;
+constexpr int kHeadsTc = 8;           // heads per block
+constexpr int kPieces = 3;            // bf16 pieces of a float32 operand
+constexpr int kMaxSmem = 232448;      // dynamic shared memory a block can use
+
+// Byte offsets from the 1024-aligned base.  parts: bf16 pieces of B and C
+// (kPieces for float32, 1 for bf16).  Every operand tile is rows x cols
+// bf16 in the swizzled layout of hopper.cuh: B and C Q x N (K-major for
+// G), the pieces of dtx and w dtx Q x P (MN-major).  Piece k of an operand
+// sits one tile after piece k - 1.  C's tiles are dead once G is made and
+// then hold the dtx operands; two-phase, w dtx reuses dtx's tiles.
+struct Layout {
+  int b, c, x, w, stage, cum, bytes;
+  __host__ __device__ Layout(int Q, int N, int P, int parts, int split) {
+    const int bc_tiles = parts * Q * N * 2, x_tiles = kPieces * Q * P * 2;
+    const int ops = (split ? 1 : 2) * x_tiles;
+    b = 0;
+    c = bc_tiles;
+    x = c;
+    w = split ? x : x + x_tiles;
+    stage = c + (bc_tiles > ops ? bc_tiles : ops);
+    cum = stage + Q * P * 4;           // cum, then dt, of two heads
+    bytes = cum + 4 * Q * 4 + 1024;    // + alignment of the base
+  }
+};
+
+// Eight consecutive values as float32.
+__device__ __forceinline__ void load8(const float* src, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(src);
+  const float4 b = *reinterpret_cast<const float4*>(src + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* src, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(src);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 f = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&w[k]));
+    v[2 * k] = f.x;
+    v[2 * k + 1] = f.y;
+  }
+}
+
+// Eight float32 values as kPieces 16-byte chunks of bf16.
+__device__ __forceinline__ void split8(const float (&v)[8],
+                                       uint4 (&out)[kPieces]) {
+  uint32_t p[4][kPieces];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) split_bf16(v[2 * k], v[2 * k + 1], p[k]);
+#pragma unroll
+  for (int k = 0; k < kPieces; ++k)
+    out[k] = make_uint4(p[0][k], p[1][k], p[2][k], p[3][k]);
+}
+
+// Eight consecutive values of B or C as their bf16 pieces: a bf16 value
+// is its own single piece.
+__device__ __forceinline__ void pieces8(const float* src,
+                                        uint4 (&out)[kPieces]) {
+  float v[8];
+  load8(src, v);
+  split8(v, out);
+}
+__device__ __forceinline__ void pieces8(const __nv_bfloat16* src,
+                                        uint4 (&out)[kPieces]) {
+  out[0] = *reinterpret_cast<const uint4*>(src);
+}
+
+// xs (BC, Q, H, P) and dt (BC, Q, H) f32: dtx = dt * xs, formed on load
+// (dt null: xs is dtx, f32); cum (BC, Q, H) f32; bm, cm (BC, Q, N);
+// y (BC, Q, H, P) f32; states (BC, H, N, P) f32.
+template <typename T, typename X, int Q, int P>
+__global__ void __launch_bounds__(kThreadsTc, 1)
+ssd_chunk_wgmma_kernel(const X* __restrict__ xs, const float* __restrict__ dt,
+                       const float* __restrict__ cum,
+                       const T* __restrict__ bm, const T* __restrict__ cm,
+                       int H, int N, int split, float* __restrict__ y,
+                       float* __restrict__ states) {
+  constexpr int parts = sizeof(T) == 4 ? kPieces : 1;
+  constexpr int kHalf = 4;                 // k16 steps of a 64-column half
+  const Layout lay(Q, N, P, parts, split);
+  const int bc_tile = Q * N * 2, x_tile = Q * P * 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* gbase = smem_raw + (base - raw);
+  const X* stage = reinterpret_cast<const X*>(gbase + lay.stage);
+  const float* cs = reinterpret_cast<const float*>(gbase + lay.cum);
+  const float* dts = cs + 2 * Q;
+
+  const int64_t bc = blockIdx.x;
+  const int h0 = blockIdx.y * kHeadsTc;
+  const int h1 = min(h0 + kHeadsTc, H);
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int lane = tid % 32, quad = lane / 4, t4 = lane % 4;
+  const int row_a = ((tid % 128) / 32) * 16 + quad;   // row in the wg's 64
+  const bool has_y = 64 * wg < Q;          // this warpgroup's G / y rows
+  const bool has_state = 64 * wg < N;      // this warpgroup's state rows
+
+  // head h's xs into the staging buffer, its cum (and dt) into buffer buf
+  auto prefetch = [&](int h, int buf) {
+    constexpr int kRow = P * (int)sizeof(X) / 16;   // 16-byte pieces a row
+    const X* src = xs + (bc * Q * H + h) * P;
+    for (int e = tid; e < Q * kRow; e += kThreadsTc) {
+      const int j = e / kRow, k = e % kRow;
+      cp_async16(base + lay.stage + j * P * (int)sizeof(X) + 16 * k,
+                 reinterpret_cast<const uint8_t*>(src + (int64_t)j * H * P) +
+                     16 * k);
+    }
+    for (int j = tid; j < Q; j += kThreadsTc) {
+      cp_async4(base + lay.cum + (buf * Q + j) * 4,
+                cum + (bc * Q + j) * H + h);
+      if (dt != nullptr)
+        cp_async4(base + lay.cum + ((2 + buf) * Q + j) * 4,
+                  dt + (bc * Q + j) * H + h);
+    }
+    cp_async_commit();
+  };
+  // staging (row-major Q x P) -> the pieces of dtx = dt x at `dst`, scaled
+  // by w_j = exp(cum_Q - cum_j) when `weighted` (dtx rounded first, as the
+  // plain path forms it)
+  auto split_dtx = [&](const float* csb, const float* dtb, int dst,
+                       bool weighted) {
+    const float last = csb[Q - 1];
+    for (int e = tid; e < Q * P / 8; e += kThreadsTc) {
+      const int j = e / (P / 8), p = (e % (P / 8)) * 8;
+      float v[8];
+      load8(stage + j * P + p, v);
+      const float d = dt != nullptr ? dtb[j] : 1.f;
+      const float w = weighted ? expf(last - csb[j]) : 1.f;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] = (v[k] * d) * w;
+      uint4 pc[kPieces];
+      split8(v, pc);
+      const uint32_t off = dst + swizzle_offset(j, p, Q);
+#pragma unroll
+      for (int k = 0; k < kPieces; ++k)
+        *reinterpret_cast<uint4*>(gbase + off + k * x_tile) = pc[k];
+    }
+  };
+
+  prefetch(h0, 0);
+
+  // B and C -> their bf16 pieces
+  {
+    const T* bsrc = bm + bc * Q * N;
+    const T* csrc = cm + bc * Q * N;
+    for (int e = tid; e < Q * N / 8; e += kThreadsTc) {
+      const int j = e / (N / 8), n = (e % (N / 8)) * 8;
+      const uint32_t off = swizzle_offset(j, n, Q);
+      uint4 v[kPieces];
+      pieces8(bsrc + j * N + n, v);
+#pragma unroll
+      for (int k = 0; k < parts; ++k)
+        *reinterpret_cast<uint4*>(gbase + lay.b + off + k * bc_tile) = v[k];
+      pieces8(csrc + j * N + n, v);
+#pragma unroll
+      for (int k = 0; k < parts; ++k)
+        *reinterpret_cast<uint4*>(gbase + lay.c + off + k * bc_tile) = v[k];
+    }
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  // G = C B^T: this warpgroup's rows, the column halves they can see; for
+  // float32 the six products C_a B_b with a + b < 3.
+  float g[Q / 64][32];
+#pragma unroll
+  for (int hf = 0; hf < Q / 64; ++hf)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) g[hf][e] = 0.f;
+  if (has_y) {
+    wg_fence();
+#pragma unroll
+    for (int hf = 0; hf < Q / 64; ++hf) {
+      if (hf > wg) continue;
+      // smallest products first (see "Accumulation order" above)
+#pragma unroll
+      for (int ord = parts - 1; ord >= 0; --ord)
+#pragma unroll
+        for (int pa = 0; pa <= ord; ++pa)
+          for (int kk = 0; kk < N / 16; ++kk) {
+            const uint32_t koff = (kk / 4) * Q * kAtomBytes + (kk % 4) * 32;
+            mma_ss(g[hf],
+                   desc(base + lay.c + koff + wg * 64 * kAtomBytes +
+                            pa * bc_tile, 16, 1024),
+                   desc(base + lay.b + koff + hf * 64 * kAtomBytes +
+                            (ord - pa) * bc_tile, 16, 1024), 1);
+          }
+    }
+    wg_commit();
+    wg_wait0();
+#pragma unroll
+    for (int hf = 0; hf < Q / 64; ++hf) fence_regs(g[hf]);
+  }
+  __syncthreads();   // C is dead: its tiles now hold the dtx operands
+
+  const int i0 = 64 * wg + row_a, i1 = i0 + 8;
+  for (int h = h0, it = 0; h < h1; ++h, ++it) {
+    const float* csb = cs + (it & 1) * Q;
+    const float* dtb = dts + (it & 1) * Q;
+    cp_async_wait<0>();
+    __syncthreads();   // staging and cum arrived; last head's products done
+    split_dtx(csb, dtb, lay.x, false);
+    if (!split) split_dtx(csb, dtb, lay.w, true);
+    fence_proxy_async();
+    __syncthreads();
+    if (!split && h + 1 < h1) prefetch(h + 1, (it + 1) & 1);
+
+    if (has_y) {
+      // y = (G * decay) dtx, 64 columns of y and one 64-column half of G
+      // at a time: G * decay as three bf16 pieces of A fragments (k-step
+      // kk of the half takes g[hf][8 kk .. 8 kk + 7]) times dtx's pieces;
+      // the main product (piece 0 x piece 0) in its own accumulator.
+      const float c_i0 = csb[i0], c_i1 = csb[i1];
+#pragma unroll 1
+      for (int ch = 0; ch < P / 64; ++ch) {
+        float y_main[32], y_cross[32];
+#pragma unroll
+        for (int e = 0; e < 32; ++e) y_main[e] = y_cross[e] = 0.f;
+#pragma unroll
+        for (int hf = 0; hf < Q / 64; ++hf) {
+          if (hf > wg) continue;
+          uint32_t a[kHalf][4][kPieces];
+#pragma unroll
+          for (int kk = 0; kk < kHalf; ++kk)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const int e = 8 * kk + 2 * r;
+              const int j = 64 * hf + 8 * (e / 4) + 2 * t4;
+              const int i = (r & 1) ? i1 : i0;
+              const float ci = (r & 1) ? c_i1 : c_i0;
+              const float x0 = j <= i ? g[hf][e] * expf(ci - csb[j]) : 0.f;
+              const float x1 =
+                  j + 1 <= i ? g[hf][e + 1] * expf(ci - csb[j + 1]) : 0.f;
+              split_bf16(x0, x1, a[kk][r]);
+            }
+          wg_fence();
+#pragma unroll
+          for (int ord = kPieces - 1; ord >= 0; --ord)
+#pragma unroll
+            for (int pa = 0; pa <= ord; ++pa)
+#pragma unroll
+              for (int kk = 0; kk < kHalf; ++kk) {
+                const uint32_t frag[4] = {a[kk][0][pa], a[kk][1][pa],
+                                          a[kk][2][pa], a[kk][3][pa]};
+                const uint64_t bx = desc(
+                    base + lay.x + (ord - pa) * x_tile + ch * Q * kAtomBytes +
+                        (4 * hf + kk) * 16 * kAtomBytes,
+                    Q * kAtomBytes, 1024);
+                if (ord)
+                  mma_rs<64>(y_cross, frag, bx, 1);
+                else
+                  mma_rs<64>(y_main, frag, bx, 1);
+              }
+          wg_commit();
+          wg_wait0();
+          fence_regs(y_main);
+          fence_regs(y_cross);
+        }
+#pragma unroll
+        for (int e = 0; e < 32; e += 2) {
+          const int i = (e % 4) ? i1 : i0;
+          const int p = 64 * ch + 8 * (e / 4) + 2 * t4;
+          *reinterpret_cast<float2*>(y + ((bc * Q + i) * H + h) * P + p) =
+              make_float2(y_main[e] + y_cross[e], y_main[e + 1] + y_cross[e + 1]);
+        }
+      }
+    }
+
+    if (split) {
+      __syncthreads();   // every warpgroup is done with dtx's operands
+      split_dtx(csb, dtb, lay.w, true);
+      fence_proxy_async();
+      __syncthreads();
+      if (h + 1 < h1) prefetch(h + 1, (it + 1) & 1);
+    }
+
+    if (has_state) {
+      // state = B^T (w dtx): A = B^T, MN-major from B's tiles (atom wg),
+      // B_a times (w dtx)_b with a + b < 3
+      float acc[P / 2];
+#pragma unroll
+      for (int e = 0; e < P / 2; ++e) acc[e] = 0.f;
+      wg_fence();
+      // smallest products first (see "Accumulation order" above)
+#pragma unroll
+      for (int ord = kPieces - 1; ord >= 0; --ord)
+#pragma unroll
+        for (int pa = 0; pa < parts && pa <= ord; ++pa)
+#pragma unroll 1
+          for (int kk = 0; kk < Q / 16; ++kk)
+            mma_ss_mn<P>(
+                acc,
+                desc(base + lay.b + pa * bc_tile + wg * Q * kAtomBytes +
+                         kk * 16 * kAtomBytes, Q * kAtomBytes, 1024),
+                desc(base + lay.w + (ord - pa) * x_tile + kk * 16 * kAtomBytes,
+                     Q * kAtomBytes, 1024), 1);
+      wg_commit();
+      wg_wait0();
+      fence_regs(acc);
+      const int n0 = 64 * wg + row_a;
+      float* st = states + (bc * H + h) * N * P;
+#pragma unroll
+      for (int e = 0; e < P / 2; e += 2) {
+        const int n = (e % 4) ? n0 + 8 : n0;
+        const int p = 8 * (e / 4) + 2 * t4;
+        *reinterpret_cast<float2*>(st + n * P + p) =
+            make_float2(acc[e], acc[e + 1]);
+      }
+    }
+  }
+}
+
+// Dynamic shared memory of a block (w dtx beside dtx's tiles where that
+// fits, else two-phase), or -1 for a shape it does not take (float32 B and
+// C at Q = N = P = 128).
+int smem_bytes(int Q, int N, int P, int parts) {
+  const Layout one(Q, N, P, parts, 0), two(Q, N, P, parts, 1);
+  if (one.bytes <= kMaxSmem) return one.bytes;
+  return two.bytes <= kMaxSmem ? two.bytes : -1;
+}
+
+template <typename T, typename X, int Q, int P>
+cudaError_t launch(const X* xs, const float* dt, const float* cum,
+                   const void* bm, const void* cm, int bc, int H, int N,
+                   float* y, float* states, cudaStream_t s) {
+  constexpr int parts = sizeof(T) == 4 ? kPieces : 1;
+  const int bytes = smem_bytes(Q, N, P, parts);
+  if (bytes < 0) return cudaErrorInvalidValue;
+  const int split = Layout(Q, N, P, parts, 0).bytes > kMaxSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_chunk_wgmma_kernel<T, X, Q, P>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(bc, (H + kHeadsTc - 1) / kHeadsTc);
+  ssd_chunk_wgmma_kernel<T, X, Q, P><<<grid, kThreadsTc, bytes, s>>>(
+      xs, dt, cum, static_cast<const T*>(bm), static_cast<const T*>(cm), H, N,
+      split, y, states);
+  return cudaGetLastError();
+}
+
+template <typename T, typename X>
+cudaError_t dispatch(const X* xs, const float* dt, const float* cum,
+                     const void* bm, const void* cm, int bc, int Q, int H,
+                     int N, int P, float* y, float* states, cudaStream_t s) {
+  if (N != 64 && N != 128) return cudaErrorInvalidValue;
+  if (Q == 64 && P == 64)
+    return launch<T, X, 64, 64>(xs, dt, cum, bm, cm, bc, H, N, y, states, s);
+  if (Q == 64 && P == 128)
+    return launch<T, X, 64, 128>(xs, dt, cum, bm, cm, bc, H, N, y, states, s);
+  if (Q == 128 && P == 64)
+    return launch<T, X, 128, 64>(xs, dt, cum, bm, cm, bc, H, N, y, states, s);
+  if (Q == 128 && P == 128)
+    return launch<T, X, 128, 128>(xs, dt, cum, bm, cm, bc, H, N, y, states, s);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
+// ssd_state_pass_kernel: the inter-chunk recurrence and output term.
+// ---------------------------------------------------------------------------
+namespace pass {
+
+using hopper::cp_async16;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
+using hopper::smem_u32;
+
+constexpr int kThreadsPass = 256;
+constexpr int kSlice = 32;    // P columns of one block
+constexpr int kMaxRows = 128; // largest Q and N (ssd_scan.MAX_DIM)
+
+// Four consecutive C values from shared memory, as float32.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&a);
+  u.y = *reinterpret_cast<const uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// Shared memory in bytes: C of two chunks (rows padded by 16 bytes) and h
+// twice (h_{c-1} read while h_c is written).  At N = 128 with bf16 C that
+// is 100 KB, so two blocks share an SM.
+template <typename T>
+__host__ __device__ int ldc(int N) { return N + 16 / (int)sizeof(T); }
+template <typename T>
+__host__ __device__ int smem_bytes(int Q, int N) {
+  return 2 * Q * ldc<T>(N) * (int)sizeof(T) + 4 * 2 * N * kSlice;
+}
+
+// y_intra (B, nc, Q, H, P) f32; states (B, nc, H, N, P) f32; cum (B, nc,
+// Q, H) f32; cm (B, nc, Q, N); y (B, L, H, P); final_state (B, H, N, P).
+template <typename T, typename Y>
+__global__ void __launch_bounds__(kThreadsPass)
+ssd_state_pass_kernel(const float* __restrict__ y_intra,
+                      const float* __restrict__ states,
+                      const float* __restrict__ cum, const T* __restrict__ cm,
+                      int nc, int Q, int H, int N, int P, int L,
+                      Y* __restrict__ y, float* __restrict__ final_state) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int lc = ldc<T>(N);
+  T* Cs = reinterpret_cast<T*>(smem);                          // 2 x Q x lc
+  float* hs = reinterpret_cast<float*>(Cs + 2 * Q * lc);       // 2 x N x 32
+
+  const int p0 = blockIdx.x * kSlice, hd = blockIdx.y;
+  const int64_t b = blockIdx.z;
+  const int pw = min(kSlice, P - p0);      // a multiple of 4
+  const int tid = threadIdx.x, tx = tid % 8, ty = tid / 8;
+  const bool col = 4 * tx < pw;
+
+  // chunk c's C into buffer buf, by cp.async (one group)
+  auto load_c = [&](int c, int buf) {
+    const int64_t row0 = (b * nc + c) * Q;
+    const int cpr = N * (int)sizeof(T) / 16;    // 16-byte pieces of a row
+    for (int e = tid; e < Q * cpr; e += kThreadsPass) {
+      const int j = e / cpr, k = e % cpr;
+      cp_async16(smem_u32(Cs + (buf * Q + j) * lc) + 16 * k,
+                 reinterpret_cast<const uint8_t*>(cm + (row0 + j) * N) + 16 * k);
+    }
+    cp_async_commit();
+  };
+
+  for (int e = tid; e < 2 * N * kSlice; e += kThreadsPass) hs[e] = 0.f;
+  load_c(0, 0);
+  for (int c = 0; c < nc; ++c) {
+    const int buf = c & 1;
+    const int64_t row0 = (b * nc + c) * Q;
+    cp_async_wait<0>();
+    __syncthreads();   // C_c has arrived, h_{c-1} is complete, and every
+                       // thread is done with chunk c - 1's buffers
+    if (c + 1 < nc) load_c(c + 1, buf ^ 1);
+
+    // this thread's y_intra rows, state rows and cum, in flight while
+    // C_c . h_{c-1} runs
+    float4 yi[4], sv[4];
+    float ce[4];
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = ty + 32 * r;
+      const bool ok = col && i < Q;
+      yi[r] = ok ? __ldg(reinterpret_cast<const float4*>(
+                       y_intra + ((row0 + i) * H + hd) * P + p0 + 4 * tx))
+                 : zero;
+      ce[r] = i < Q ? __ldg(cum + (row0 + i) * H + hd) : 0.f;
+      sv[r] = col && i < N
+                  ? __ldg(reinterpret_cast<const float4*>(
+                        states + (((b * nc + c) * H + hd) * N + i) * P + p0 +
+                        4 * tx))
+                  : zero;
+    }
+    const float dec = expf(__ldg(cum + (row0 + Q - 1) * H + hd));
+
+    // acc = C_c . h_{c-1} over this thread's rows and 4 columns, n ascending
+    const T* cb = Cs + buf * Q * lc;
+    const float* hp = hs + buf * N * kSlice;
+    float acc[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[r][k] = 0.f;
+#pragma unroll 8
+    for (int n = 0; n < N; n += 4) {
+      float4 hv[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        hv[k] = *reinterpret_cast<const float4*>(hp + (n + k) * kSlice + 4 * tx);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = ty + 32 * r;
+        const float4 cv = i < Q ? load4(cb + i * lc + n) : zero;
+        const float cc[4] = {cv.x, cv.y, cv.z, cv.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          acc[r][0] = fmaf(cc[k], hv[k].x, acc[r][0]);
+          acc[r][1] = fmaf(cc[k], hv[k].y, acc[r][1]);
+          acc[r][2] = fmaf(cc[k], hv[k].z, acc[r][2]);
+          acc[r][3] = fmaf(cc[k], hv[k].w, acc[r][3]);
+        }
+      }
+    }
+
+    // y_c = y_intra_c + exp(cum_c) acc, pad rows dropped
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = ty + 32 * r;
+      const int64_t t = (int64_t)c * Q + i;
+      if (!col || i >= Q || t >= L) continue;
+      const float e = expf(ce[r]);
+      store4(y + ((b * L + t) * H + hd) * P + p0 + 4 * tx,
+             make_float4(fmaf(e, acc[r][0], yi[r].x),
+                         fmaf(e, acc[r][1], yi[r].y),
+                         fmaf(e, acc[r][2], yi[r].z),
+                         fmaf(e, acc[r][3], yi[r].w)));
+    }
+    // h_c = exp(cum_c,Q) h_{c-1} + state_c, into the other buffer (each
+    // thread its own rows and columns)
+    float* hn = hs + (buf ^ 1) * N * kSlice;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int n = ty + 32 * r;
+      if (n >= N) continue;
+      const float4 hv = *reinterpret_cast<const float4*>(hp + n * kSlice + 4 * tx);
+      *reinterpret_cast<float4*>(hn + n * kSlice + 4 * tx) =
+          make_float4(fmaf(dec, hv.x, sv[r].x), fmaf(dec, hv.y, sv[r].y),
+                      fmaf(dec, hv.z, sv[r].z), fmaf(dec, hv.w, sv[r].w));
+    }
+  }
+  __syncthreads();
+  const float* hf = hs + (nc & 1) * N * kSlice;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int n = ty + 32 * r;
+    if (!col || n >= N) continue;
+    *reinterpret_cast<float4*>(final_state + ((b * H + hd) * N + n) * P + p0 +
+                               4 * tx) =
+        *reinterpret_cast<const float4*>(hf + n * kSlice + 4 * tx);
+  }
+}
+
+template <typename T, typename Y>
+cudaError_t launch(const float* y_intra, const float* states, const float* cum,
+                   const void* cm, int B, int nc, int Q, int H, int N, int P,
+                   int L, void* y, float* final_state, cudaStream_t s) {
+  const int bytes = smem_bytes<T>(Q, N);
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_state_pass_kernel<T, Y>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((P + kSlice - 1) / kSlice, H, B);
+  ssd_state_pass_kernel<T, Y><<<grid, kThreadsPass, bytes, s>>>(
+      y_intra, states, cum, static_cast<const T*>(cm), nc, Q, H, N, P, L,
+      static_cast<Y*>(y), final_state);
+  return cudaGetLastError();
+}
+
+}  // namespace pass
+
 }  // namespace
+
 
 extern "C" {
 
@@ -242,6 +885,116 @@ int ssd_chunk_launch(const void* dtx, const void* cum, const void* bm,
           ? launch<float>(d, c, bm, cm, bc, Q, H, N, P, yo, so, s)
           : launch<__nv_bfloat16>(d, c, bm, cm, bc, Q, H, N, P, yo, so, s);
   return (int)err;
+}
+
+// The tensor-core tile: Q in {64, 128}, N and P in {64, 128}; every pointer
+// 16-byte aligned.  dtype of B and C: 0 float32, 1 bfloat16.
+int ssd_chunk_wgmma_launch(const void* dtx, const void* cum, const void* bm,
+                           const void* cm, int dtype, int bc, int Q, int H,
+                           int N, int P, void* y, void* states, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* d = static_cast<const float*>(dtx);
+  const float* c = static_cast<const float*>(cum);
+  float* yo = static_cast<float*>(y);
+  float* so = static_cast<float*>(states);
+  cudaError_t err =
+      dtype == 0
+          ? tc::dispatch<float>(d, nullptr, c, bm, cm, bc, Q, H, N, P, yo, so, s)
+          : tc::dispatch<__nv_bfloat16>(d, nullptr, c, bm, cm, bc, Q, H, N, P,
+                                        yo, so, s);
+  return (int)err;
+}
+
+// The same tile with dtx = dt * xh formed on load: xh (bc, Q, H, P) in the
+// dtype of B and C, dt (bc, Q, H) float32.
+int ssd_chunk_wgmma_xdt_launch(const void* xh, const void* dt, const void* cum,
+                               const void* bm, const void* cm, int dtype,
+                               int bc, int Q, int H, int N, int P, void* y,
+                               void* states, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* d = static_cast<const float*>(dt);
+  const float* c = static_cast<const float*>(cum);
+  float* yo = static_cast<float*>(y);
+  float* so = static_cast<float*>(states);
+  cudaError_t err =
+      dtype == 0
+          ? tc::dispatch<float>(static_cast<const float*>(xh), d, c, bm, cm,
+                                bc, Q, H, N, P, yo, so, s)
+          : tc::dispatch<__nv_bfloat16>(
+                static_cast<const __nv_bfloat16*>(xh), d, c, bm, cm, bc, Q, H,
+                N, P, yo, so, s);
+  return (int)err;
+}
+
+// Dynamic shared memory of one ssd_chunk_wgmma_kernel block.
+int ssd_chunk_wgmma_smem_bytes(int Q, int N, int P, int dtype) {
+  return tc::smem_bytes(Q, N, P, dtype == 0 ? tc::kPieces : 1);
+}
+
+// The inter-chunk pass.  c_dtype (C): 0 float32, 1 bfloat16; y_dtype (the
+// output, xh's dtype) likewise.  Q, N <= 128, P a multiple of 4, a row of C
+// a multiple of 16 bytes, every pointer 16-byte aligned.
+int ssd_state_pass_launch(const void* y_intra, const void* states,
+                          const void* cum, const void* cm, int c_dtype,
+                          int y_dtype, int B, int nc, int Q, int H, int N,
+                          int P, int L, void* y, void* final_state,
+                          void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int csize = c_dtype == 0 ? 4 : 2;
+  if (Q < 1 || Q > pass::kMaxRows || N < 1 || N > pass::kMaxRows || P < 4 ||
+      P % 4 || (N * csize) % 16 || L < 1 || L > nc * Q)
+    return (int)cudaErrorInvalidValue;
+  const float* yi = static_cast<const float*>(y_intra);
+  const float* st = static_cast<const float*>(states);
+  const float* cu = static_cast<const float*>(cum);
+  float* fs = static_cast<float*>(final_state);
+  cudaError_t err;
+  if (c_dtype == 0 && y_dtype == 0)
+    err = pass::launch<float, float>(yi, st, cu, cm, B, nc, Q, H, N, P, L, y,
+                                     fs, s);
+  else if (c_dtype == 0)
+    err = pass::launch<float, __nv_bfloat16>(yi, st, cu, cm, B, nc, Q, H, N,
+                                             P, L, y, fs, s);
+  else if (y_dtype == 0)
+    err = pass::launch<__nv_bfloat16, float>(yi, st, cu, cm, B, nc, Q, H, N,
+                                             P, L, y, fs, s);
+  else
+    err = pass::launch<__nv_bfloat16, __nv_bfloat16>(yi, st, cu, cm, B, nc, Q,
+                                                     H, N, P, L, y, fs, s);
+  return (int)err;
+}
+
+// Dynamic shared memory of one ssd_state_pass_kernel block.
+int ssd_state_pass_smem_bytes(int Q, int N, int c_dtype) {
+  return c_dtype == 0 ? pass::smem_bytes<float>(Q, N)
+                      : pass::smem_bytes<__nv_bfloat16>(Q, N);
+}
+
+// Blocks of each kernel an SM holds at once (bf16 B/C and output, the
+// slice's Q = N = 128, P = 64), or -1 if the query failed.
+int ssd_blocks_per_sm(int which) {
+  int n = -1;
+  cudaError_t err;
+  if (which == 0) {
+    const int bytes = tc::smem_bytes(128, 128, 64, 1);
+    err = cudaFuncSetAttribute(
+        tc::ssd_chunk_wgmma_kernel<__nv_bfloat16, __nv_bfloat16, 128, 64>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, tc::ssd_chunk_wgmma_kernel<__nv_bfloat16, __nv_bfloat16, 128, 64>,
+          tc::kThreadsTc, bytes);
+  } else {
+    const int bytes = pass::smem_bytes<__nv_bfloat16>(128, 128);
+    err = cudaFuncSetAttribute(
+        pass::ssd_state_pass_kernel<__nv_bfloat16, __nv_bfloat16>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, pass::ssd_state_pass_kernel<__nv_bfloat16, __nv_bfloat16>,
+          pass::kThreadsPass, bytes);
+  }
+  return err == cudaSuccess ? n : -1;
 }
 
 }  // extern "C"

@@ -171,3 +171,31 @@ def ssd_chunk_ref(dtx: torch.Tensor, cum: torch.Tensor, b: torch.Tensor,
     w = torch.exp(cm[..., -1:] - cm)                       # (B, nc, H, Q)
     state = (bf.unsqueeze(2) * w.unsqueeze(-1)).transpose(-1, -2) @ x
     return y.to(dtx.dtype).contiguous(), state.contiguous()
+
+
+def ssd_state_pass_ref(y_intra: torch.Tensor, states: torch.Tensor,
+                       cum: torch.Tensor, c: torch.Tensor, length: int,
+                       dtype: torch.dtype):
+    """The inter-chunk pass of the chunked SSD over the full batch.
+
+    y_intra (B, nc, Q, H, P) and states (B, nc, H, N, P) from the tile;
+    cum (B, nc, Q, H); c (B, nc, Q, N).  Carries h_c = exp(cum_c,Q) h_{c-1}
+    + states_c from h_{-1} = 0 and adds the inter-chunk term:
+
+      y_c[i] = y_intra_c[i] + exp(cum_c,i) c_c,i . h_{c-1}
+
+    Returns (y (B, length, H, P) in ``dtype``, final state (B, H, N, P)
+    f32); rows past ``length`` (the pad of the last chunk) are dropped.
+    """
+    _full_f32()
+    B, nc, Q, H, P = y_intra.shape
+    cum = cum.float()
+    decay = torch.exp(cum[:, :, -1, :])[..., None, None]     # (B, nc, H, 1, 1)
+    h_before = torch.empty_like(states)
+    h = torch.zeros_like(states[:, 0])
+    for ci in range(nc):
+        h_before[:, ci] = h
+        h = torch.addcmul(states[:, ci], decay[:, ci], h)
+    ch = torch.einsum("bcin,bchnp->bcihp", c.float(), h_before)
+    y = y_intra + torch.exp(cum)[..., None] * ch
+    return y.reshape(B, nc * Q, H, P)[:, :length].to(dtype), h

@@ -1,21 +1,44 @@
-"""Wrapper of the CUDA SSD intra-chunk kernel (``csrc/ssd_scan.cu``), ported
-from the Pallas kernel of ``repro/kernels/ssd_scan.py``.
+"""Wrappers of the CUDA SSD kernels (``csrc/ssd_scan.cu``), ported from
+the Pallas kernel of ``repro/kernels/ssd_scan.py`` and the XLA code around
+it in ``ssd_chunked_pallas``.
 
 ``ssd_chunk_tiles`` computes, for every (batch, chunk, head), the
-intra-chunk output and the chunk's state (the kernel's docstring has the
-formulas).  For CPU tensors it returns the plain version
-(``ref.ssd_chunk_ref``); for CUDA tensors it checks them, launches the
-kernel on the current stream and raises if the launch failed — it never
-falls back.  ``LAUNCHES`` counts launches.  The kernel is forward-only:
-a CUDA input that requires grad raises.
+intra-chunk output and the chunk's state (the kernels' notes have the
+formulas); ``ssd_state_pass`` carries the state across the chunks and adds
+the inter-chunk output term.  For CPU tensors each returns its plain version
+(``ref.ssd_chunk_ref``, ``ref.ssd_state_pass_ref``); for CUDA tensors it
+checks them, launches a kernel on the current stream and raises if the
+launch failed — it never falls back.  The kernels are forward-only: a CUDA
+input that requires grad raises.
+
+Routing of the tile (``route``), by shape and the dtype of B and C:
+
+- Q in {64, 128}, N and P in {64, 128}, float32 or bf16 B/C ->
+  ``ssd_chunk_wgmma_kernel``: every product on the tensor cores (wgmma),
+  each float32 operand as three bf16 pieces in six products, float32
+  accumulation.  Its inputs must start on 16-byte boundaries.  Counted in
+  ``LAUNCHES["ssd_chunk_tiles_wgmma"]``.  Float32 B/C at Q = N = P = 128
+  is the exception: its pieces do not fit a block's shared memory.
+- every other shape up to ``MAX_DIM`` -> ``ssd_chunk_kernel``: float32 on
+  CUDA cores.  Counted in ``LAUNCHES["ssd_chunk_tiles_simt"]``.
+
+``ssd_state_pass`` launches ``ssd_state_pass_kernel`` (one block per
+(P slice, head, batch row) walking the chunks in order), counted in
+``LAUNCHES["ssd_state_pass"]``; it takes Q, N <= ``MAX_DIM``, P a multiple
+of 4 and rows of C a multiple of 16 bytes.
 
 ``ssd_chunked`` is the port of ``ssd_chunked_pallas``, a drop-in for
-``repro_torch.models.ssm.ssd_chunked``: padding to the chunk, the cumsum,
-the inter-chunk state recurrence and the inter-chunk output term stay
-plain torch, as they stay XLA in the reference.
+``repro_torch.models.ssm.ssd_chunked``: padding to the chunk and the cumsum
+stay plain torch, then for CUDA tensors exactly two kernels run, the tile
+and the state pass.  Where the tile takes the tensor-core route and xh
+comes in the dtype of B and C (the model's), the tile forms dtx = dt xh on
+load (``ssd_chunk_tiles_xdt``) instead of reading a float32 dtx that plain
+torch would first write.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -24,14 +47,63 @@ from repro_torch.kernels import build as _build
 from repro_torch.kernels import ref
 from repro_torch.kernels.common import check, forward_only, need, on_cuda, ptr, stream
 
-LAUNCHES = {"ssd_chunk_tiles": 0}
+
+class Route(NamedTuple):
+    kernel: str     # the CUDA kernel's name (as a profiler trace shows it)
+    counter: str    # its key in LAUNCHES
+
+
+WGMMA = Route("ssd_chunk_wgmma_kernel", "ssd_chunk_tiles_wgmma")
+SIMT = Route("ssd_chunk_kernel", "ssd_chunk_tiles_simt")
+STATE_PASS = Route("ssd_state_pass_kernel", "ssd_state_pass")
+LAUNCHES = {WGMMA.counter: 0, SIMT.counter: 0, STATE_PASS.counter: 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_DIM = 128   # largest chunk, state and head width one block covers (kMaxDim)
+WGMMA_CHUNKS = (64, 128)
+WGMMA_DIMS = (64, 128)   # N and P the tensor-core tile takes
 
 
 def reset_launches() -> None:
-    LAUNCHES["ssd_chunk_tiles"] = 0
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def route(Q: int, N: int, P: int, dtype: torch.dtype) -> Route:
+    """The kernel a CUDA tile call of this shape and dtype of B and C
+    launches; raise for a shape neither kernel takes."""
+    if max(Q, N, P) > MAX_DIM:
+        raise ValueError(f"ssd_chunk_tiles takes Q, N, P <= {MAX_DIM}, got "
+                         f"Q={Q} N={N} P={P}")
+    if (Q in WGMMA_CHUNKS and N in WGMMA_DIMS and P in WGMMA_DIMS
+            and not (dtype == torch.float32 and Q == N == P == MAX_DIM)):
+        return WGMMA
+    return SIMT
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def cuda_route(dtx: torch.Tensor, cum: torch.Tensor, b_mat: torch.Tensor,
+               c_mat: torch.Tensor) -> Route:
+    """Check the tile's inputs against what the kernels take and return the
+    route a CUDA call takes; raise on anything else.  Reads only shapes,
+    dtypes, strides and addresses, so it runs on tensors of any device."""
+    forward_only("ssd_chunk_tiles", dtx, cum, b_mat, c_mat)
+    if dtx.dim() != 5:
+        raise ValueError(f"dtx must be (B, nc, Q, H, P), got {tuple(dtx.shape)}")
+    B, nc, Q, H, P = dtx.shape
+    N = b_mat.shape[-1]
+    r = route(Q, N, P, b_mat.dtype)
+    need(dtx, "dtx", (B, nc, Q, H, P))
+    need(cum, "cum", (B, nc, Q, H))
+    need(b_mat, "b_mat", (B, nc, Q, N), tuple(_DTYPES))
+    need(c_mat, "c_mat", (B, nc, Q, N), (b_mat.dtype,))
+    if r is WGMMA and not _aligned(dtx, cum, b_mat, c_mat):
+        raise ValueError("ssd_chunk_tiles: the tensor-core tile's inputs must "
+                         "start on 16-byte boundaries")
+    return r
 
 
 def ssd_chunk_tiles(dtx: torch.Tensor, cum: torch.Tensor, b_mat: torch.Tensor,
@@ -39,38 +111,124 @@ def ssd_chunk_tiles(dtx: torch.Tensor, cum: torch.Tensor, b_mat: torch.Tensor,
     """All intra-chunk outputs + per-chunk states.
 
     dtx (B, nc, Q, H, P) and cum (B, nc, Q, H) float32; b_mat, c_mat
-    (B, nc, Q, N) float32 or bf16 (computed in float32).  Returns
+    (B, nc, Q, N) float32 or bf16 (accumulated in float32).  Returns
     (y_intra (B, nc, Q, H, P) float32, states (B, nc, H, N, P) float32).
     """
     if not on_cuda(dtx, cum, b_mat, c_mat):
         return ref.ssd_chunk_ref(dtx, cum, b_mat, c_mat)
-    forward_only("ssd_chunk_tiles", dtx, cum, b_mat, c_mat)
-    if dtx.dim() != 5:
-        raise ValueError(f"dtx must be (B, nc, Q, H, P), got {tuple(dtx.shape)}")
+    r = cuda_route(dtx, cum, b_mat, c_mat)
     B, nc, Q, H, P = dtx.shape
     N = b_mat.shape[-1]
-    if max(Q, N, P) > MAX_DIM:
-        raise ValueError(f"ssd_chunk_tiles takes Q, N, P <= {MAX_DIM}, got "
-                         f"Q={Q} N={N} P={P}")
-    need(dtx, "dtx", (B, nc, Q, H, P))
-    need(cum, "cum", (B, nc, Q, H))
-    need(b_mat, "b_mat", (B, nc, Q, N), tuple(_DTYPES))
-    need(c_mat, "c_mat", (B, nc, Q, N), (b_mat.dtype,))
     y = torch.empty_like(dtx)
     states = torch.empty((B, nc, H, N, P), dtype=torch.float32,
                          device=dtx.device)
-    if y.numel():
-        LAUNCHES["ssd_chunk_tiles"] += 1
-        check(_build.load().ssd_chunk_launch(
-            ptr(dtx), ptr(cum), ptr(b_mat), ptr(c_mat), _DTYPES[b_mat.dtype],
-            B * nc, Q, H, N, P, ptr(y), ptr(states), stream(dtx)),
-            "ssd_chunk_tiles")
+    if not y.numel():
+        return y, states
+    LAUNCHES[r.counter] += 1
+    launch = (_build.load().ssd_chunk_wgmma_launch if r is WGMMA
+              else _build.load().ssd_chunk_launch)
+    check(launch(ptr(dtx), ptr(cum), ptr(b_mat), ptr(c_mat),
+                 _DTYPES[b_mat.dtype], B * nc, Q, H, N, P, ptr(y), ptr(states),
+                 stream(dtx)), f"ssd_chunk_tiles ({r.kernel})")
     return y, states
+
+
+def ssd_chunk_tiles_xdt(xh: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
+                        b_mat: torch.Tensor, c_mat: torch.Tensor):
+    """``ssd_chunk_tiles(dt[..., None] * xh.float(), cum, b_mat, c_mat)``
+    on the tensor-core route, with dtx formed on load: xh (B, nc, Q, H, P)
+    in b_mat's dtype, dt (B, nc, Q, H) float32.  CUDA tensors only; for
+    CPU tensors (and shapes the tensor-core route does not take) call
+    ``ssd_chunk_tiles`` on dtx instead."""
+    if xh.dim() != 5:
+        raise ValueError(f"xh must be (B, nc, Q, H, P), got {tuple(xh.shape)}")
+    B, nc, Q, H, P = xh.shape
+    N = b_mat.shape[-1]
+    forward_only("ssd_chunk_tiles", xh, dt, cum, b_mat, c_mat)
+    if not on_cuda(xh, dt, cum, b_mat, c_mat):
+        raise ValueError("ssd_chunk_tiles_xdt runs on CUDA tensors only")
+    if route(Q, N, P, b_mat.dtype) is not WGMMA:
+        raise ValueError(f"ssd_chunk_tiles_xdt: Q={Q} N={N} P={P} "
+                         f"{b_mat.dtype} does not take the tensor-core route")
+    need(xh, "xh", (B, nc, Q, H, P), (b_mat.dtype,))
+    need(dt, "dt", (B, nc, Q, H))
+    need(cum, "cum", (B, nc, Q, H))
+    need(b_mat, "b_mat", (B, nc, Q, N), tuple(_DTYPES))
+    need(c_mat, "c_mat", (B, nc, Q, N), (b_mat.dtype,))
+    if not _aligned(xh, dt, cum, b_mat, c_mat):
+        raise ValueError("ssd_chunk_tiles: the tensor-core tile's inputs must "
+                         "start on 16-byte boundaries")
+    y = torch.empty((B, nc, Q, H, P), dtype=torch.float32, device=xh.device)
+    states = torch.empty((B, nc, H, N, P), dtype=torch.float32,
+                         device=xh.device)
+    if not y.numel():
+        return y, states
+    LAUNCHES[WGMMA.counter] += 1
+    check(_build.load().ssd_chunk_wgmma_xdt_launch(
+        ptr(xh), ptr(dt), ptr(cum), ptr(b_mat), ptr(c_mat),
+        _DTYPES[b_mat.dtype], B * nc, Q, H, N, P, ptr(y), ptr(states),
+        stream(xh)), f"ssd_chunk_tiles ({WGMMA.kernel}, dtx on load)")
+    return y, states
+
+
+def check_state_pass(y_intra: torch.Tensor, states: torch.Tensor,
+                     cum: torch.Tensor, c_mat: torch.Tensor, length: int,
+                     dtype: torch.dtype) -> None:
+    """Check the state pass's inputs against what its kernel takes; raise on
+    anything else.  Runs on tensors of any device."""
+    forward_only("ssd_state_pass", y_intra, states, cum, c_mat)
+    if y_intra.dim() != 5:
+        raise ValueError("y_intra must be (B, nc, Q, H, P), got "
+                         f"{tuple(y_intra.shape)}")
+    B, nc, Q, H, P = y_intra.shape
+    N = c_mat.shape[-1]
+    if max(Q, N) > MAX_DIM or P % 4:
+        raise ValueError(f"ssd_state_pass takes Q, N <= {MAX_DIM} and P a "
+                         f"multiple of 4, got Q={Q} N={N} P={P}")
+    if (N * c_mat.element_size()) % 16:
+        raise ValueError(f"ssd_state_pass: a row of C ({N} x "
+                         f"{c_mat.element_size()} bytes) must be a multiple "
+                         "of 16 bytes")
+    if not 0 < length <= nc * Q:
+        raise ValueError(f"length {length} outside 1..{nc * Q}")
+    if dtype not in _DTYPES:
+        raise TypeError(f"output dtype {dtype} not in {tuple(_DTYPES)}")
+    need(y_intra, "y_intra", (B, nc, Q, H, P))
+    need(states, "states", (B, nc, H, N, P))
+    need(cum, "cum", (B, nc, Q, H))
+    need(c_mat, "c_mat", (B, nc, Q, N), tuple(_DTYPES))
+    if not _aligned(y_intra, states, cum, c_mat):
+        raise ValueError("ssd_state_pass: inputs must start on 16-byte "
+                         "boundaries")
+
+
+def ssd_state_pass(y_intra: torch.Tensor, states: torch.Tensor,
+                   cum: torch.Tensor, c_mat: torch.Tensor, length: int,
+                   dtype: torch.dtype):
+    """The inter-chunk recurrence and output term (``ref.ssd_state_pass_ref``
+    has the formulas).  Returns (y (B, length, H, P) in ``dtype``, final
+    state (B, H, N, P) float32)."""
+    if not on_cuda(y_intra, states, cum, c_mat):
+        return ref.ssd_state_pass_ref(y_intra, states, cum, c_mat, length, dtype)
+    check_state_pass(y_intra, states, cum, c_mat, length, dtype)
+    B, nc, Q, H, P = y_intra.shape
+    N = c_mat.shape[-1]
+    y = torch.empty((B, length, H, P), dtype=dtype, device=y_intra.device)
+    final = torch.empty((B, H, N, P), dtype=torch.float32,
+                        device=y_intra.device)
+    if not final.numel():
+        return y, final
+    LAUNCHES[STATE_PASS.counter] += 1
+    check(_build.load().ssd_state_pass_launch(
+        ptr(y_intra), ptr(states), ptr(cum), ptr(c_mat), _DTYPES[c_mat.dtype],
+        _DTYPES[dtype], B, nc, Q, H, N, P, length, ptr(y), ptr(final),
+        stream(y_intra)), "ssd_state_pass")
+    return y, final
 
 
 def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                 b_mat: torch.Tensor, c_mat: torch.Tensor, chunk: int = 128):
-    """Chunked SSD through the tile kernel.
+    """Chunked SSD through the tile and the state pass.
 
     xh (B, L, H, P); dt (B, L, H) positive steps; a (H,) negative rates;
     b_mat, c_mat (B, L, N).  Returns (y (B, L, H, P) in xh's dtype,
@@ -88,26 +246,16 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     nc = xh.shape[1] // Q
 
     xh_c = xh.reshape(B, nc, Q, H, P)
-    dt_c = dt.reshape(B, nc, Q, H).float()
+    dt_c = dt.reshape(B, nc, Q, H).float().contiguous()
     b_c = b_mat.reshape(B, nc, Q, N).contiguous()
     c_c = c_mat.reshape(B, nc, Q, N).contiguous()
-    cum = torch.cumsum(dt_c * a.float(), dim=2)             # (B, nc, Q, H)
-    total = cum[:, :, -1, :]                                 # (B, nc, H)
-    dtx = (dt_c[..., None] * xh_c.float()).contiguous()
+    cum = torch.cumsum(dt_c * a.float(), dim=2).contiguous()   # (B, nc, Q, H)
 
-    y_intra, s_chunk = ssd_chunk_tiles(dtx, cum.contiguous(), b_c, c_c)
-
-    # inter-chunk recurrence h_c = exp(total_c) h_{c-1} + s_c, emitting the
-    # state before each chunk (the reference's lax.scan)
-    decay = torch.exp(total)[..., None, None]                # (B, nc, H, 1, 1)
-    h_before = torch.empty_like(s_chunk)
-    h = torch.zeros((B, H, N, P), dtype=torch.float32, device=xh.device)
-    for ci in range(nc):
-        h_before[:, ci] = h
-        h = torch.addcmul(s_chunk[:, ci], decay[:, ci], h)
-
-    # y_inter[i] = exp(cum_i) C_i . h_before
-    ch = torch.einsum("bcin,bchnp->bcihp", c_c.float(), h_before)
-    y = y_intra + torch.exp(cum)[..., None] * ch
-    y = y.reshape(B, nc * Q, H, P)[:, :L]
-    return y.to(xh.dtype), h
+    if (on_cuda(xh_c, dt_c, cum, b_c, c_c) and xh.dtype == b_c.dtype
+            and route(Q, N, P, b_c.dtype) is WGMMA):
+        y_intra, s_chunk = ssd_chunk_tiles_xdt(xh_c.contiguous(), dt_c, cum,
+                                               b_c, c_c)
+    else:
+        dtx = (dt_c[..., None] * xh_c.float()).contiguous()
+        y_intra, s_chunk = ssd_chunk_tiles(dtx, cum, b_c, c_c)
+    return ssd_state_pass(y_intra, s_chunk, cum, c_c, L, xh.dtype)

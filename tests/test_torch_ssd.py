@@ -118,7 +118,8 @@ def test_plain_ssd_chunked_with_an_initial_state(rng):
 def test_cpu_tensors_never_count_launches(rng):
     tss.reset_launches()
     tss.ssd_chunked(*map(_t, _chunked_inputs(rng, 40)), chunk=16)
-    assert tss.LAUNCHES == {"ssd_chunk_tiles": 0}
+    assert tss.LAUNCHES == {"ssd_chunk_tiles_wgmma": 0,
+                            "ssd_chunk_tiles_simt": 0, "ssd_state_pass": 0}
 
 
 def test_non_cpu_tensors_raise_instead_of_falling_back():
@@ -140,3 +141,235 @@ def test_cuda_kernel_refuses_what_it_does_not_take():
         tss.ssd_chunk_tiles(dtx, cum, b, b)
     with pytest.raises(RuntimeError, match="forward-only"):
         tss.ssd_chunk_tiles(dtx[..., :4].contiguous().requires_grad_(), cum, b, b)
+
+
+# ---------------------------------------------------------------------------
+# The inter-chunk pass and the tensor-core tile's arithmetic
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import ref as tref  # noqa: E402
+
+
+def _chunk_prologue(xh, dt, a, b_mat, c_mat, chunk):
+    """ssd_chunked's plain prologue: (dtx, cum, B, C) by chunk."""
+    B, L, H, P = xh.shape
+    N = b_mat.shape[-1]
+    Q = min(chunk, L)
+    pad = (-L) % Q
+    pad_rows = lambda t: torch.nn.functional.pad(
+        t, (0, 0) * (t.dim() - 2) + (0, pad))
+    xh, dt, b_mat, c_mat = map(pad_rows, (xh, dt, b_mat, c_mat))
+    nc = xh.shape[1] // Q
+    dt_c = dt.reshape(B, nc, Q, H)
+    cum = torch.cumsum(dt_c * a, dim=2)
+    dtx = dt_c[..., None] * xh.reshape(B, nc, Q, H, P)
+    return (dtx, cum, b_mat.reshape(B, nc, Q, N), c_mat.reshape(B, nc, Q, N))
+
+
+@pytest.mark.parametrize("L,chunk,N,P", [(64, 32, 8, 16), (200, 64, 8, 16),
+                                         (128, 128, 8, 16), (200, 128, 128, 64)])
+def test_state_pass_ref_composes_to_the_pallas_path(rng, L, chunk, N, P):
+    """ref.ssd_chunk_ref then ref.ssd_state_pass_ref (the two kernels'
+    plain versions) give ssd_chunked_pallas and the reference's plain
+    chunked SSD, at the chunked path's 2e-4 (tests/test_kernels.py:213)."""
+    H = 2 if N == 128 else 4
+    arrs = _chunked_inputs(rng, L, B=1, H=H, P=P, N=N)
+    dtx, cum, bm, cm = _chunk_prologue(*map(_t, arrs), chunk)
+    y_intra, states = tref.ssd_chunk_ref(dtx, cum, bm, cm)
+    y, h = tref.ssd_state_pass_ref(y_intra, states, cum, cm, L, torch.float32)
+    assert y.shape == (1, L, H, P) and h.shape == (1, H, N, P)
+    jarrs = list(map(jnp.asarray, arrs))
+    yp, hp = jss.ssd_chunked_pallas(*jarrs, chunk=chunk, interpret=True)
+    yr, hr = jssm.ssd_chunked(*jarrs, chunk=chunk)
+    for yw, hw in ((yp, hp), (yr, hr)):
+        _close(y, yw, 2e-4)
+        _close(h, hw, 2e-4)
+
+
+def _products(a, b, pieces_a, pieces_b, order):
+    """sum of a_i @ b_j over the bf16 pieces of a and b with i + j < order:
+    products of bf16 values are exact in float32, sums are float32, as in
+    wgmma with float32 accumulation."""
+    def split(x, k):
+        out, r = [], x.float()
+        for _ in range(k):
+            p = r.bfloat16().float()
+            out.append(p)
+            r = r - p
+        return out
+    pa, pb = split(a, pieces_a), split(b, pieces_b)
+    return sum(pa[i] @ pb[j] for i in range(pieces_a) for j in range(pieces_b)
+               if i + j < order)
+
+
+def _emulate_tile(dtx, cum, b, c, pieces=3, single=None):
+    """ssd_chunk_wgmma_kernel's arithmetic in plain torch.  Every float32
+    operand enters as ``pieces`` bf16 pieces in the products i + j <
+    ``pieces`` (3: six products; 2: the hi/lo pair's three); a bf16 B or C
+    enters as it is.  ``single`` ("dtx" or "decay") rounds that operand of
+    the y product to one bf16 instead."""
+    Q = dtx.shape[2]
+    bf16_bc = b.dtype == torch.bfloat16
+    x = dtx.float().permute(0, 1, 3, 2, 4)                 # (B, nc, H, Q, P)
+    cm = cum.float().permute(0, 1, 3, 2)                   # (B, nc, H, Q)
+    kb = 1 if bf16_bc else pieces
+    g = _products(c, b.transpose(-1, -2), kb, kb, pieces)   # (B, nc, Q, Q)
+    seg = cm[..., :, None] - cm[..., None, :]
+    tril = torch.ones((Q, Q), dtype=torch.bool).tril()
+    decay = torch.where(tril, torch.exp(torch.where(
+        tril, seg, torch.full_like(seg, -1e30))), torch.zeros(()))
+    a = g.unsqueeze(2) * decay
+    ka = 1 if single == "decay" else pieces
+    kx = 1 if single == "dtx" else pieces
+    y = _products(a, x, ka, kx, max(ka, kx))
+    w = torch.exp(cm[..., -1:] - cm).unsqueeze(-1)
+    state = _products(b.transpose(-1, -2).unsqueeze(2), w * x, kb, pieces,
+                      pieces)
+    return y.permute(0, 1, 3, 2, 4), state
+
+
+SLICE_TILE = dict(B=1, nc=2, Q=128, H=2, P=64, N=128)
+
+
+def _slice_tile(rng, bc_dtype):
+    dtx, cum, bm, cm = _tile_inputs(rng, **SLICE_TILE)
+    if bc_dtype == "bf16":
+        bm, cm = (np.asarray(jnp.asarray(x).astype(jnp.bfloat16)
+                             .astype(jnp.float32)) for x in (bm, cm))
+    want = jss.ssd_chunk_tiles(*map(jnp.asarray, (dtx, cum, bm, cm)),
+                               interpret=True)
+    torch_bc = torch.bfloat16 if bc_dtype == "bf16" else torch.float32
+    got_inputs = (_t(dtx), _t(cum), _t(bm).to(torch_bc), _t(cm).to(torch_bc))
+    return got_inputs, want
+
+
+@pytest.mark.parametrize("bc_dtype", ["f32", "bf16"])
+def test_tensor_core_arithmetic_matches_the_pallas_tile(rng, bc_dtype):
+    """Three bf16 pieces of every float32 operand (six products) keep the
+    tensor-core tile within the tile's 1e-4 of the Pallas tile at the
+    serving slice's widths (Q=128, N=128, P=64)."""
+    inputs, (yj, sj) = _slice_tile(rng, bc_dtype)
+    y, st = _emulate_tile(*inputs)
+    _close(y, yj, 1e-4)
+    _close(st, sj, 1e-4)
+
+
+@pytest.mark.parametrize("variant", ["hi_lo", "single_dtx", "single_decay"])
+def test_fewer_pieces_leave_the_tile_tolerance(rng, variant):
+    """A hi/lo pair (two pieces, three products), or a single bf16 dtx or
+    G * decay in the y product, moves y beyond 1e-4 of the Pallas tile on
+    the same bf16 B/C inputs: the sums cancel, so their rounding shows."""
+    inputs, (yj, _) = _slice_tile(rng, "bf16")
+    kw = dict(pieces=2) if variant == "hi_lo" else dict(
+        single=variant.split("_")[1])
+    y, _ = _emulate_tile(*inputs, **kw)
+    with pytest.raises(AssertionError):
+        _close(y, yj, 1e-4)
+
+
+@pytest.mark.parametrize("Q,N,P,dtype,route", [
+    (128, 128, 64, torch.bfloat16, "WGMMA"), (128, 128, 64, torch.float32, "WGMMA"),
+    (64, 64, 64, torch.bfloat16, "WGMMA"), (64, 128, 128, torch.float32, "WGMMA"),
+    (128, 128, 128, torch.bfloat16, "WGMMA"), (128, 128, 128, torch.float32, "SIMT"),
+    (32, 8, 16, torch.float32, "SIMT"), (128, 96, 64, torch.bfloat16, "SIMT"),
+    (96, 128, 64, torch.bfloat16, "SIMT"), (128, 128, 32, torch.float32, "SIMT")])
+def test_routing_table(Q, N, P, dtype, route):
+    want = getattr(tss, route)
+    assert tss.route(Q, N, P, dtype) == want
+    dtx = torch.zeros((1, 1, Q, 2, P))
+    cum = torch.zeros((1, 1, Q, 2))
+    b = torch.zeros((1, 1, Q, N), dtype=dtype)
+    assert tss.cuda_route(dtx, cum, b, b) == want
+    assert tss.WGMMA == ("ssd_chunk_wgmma_kernel", "ssd_chunk_tiles_wgmma")
+    assert tss.SIMT == ("ssd_chunk_kernel", "ssd_chunk_tiles_simt")
+    assert tss.STATE_PASS == ("ssd_state_pass_kernel", "ssd_state_pass")
+    assert set(tss.LAUNCHES) == {tss.WGMMA.counter, tss.SIMT.counter,
+                                 tss.STATE_PASS.counter}
+
+
+def test_cuda_route_refuses_what_the_tiles_do_not_take():
+    """The checks a CUDA tile call runs before it launches: sizes, dtypes,
+    layout and, for the tensor-core route, 16-byte-aligned inputs."""
+    dtx = torch.zeros((1, 1, 64, 2, 64))
+    cum = torch.zeros((1, 1, 64, 2))
+    b = torch.zeros((1, 1, 64, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="<= 128"):
+        tss.cuda_route(torch.zeros((1, 1, 64, 2, 256)), cum, b, b)
+    with pytest.raises(TypeError, match="dtype"):
+        tss.cuda_route(dtx, cum, b.half(), b.half())
+    with pytest.raises(TypeError, match="dtype"):
+        tss.cuda_route(dtx, cum, b, b.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        tss.cuda_route(dtx.transpose(2, 3).contiguous().transpose(2, 3),
+                       cum, b, b)
+    flat = torch.zeros(b.numel() + 8, dtype=torch.bfloat16)
+    odd = flat[1:1 + b.numel()].view(b.shape)   # 2 bytes past an aligned start
+    assert flat.data_ptr() % 16 == 0
+    with pytest.raises(ValueError, match="16-byte"):
+        tss.cuda_route(dtx, cum, odd, b)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        tss.cuda_route(dtx.requires_grad_(), cum, b, b)
+
+
+def test_state_pass_checks_refuse_what_it_does_not_take():
+    """The checks a CUDA state-pass call runs before it launches."""
+    y = torch.zeros((1, 2, 32, 2, 16))
+    s = torch.zeros((1, 2, 2, 8, 16))
+    cum = torch.zeros((1, 2, 32, 2))
+    c = torch.zeros((1, 2, 32, 8))
+    tss.check_state_pass(y, s, cum, c, 60, torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tss.check_state_pass(torch.zeros((1, 2, 32, 2, 6)),
+                             torch.zeros((1, 2, 2, 8, 6)), cum, c, 60,
+                             torch.float32)
+    with pytest.raises(ValueError, match="16 bytes"):
+        tss.check_state_pass(y, torch.zeros((1, 2, 2, 6, 16)), cum,
+                             torch.zeros((1, 2, 32, 6)), 60, torch.float32)
+    with pytest.raises(ValueError, match="length"):
+        tss.check_state_pass(y, s, cum, c, 65, torch.float32)
+    with pytest.raises(TypeError, match="output dtype"):
+        tss.check_state_pass(y, s, cum, c, 60, torch.float16)
+    with pytest.raises(ValueError, match="shape"):
+        tss.check_state_pass(y, s[:, :1].contiguous(), cum, c, 60,
+                             torch.float32)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        tss.check_state_pass(y.requires_grad_(), s, cum, c, 60, torch.float32)
+
+
+def test_cpu_tile_and_state_pass_count_no_launches(rng):
+    tss.reset_launches()
+    dtx, cum, bm, cm = map(_t, _tile_inputs(rng))
+    y, st = tss.ssd_chunk_tiles(dtx, cum, bm, cm)
+    yo, h = tss.ssd_state_pass(y, st, cum, cm, 90, torch.float32)
+    assert yo.shape == (2, 90, 4, 16) and h.shape == (2, 4, 8, 16)
+    assert set(tss.LAUNCHES.values()) == {0}
+
+
+@pytest.mark.cuda
+def test_cuda_state_pass_refuses_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel runs in chip_smoke.py")
+    y = torch.zeros((1, 2, 32, 2, 6), device="cuda")
+    s = torch.zeros((1, 2, 2, 8, 6), device="cuda")
+    cum = torch.zeros((1, 2, 32, 2), device="cuda")
+    c = torch.zeros((1, 2, 32, 8), device="cuda")
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tss.ssd_state_pass(y, s, cum, c, 60, torch.float32)
+
+
+def test_tile_with_dtx_on_load_refuses_what_it_does_not_take(rng):
+    """ssd_chunk_tiles_xdt is the tensor-core route's entry with dtx formed
+    on load: CUDA tensors only (on the CPU ssd_chunked forms dtx and runs
+    the plain tile), xh in the dtype of B and C, a shape the route takes."""
+    xh = torch.zeros((1, 1, 64, 2, 64), dtype=torch.bfloat16)
+    dt = torch.zeros((1, 1, 64, 2))
+    b = torch.zeros((1, 1, 64, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        tss.ssd_chunk_tiles_xdt(xh, dt, dt, b, b)
+    m = lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tss.ssd_chunk_tiles_xdt(m(xh), m(dt), m(dt), m(b), m(b))
+    tss.reset_launches()
+    arrs = _chunked_inputs(rng, 96, B=1, H=2, P=64, N=64)
+    y, h = tss.ssd_chunked(*map(_t, arrs), chunk=64)
+    assert y.shape == (1, 96, 2, 64) and set(tss.LAUNCHES.values()) == {0}

@@ -48,8 +48,10 @@ def build_single_p(tmp):
     with open(cu, "w") as f:
         f.write(src.replace(P_LO_PRODUCT, ""))
     lib = os.path.join(tmp, "libflash_single_p.so")
-    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-shared", "-o",
-                    lib, cu], check=True, capture_output=True, text=True)
+    # the copy includes csrc/hopper.cuh from the package's csrc/
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I",
+                    str(build.CSRC), "-shared", "-o", lib, cu], check=True,
+                   capture_output=True, text=True)
     dll = ctypes.CDLL(lib)
     p, i = ctypes.c_void_p, ctypes.c_int
     dll.flash_attention_wgmma_launch.argtypes = [p, p, p, i, i, i, i, i, i,

@@ -1,0 +1,185 @@
+#!/usr/bin/env python3
+"""Where the SSD kernels' accuracy and time go, on the card.
+
+Two probes of ``csrc/ssd_scan.cu`` at ``chip_smoke``'s shapes:
+
+- accuracy: ``ssd_chunk_wgmma_kernel`` (through ``ssd_chunk_tiles``) and
+  the plain float32 version (``ref.ssd_chunk_ref``), each against a
+  float64 reference on the same inputs, at ``SSD_SLICE`` and
+  ``SSD_TILE_SHAPES`` with float32 and bf16 B/C, as max |got - want| /
+  (|want| + 1), the measure of ``SSD_TILE_TOL``;
+- time: copies of the source with parts of a kernel removed, built into a
+  temporary directory, timed by ``chip_smoke.time_ms`` at ``SSD_SLICE``
+  (bf16): the tile as the main path calls it (dt x formed on load) whole,
+  without its products, without the y products, without the state
+  products and without its stores; the state pass whole and without C . h.
+  A copy's output is wrong by design; only its time is read.
+
+Needs one GPU with sm_90a and nvcc.  Run from the repository root:
+
+    python3 tools/ssd_probe.py
+
+Prints the card's name and power limit, then one JSON object per case or
+copy; exits 1 if the tile is farther from the float64 reference than
+``SSD_TILE_TOL`` in any case.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import sys
+import tempfile
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+sys.path.insert(0, os.path.join(REPO, "src"))
+
+import chip_smoke as S  # noqa: E402
+
+Y_PRODUCTS = ("                  mma_rs<64>(y_cross, frag, bx, 1);\n",
+              "                  mma_rs<64>(y_main, frag, bx, 1);\n")
+STATE_PRODUCTS = "            mma_ss_mn<P>(\n"
+Y_STORE = ("          *reinterpret_cast<float2*>(y + ((bc * Q + i) * H + h) "
+           "* P + p) =\n")
+STATE_STORE = "        *reinterpret_cast<float2*>(st + n * P + p) =\n"
+PASS_PRODUCT = "    for (int n = 0; n < N; n += 4) {\n"
+
+# each copy: (what it removes, [(line, replacement)])
+COPIES = {
+    "whole": [],
+    "no_products": [(line, "                  ;\n") for line in Y_PRODUCTS]
+    + [(STATE_PRODUCTS, "            if (0) mma_ss_mn<P>(\n")],
+    "no_y_products": [(line, "                  ;\n") for line in Y_PRODUCTS],
+    "no_state_products": [(STATE_PRODUCTS,
+                           "            if (0) mma_ss_mn<P>(\n")],
+    "no_stores": [(Y_STORE, "          if (H < 0)" + Y_STORE[9:]),
+                  (STATE_STORE, "        if (H < 0)" + STATE_STORE[7:])],
+    "pass_no_c_h": [(PASS_PRODUCT, "    for (int n = 0; n < 0; n += 4) {\n")],
+}
+
+
+def ref64(dtx, cum, b, c):
+    """The tile's function in float64 (ref.ssd_chunk_ref's formulas)."""
+    import torch
+    Q = dtx.shape[2]
+    x = dtx.double().permute(0, 1, 3, 2, 4)
+    cm = cum.double().permute(0, 1, 3, 2)
+    bd, cd = b.double(), c.double()
+    seg = cm[..., :, None] - cm[..., None, :]
+    tril = torch.ones((Q, Q), dtype=torch.bool, device=dtx.device).tril()
+    decay = torch.where(tril, torch.exp(torch.where(
+        tril, seg, torch.full_like(seg, -1e300))), torch.zeros_like(seg))
+    y = (((cd @ bd.transpose(-1, -2)).unsqueeze(2) * decay) @ x)
+    w = torch.exp(cm[..., -1:] - cm)
+    state = (bd.unsqueeze(2) * w.unsqueeze(-1)).transpose(-1, -2) @ x
+    return y.permute(0, 1, 3, 2, 4), state
+
+
+def accuracy(dev, gen):
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as SS
+
+    ok = True
+    for c in (S.SSD_SLICE,) + S.SSD_TILE_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            if SS.route(c["Q"], c["N"], c["P"], dt) is not SS.WGMMA:
+                continue
+            dtx, cum, bm, cm = S._ssd_inputs(gen, dev, c, dt)
+            got = SS.ssd_chunk_tiles(dtx, cum, bm, cm)
+            plain = ref.ssd_chunk_ref(dtx, cum, bm, cm)
+            row = {"case": c, "bc_dtype": str(dt).split(".")[-1]}
+            for name, out in (("tile", got), ("plain_float32", plain)):
+                row[name] = [0.0, 0.0]
+            for bi in range(c["B"]):       # one batch row at a time: memory
+                want = ref64(dtx[bi:bi + 1], cum[bi:bi + 1], bm[bi:bi + 1],
+                             cm[bi:bi + 1])
+                for name, out in (("tile", got), ("plain_float32", plain)):
+                    for k in range(2):
+                        err = S.rel_err(out[k][bi:bi + 1].double(), want[k])[0]
+                        row[name][k] = max(row[name][k], err)
+                del want
+            row["y_state_measure"] = "max |got - want| / (|want| + 1)"
+            ok &= max(row["tile"]) <= S.SSD_TILE_TOL
+            S.emit(row)
+            del dtx, cum, bm, cm, got, plain
+            S.empty_cache(dev)
+    return ok
+
+
+def build_copy(tmp, name, subs):
+    from repro_torch.kernels import build
+    src = (build.CSRC / "ssd_scan.cu").read_text()
+    for line, new in subs:
+        if src.count(line) != 1:
+            raise SystemExit(f"ssd_scan.cu: {line.strip()!r} moved; update "
+                             "tools/ssd_probe.py")
+        src = src.replace(line, new)
+    cu = os.path.join(tmp, f"{name}.cu")
+    with open(cu, "w") as f:
+        f.write(src)
+    lib = os.path.join(tmp, f"lib{name}.so")
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I",
+                    str(build.CSRC), "-shared", "-o", lib, cu], check=True,
+                   capture_output=True, text=True)
+    dll = ctypes.CDLL(lib)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    dll.ssd_chunk_wgmma_xdt_launch.argtypes = [p] * 5 + [i] * 6 + [p] * 3
+    dll.ssd_state_pass_launch.argtypes = [p] * 4 + [i] * 9 + [p] * 3
+    return dll
+
+
+def times(dev, gen):
+    import torch
+    from repro_torch.kernels.common import check, stream
+
+    c = S.SSD_SLICE
+    B, nc, Q, H, P, N = (c[k] for k in ("B", "nc", "Q", "H", "P", "N"))
+    dtx, cum, bm, cm = S._ssd_inputs(gen, dev, c, torch.bfloat16)
+    xh, dts = dtx.bfloat16(), dtx[..., 0].abs() * 0.1
+    y = torch.empty_like(dtx)
+    st = torch.empty((B, nc, H, N, P), device=dev)
+    out = torch.empty((B, nc * Q, H, P), dtype=torch.bfloat16, device=dev)
+    final = torch.empty((B, H, N, P), device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, subs in COPIES.items():
+            dll = build_copy(tmp, name, subs)
+
+            def tile():
+                check(dll.ssd_chunk_wgmma_xdt_launch(
+                    xh.data_ptr(), dts.data_ptr(), cum.data_ptr(),
+                    bm.data_ptr(), cm.data_ptr(), 1, B * nc, Q, H, N, P,
+                    y.data_ptr(), st.data_ptr(), stream(xh)), name)
+
+            def state_pass():
+                check(dll.ssd_state_pass_launch(
+                    y.data_ptr(), st.data_ptr(), cum.data_ptr(), cm.data_ptr(),
+                    1, 1, B, nc, Q, H, N, P, nc * Q, out.data_ptr(),
+                    final.data_ptr(), stream(xh)), name)
+
+            row = {"copy": name}
+            if name != "pass_no_c_h":
+                row["tile_ms"] = S.time_ms(tile, reps=10)
+            if name in ("whole", "pass_no_c_h"):
+                row["state_pass_ms"] = S.time_ms(state_pass, reps=10)
+            S.emit(row)
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    S.device_line()
+    gen = torch.Generator().manual_seed(4)
+    ok = accuracy(dev, gen)
+    times(dev, gen)
+    S.emit({"tile_tol": S.SSD_TILE_TOL, "ok": ok})
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
