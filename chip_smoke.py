@@ -114,11 +114,12 @@ class Cell(NamedTuple):
     rhos: tuple
     seeds: tuple
     eps: Optional[float]  # None: EPS_FRACTION of the max stable step
+    channels: tuple = ()  # (label, (drop_prob, delay, staleness)) rows
 
     @property
     def runs(self):
-        return (self.envs * len(self.modes) * len(self.lambdas)
-                * len(self.rhos) * len(self.seeds))
+        return (self.envs * max(1, len(self.channels)) * len(self.modes)
+                * len(self.lambdas) * len(self.rhos) * len(self.seeds))
 
 
 LAMBDAS = (1e-4, 1e-3, 1e-2, 1e-1)      # np.logspace(-4, -1, 4)
@@ -134,6 +135,17 @@ HET_HOMOGENEOUS = HET_MIXED._replace(name="heterogeneity-homogeneous",
 WIDE = Cell("wide-192", 4, 256, 64, 16, 128, 100, MODES, LAMBDAS, (0.95,),
             (0, 1), None)
 CELLS = (HET_MIXED, HET_HOMOGENEOUS, WIDE)
+# benchmarks/degraded_edge.py: CHANNELS and _scale(smoke=False), with its
+# clean uniform-visit fleets (num_junk=0), EPS and RHO; 7168 runs, no cut
+DEGRADED_EDGE = HET_HOMOGENEOUS._replace(
+    name="degraded-edge",
+    channels=(("clean", (0.0, 0, 0)), ("loss10", (0.10, 0, 0)),
+              ("loss30", (0.30, 0, 0)), ("delay1", (0.0, 1, 0)),
+              ("delay4", (0.0, 4, 0)), ("stale1", (0.0, 0, 1)),
+              ("stale8", (0.0, 0, 8))))
+# the resume phase's segment: 7 segments of the 7168 runs
+RESUME_CHUNK = 1024
+RESUME_KEEP = 3           # chunks left after the simulated crash
 
 
 class SmokeFailure(Exception):
@@ -578,10 +590,21 @@ def compare_sweeps(got, ref, thresholds, cell):
     check(bool(torch.equal(per_agent(got.trace.tx_counts),
                            per_agent(ref.trace.tx_counts))),
           f"{cell.name}: tx_counts differ outside tie-flipped runs")
-    return dict(vs_plain=dict(weights_max_rel=w_rel, weights_max_abs=w_abs,
-                              gains_max_rel=g_rel, comm_rate_max_abs=rate,
-                              tie_flipped_runs=int(runs_flipped.sum()),
-                              tie_margin_max=tie_margin))
+    out = dict(weights_max_rel=w_rel, weights_max_abs=w_abs,
+               gains_max_rel=g_rel, comm_rate_max_abs=rate,
+               tie_flipped_runs=int(runs_flipped.sum()),
+               tie_margin_max=tie_margin)
+    if ref.trace.delivered_counts is not None:
+        check(bool(torch.equal(per_agent(got.trace.delivered_counts),
+                               per_agent(ref.trace.delivered_counts))),
+              f"{cell.name}: delivered_counts differ outside tie-flipped runs")
+        out["delivered_rate_max_abs"] = float(
+            (got.trace.delivered_rate.flatten()[keep]
+             - ref.trace.delivered_rate.flatten()[keep]).abs().max())
+        check(out["delivered_rate_max_abs"] <= RATE_TOL,
+              f"{cell.name}: delivered_rate differs by "
+              f"{out['delivered_rate_max_abs']:.3g}")
+    return dict(vs_plain=out)
 
 
 def step_breakdown(dev, cell, fam, fleets, eps):
@@ -598,10 +621,10 @@ def step_breakdown(dev, cell, fam, fleets, eps):
 
     G, E, S = cell.runs, cell.envs, len(cell.seeds)
     m, T, nmodes = cell.agents, cell.samples, len(cell.modes)
-    # grid order (env, mode, lam, rho, seed): run -> (env, seed) stream
+    # grid order (env, [channel,] mode, lam, rho, seed): run -> (env, seed)
     run = torch.arange(G, device=dev)
     env_of, seed_of = run // (G // E), run % S
-    mode_of = run // (G // E // nmodes) % nmodes
+    mode_of = run // (len(cell.lambdas) * len(cell.rhos) * S) % nmodes
     stream_env = torch.arange(E, device=dev).repeat_interleave(S)
     stream_seed = torch.arange(S, device=dev).repeat(E)
     inv = env_of * S + seed_of
@@ -630,9 +653,332 @@ def step_breakdown(dev, cell, fam, fleets, eps):
         "megastep_kernel": lambda: K.megastep_call(
             phi, grads, w, ctl, arand, gj, terms.phi_matrix, eps=eps),
     }
+    if cell.channels:
+        # the channel's own per-step work: the keep mask, each run's
+        # stale-ring read and write, the delayed sum's ring
+        ring = w.unsqueeze(1).repeat(1, 9, 1)
+        keep_p = torch.rand(G, m, device=dev)
+        lag = torch.randint(0, 9, (G,), device=dev)
+        stages.update(
+            keep_mask_draw=lambda: trandom.bernoulli(
+                trandom.fold_in(rngs[inv][:, 0], 1), keep_p, (m,)),
+            stale_ring_read=lambda: ring[run, lag],
+            stale_ring_write=lambda: ring.__setitem__((slice(None), 3), w))
     out = {name: time_ms(stage, reps=10) for name, stage in stages.items()}
     out["sum_ms"] = sum(out.values())
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 3b: the degraded-edge study through the channel, the resumable
+# runtime and the store
+# ---------------------------------------------------------------------------
+
+
+def check_launches(label, counts, expected):
+    """Every kernel's launches in one main-path run equal ``expected``
+    (kernels it leaves out: none)."""
+    want = {k: expected.get(k, 0) for k in counts}
+    check(counts == want, f"{label}: launches {counts}, expected {want}")
+
+
+def edge_inputs(dev, cell):
+    import numpy as np
+    from repro_torch.core.algorithm1 import ParamSampler
+    from repro_torch.envs import (family_sampler_fn, garnet_env_family,
+                                  garnet_fleet_sets)
+    w0 = np.zeros(cell.states, np.float32)
+    envs, fam = garnet_env_family(cell.envs, num_states=cell.states,
+                                  device=dev)
+    fleets = garnet_fleet_sets(envs, w0, cell.agents, num_junk=cell.junk)
+    return dict(sampler=ParamSampler(family_sampler_fn(cell.samples), None),
+                w0=w0, env_sets=fam, fleet_sets=fleets)
+
+
+def edge_spec(cell, channels, **kw):
+    from repro_torch.core.channel import ChannelSpec
+    from repro_torch.experiments import SweepSpec
+    return SweepSpec(
+        modes=cell.modes, lambdas=cell.lambdas, seeds=cell.seeds,
+        rhos=cell.rhos, eps=cell.eps, num_iterations=cell.iters,
+        num_agents=cell.agents,
+        channel_sets=(None if channels is None else
+                      tuple(ChannelSpec(*c) for _, c in channels)), **kw)
+
+
+def timed(dev, fn):
+    """(result, wall s, launches, peak bytes) of one main-path run."""
+    import torch
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()                   # the main path starts here
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = all_launches()                # ... and ends here
+    peak = (int(torch.cuda.max_memory_allocated()) if dev.type == "cuda"
+            else None)
+    return out, wall, counts, peak
+
+
+def per_channel_rates(res, labels):
+    """comm_rate and delivered_rate means per channel (axis 1)."""
+    tr = res.trace
+    dims = tuple(d for d in range(tr.delivered_rate.dim()) if d != 1)
+    return {l: dict(comm_rate_mean=float(c), delivered_rate_mean=float(d))
+            for l, c, d in zip(labels, tr.comm_rate.mean(dim=dims),
+                               tr.delivered_rate.mean(dim=dims))}
+
+
+def bitwise_equal(a, b, squeeze=None):
+    """Every trace field of ``a`` equals ``b``'s bit for bit; ``squeeze``
+    drops that axis of ``b`` (the one-row channel axis)."""
+    import torch
+    for name, x in a.trace._asdict().items():
+        y = getattr(b.trace, name)
+        if x is None:
+            if y is not None and not name.startswith("delivered"):
+                return False
+            continue
+        if squeeze is not None:
+            y = y.squeeze(squeeze)
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            return False
+    return True
+
+
+def degraded_edge_phase(dev, cell=DEGRADED_EDGE):
+    """The degraded-edge study (benchmarks/degraded_edge.py) at its own
+    scale: four backend pairs against plain torch, clean channel against
+    none, crash-resume of the resumable runtime, and a store reload."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core.algorithm1 import TraceSpec
+    from repro_torch.experiments import (SweepStore, run_sweep,
+                                         run_sweep_resumable, sweep_or_load)
+    from repro_torch.experiments.sweep import SweepResult
+
+    inp = edge_inputs(dev, cell)
+    labels = [l for l, _ in cell.channels]
+    delay_free = [i for i, (_, c) in enumerate(cell.channels) if c[1] == 0]
+    N, G = cell.iters, cell.runs
+    lines, launches = [], {}
+
+    def sweep_line(label, runs, wall, counts, peak, **extra):
+        return dict(cell=cell.name, sweep=label, runs=runs,
+                    agents=cell.agents, samples=cell.samples,
+                    states=cell.states, iterations=N, eps=cell.eps,
+                    channels=labels, wall_s=wall,
+                    run_agent_steps_per_s=runs * cell.agents * N / wall,
+                    peak_mem_bytes=peak, launches=counts, **extra)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # -- four ways against the plain-torch oracle, every channel
+    results = {}
+    for step, gain in (("reference", "reference"), ("reference", "kernel"),
+                       ("fused", "kernel"), ("megastep", "kernel")):
+        chans = ([cell.channels[i] for i in delay_free] if step == "megastep"
+                 else list(cell.channels))
+        spec = edge_spec(cell, chans, step_backend=step, gain_backend=gain,
+                         trace=TraceSpec(alphas=True, gains=True))
+        res, wall, counts, peak = timed(dev, lambda: run_sweep(
+            spec, inp["sampler"], inp["w0"], env_sets=inp["env_sets"],
+            fleet_sets=inp["fleet_sets"], device=dev))
+        label = f"{cell.name} {step}/{gain}"
+        runs = G // len(cell.channels) * len(chans)
+        if gain == "kernel":
+            name, per_step = EXPECT[step]
+            check_launches(label, counts, {name: per_step * N})
+            add(counts)
+        else:
+            check_launches(label, counts, {})
+        tr = res.trace
+        check(tuple(tr.final_weights.shape)
+              == (cell.envs, len(chans), len(cell.modes), len(cell.lambdas),
+                  len(cell.rhos), len(cell.seeds), cell.states),
+              f"{label}: final weights shape {tuple(tr.final_weights.shape)}")
+        check(bool(torch.isfinite(tr.final_weights).all())
+              and bool(torch.isfinite(res.j_final).all()),
+              f"{label}: non-finite weights or J")
+        check(bool((tr.delivered_counts <= tr.tx_counts).all()),
+              f"{label}: more deliveries than attempts")
+        results[step, gain] = (spec, res)
+        lines.append(sweep_line(
+            f"{step}+{gain}", runs, wall, counts, peak,
+            per_channel=per_channel_rates(res, [l for l, _ in chans])))
+
+    spec0, oracle = results["reference", "reference"]
+
+    def thresholds(spec, res):
+        grid = tuple(res.comm_rate.shape)
+        return np.broadcast_to(
+            spec.thresholds()[None, None, None, :, :, None, :],
+            grid + (N,)).reshape(-1, N)
+
+    def rows(res, idx):
+        sel = torch.as_tensor(idx, device=res.comm_rate.device)
+        trace = type(res.trace)(*(None if x is None else x.index_select(1, sel)
+                                  for x in res.trace))
+        return SweepResult(trace=trace, comm_rate=trace.comm_rate,
+                           j_final=trace.j_final, axes=res.axes)
+
+    for key, (spec, res) in results.items():
+        if key == ("reference", "reference"):
+            continue
+        ref = rows(oracle, delay_free) if key[0] == "megastep" else oracle
+        cmp = compare_sweeps(res, ref, thresholds(spec, res), cell)
+        next(l for l in lines if l["sweep"] == "+".join(key)).update(cmp)
+    lines[0].update(j_final_mean=float(oracle.j_final.mean()))
+
+    # -- a clean channel is no channel, bit for bit, on the 1024-run grid;
+    #    and chunks of RESUME_CHUNK // 4 runs give the unchunked bytes (the
+    #    port's store leaves chunk_size out of its spec hash on that ground)
+    clean_check = {}
+    for step in ("reference", "fused", "megastep"):
+        out = {}
+        for name, chans, extra in (
+                ("none", None, {}), ("clean", cell.channels[:1], {}),
+                ("none_chunked", None, dict(chunk_size=RESUME_CHUNK // 4))):
+            spec = edge_spec(cell, chans, step_backend=step,
+                             gain_backend="kernel", trace="summary", **extra)
+            res, wall, counts, _ = timed(dev, lambda: run_sweep(
+                spec, inp["sampler"], inp["w0"], env_sets=inp["env_sets"],
+                fleet_sets=inp["fleet_sets"], device=dev))
+            name_k, per_step = EXPECT[step]
+            chunks = -(-(G // len(cell.channels))
+                       // extra.get("chunk_size", G))
+            check_launches(f"{cell.name} {step} {name}", counts,
+                           {name_k: per_step * N * chunks})
+            add(counts)
+            out[name] = (res, wall)
+        none, clean = out["none"][0], out["clean"][0]
+        check(bitwise_equal(none, clean, squeeze=1),
+              f"{cell.name} {step}: a clean channel differs from none")
+        check(bool(torch.equal(clean.trace.delivered_counts,
+                               clean.trace.tx_counts)),
+              f"{cell.name} {step}: a clean channel lost a transmission")
+        check(bitwise_equal(none, out["none_chunked"][0]),
+              f"{cell.name} {step}: chunked and unchunked runs differ")
+        clean_check[step] = dict(
+            clean_equals_none_bitwise=True,
+            chunked_equals_unchunked_bitwise=True,
+            wall_s={k: w for k, (_, w) in out.items()})
+    lines.append(dict(cell=cell.name, phase="clean_vs_none",
+                      runs=G // len(cell.channels), **clean_check))
+
+    # -- resume: fused/kernel, summary, RESUME_CHUNK runs a segment; the
+    #    walls alternate (run_sweep, resumable, resumed, resumable,
+    #    run_sweep), since a host-bound sweep's wall varies run to run
+    spec = edge_spec(cell, cell.channels, step_backend="fused",
+                     gain_backend="kernel", trace="summary",
+                     chunk_size=RESUME_CHUNK)
+    segments = G // RESUME_CHUNK
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    try:
+        kw = dict(env_sets=inp["env_sets"], fleet_sets=inp["fleet_sets"],
+                  device=dev)
+        walls = {"run_sweep": [], "resumable": []}
+
+        def plain_run():
+            res, wall, counts, _ = timed(dev, lambda: run_sweep(
+                spec, inp["sampler"], inp["w0"], **kw))
+            check_launches(f"{cell.name} run_sweep chunked", counts,
+                           {"gain_family_stats": segments * N})
+            add(counts)
+            walls["run_sweep"].append(wall)
+            return res
+
+        def resumable_run(store_dir):
+            res, wall, counts, peak = timed(dev, lambda: run_sweep_resumable(
+                spec, inp["sampler"], inp["w0"], store_dir=store_dir, **kw))
+            check_launches(f"{cell.name} resumable", counts,
+                           {"gain_family_stats": segments * N})
+            add(counts)
+            walls["resumable"].append(wall)
+            return res, peak
+
+        plain = plain_run()
+        store_dir = os.path.join(tmp, "chunks")
+        full, peak = resumable_run(store_dir)
+        chunks = sorted(f for f in os.listdir(store_dir)
+                        if f.startswith("chunk_"))
+        check(len(chunks) == segments,
+              f"{cell.name}: {len(chunks)} chunk files, expected {segments}")
+        chunk_bytes = [os.path.getsize(os.path.join(store_dir, f))
+                       for f in chunks]
+        for f in chunks[RESUME_KEEP:]:        # the crash: later chunks vanish
+            os.remove(os.path.join(store_dir, f))
+        events = []
+        resumed, wall_resume, counts, _ = timed(dev, lambda: run_sweep_resumable(
+            spec, inp["sampler"], inp["w0"], store_dir=store_dir,
+            on_chunk=lambda i, n, restored: events.append(restored), **kw))
+        check(events == [True] * RESUME_KEEP
+              + [False] * (segments - RESUME_KEEP),
+              f"{cell.name}: resume events {events}")
+        check_launches(f"{cell.name} resumed", counts,
+                       {"gain_family_stats": (segments - RESUME_KEEP) * N})
+        add(counts)
+        check(bitwise_equal(full, resumed),
+              f"{cell.name}: the resumed sweep differs from the uninterrupted")
+        check(bitwise_equal(full, plain),
+              f"{cell.name}: the resumable sweep differs from run_sweep")
+        again, _ = resumable_run(os.path.join(tmp, "chunks2"))
+        check(bitwise_equal(full, again),
+              f"{cell.name}: two resumable sweeps differ")
+        plain_run()
+        lines.append(sweep_line(
+            "resume fused+kernel", G, walls["resumable"][0], None, peak,
+            phase="resume", chunk_size=RESUME_CHUNK, segments=segments,
+            resumable_wall_s=walls["resumable"],
+            run_sweep_wall_s=walls["run_sweep"],
+            resumed_wall_s=wall_resume,
+            events=dict(restored=events.count(True),
+                        computed=events.count(False)),
+            chunk_bytes=chunk_bytes, resumed_bitwise=True,
+            run_sweep_bitwise=True))
+
+        # -- store-first: the study's own call, then a reload
+        spec = edge_spec(cell, cell.channels, step_backend="fused",
+                         gain_backend="kernel", trace="summary")
+        store = SweepStore(os.path.join(tmp, "store"))
+        extra = {"figure": "degraded_edge", "channels": labels}
+        first, wall_first, counts, _ = timed(dev, lambda: sweep_or_load(
+            store, spec, inp["sampler"], inp["w0"], extra=extra, **kw))
+        check_launches(f"{cell.name} sweep_or_load", counts,
+                       {"gain_family_stats": N})
+        add(counts)
+        again, wall_again, counts, _ = timed(dev, lambda: sweep_or_load(
+            store, spec, inp["sampler"], inp["w0"], extra=extra, **kw))
+        check_launches(f"{cell.name} sweep_or_load reload", counts, {})
+        check(bitwise_equal(first, again),
+              f"{cell.name}: the reloaded entry differs")
+        check(bitwise_equal(first, plain),
+              f"{cell.name}: the unchunked stored sweep differs from the "
+              "chunked run")
+        lines.append(dict(cell=cell.name, phase="store", runs=G,
+                          compute_wall_s=wall_first, reload_wall_s=wall_again,
+                          reload_launches=counts, reload_bitwise=True,
+                          unchunked_equals_chunked_bitwise=True,
+                          entry_bytes=sum(
+                              os.path.getsize(os.path.join(r, f))
+                              for r, _, fs in os.walk(store.root)
+                              for f in fs)))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    mega = next(l for l in lines if l.get("sweep") == "megastep+kernel")
+    lines.append({"cell": cell.name, "step_breakdown_ms": dict(
+        step_breakdown(dev, cell, inp["env_sets"], inp["fleet_sets"],
+                       cell.eps),
+        sweep_step_ms=mega["wall_s"] / N * 1e3)})
+    return lines, launches
 
 
 # ---------------------------------------------------------------------------
@@ -1412,6 +1758,10 @@ def main():
         lines += cell_lines
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
+    edge_lines, counts = degraded_edge_phase(dev)
+    lines += edge_lines
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
     lm_logs, lm_timings = lm_kernel_phase(dev)
     logs.update(lm_logs)
     timings.update(lm_timings)

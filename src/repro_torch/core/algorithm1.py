@@ -8,11 +8,11 @@ mode, thresholds and random-transmit probability are per-run data, so one
 code path serves every cell of a sweep grid.  A single run is the same
 core with R = 1 (pass an unbatched key).
 
-This slice ports the perfect channel with a stateless (i.i.d.) sampler.
-The lossy channel (``channel=``) is ROADMAP queue 1 item 7, Markovian
-sampling (``sampler_state=``) item 8; both raise ``NotImplementedError``.
-The reference's ``jax.lax.optimization_barrier`` has no counterpart: torch
-runs eagerly and folds nothing.
+``channel=`` (with its ring capacities ``channel_caps``) runs the lossy
+edge of ``repro.core.channel``: drop, delay and staleness per run.  Markovian
+sampling (``sampler_state=``) is ROADMAP queue 1 item 8 and raises
+``NotImplementedError``.  The reference's ``jax.lax.optimization_barrier``
+has no counterpart: torch runs eagerly and folds nothing.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import torch
 
 from repro_torch import random as trandom
 from repro_torch import resolve_device
+from repro_torch.core import channel as channel_lib
 from repro_torch.core import gain_dispatch
 from repro_torch.core import server as server_lib
 from repro_torch.core import vfa as vfa_lib
@@ -59,12 +60,18 @@ class ParamSampler(NamedTuple):
 
 
 class InnerTrace(NamedTuple):
-    """Per-iteration trace (leading run axis when batched, then N)."""
+    """Per-iteration trace (leading run axis when batched, then N).
+
+    ``alphas`` / ``comm_rate`` are the attempted transmissions (eq. 7),
+    channel or not; ``delivered`` is the subset the channel let through,
+    present only on a lossy-channel run.
+    """
 
     weights: torch.Tensor      # (..., N+1, n) w_0..w_N
     alphas: torch.Tensor       # (..., N, m) transmit decisions
     gains: torch.Tensor        # (..., N, m) evaluated gains
     comm_rate: torch.Tensor    # (...,) (1/N) sum_k mean_i alpha_k^i (eq. 7)
+    delivered: Optional[torch.Tensor] = None   # (..., N, m) alpha * keep
 
 
 class TraceSpec(NamedTuple):
@@ -88,6 +95,9 @@ class SummaryTrace(NamedTuple):
     j_trajectory: Optional[torch.Tensor]  # (..., N)
     alphas: Optional[torch.Tensor]       # (..., N, m)
     gains: Optional[torch.Tensor]        # (..., N, m)
+    # the delivered subset on a lossy channel (None on the perfect one)
+    delivered_counts: Optional[torch.Tensor] = None   # (..., m)
+    delivered_rate: Optional[torch.Tensor] = None     # (...,)
 
 
 SUMMARY_TRACE = TraceSpec()
@@ -168,12 +178,8 @@ def _runs(x, R: int, device, dtype) -> torch.Tensor:
     return torch.as_tensor(x, device=device).to(dtype).expand(R)
 
 
-def refuse_unported(channel=None, channel_caps=None, sampler_state=None):
-    """The parts of Algorithm 1 later slices of the port bring."""
-    if channel is not None or channel_caps is not None:
-        raise NotImplementedError(
-            "the lossy-edge channel is not ported yet (ROADMAP queue 1 "
-            "item 7); run with channel=None")
+def refuse_unported(sampler_state=None):
+    """The part of Algorithm 1 a later slice of the port brings."""
     if sampler_state is not None:
         raise NotImplementedError(
             "Markovian sampling (sampler_state=) is not ported yet (ROADMAP "
@@ -193,8 +199,8 @@ def gated_sgd_core(
     gain_backend: Optional[str] = None,
     trace: Union[str, TraceSpec] = "full",
     step_backend: Optional[str] = None,
-    channel=None,
-    channel_caps=None,
+    channel: Optional[channel_lib.ChannelInputs] = None,
+    channel_caps: Optional[tuple[int, int]] = None,
     sampler_state=None,
     device=None,
 ) -> Union[InnerTrace, SummaryTrace]:
@@ -210,6 +216,9 @@ def gated_sgd_core(
       sample_all: ``rngs (R, m, 2) -> (phi (R, m, T, n), targets (R, m, T))``.
       terms:      exact ``ProblemTerms`` (shared or per-run leaves), needed
                   by the theoretical mode and for J summaries.
+      channel:    optional ``ChannelInputs``: drop_prob (m,) or (R, m),
+                  delay and staleness () or (R,); needs ``channel_caps``
+                  ``(delay_cap, stale_cap)`` covering every run's values.
       device:     where to run (default cuda; raises without a GPU unless
                   the caller passes "cpu").
 
@@ -218,10 +227,32 @@ def gated_sgd_core(
     stochastic gradients, then the gain family, the eq. 9 trigger and the
     eq. 6 update through ``gain_dispatch`` ("megastep" does all three in
     one dispatch).  Both trace policies run the same step body.
+
+    With a channel (the reference's ``_channel_core``): the keep mask is
+    ``bernoulli(fold_in(rng_k, 1), 1 - drop_prob)``, so the agents' and the
+    trigger's keys are the perfect channel's and a clean channel gives
+    the ``channel=None`` result bit for bit; the agents compute gradients,
+    gains and grad J at ``w_{k-s}`` from a (R, stale_cap, n) ring that
+    starts as w0, while the update applies to the current w; the delivered
+    sum and count enter a (R, delay_cap) ring and land d steps later.
+    Each run reads its own ring slot by a gather.  "megastep" applies the
+    keep mask inside the kernel and takes no delay.
     """
-    refuse_unported(channel, channel_caps, sampler_state)
+    refuse_unported(sampler_state)
     dev = resolve_device(device)
     step_backend_r = gain_dispatch._resolve_step(step_backend)
+    if channel is not None:
+        if channel_caps is None:
+            raise ValueError(
+                "channel= needs the ring capacities channel_caps="
+                "(delay_cap, stale_cap); build both via "
+                "repro_torch.core.channel.channel_inputs(spec, num_agents)")
+        if step_backend_r == "megastep" and channel_caps[0] > 1:
+            raise NotImplementedError(
+                "step_backend='megastep' fuses the server update into the "
+                "per-step kernel, which cannot express a transmission delay "
+                "(delivered updates must land d steps later); use the "
+                "reference or fused step backend for channels with delay > 0")
     trace = resolve_trace(trace)
     rng = torch.as_tensor(rng).to(dev)
     single = rng.dim() == 1
@@ -240,44 +271,85 @@ def gated_sgd_core(
         terms = terms.to(dev)
     phi_matrix = terms.phi_matrix if terms is not None else None
 
+    lossy = channel is not None
+    if lossy:
+        delay_cap, stale_cap = channel_caps
+        keep_p = 1.0 - torch.as_tensor(channel.drop_prob, dtype=torch.float32
+                                       ).to(dev).expand(R, m)
+        delay = _runs(channel.delay, R, dev, torch.int64)
+        staleness = _runs(channel.staleness, R, dev, torch.int64)
+        runs = torch.arange(R, device=dev)
+        stale_ring = w.unsqueeze(1).repeat(1, stale_cap, 1)      # w0 in every slot
+        pend_sum = torch.zeros((R, delay_cap, w.shape[-1]), device=dev)
+        pend_cnt = torch.zeros((R, delay_cap), device=dev)
+
     def step_body(w, k, rng_k):
         rngs = trandom.split(rng_k, m + 1)                 # (R, m+1, 2)
+        w_agent = w
+        if lossy:
+            keep = trandom.bernoulli(trandom.fold_in(rng_k, 1), keep_p,
+                                     (m,)).float()
+            w_agent = stale_ring[runs, (k - staleness) % stale_cap]
         phi_b, targets_b = sample_all(rngs[:, :m])
-        grads = vfa_lib.stochastic_gradient(w.unsqueeze(1), phi_b, targets_b)
-        grad_j = terms.grad(w) if terms is not None else None
+        grads = vfa_lib.stochastic_gradient(w_agent.unsqueeze(1), phi_b,
+                                            targets_b)
+        grad_j = terms.grad(w_agent) if terms is not None else None
         # rngs[:, -1] feeds the random-mode draw on every step backend, so
         # the sample streams match the reference's bit for bit
         alpha_rand = trandom.bernoulli(
             rngs[:, m], tx_p.unsqueeze(-1), (m,)).float()
         if step_backend_r == "megastep":
-            return gain_dispatch.megastep(
+            # with a channel, delay_cap == 1 (checked above): the kernel's
+            # update is the immediate arrival of the kept transmissions
+            w_next, alphas, gains = gain_dispatch.megastep(
                 modes, w, grads, phi_b, eps, thresholds[:, k], alpha_rand,
-                grad_j, phi_matrix, backend=gain_backend)
-        gains = gain_dispatch.mode_gains(
-            modes, grads, phi_b, eps, grad_j, phi_matrix,
-            backend=gain_backend, step_backend=step_backend)
-        gate = should_transmit(gains, thresholds[:, k].unsqueeze(-1))
-        alphas = gain_dispatch.select_alphas(modes, gate, alpha_rand)
-        return server_lib.server_update(w, grads, alphas, eps), alphas, gains
+                grad_j, phi_matrix, backend=gain_backend,
+                deliver=keep if lossy else None)
+        else:
+            gains = gain_dispatch.mode_gains(
+                modes, grads, phi_b, eps, grad_j, phi_matrix,
+                backend=gain_backend, step_backend=step_backend)
+            gate = should_transmit(gains, thresholds[:, k].unsqueeze(-1))
+            alphas = gain_dispatch.select_alphas(modes, gate, alpha_rand)
+            if lossy:
+                # write this step's slot before reading: with delay 0 the
+                # slot read is the slot just written
+                slot = k % delay_cap
+                pend_sum[:, slot], pend_cnt[:, slot] = server_lib.gated_sum(
+                    grads, alphas * keep)
+                back = (k - delay) % delay_cap
+                w_next = w - eps * server_lib.masked_mean(
+                    pend_sum[runs, back], pend_cnt[runs, back])
+            else:
+                w_next = server_lib.server_update(w, grads, alphas, eps)
+        if not lossy:
+            return w_next, alphas, gains, None
+        stale_ring[:, (k + 1) % stale_cap] = w_next
+        return w_next, alphas, gains, alphas * keep
 
     step_keys = trandom.split(rng, N)                      # (R, N, 2)
     full = trace == "full"
     if full:
-        ws, alist, glist = [w], [], []
+        ws, alist, glist, dlist = [w], [], [], []
     else:
         tx_counts = torch.zeros((R, m), device=dev)
+        dl_counts = torch.zeros((R, m), device=dev) if lossy else None
         gain_sum = torch.zeros((R, m), device=dev)
         gain_min = torch.full((R, m), float("inf"), device=dev)
         gain_max = torch.full((R, m), float("-inf"), device=dev)
         j_traj, alist, glist = [], [], []
     for k in range(N):
-        w, alphas, gains = step_body(w, k, step_keys[:, k])
+        w, alphas, gains, delivered = step_body(w, k, step_keys[:, k])
         if full:
             ws.append(w)
             alist.append(alphas)
             glist.append(gains)
+            if lossy:
+                dlist.append(delivered)
             continue
         tx_counts = tx_counts + alphas
+        if lossy:
+            dl_counts = dl_counts + delivered
         gain_sum = gain_sum + gains
         gain_min = torch.minimum(gain_min, gains)
         gain_max = torch.maximum(gain_max, gains)
@@ -295,7 +367,8 @@ def gated_sgd_core(
         alphas_s = stack(alist)
         out = InnerTrace(weights=stack(ws), alphas=alphas_s,
                          gains=stack(glist),
-                         comm_rate=alphas_s.mean(dim=(1, 2)))
+                         comm_rate=alphas_s.mean(dim=(1, 2)),
+                         delivered=stack(dlist))
     else:
         out = SummaryTrace(
             final_weights=w,
@@ -307,7 +380,9 @@ def gated_sgd_core(
             j_final=terms.objective(w) if terms is not None else None,
             j_trajectory=stack(j_traj),
             alphas=stack(alist),
-            gains=stack(glist))
+            gains=stack(glist),
+            delivered_counts=dl_counts,
+            delivered_rate=(dl_counts.sum(-1) / (N * m) if lossy else None))
     if single:
         out = type(out)(*(None if x is None else x[0] for x in out))
     return out

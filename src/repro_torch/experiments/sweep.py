@@ -1,7 +1,8 @@
 """The batched sweep engine, ported from ``repro/experiments/sweep.py``.
 
 ``run_sweep`` flattens the grid (optional env-family axis x optional
-agent-param-set axis x modes x lambdas x rhos x seeds) into one run axis
+agent-param-set axis x optional channel axis x modes x lambdas x rhos x
+seeds) into one run axis
 and runs Algorithm 1 over it as a leading tensor dimension — the counterpart
 of the reference's ``jax.vmap`` over runs.  ``chunk_size`` runs the axis in
 chunks of that many runs (bounding device memory) and ``batching="map"``
@@ -14,9 +15,14 @@ also share their env and fleet therefore draw identical batches, and the
 engine draws each distinct batch once per step and hands it to every run
 that shares it; the results are the same as drawing per run.
 
-One card: ``mesh`` must be None.  The lossy channel (``channel_sets``) and
-Markovian sampling are ROADMAP queue 1 items 7 and 8 and raise
-``NotImplementedError``.
+``plan_sweep`` / ``exec_plan_segment`` / ``finalize_sweep`` are the
+chunk-boundary surface the resumable runtime
+(``repro_torch.experiments.runtime``) checkpoints between: a segment is
+``chunk_size`` runs, exactly the block ``run_sweep`` runs with the same
+``chunk_size``.
+
+One card: ``mesh`` must be None.  Markovian sampling is ROADMAP queue 1
+item 8 and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import torch
 
 from repro_torch import random as trandom
 from repro_torch import resolve_device
+from repro_torch.core import channel as channel_lib
 from repro_torch.core import gain_dispatch
 from repro_torch.core import vfa as vfa_lib
 from repro_torch.core.algorithm1 import (MODE_IDS, MODES, InnerTrace,
@@ -48,6 +55,10 @@ class SweepSpec:
 
     ``batching="vmap"`` runs the whole run axis (or ``chunk_size`` runs at
     a time) as one batch; ``"map"`` runs one run at a time.
+    ``channel_sets`` (a tuple of ``ChannelSpec`` rows) adds a ``"channel"``
+    grid axis right before the base four; None is the perfect channel.
+    ``tag`` labels sweeps whose inputs differ where the spec cannot see
+    (it is part of the store's hash).
     """
 
     modes: tuple[str, ...]
@@ -68,6 +79,7 @@ class SweepSpec:
     chunk_size: Optional[int] = None
     channel_sets: Optional[tuple] = None
     sampling: str = "iid"
+    tag: Optional[str] = None
 
     def __post_init__(self):
         for m in self.modes:
@@ -87,7 +99,20 @@ class SweepSpec:
                 f"step_backend must be one of {gain_dispatch.STEP_BACKENDS}, "
                 f"got {self.step_backend!r}")
         resolve_trace(self.trace)
-        refuse_unported(channel=self.channel_sets)
+        if self.channel_sets is not None:
+            if not self.channel_sets:
+                raise ValueError(
+                    "channel_sets must be a non-empty tuple of ChannelSpec "
+                    "rows (or None for the perfect channel)")
+            coerced = tuple(channel_lib.validate_channel(c, self.num_agents)
+                            for c in self.channel_sets)
+            object.__setattr__(self, "channel_sets", coerced)
+            if (self.step_backend == "megastep"
+                    and max(c.delay for c in coerced) > 0):
+                raise ValueError(
+                    "step_backend='megastep' fuses the server update into "
+                    "the per-step kernel and cannot express a channel delay "
+                    "> 0; use the reference or fused step backend")
         if self.sampling == "markov":
             refuse_unported(sampler_state=True)
         if self.sampling != "iid":
@@ -143,6 +168,7 @@ class _RunInputs(NamedTuple):
     tx_probs: torch.Tensor               # (G,)
     set_idx: Optional[torch.Tensor]      # (G,) into the param-set stack
     env_idx: Optional[torch.Tensor]      # (G,) into the env-family stack
+    chan_idx: Optional[torch.Tensor] = None   # (G,) into the channel stack
 
 
 class SweepPlan(NamedTuple):
@@ -165,6 +191,20 @@ class SweepPlan(NamedTuple):
     streams: np.ndarray          # (Gp,) id of each run's sample stream
     fleet_by_env: bool = False
     device: object = None
+    channel_stack: object = None  # stacked ChannelInputs (C, ...), or None
+    channel_caps: object = None   # (delay_cap, stale_cap), or None
+
+    @property
+    def segment_runs(self) -> int:
+        """Runs per checkpointable segment: ``chunk_size`` (the whole padded
+        axis when the spec does not chunk)."""
+        return self.spec.chunk_size or self.padded_runs
+
+    def segments(self) -> list[tuple[int, int]]:
+        """Half-open ``[start, stop)`` run ranges; the padding makes the
+        padded axis divide evenly into segments."""
+        s = self.segment_runs
+        return [(a, a + s) for a in range(0, self.padded_runs, s)]
 
 
 def plan_sweep(
@@ -224,6 +264,9 @@ def plan_sweep(
     if not share_params:
         gs += (int(next(iter(param_sets.values())).shape[0]),)
         axes += ("param_set",)
+    if spec.channel_sets is not None:
+        gs += (len(spec.channel_sets),)
+        axes += ("channel",)
     gs += (M, L, R, S)
     axes += BASE_AXES
     G = math.prod(gs)
@@ -232,6 +275,8 @@ def plan_sweep(
     mi, li, ri, si = grid[-4], grid[-3], grid[-2], grid[-1]
     ei = grid[0] if env_sets is not None else None
     pi = grid[1 if env_sets is not None else 0] if not share_params else None
+    # the channel is the innermost leading axis (right before the base 4)
+    ci = grid[len(gs) - 5] if spec.channel_sets is not None else None
 
     C = spec.chunk_size or 1
     Gp = C * math.ceil(G / C)
@@ -240,7 +285,11 @@ def plan_sweep(
     def col(x):
         return np.zeros(Gp, np.int64) if x is None else x[pad]
 
-    # a run's sample stream depends on its seed, env row and agent fleet
+    # a run's sample stream depends on its seed, env row and agent fleet,
+    # not on its channel: the i.i.d. sampler never reads the weights, and
+    # the keep mask draws from fold_in(rng_k, 1), not from the agents' keys.
+    # Markovian sampling (queue 1 item 8) reads w_stale, so there the
+    # stream id must include the channel.
     _, streams = np.unique(np.stack([col(si), col(ei), col(pi)], -1),
                            axis=0, return_inverse=True)
 
@@ -254,7 +303,8 @@ def plan_sweep(
         tx_probs=on(np.broadcast_to(
             np.asarray(spec.random_tx_prob, np.float32), gs).reshape(G)[pad]),
         set_idx=None if share_params else on(pi[pad]),
-        env_idx=on(ei[pad]) if env_sets is not None else None)
+        env_idx=on(ei[pad]) if env_sets is not None else None,
+        chan_idx=on(ci[pad]) if ci is not None else None)
 
     def params_on(p):
         return {k: on(v) for k, v in p.items()}
@@ -276,7 +326,12 @@ def plan_sweep(
                       else terms.to(dev)),
         sampler_fn=sampler.fn, gs=gs, axes=axes, num_runs=G, padded_runs=Gp,
         env_indices=ei, streams=np.asarray(streams).reshape(-1),
-        fleet_by_env=fleet_sets is not None, device=dev)
+        fleet_by_env=fleet_sets is not None, device=dev,
+        channel_stack=(None if spec.channel_sets is None else
+                       channel_lib.stack_channels(
+                           spec.channel_sets, spec.num_agents, dev)),
+        channel_caps=(None if spec.channel_sets is None else
+                      channel_lib.channel_caps(spec.channel_sets)))
 
 
 def _gather(tree: dict, idx: torch.Tensor) -> dict:
@@ -317,11 +372,15 @@ def _exec_block(plan: SweepPlan, rows: np.ndarray):
     terms = plan.shared_terms
     if plan.env_terms is not None:
         terms = ProblemTerms(*(t[run.env_idx] for t in plan.env_terms))
+    chan = (None if plan.channel_stack is None else
+            channel_lib.ChannelInputs(*(t[run.chan_idx]
+                                        for t in plan.channel_stack)))
     return gated_sgd_core(
         run.keys, plan.w0, run.mode_ids, run.thresholds, run.tx_probs,
         sample_all, spec.eps, spec.num_agents, terms=terms,
         gain_backend=spec.gain_backend, trace=spec.trace,
-        step_backend=spec.step_backend, device=dev)
+        step_backend=spec.step_backend, channel=chan,
+        channel_caps=plan.channel_caps, device=dev)
 
 
 def _concat(parts):
@@ -332,13 +391,52 @@ def _concat(parts):
 
 def exec_plan(plan: SweepPlan):
     """Run the whole padded run axis: one batch, chunks, or one run at a time."""
-    Gp = plan.padded_runs
     if plan.spec.batching == "map":
-        size = 1
-    else:
-        size = plan.spec.chunk_size or Gp
-    return _concat([_exec_block(plan, np.arange(a, min(a + size, Gp)))
-                    for a in range(0, Gp, size)])
+        return _concat([_exec_block(plan, np.arange(a, a + 1))
+                        for a in range(plan.padded_runs)])
+    return _concat([exec_plan_segment(plan, a, b)
+                    for a, b in plan.segments()])
+
+
+def exec_plan_segment(plan: SweepPlan, start: int, stop: int):
+    """One checkpointable segment ``[start, stop)`` of the padded run axis,
+    run as one batch: the same block, and so the same bytes, as the rows
+    ``[start, stop)`` of ``exec_plan`` at this ``chunk_size``."""
+    if not (0 <= start < stop <= plan.padded_runs):
+        raise ValueError(f"segment [{start}, {stop}) outside "
+                         f"[0, {plan.padded_runs})")
+    return _exec_block(plan, np.arange(start, stop))
+
+
+class ShapeDtype(NamedTuple):
+    shape: tuple
+    dtype: torch.dtype
+
+
+def segment_shapes(plan: SweepPlan):
+    """Shape and dtype of each leaf of one segment's output, from the trace
+    type and the plan (the port has no ``eval_shape``): a trace NamedTuple
+    of ``ShapeDtype`` (None where the run leaves a field out)."""
+    spec, rs = plan.spec, plan.segment_runs
+    N, m, n = spec.num_iterations, spec.num_agents, plan.w0.shape[-1]
+    trace = resolve_trace(spec.trace)
+    has_terms = plan.env_terms is not None or plan.shared_terms is not None
+    lossy = plan.channel_stack is not None
+
+    def sd(*shape, keep=True):
+        return ShapeDtype((rs,) + shape, torch.float32) if keep else None
+
+    if trace == "full":
+        return InnerTrace(weights=sd(N + 1, n), alphas=sd(N, m),
+                          gains=sd(N, m), comm_rate=sd(),
+                          delivered=sd(N, m, keep=lossy))
+    return SummaryTrace(
+        final_weights=sd(n), comm_rate=sd(), tx_counts=sd(m),
+        gain_mean=sd(m), gain_min=sd(m), gain_max=sd(m),
+        j_final=sd(keep=has_terms),
+        j_trajectory=sd(N, keep=trace.j_trajectory and has_terms),
+        alphas=sd(N, m, keep=trace.alphas), gains=sd(N, m, keep=trace.gains),
+        delivered_counts=sd(m, keep=lossy), delivered_rate=sd(keep=lossy))
 
 
 def finalize_sweep(plan: SweepPlan, flat) -> SweepResult:

@@ -24,6 +24,7 @@ from repro.envs.gridworld import GridWorld as JGrid  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch import random as trandom  # noqa: E402
 from repro_torch.core import algorithm1 as ta1  # noqa: E402
+from repro_torch.core import channel as tchannel  # noqa: E402
 from repro_torch.core.trigger import TriggerConfig as TTrig  # noqa: E402
 from repro_torch.envs import garnet as tgarnet  # noqa: E402
 from repro_torch.envs.gridworld import GridWorld as TGrid  # noqa: E402
@@ -202,8 +203,13 @@ def test_config_validation_and_refusals(problem):
               thresholds=torch.zeros(N), tx_prob=0.5,
               sample_all=lambda r: None, eps=0.1, num_agents=M,
               device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ta1.gated_sgd_core(**kw, channel=object(), channel_caps=(1, 1))
+    chan, _ = tchannel.channel_inputs(tchannel.ChannelSpec(delay=1), M,
+                                      device="cpu")
+    with pytest.raises(NotImplementedError, match="delay"):
+        ta1.gated_sgd_core(**kw, step_backend="megastep", channel=chan,
+                           channel_caps=(2, 1))
+    with pytest.raises(ValueError, match="channel_caps"):
+        ta1.gated_sgd_core(**kw, channel=chan)
     with pytest.raises(NotImplementedError, match="item 8"):
         ta1.gated_sgd_core(**kw, sampler_state=torch.zeros(M))
     if not torch.cuda.is_available():

@@ -255,8 +255,9 @@ class _Unknown(tuple):
 
 
 def test_sweep_refusals(inputs):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tsweep.SweepSpec(**GRID, channel_sets=(object(),))
+    with pytest.raises(ValueError, match="megastep.*delay"):
+        tsweep.SweepSpec(**GRID, step_backend="megastep",
+                         channel_sets=((0.0, 1, 0),))
     with pytest.raises(NotImplementedError, match="item 8"):
         tsweep.SweepSpec(**GRID, sampling="markov")
     spec = tsweep.SweepSpec(**GRID)
