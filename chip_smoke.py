@@ -20,6 +20,26 @@ Phases, in order; any failed check exits non-zero and prints no ok line:
    - ``wide-192``: a full-width stress size of the same study, a 4-instance
      garnet family (S=256, A=4, b=3), 64-agent fleets with 16 junk agents,
      T=128, six modes x 4 lambdas x 1 rho x 2 seeds = 192 runs, N=100.
+   Each gain kernel is also held at the shapes of the cells below
+   (``SLICE_SHAPES``).
+3b. The degraded-edge cell (``DEGRADED_EDGE``): four backend pairs
+   against plain torch over seven channels, clean channel against none,
+   ``run_sweep_resumable`` cut and resumed, a ``sweep_or_load`` reload.
+3c. Fig. 3 (``fig3_phase``, benchmarks/fig3_continuous.py at its own
+   scale: the continuous-state linear system, N=1500, T=1000, 2 agents at
+   three lambdas and 10 at one) on plain torch and the three kernel
+   backends, the panels held against JAX 0.9.0's (``FIG3_JAX``); the TD(0)
+   linear-speedup study (``td_speedup_phase``, benchmarks/td_speedup.py
+   at full scale: 6 garnet chains of 10 states, m in {1, 4, 16, 64}, T=8,
+   N=6000, Markovian sampling) on the fused backend, its tail errors held
+   against JAX 0.9.0's (``TD_JAX``), then every backend against plain
+   torch at m=64 with N cut to ``TD_CUT_ITERS`` and the step's stages with
+   the walk apart; the Markov runtime and channel at that size
+   (``td_runtime_channel_phase``: resume bitwise, clean channel = none
+   bitwise, loss 30 % against plain torch); value iteration on the
+   gridworld (``run_value_iteration_scan``, megastep) and Q-learning
+   (``run_value_iteration``, gain_matvec) against plain torch and the
+   reference tests' error bounds (``value_iteration_phase``).
 4. Hold flash attention and the SSD kernels (the LM substrate's) against
    their plain versions on the card: the reference's own test cases at
    their tolerances (tests/test_kernels.py:175-213) and the serving
@@ -55,8 +75,9 @@ Phases, in order; any failed check exits non-zero and prints no ok line:
    prefill calls; last, one prefill under ``torch.profiler``.
 
 Every line before the last is one JSON object (device, build, kernels,
-sweeps, serving cells) except the card's ``nvidia-smi`` name and power
-limit; the last is ``{"ok": true, "device": {...}}``.  Run it from the
+sweeps, studies, serving cells, each phase's seconds) except the card's
+``nvidia-smi`` name and power limit; the last is ``{"ok": true, "device":
+{...}}``.  Run it from the
 repository root with no arguments: ``python3 chip_smoke.py``.
 """
 
@@ -444,7 +465,72 @@ def full_shape_phase(dev, logs):
         plain_ms=time_ms(lambda: ref.megastep_ref(phi, g, w, ctl, arand, gj,
                                                   pm, eps=8.0)),
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    slice_shapes_phase(dev, logs, gen)
     return out
+
+
+# (label, (R, m, T, n), one-hot phi): the kernels' shapes on this slice's
+# main paths — Fig. 3's dense polynomial phi (partial 4-agent blocks, rows
+# of n = 6 on the scalar pass), the TD study's one-hot phi at each m, the
+# gridworld's value iteration and Q-learning's S x A features
+SLICE_SHAPES = (("fig3-2agents", (3, 2, 1000, 6), False),
+                ("fig3-10agents", (1, 10, 1000, 6), False),
+                ("td m=1", (36, 1, 8, 10), True),
+                ("td m=4", (36, 4, 8, 10), True),
+                ("td m=16", (36, 16, 8, 10), True),
+                ("td m=64", (36, 64, 8, 10), True),
+                ("value-iteration", (1, 2, 20, 25), True),
+                ("q-learning", (1, 2, 60, 100), True))
+
+
+def slice_shapes_phase(dev, logs, gen):
+    """Each gain kernel at SLICE_SHAPES against its plain version, with the
+    pass ``gain_matvec`` takes there (vector only for n = 100)."""
+    import torch
+    from repro_torch.kernels import gain as K
+    from repro_torch.kernels import ref
+
+    lg, lf, lm = (logs[k] for k in ("gain_matvec", "gain_family_stats",
+                                    "megastep"))
+    passes = lg.extra.setdefault("slice_shape_passes", {})
+    for label, (R, m, T, n), onehot in SLICE_SHAPES:
+        if onehot:
+            x = torch.randint(0, n, (R, m, T), device=dev, generator=gen)
+            phi = torch.nn.functional.one_hot(x, n).float()
+        else:
+            phi = torch.rand(R, m, T, n, device=dev, generator=gen)
+        g = torch.randn(R, m, n, device=dev, generator=gen)
+        w = torch.randn(R, n, device=dev, generator=gen)
+        gj = torch.randn(R, n, device=dev, generator=gen)
+        pm = torch.randn(R, n, n, device=dev, generator=gen) / n
+        arand = (torch.rand(R, m, device=dev, generator=gen) < 0.5).float()
+        vec = K.matvec_vector_pass(n, phi.dtype, phi.data_ptr(), g.data_ptr())
+        check(vec == (n % 4 == 0), f"gain_matvec {label}: vector pass {vec}")
+        passes[label] = "vector" if vec else "scalar"
+        lg.close(f"gain_matvec {label}", K.gain_matvec(phi, g),
+                 ref.gain_matvec_ref(phi, g), WEIGHT_TOL)
+        lg.close(f"practical_gain {label}", K.practical_gain(phi, g, 0.5),
+                 ref.practical_gain_ref(phi, g, 0.5), WEIGHT_TOL)
+        lg.cases += 1
+        stats = ref.gain_family_stats_ref(phi, g, gj, pm)
+        lf.close(f"family {label}", K.gain_family_stats(phi, g, gj, pm),
+                 stats, WEIGHT_TOL)
+        lf.cases += 1
+        modes = torch.arange(R, device=dev) % 6
+        gains0 = ref.gains_from_stats_ref(stats, modes.unsqueeze(-1), 0.5, T)
+        thresh = gains0.abs().median(dim=-1).values * 0.9 + 1e-3
+        ctl = torch.stack([thresh, modes.float()], -1).contiguous()
+        got = K.megastep_call(phi, g, w, ctl, arand, gj, pm, eps=0.5)
+        want = ref.megastep_ref(phi, g, w, ctl, arand, gj, pm, eps=0.5)
+        scale = gain_scale(stats, 0.5, T)
+        lm.decisions(f"megastep {label}", got[1], want[1], want[2],
+                     thresh.unsqueeze(-1), WEIGHT_TOL, scale)
+        same = (got[1] == want[1]).all(dim=-1)
+        lm.close(f"megastep {label} w_next", got[0][same], want[0][same],
+                 WEIGHT_TOL)
+        lm.close(f"megastep {label} gains", got[2], want[2], WEIGHT_TOL,
+                 scale)
+        lm.cases += 1
 
 
 # ---------------------------------------------------------------------------
@@ -609,11 +695,16 @@ def compare_sweeps(got, ref, thresholds, cell):
 
 def step_breakdown(dev, cell, fam, fleets, eps):
     """CUDA-event times of each stage of one megastep+kernel sweep step of
-    ``cell``, as the engine runs it: the grid's distinct sample streams
-    (one per env and seed) drawn once, gathered to every run, then
-    gradients, grad J, the random-mode draw and the megastep kernel."""
+    ``cell``, as the engine runs it: one pass of key-only draws for as
+    many steps as ``DRAW_BYTES`` holds (every run's step-key split and
+    random-mode draw, the keep mask on a channel, and the distinct sample
+    streams' batches — one per env and seed — for every step of the
+    pass), reported per pass and per step; then per step the gather to
+    every run, the gradients, grad J and the megastep kernel (and on a
+    channel the stale ring's read and write)."""
     import torch
     from repro_torch import random as trandom
+    from repro_torch.core import algorithm1 as A1
     from repro_torch.core import vfa
     from repro_torch.core.algorithm1 import ProblemTerms
     from repro_torch.envs import family_sampler_fn
@@ -627,45 +718,68 @@ def step_breakdown(dev, cell, fam, fleets, eps):
     mode_of = run // (len(cell.lambdas) * len(cell.rhos) * S) % nmodes
     stream_env = torch.arange(E, device=dev).repeat_interleave(S)
     stream_seed = torch.arange(S, device=dev).repeat(E)
+    first = stream_env * (G // E) + stream_seed      # a stream's first run
     inv = env_of * S + seed_of
-    keys = trandom.keys(cell.seeds).to(dev)[stream_seed]
-    rngs = trandom.split(trandom.split(keys, cell.iters)[:, 0], m + 1)
+    run_keys = trandom.split(trandom.keys(cell.seeds).to(dev),
+                             cell.iters)[seed_of]           # (G, N, 2)
     env = {k: v[stream_env] for k, v in fam.params.items()}
     params = {k: v.to(dev)[stream_env] for k, v in fleets.items()}
     fn = family_sampler_fn(T)
-    phi_u, y_u = fn(env, params, rngs[:, :m])
+    tx_p = torch.full((G,), 0.5, device=dev)
+    keep_p = torch.rand(G, m, device=dev)
+
+    def draw_pass(b):
+        ks = run_keys[:, :b]
+        rngs = trandom.split(ks, m + 1)
+        arand = trandom.bernoulli(rngs[:, :, m], tx_p.view(G, 1, 1),
+                                  (m,)).float()
+        keep = (trandom.bernoulli(trandom.fold_in(ks, 1),
+                                  keep_p.unsqueeze(1), (m,)).float()
+                if cell.channels else None)
+
+        def per_step(t):
+            return t.unsqueeze(1).expand((t.shape[0], b) + t.shape[1:]
+                                         ).reshape((-1,) + t.shape[1:])
+        eb = {k: per_step(v) for k, v in env.items()}
+        pb = {k: per_step(v) for k, v in params.items()}
+        phi_u, y_u = A1.steps_at_once(lambda r: fn(eb, pb, r),
+                                      rngs[first][:, :, :m])
+        return arand, keep, phi_u, y_u
+
+    one = draw_pass(1)
+    per_step = sum(t.numel() * t.element_size() for t in one if t is not None)
+    arand, _, phi_u, y_u = one
+    b = max(1, min(cell.iters, A1.DRAW_BYTES // per_step))
+    phi_u, y_u, arand = phi_u[:, 0], y_u[:, 0], arand[:, 0].contiguous()
     phi, y = phi_u[inv], y_u[inv]
     w = torch.zeros(G, cell.states, device=dev)
     terms = ProblemTerms(*(t[env_of] for t in fam.terms))
     grads = vfa.stochastic_gradient(w.unsqueeze(1), phi, y)
     gj = terms.grad(w)
-    arand = trandom.bernoulli(rngs[inv][:, m], 0.5, (m,)).float()
     ctl = torch.stack([torch.full((G,), 1e-3, device=dev),
                        mode_of.float()], -1).contiguous()
     stages = {
-        "sample_distinct_streams": lambda: fn(env, params, rngs[:, :m]),
         "gather_to_runs": lambda: (phi_u[inv], y_u[inv]),
         "stochastic_gradients": lambda: vfa.stochastic_gradient(
             w.unsqueeze(1), phi, y),
         "grad_j": lambda: terms.grad(w),
-        "random_mode_draw": lambda: trandom.bernoulli(
-            rngs[inv][:, m], 0.5, (m,)),
         "megastep_kernel": lambda: K.megastep_call(
             phi, grads, w, ctl, arand, gj, terms.phi_matrix, eps=eps),
     }
     if cell.channels:
-        # the channel's own per-step work: the keep mask, each run's
-        # stale-ring read and write, the delayed sum's ring
+        # the channel's own per-step work: each run's stale-ring read and
+        # write (its keep mask is drawn in the pass)
         ring = w.unsqueeze(1).repeat(1, 9, 1)
-        keep_p = torch.rand(G, m, device=dev)
         lag = torch.randint(0, 9, (G,), device=dev)
         stages.update(
-            keep_mask_draw=lambda: trandom.bernoulli(
-                trandom.fold_in(rngs[inv][:, 0], 1), keep_p, (m,)),
             stale_ring_read=lambda: ring[run, lag],
             stale_ring_write=lambda: ring.__setitem__((slice(None), 3), w))
-    out = {name: time_ms(stage, reps=10) for name, stage in stages.items()}
+    pass_ms = time_ms(lambda: draw_pass(b), reps=5, warmup=1)
+    out = {"key_only_draws_per_step": pass_ms / b}
+    out.update({name: time_ms(stage, reps=10)
+                for name, stage in stages.items()})
     out["sum_ms"] = sum(out.values())
+    out.update(key_only_draws_pass_ms=pass_ms, steps_per_pass=b)
     return out
 
 
@@ -978,6 +1092,707 @@ def degraded_edge_phase(dev, cell=DEGRADED_EDGE):
         step_breakdown(dev, cell, inp["env_sets"], inp["fleet_sets"],
                        cell.eps),
         sweep_step_ms=mega["wall_s"] / N * 1e3)})
+    return lines, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 3c: Fig. 3, the TD(0) linear-speedup study, the Markov runtime and
+# channel, value iteration and Q-learning
+# ---------------------------------------------------------------------------
+
+# benchmarks/fig3_continuous.py: N, T and its panels (2 agents at three
+# lambdas in one sweep, 10 agents at one in another); eps = 0.9 x max
+# stable, rho = min(min_rho(eps) x 1.0001, 0.9995)
+FIG3_ITERS, FIG3_SAMPLES = 1500, 1000
+FIG3_SWEEPS = ((2, (("left_infrequent", 1e-1), ("middle_frequent", 1e-4),
+                    ("right_2agents", 1e-2))),
+               (10, (("right_10agents", 1e-2),)))
+# the study's own numbers, fig3_continuous.run() with no store, under JAX
+# 0.9.0 on the CPU (the streams the port reproduces)
+FIG3_JAX = {
+    "left_infrequent": dict(
+        comm_rate=0.041999999433755875, first_tx_iter=0,
+        J_final=0.0019502639770507812,
+        w_err_quarterly=[1.413479208946228, 1.068789005279541,
+                         1.0277268886566162, 0.9594783782958984,
+                         0.7316417694091797]),
+    "middle_frequent": dict(
+        comm_rate=0.6053333282470703, first_tx_iter=0,
+        J_final=1.0728836059570312e-05,
+        w_err_quarterly=[1.413479208946228, 0.45173683762550354,
+                         0.26844385266304016, 0.14067628979682922,
+                         0.07037332653999329]),
+    "right_2agents": dict(
+        comm_rate=0.14766666293144226, first_tx_iter=0,
+        J_final=0.00041031837463378906,
+        w_err_quarterly=[1.413479208946228, 1.0019376277923584,
+                         0.8695611953735352, 0.6612618565559387,
+                         0.4010760486125946]),
+    "right_10agents": dict(
+        comm_rate=0.09593333303928375, first_tx_iter=0,
+        J_final=0.00018161535263061523,
+        w_err_quarterly=[1.413479208946228, 0.9969350695610046,
+                         0.8180505633354187, 0.47494298219680786,
+                         0.2701323628425598]),
+}
+# experiments/bench/fig3.json as committed: older threefry streams, shown
+# beside the others and held to nothing
+FIG3_COMMITTED = {"left_infrequent": dict(comm_rate=0.04266666620969772,
+                                          J_final=0.0019592642784118652),
+                  "middle_frequent": dict(comm_rate=0.6036666631698608,
+                                          J_final=1.1742115020751953e-05),
+                  "right_2agents": dict(comm_rate=0.1550000011920929,
+                                        J_final=0.00037091970443725586),
+                  "right_10agents": dict(comm_rate=0.09380000084638596,
+                                         J_final=0.00016576051712036133)}
+# The port derives eps and rho from its own float32 Phi, summed in another
+# order than XLA's: eps comes out equal, rho 0.99585203 against JAX's
+# 0.99585179 (the min-eigenvalue term of an ill-conditioned 6x6 moment
+# matrix).  The thresholds then differ in their last bits, practical-mode
+# decisions part near them and the trajectories diverge, so the panels
+# agree as two runs of one study, not bit for bit (the backends, which
+# share the port's rho, are held to plain torch bit for bit above).  On
+# the CPU the port read comm rates within 0.007, J_final within 12 % and
+# w_err within 0.048 of JAX's; the committed fig3.json (older streams)
+# sits within 0.0073, 10 % and 0.018.  Bounds: about 3x those.
+FIG3_TOL = dict(comm_rate=0.03, J_final_rel=0.3, w_err=0.1)
+
+# benchmarks/td_speedup.py: _scale(smoke=False), GAMMA, EPS, NOISE_SCALE,
+# RHO, LAM, TAIL_FRAC; always and theoretical modes, a j_trajectory trace
+TD_STUDY = dict(envs=6, states=10, gamma=0.8, agents=(1, 4, 16, 64),
+                samples=8, iters=6000, seeds=(0, 1, 2), eps=0.1,
+                noise_scale=4.0, rho=0.999, lam=1e-3, tail_frac=0.25)
+TD_MODES = ("always", "theoretical")
+# the same study spec through repro.experiments.run_sweep under JAX 0.9.0
+# on the CPU: tail error (mean of J over the last quarter of the steps,
+# envs and seeds averaged) and comm rate per mode and m
+TD_JAX = {
+    1: dict(always=0.2955451254226544, theoretical=0.00039856965453536415,
+            comm_theoretical=0.02212962880730629),
+    4: dict(always=0.06860475618750961, theoretical=0.00017473269391942909,
+            comm_theoretical=0.010877314954996109),
+    16: dict(always=0.01881671436627706, theoretical=9.872929255167643e-05,
+             comm_theoretical=0.008459489792585373),
+    64: dict(always=0.0046690628881807675,
+             theoretical=5.724298512494122e-05,
+             comm_theoretical=0.008114149793982506),
+}
+# experiments/bench/td_speedup.json as committed (older streams; shown only)
+TD_COMMITTED_SPEEDUPS = dict(always=(1.0, 4.473652234580297,
+                                     16.403772908819157, 71.06726251456973),
+                             theoretical=(1.0, 1.9633240177862923,
+                                          3.840772994462512,
+                                          6.62078908456694))
+# Relative bounds on the tail errors.  always: no decision, so only the
+# float32 sums differ (the port on the CPU within 6e-6 of JAX).  theoretical:
+# J ~ 5e-5 is the difference of terms of size c0 ~ 50 in float32, each
+# evaluation off by ~ulp(c0) / J, so its tail mean carries that noise (the
+# port on the CPU within 0.35 %, with the same comm rates to 1e-9); a
+# decision that flips at a tie on the card moves one run's tail too.
+TD_TOL = dict(always=1e-4, theoretical=0.05)
+# the backend parity, runtime and channel runs: m = 64 with N cut to this
+TD_CUT_ITERS = 1000
+TD_TRACE_ITERS = 200      # the profiled fused sweep's steps
+TD_RESUME_CHUNK = 12      # 36 runs: 3 segments
+TD_RESUME_KEEP = 1
+
+# tests/test_sweep.py:325-345 and tests/test_qlearning.py:53: 40 outer x
+# 200 inner, practical, 2 agents, the discounted 5x5 gridworld
+VI_OUTER, VI_INNER = 40, 200
+
+
+def as_summary(res):
+    """A full-trace SweepResult as the summary fields compare_sweeps reads."""
+    from repro_torch.core.algorithm1 import SummaryTrace
+    from repro_torch.experiments.sweep import SweepResult
+    tr = res.trace
+    s = SummaryTrace(final_weights=tr.weights[..., -1, :],
+                     comm_rate=tr.comm_rate, tx_counts=tr.alphas.sum(-2),
+                     gain_mean=tr.gains.mean(-2), gain_min=tr.gains.amin(-2),
+                     gain_max=tr.gains.amax(-2), j_final=res.j_final,
+                     j_trajectory=None, alphas=tr.alphas, gains=tr.gains)
+    return SweepResult(trace=s, comm_rate=s.comm_rate, j_final=res.j_final,
+                       axes=res.axes)
+
+
+def grid_thresholds(spec, res):
+    """lambda_k of every flattened run of ``res`` (one lambda axis)."""
+    import numpy as np
+    thr = spec.thresholds()                       # (L, R, N)
+    lam_axis = res.axes.index("lam")
+    shape = tuple(res.comm_rate.shape)
+    lam_of = np.indices(shape)[lam_axis].reshape(-1)
+    return thr[lam_of, 0]
+
+
+def pairs_against_plain(dev, label, run, sweeps, iters):
+    """``run(step, gain)`` (``sweeps`` sweeps of ``iters`` steps) on plain
+    torch and the three kernel backends: (results, lines, launches), each
+    kernel run's launches checked."""
+    results, lines, launches = {}, [], {}
+    for step, gain in (("reference", "reference"), ("reference", "kernel"),
+                       ("fused", "kernel"), ("megastep", "kernel")):
+        out, wall, counts, peak = timed(dev, lambda: run(step, gain))
+        if gain == "kernel":
+            name, per_step = EXPECT[step]
+            check_launches(f"{label} {step}/{gain}", counts,
+                           {name: per_step * iters * sweeps})
+            launches[name] = launches.get(name, 0) + counts[name]
+        else:
+            check_launches(f"{label} {step}/{gain}", counts, {})
+        results[step, gain] = out
+        lines.append(dict(sweep=f"{step}+{gain}", wall_s=wall,
+                          peak_mem_bytes=peak, launches=counts))
+    return results, lines, launches
+
+
+def fig3_phase(dev):
+    """Fig. 3 (benchmarks/fig3_continuous.py) at its own scale: both
+    sweeps on plain torch and the three kernel backends, each backend
+    against plain torch, the panels' numbers against JAX 0.9.0's."""
+    import numpy as np
+    import torch
+    from repro_torch.core.algorithm1 import ParamSampler
+    from repro_torch.envs import LinearSystem
+    from repro_torch.experiments import SweepSpec, run_sweep
+
+    ls = LinearSystem()
+    prob = ls.vfa_problem(np.zeros(6))
+    eps = 0.9 * prob.max_stable_stepsize()
+    rho = min(prob.min_rho(eps) * 1.0001, 0.9995)
+    wstar = prob.optimum().to(dev)
+    w0 = np.zeros(6, np.float32)
+    N = FIG3_ITERS
+
+    def spec(agents, panels, step, gain):
+        return SweepSpec(modes=("practical",),
+                         lambdas=tuple(l for _, l in panels), seeds=(0,),
+                         rhos=(rho,), eps=eps, num_iterations=N,
+                         num_agents=agents, tag=f"fig3-{agents}agents",
+                         step_backend=step, gain_backend=gain)
+
+    def run(step, gain):
+        return [run_sweep(spec(a, p, step, gain), ParamSampler(
+                    ls.sampler_fn(FIG3_SAMPLES), ls.agent_params(w0, a)),
+                    w0, problem=prob, device=dev)
+                for a, p in FIG3_SWEEPS]
+
+    results, lines, launches = pairs_against_plain(
+        dev, "fig3", run, len(FIG3_SWEEPS), N)
+    oracle = results["reference", "reference"]
+    for key, res in results.items():
+        if key == ("reference", "reference"):
+            continue
+        cmp = {}
+        for (agents, panels), got, ref in zip(FIG3_SWEEPS, res, oracle):
+            cell = Cell(f"fig3-{agents}agents", 1, 6, agents, 0,
+                        FIG3_SAMPLES, N, ("practical",),
+                        tuple(l for _, l in panels), (rho,), (0,), eps)
+            s = spec(agents, panels, *key)
+            cmp[f"{agents}agents"] = compare_sweeps(
+                as_summary(got), as_summary(ref), grid_thresholds(s, got),
+                cell)["vs_plain"]
+        next(l for l in lines if l["sweep"] == "+".join(key)).update(
+            vs_plain=cmp)
+
+    def panels_of(res_pair):
+        out = {}
+        for (agents, panels), res in zip(FIG3_SWEEPS, res_pair):
+            tr = res.trace
+            for li, (name, lam) in enumerate(panels):
+                a = tr.alphas[0, li, 0, 0].mean(-1)            # (N,)
+                w = tr.weights[0, li, 0, 0]                    # (N+1, 6)
+                first = int(torch.argmax((a > 0).int())) if a.max() > 0 else N
+                out[name] = dict(
+                    lam=lam, agents=agents,
+                    comm_rate=float(tr.comm_rate[0, li, 0, 0]),
+                    first_tx_iter=first,
+                    early_rate=float(a[: N // 4].mean()),
+                    late_rate=float(a[3 * N // 4:].mean()),
+                    J_final=float(res.j_final[0, li, 0, 0]),
+                    w_err_quarterly=[
+                        float(torch.linalg.vector_norm(w[k] - wstar))
+                        for k in (0, N // 4, N // 2, 3 * N // 4, N)])
+        return out
+
+    panels = panels_of(results["megastep", "kernel"])
+    worst = dict(comm_rate=0.0, J_final_rel=0.0, w_err=0.0)
+    for name, got in panels.items():
+        want = FIG3_JAX[name]
+        d = dict(comm_rate=abs(got["comm_rate"] - want["comm_rate"]),
+                 J_final_rel=abs(got["J_final"] / want["J_final"] - 1),
+                 w_err=max(abs(a - b) for a, b in zip(
+                     got["w_err_quarterly"], want["w_err_quarterly"])))
+        for k, v in d.items():
+            worst[k] = max(worst[k], v)
+        check(got["first_tx_iter"] == want["first_tx_iter"]
+              and all(v <= FIG3_TOL[k] for k, v in d.items()),
+              f"fig3 {name}: {got} differs from JAX 0.9.0's {want} by {d}")
+        got.update(jax_0_9_0=want, committed_json=FIG3_COMMITTED[name])
+    lines.append(dict(cell="fig3", panels=panels, eps=eps, rho=rho,
+                      panels_from="megastep+kernel",
+                      vs_jax_0_9_0=dict(worst=worst, tolerance=FIG3_TOL)))
+    for l in lines:
+        l.setdefault("cell", "fig3")
+    return lines, launches
+
+
+def td_inputs(dev, m):
+    import numpy as np
+    from repro_torch.core.algorithm1 import ParamSampler
+    from repro_torch.core.td import (td_env_family, td_family_sampler_fn,
+                                     td_init_states)
+    s = TD_STUDY
+    envs, fam = td_env_family(s["envs"], num_states=s["states"],
+                              gamma=s["gamma"], device=dev)
+    w0 = np.zeros(s["states"], np.float32)
+    params = envs[0].agent_params(w0, m, noise_scale=s["noise_scale"])
+    return dict(sampler=ParamSampler(td_family_sampler_fn(s["samples"]),
+                                     params),
+                w0=w0, env_sets=fam, state_init_fn=td_init_states)
+
+
+def td_spec(m, iters, **kw):
+    from repro_torch.experiments import SweepSpec
+    s = TD_STUDY
+    return SweepSpec(modes=TD_MODES, lambdas=(s["lam"],), rhos=(s["rho"],),
+                     seeds=s["seeds"], eps=s["eps"], num_iterations=iters,
+                     num_agents=m, sampling="markov", **kw)
+
+
+def td_cell(m, iters, name):
+    s = TD_STUDY
+    return Cell(name, s["envs"], s["states"], m, 0, s["samples"], iters,
+                TD_MODES, (s["lam"],), (s["rho"],), s["seeds"], s["eps"])
+
+
+def td_speedup_phase(dev):
+    """The TD(0) linear-speedup study (benchmarks/td_speedup.py) at its
+    full scale on the fused backend, through the study's own store-first
+    call; then the backend parity at m = 64 with N cut to TD_CUT_ITERS
+    and the step's stages with the walk apart."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.core.algorithm1 import TraceSpec
+    from repro_torch.experiments import SweepStore, run_sweep, sweep_or_load
+
+    s = TD_STUDY
+    N = s["iters"]
+    lines, launches, tail, comm, walls = [], {}, {}, {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_td_")
+    try:
+        store = SweepStore(os.path.join(tmp, "store"))
+        for m in s["agents"]:
+            inp = td_inputs(dev, m)
+            spec = td_spec(m, N, trace=TraceSpec(j_trajectory=True),
+                           step_backend="fused", gain_backend="kernel")
+            res, wall, counts, peak = timed(dev, lambda: sweep_or_load(
+                store, spec, inp["sampler"], inp["w0"],
+                env_sets=inp["env_sets"], state_init_fn=inp["state_init_fn"],
+                extra={"figure": "td_speedup", "m": m, "gamma": s["gamma"],
+                       "noise_scale": s["noise_scale"],
+                       "tail_frac": s["tail_frac"]}, device=dev))
+            check_launches(f"td-speedup m={m}", counts,
+                           {"gain_family_stats": N})
+            launches["gain_family_stats"] = (
+                launches.get("gain_family_stats", 0) + counts["gain_family_stats"])
+            jt = res.trace.j_trajectory.double()      # (E, M, L, R, S, N)
+            check(tuple(jt.shape) == (s["envs"], 2, 1, 1, len(s["seeds"]), N)
+                  and bool(torch.isfinite(jt).all()),
+                  f"td-speedup m={m}: j_trajectory {tuple(jt.shape)}")
+            n_tail = max(1, int(round(s["tail_frac"] * N)))
+            t = jt[..., N - n_tail:].mean(-1)
+            for mi, mode in enumerate(TD_MODES):
+                tail.setdefault(mode, []).append(float(t[:, mi].mean()))
+                comm.setdefault(mode, []).append(
+                    float(res.comm_rate[:, mi].mean()))
+            walls[m] = dict(wall_s=wall, peak_mem_bytes=peak,
+                            step_ms=wall / N * 1e3,
+                            run_agent_steps_per_s=(
+                                res.comm_rate.numel() * m * N / wall))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rows, worst = {}, dict.fromkeys(TD_MODES, 0.0)
+    for mode in TD_MODES:
+        base = tail[mode][0]
+        rows[mode] = []
+        for i, m in enumerate(s["agents"]):
+            want = TD_JAX[m][mode]
+            rel = abs(tail[mode][i] / want - 1)
+            worst[mode] = max(worst[mode], rel)
+            check(rel <= TD_TOL[mode], f"td-speedup {mode} m={m}: tail error "
+                  f"{tail[mode][i]:.6g}, JAX 0.9.0 {want:.6g} ({rel:.3g})")
+            rows[mode].append(dict(
+                m=m, tail_error=tail[mode][i], error_x_m=tail[mode][i] * m,
+                speedup_vs_m1=base / tail[mode][i], comm_rate=comm[mode][i],
+                jax_0_9_0=dict(tail_error=want, speedup_vs_m1=(
+                    TD_JAX[1][mode] / want)),
+                committed_speedup_vs_m1=TD_COMMITTED_SPEEDUPS[mode][i]))
+    lines.append(dict(cell="td-speedup", sweep="fused+kernel", runs=36,
+                      iterations=N, rows=rows, per_m=walls,
+                      vs_jax_0_9_0=dict(worst_tail_rel=worst,
+                                        tolerance=TD_TOL,
+                                        comm_rate_theoretical=[
+                                            TD_JAX[m]["comm_theoretical"]
+                                            for m in s["agents"]])))
+
+    # -- every backend against plain torch at m = 64, N cut
+    m, Nc = s["agents"][-1], TD_CUT_ITERS
+    inp = td_inputs(dev, m)
+    cell = td_cell(m, Nc, "td-speedup-m64")
+
+    def run(step, gain):
+        spec = td_spec(m, Nc, trace=TraceSpec(alphas=True, gains=True),
+                       step_backend=step, gain_backend=gain)
+        return spec, run_sweep(spec, inp["sampler"], inp["w0"],
+                               env_sets=inp["env_sets"],
+                               state_init_fn=inp["state_init_fn"], device=dev)
+
+    results, plines, pl = pairs_against_plain(dev, cell.name, run, 1, Nc)
+    for k, v in pl.items():
+        launches[k] = launches.get(k, 0) + v
+    _, oracle = results["reference", "reference"]
+    for key, (spec, res) in results.items():
+        if key == ("reference", "reference"):
+            continue
+        next(l for l in plines if l["sweep"] == "+".join(key)).update(
+            compare_sweeps(res, oracle, grid_thresholds(spec, res), cell))
+    for l in plines:
+        l.update(cell=cell.name, runs=cell.runs, agents=m, iterations=Nc,
+                 reduced=dict(iterations=[N, Nc]),
+                 run_agent_steps_per_s=cell.runs * m * Nc / l["wall_s"])
+    lines += plines
+    fused = next(l for l in plines if l["sweep"] == "fused+kernel")
+    # the device's busy and idle time over a fused sweep of TD_TRACE_ITERS
+    # steps, from a torch.profiler trace (its launches are not counted)
+    spec = td_spec(m, TD_TRACE_ITERS, trace="summary", step_backend="fused",
+                   gain_backend="kernel")
+    trace = prefill_breakdown(dev, lambda _: run_sweep(
+        spec, inp["sampler"], inp["w0"], env_sets=inp["env_sets"],
+        state_init_fn=inp["state_init_fn"], device=dev), None,
+        ("family_stats_kernel",))
+    lines.append({"cell": cell.name, "step_breakdown_ms": dict(
+        td_step_breakdown(dev, inp, m),
+        sweep_step_ms=fused["wall_s"] / Nc * 1e3),
+        "device_trace": dict(trace, iterations=TD_TRACE_ITERS)})
+    return lines, launches
+
+
+def td_step_breakdown(dev, inp, m):
+    """CUDA-event times of one fused+kernel TD step's stages at m agents,
+    as the engine runs them: one pass of key-only draws (the step keys'
+    split, the random-mode draw and the walk's threefry draws, for as many
+    steps as DRAW_BYTES holds, reported per pass and per step), then per
+    step the T-step walk on the 18 distinct streams, the per-run targets,
+    the gradients, grad J, the fused gains and the trigger and update."""
+    import torch
+    from repro_torch import random as trandom
+    from repro_torch.core import algorithm1 as A1
+    from repro_torch.core import gain_dispatch, server, vfa
+    from repro_torch.core.algorithm1 import MODE_IDS, ProblemTerms
+    from repro_torch.core.td import td_init_states
+    from repro_torch.core.trigger import should_transmit
+
+    s = TD_STUDY
+    fam, fn = inp["env_sets"], inp["sampler"].fn
+    E, S, nm = s["envs"], len(s["seeds"]), len(TD_MODES)
+    G, U = E * nm * S, E * S
+    run = torch.arange(G, device=dev)
+    env_of, seed_of = run // (nm * S), run % S
+    inv = env_of * S + seed_of
+    stream_env = torch.arange(E, device=dev).repeat_interleave(S)
+    stream_seed = torch.arange(S, device=dev).repeat(E)
+    first = stream_env * (nm * S) + stream_seed     # a stream's first run
+    env = {k: v[stream_env] for k, v in fam.params.items()}
+    params = {k: torch.as_tensor(v).to(dev).expand((U,) + v.shape)
+              for k, v in inp["sampler"].params.items()}
+    keys = trandom.keys(s["seeds"]).to(dev)
+    step_keys = trandom.split(keys[seed_of], s["iters"])           # (G, N, 2)
+    state = td_init_states(params, trandom.fold_in(
+        keys[stream_seed], A1.SAMPLER_STATE_FOLD))
+    tx_p = torch.full((G,), 0.5, device=dev)
+
+    def key_pass(b):
+        ks = step_keys[:, :b]
+        rngs = trandom.split(ks, m + 1)
+        arand = trandom.bernoulli(rngs[:, :, m], tx_p.view(G, 1, 1),
+                                  (m,)).float()
+        return arand, fn.draw(env, rngs[first][:, :, :m])
+
+    arand1, draws1 = key_pass(1)
+    per_step = sum(t.numel() * t.element_size() for t in (arand1, *draws1))
+    b = max(1, min(s["iters"], A1.DRAW_BYTES // per_step))
+    d0 = tuple(x[:, 0] for x in draws1)
+    st, walk = fn.walk(env, params, state, d0)
+    w = torch.zeros(G, s["states"], device=dev)
+    phi, y = walk.to_runs(lambda x: x[inv]).batch(w)
+    terms = ProblemTerms(*(t[env_of] for t in fam.terms))
+    grads = vfa.stochastic_gradient(w.unsqueeze(1), phi, y)
+    gj = terms.grad(w)
+    modes = torch.tensor([MODE_IDS[x] for x in TD_MODES],
+                         device=dev)[run // S % nm]
+    gains = gain_dispatch.mode_gains(modes, grads, phi, s["eps"], gj,
+                                     terms.phi_matrix, backend="kernel",
+                                     step_backend="fused")
+    thr = torch.full((G, 1), 1e-3, device=dev)
+
+    def trigger_and_update():
+        gate = should_transmit(gains, thr)
+        alphas = gain_dispatch.select_alphas(modes, gate, arand1[:, 0])
+        return server.server_update(w, grads, alphas, s["eps"])
+
+    pass_ms = time_ms(lambda: key_pass(b), reps=5, warmup=1)
+    stages = {
+        "walk": lambda: fn.walk(env, params, state, d0),
+        "targets_to_runs": lambda: walk.to_runs(lambda x: x[inv]).batch(w),
+        "stochastic_gradients": lambda: vfa.stochastic_gradient(
+            w.unsqueeze(1), phi, y),
+        "grad_j": lambda: terms.grad(w),
+        "fused_gains": lambda: gain_dispatch.mode_gains(
+            modes, grads, phi, s["eps"], gj, terms.phi_matrix,
+            backend="kernel", step_backend="fused"),
+        "trigger_and_update": trigger_and_update,
+    }
+    out = {"key_only_draws_per_step": pass_ms / b}
+    out.update({k: time_ms(f, reps=10) for k, f in stages.items()})
+    out["sum_ms"] = sum(out.values())
+    out.update(key_only_draws_pass_ms=pass_ms, steps_per_pass=b,
+               distinct_streams=U, runs=G)
+    return out
+
+
+def td_runtime_channel_phase(dev):
+    """Markov sampling through the resumable runtime and the lossy channel
+    at m = 64, N cut to TD_CUT_ITERS (tests/test_td.py:212 and :238 at the
+    study's size): resume bitwise, clean channel = none bitwise on every
+    kernel backend, loss 30 % on fused against plain torch."""
+    import shutil
+    import tempfile
+    from repro_torch.core.algorithm1 import TraceSpec
+    from repro_torch.experiments import run_sweep, run_sweep_resumable
+
+    s = TD_STUDY
+    m, N = s["agents"][-1], TD_CUT_ITERS
+    inp = td_inputs(dev, m)
+    kw = dict(env_sets=inp["env_sets"], state_init_fn=inp["state_init_fn"],
+              device=dev)
+    name = "td-markov-m64"
+    lines, launches = [], {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # -- resume: fused/kernel, summary, 3 segments of 12 runs
+    spec = td_spec(m, N, trace="summary", step_backend="fused",
+                   gain_backend="kernel", chunk_size=TD_RESUME_CHUNK)
+    segments = td_cell(m, N, name).runs // TD_RESUME_CHUNK
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_td_resume_")
+    try:
+        plain, wall_plain, counts, _ = timed(dev, lambda: run_sweep(
+            spec, inp["sampler"], inp["w0"], **kw))
+        check_launches(f"{name} run_sweep chunked", counts,
+                       {"gain_family_stats": segments * N})
+        add(counts)
+        d = os.path.join(tmp, "chunks")
+        full, wall_full, counts, _ = timed(dev, lambda: run_sweep_resumable(
+            spec, inp["sampler"], inp["w0"], store_dir=d, **kw))
+        check_launches(f"{name} resumable", counts,
+                       {"gain_family_stats": segments * N})
+        add(counts)
+        chunks = sorted(f for f in os.listdir(d) if f.startswith("chunk_"))
+        check(len(chunks) == segments, f"{name}: {len(chunks)} chunks")
+        for f in chunks[TD_RESUME_KEEP:]:
+            os.remove(os.path.join(d, f))
+        events = []
+        resumed, wall_resumed, counts, _ = timed(dev, lambda: run_sweep_resumable(
+            spec, inp["sampler"], inp["w0"], store_dir=d,
+            on_chunk=lambda i, n, restored: events.append(restored), **kw))
+        check(events == [True] * TD_RESUME_KEEP
+              + [False] * (segments - TD_RESUME_KEEP),
+              f"{name}: resume events {events}")
+        check_launches(f"{name} resumed", counts, {
+            "gain_family_stats": (segments - TD_RESUME_KEEP) * N})
+        add(counts)
+        check(bitwise_equal(full, resumed),
+              f"{name}: the resumed sweep differs from the uninterrupted")
+        check(bitwise_equal(full, plain),
+              f"{name}: the resumable sweep differs from run_sweep")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    lines.append(dict(cell=name, phase="resume", runs=36, iterations=N,
+                      chunk_size=TD_RESUME_CHUNK, segments=segments,
+                      run_sweep_wall_s=wall_plain, resumable_wall_s=wall_full,
+                      resumed_wall_s=wall_resumed,
+                      events=dict(restored=events.count(True),
+                                  computed=events.count(False)),
+                      resumed_bitwise=True, run_sweep_bitwise=True,
+                      reduced=dict(iterations=[s["iters"], N])))
+
+    # -- a clean channel is no channel, bit for bit, on every kernel backend
+    clean = {}
+    for step in ("reference", "fused", "megastep"):
+        out = {}
+        for label, chans in (("none", None), ("clean", ((0.0, 0, 0),))):
+            spec = td_spec(m, N, trace="summary", step_backend=step,
+                           gain_backend="kernel", channel_sets=chans)
+            res, wall, counts, _ = timed(dev, lambda: run_sweep(
+                spec, inp["sampler"], inp["w0"], **kw))
+            k, per_step = EXPECT[step]
+            check_launches(f"{name} {step} {label}", counts,
+                           {k: per_step * N})
+            add(counts)
+            out[label] = (res, wall)
+        check(bitwise_equal(out["none"][0], out["clean"][0], squeeze=1),
+              f"{name} {step}: a clean channel differs from none")
+        clean[step] = dict(clean_equals_none_bitwise=True,
+                           wall_s={k: w for k, (_, w) in out.items()})
+    lines.append(dict(cell=name, phase="clean_vs_none", runs=36,
+                      iterations=N, **clean))
+
+    # -- loss 30 % on fused against plain torch
+    cell = td_cell(m, N, name)._replace(channels=(("loss30", (0.3, 0, 0)),))
+    res_l = {}
+    for step, gain in (("reference", "reference"), ("fused", "kernel")):
+        spec = td_spec(m, N, trace=TraceSpec(alphas=True, gains=True),
+                       step_backend=step, gain_backend=gain,
+                       channel_sets=((0.3, 0, 0),))
+        res, wall, counts, _ = timed(dev, lambda: run_sweep(
+            spec, inp["sampler"], inp["w0"], **kw))
+        check_launches(f"{name} loss30 {step}/{gain}", counts,
+                       {"gain_family_stats": N} if gain == "kernel" else {})
+        add(counts)
+        res_l[step] = (spec, res, wall)
+    spec, got, wall = res_l["fused"]
+    cmp = compare_sweeps(got, res_l["reference"][1],
+                         grid_thresholds(spec, got), cell)
+    lines.append(dict(cell=name, phase="loss30", sweep="fused+kernel",
+                      runs=36, iterations=N, wall_s=wall,
+                      comm_rate_mean=float(got.comm_rate.mean()),
+                      delivered_rate_mean=float(
+                          got.trace.delivered_rate.mean()), **cmp))
+    return lines, launches
+
+
+def value_iteration_phase(dev):
+    """Algorithm 1's outer loop on a kernel backend against plain torch:
+    run_value_iteration_scan on the discounted gridworld
+    (tests/test_sweep.py:325-345, megastep) and Q-learning's
+    run_value_iteration (tests/test_qlearning.py:53, reference step
+    backend, gain_matvec), each held to the reference tests' bounds."""
+    import numpy as np
+    import torch
+    from repro_torch import random as trandom
+    from repro_torch.core import qlearning as Q
+    from repro_torch.core.algorithm1 import (GatedSGDConfig,
+                                             run_value_iteration,
+                                             run_value_iteration_scan)
+    from repro_torch.core.trigger import TriggerConfig
+    from repro_torch.envs import GridWorld
+
+    gw = GridWorld(gamma=0.9)
+    lines, launches = [], {}
+
+    def hold(label, got, ref, trig):
+        """Each outer step's decisions exact (a tie, reported, ends the
+        comparison) and weights within WEIGHT_TOL."""
+        thr = trig.schedule().to(dev)
+        w_rel, ties, compared = 0.0, 0, 0
+        for i, (g, r) in enumerate(zip(got, ref)):
+            diff = g.alphas != r.alphas                 # (N, m)
+            if bool(diff.any()):
+                k = int(torch.nonzero(diff.any(-1))[0])
+                scale = float(r.gains.abs().max()) + 1.0
+                margin = float(((r.gains[k][diff[k]] + thr[k]).abs()
+                                / scale).max())
+                check(margin <= WEIGHT_TOL,
+                      f"{label} outer {i} step {k}: decision differs, "
+                      f"margin {margin:.3g}")
+                ties += 1
+                break
+            w_rel = max(w_rel, rel_err(g.weights, r.weights)[0])
+            compared += 1
+        check(w_rel <= WEIGHT_TOL, f"{label}: weights differ by {w_rel:.3g}")
+        return dict(weights_max_rel=w_rel, outer_steps_compared=compared,
+                    tie_stops=ties)
+
+    # -- value iteration, scan form, megastep
+    prob0 = gw.vfa_problem(np.zeros(gw.num_states))
+    trig = TriggerConfig(lam=1e-4, rho=prob0.min_rho(0.5) * 1.0001,
+                         num_iterations=VI_INNER)
+    v_true = gw.exact_value()
+    out = {}
+    for step, gain in (("megastep", "kernel"), ("reference", "reference")):
+        cfg = GatedSGDConfig(trigger=trig, eps=0.5, num_agents=2,
+                             mode="practical", step_backend=step,
+                             gain_backend=gain)
+        (w, traces), wall, counts, _ = timed(dev, lambda: run_value_iteration_scan(
+            trandom.key(0), torch.zeros(25), gw.sampler_fn(20),
+            lambda v: gw.agent_params(v, 2), cfg, VI_OUTER,
+            terms_for_v=gw.problem_terms, device=dev))
+        check_launches(f"value-iteration {step}/{gain}", counts,
+                       {"megastep": 2 * VI_OUTER * VI_INNER}
+                       if gain == "kernel" else {})
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        err = float(np.abs(w.cpu().numpy() - v_true).max())
+        bound = 0.15 * float(np.abs(v_true).max())
+        check(err < bound and bool(((traces.comm_rate >= 0)
+                                    & (traces.comm_rate <= 1)).all()),
+              f"value-iteration {step}/{gain}: error {err:.4g} over {bound:.4g}")
+        out[step] = (traces, dict(wall_s=wall, error_vs_v_pi=err,
+                                  bound=bound, launches=counts,
+                                  comm_rate_mean=float(
+                                      traces.comm_rate.mean())))
+    split = lambda tr: [type(tr)(*(None if x is None else x[i] for x in tr))  # noqa: E731
+                        for i in range(VI_OUTER)]
+    lines.append(dict(cell="value-iteration-gridworld",
+                      outer=VI_OUTER, inner=VI_INNER, samples=20,
+                      kernel=dict(out["megastep"][1], sweep="megastep+kernel"),
+                      plain=dict(out["reference"][1],
+                                 sweep="reference+reference"),
+                      vs_plain=hold("value-iteration",
+                                    split(out["megastep"][0]),
+                                    split(out["reference"][0]), trig)))
+
+    # -- Q-learning, loop form, reference step backend (gain_matvec)
+    n = Q.q_dimension(gw)
+    trig = TriggerConfig(lam=1e-4, rho=min(Q.q_problem(gw, np.zeros(n))
+                                           .min_rho(12.0) * 1.0001, 0.9999),
+                         num_iterations=VI_INNER)
+    q_true = Q.exact_q(gw)
+    out = {}
+    for step, gain in (("reference", "kernel"), ("reference", "reference")):
+        cfg = GatedSGDConfig(trigger=trig, eps=12.0, num_agents=2,
+                             mode="practical", step_backend=step,
+                             gain_backend=gain)
+        (w, traces), wall, counts, _ = timed(dev, lambda: run_value_iteration(
+            trandom.key(0), torch.zeros(n),
+            lambda qw: Q.make_q_sampler(gw, qw, 60), cfg, VI_OUTER,
+            device=dev))
+        check_launches(f"q-learning {step}/{gain}", counts,
+                       {"gain_matvec": VI_OUTER * VI_INNER}
+                       if gain == "kernel" else {})
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        err = float(np.abs(w.cpu().numpy() - q_true).max())
+        bound = 0.2 * float(np.abs(q_true).max())
+        rates = [float(t.comm_rate) for t in traces]
+        check(err < bound and all(0 <= r <= 1 for r in rates)
+              and any(r < 1 for r in rates),
+              f"q-learning {step}/{gain}: error {err:.4g} over {bound:.4g}, "
+              f"rates {rates}")
+        out[gain] = (traces, dict(wall_s=wall, error_vs_q_pi=err,
+                                  bound=bound, launches=counts,
+                                  comm_rate_mean=float(np.mean(rates))))
+    lines.append(dict(cell="q-learning-gridworld", outer=VI_OUTER,
+                      inner=VI_INNER, samples=60,
+                      kernel=dict(out["kernel"][1], sweep="reference+kernel"),
+                      plain=dict(out["reference"][1],
+                                 sweep="reference+reference"),
+                      vs_plain=hold("q-learning", out["kernel"][0],
+                                    out["reference"][0], trig)))
     return lines, launches
 
 
@@ -1511,9 +2326,10 @@ def bf16_comparison(model, tokens, plain32):
 
 
 def prefill_breakdown(dev, prefill, tokens, kernel_names):
-    """Device time of one prefill by kernel class from a torch.profiler
-    trace (the ported kernels ``kernel_names``, together and each, matrix
-    products, the rest) and the device's idle share of the wall time; "not
+    """Device time of one prefill (or any ``prefill(tokens)`` call: the TD
+    phase traces a sweep) by kernel class from a torch.profiler trace (the
+    ported kernels ``kernel_names``, together and each, matrix products,
+    the rest) and the device's idle share of the wall time; "not
     measured" if the trace has no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1750,26 +2566,36 @@ def main():
                         "ssd_chunk_wgmma_kernel": lib.ssd_blocks_per_sm(0),
                         "ssd_state_pass_kernel": lib.ssd_blocks_per_sm(1)}}})
 
+    seconds = {}
+    t0 = time.perf_counter()
     logs = kernel_phase(dev)
     timings = full_shape_phase(dev, logs)
+    seconds["kernels"] = time.perf_counter() - t0
     lines, launches = [], {}
-    for cell in CELLS:
-        cell_lines, counts = sweep_phase(dev, cell)
-        lines += cell_lines
+
+    def main_path(label, phase, *args):
+        t0 = time.perf_counter()
+        out, counts = phase(dev, *args)
+        seconds[label] = time.perf_counter() - t0
+        lines.extend(out if isinstance(out, list) else [out])
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
-    edge_lines, counts = degraded_edge_phase(dev)
-    lines += edge_lines
-    for name, n in counts.items():
-        launches[name] = launches.get(name, 0) + n
+
+    for cell in CELLS:
+        main_path(cell.name, sweep_phase, cell)
+    main_path(DEGRADED_EDGE.name, degraded_edge_phase)
+    main_path("fig3", fig3_phase)
+    main_path("td-speedup", td_speedup_phase)
+    main_path("td-markov-m64", td_runtime_channel_phase)
+    main_path("value-iteration", value_iteration_phase)
+    t0 = time.perf_counter()
     lm_logs, lm_timings = lm_kernel_phase(dev)
+    seconds["lm-kernels"] = time.perf_counter() - t0
     logs.update(lm_logs)
     timings.update(lm_timings)
     for cell in SERVE_CELLS:
-        line, counts = serve_phase(dev, cell)
-        lines.append(line)
-        for name, n in counts.items():
-            launches[name] = launches.get(name, 0) + n
+        main_path(cell.name, serve_phase, cell)
+    lines.append({"phase_seconds": seconds})
     kernels = kernel_lines(logs, timings, launches)
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never ran on the main path")

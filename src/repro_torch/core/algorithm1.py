@@ -9,15 +9,27 @@ code path serves every cell of a sweep grid.  A single run is the same
 core with R = 1 (pass an unbatched key).
 
 ``channel=`` (with its ring capacities ``channel_caps``) runs the lossy
-edge of ``repro.core.channel``: drop, delay and staleness per run.  Markovian
-sampling (``sampler_state=``) is ROADMAP queue 1 item 8 and raises
-``NotImplementedError``.  The reference's ``jax.lax.optimization_barrier``
-has no counterpart: torch runs eagerly and folds nothing.
+edge of ``repro.core.channel``: drop, delay and staleness per run.
+``sampler_state=`` threads a stateful (Markovian) sampler's per-run chain
+state through the step loop (``repro_torch.core.td``).  The reference's
+``jax.lax.optimization_barrier`` has no counterpart: torch runs eagerly and
+folds nothing.
+
+Every key of a run is known before its first step, so the loop draws the
+randomness of many steps in one pass: the per-step key split, the
+random-mode and keep-mask draws and the agents' samples (``BlockSampler``).
+Each draw is a function of its key alone, so a run's result does not
+depend on how many steps a pass draws.
+
+``run_value_iteration`` / ``run_value_iteration_scan`` are the outer loop
+(lines 10-12): repeated inner fits, each starting from and bootstrapping
+off the last one's weights.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, NamedTuple, Optional, Union
 
 import torch
@@ -33,8 +45,36 @@ from repro_torch.core.trigger import TriggerConfig, should_transmit
 MODES = gain_dispatch.MODES
 MODE_IDS = {name: i for i, name in enumerate(MODES)}
 
+# fold_in tag deriving a run's sampler-state init key from its run key ("TD"
+# in ASCII), the reference's: run_td and the sweep's markov path share it,
+# so per-run and in-sweep chains are the same
+SAMPLER_STATE_FOLD = 0x5444
+
 # sample_all(rngs (R, m, 2)) -> (phi (R, m, T, n), targets (R, m, T))
 SampleAll = Callable[[torch.Tensor], tuple]
+
+# bytes of randomness (and of a BlockSampler's samples) one pass may draw:
+# the loop sizes its passes from the first step's draws
+DRAW_BYTES = 1 << 28
+
+
+class BlockSampler(NamedTuple):
+    """A sampler that draws the samples of many steps in one pass.
+
+    ``draw(rngs (R, b, m, 2))`` returns a tuple of tensors whose axis 1 is
+    the step (axis 0 the run, or whatever ``take`` maps to runs);
+    ``take(draws)`` turns one step's slice of them into ``(phi, targets)``,
+    or, for a stateful sampler, ``take(state, w, draws)`` into ``(state',
+    phi, targets)``.  Called like a plain sampler it draws one step.
+    """
+
+    draw: Callable
+    take: Callable
+
+    def __call__(self, *args):
+        *lead, rngs = args
+        draws = self.draw(rngs.unsqueeze(1))
+        return self.take(*lead, tuple(x[:, 0] for x in draws))
 
 
 class ParamSampler(NamedTuple):
@@ -178,12 +218,8 @@ def _runs(x, R: int, device, dtype) -> torch.Tensor:
     return torch.as_tensor(x, device=device).to(dtype).expand(R)
 
 
-def refuse_unported(sampler_state=None):
-    """The part of Algorithm 1 a later slice of the port brings."""
-    if sampler_state is not None:
-        raise NotImplementedError(
-            "Markovian sampling (sampler_state=) is not ported yet (ROADMAP "
-            "queue 1 item 8)")
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def gated_sgd_core(
@@ -213,12 +249,21 @@ def gated_sgd_core(
       mode_id:    int or (R,) trigger-mode ids (``MODES``).
       thresholds: (N,) shared or (R, N) per-iteration lambda_k.
       tx_prob:    float or (R,) random-mode transmit probability.
-      sample_all: ``rngs (R, m, 2) -> (phi (R, m, T, n), targets (R, m, T))``.
+      sample_all: a ``BlockSampler``, or a batched callable ``rngs (R', m,
+                  2) -> (phi (R', m, T, n), targets (R', m, T))`` whose
+                  fleet is shared by every run: it is called on the keys
+                  of R' = R x b steps at once.
       terms:      exact ``ProblemTerms`` (shared or per-run leaves), needed
                   by the theoretical mode and for J summaries.
       channel:    optional ``ChannelInputs``: drop_prob (m,) or (R, m),
                   delay and staleness () or (R,); needs ``channel_caps``
                   ``(delay_cap, stale_cap)`` covering every run's values.
+      sampler_state: switches ``sample_all`` (then a ``BlockSampler``) to
+                  the stateful form ``take(state, w, draws) -> (state',
+                  phi, targets)``; the state is threaded untouched from
+                  step to step, except that a single run's gains the run
+                  axis.  The sampler sees the weights the agents see:
+                  ``w``, or ``w_{k-s}`` on a channel.
       device:     where to run (default cuda; raises without a GPU unless
                   the caller passes "cpu").
 
@@ -226,7 +271,9 @@ def gated_sgd_core(
     key (``rngs[-1]``, as the reference), the agents' batches and
     stochastic gradients, then the gain family, the eq. 9 trigger and the
     eq. 6 update through ``gain_dispatch`` ("megastep" does all three in
-    one dispatch).  Both trace policies run the same step body.
+    one dispatch).  Both trace policies run the same step body.  The keys
+    and key-only draws of up to ``DRAW_BYTES`` worth of steps are made in
+    one pass ahead of those steps.
 
     With a channel (the reference's ``_channel_core``): the keep mask is
     ``bernoulli(fold_in(rng_k, 1), 1 - drop_prob)``, so the agents' and the
@@ -238,7 +285,6 @@ def gated_sgd_core(
     Each run reads its own ring slot by a gather.  "megastep" applies the
     keep mask inside the kernel and takes no delay.
     """
-    refuse_unported(sampler_state)
     dev = resolve_device(device)
     step_backend_r = gain_dispatch._resolve_step(step_backend)
     if channel is not None:
@@ -258,6 +304,18 @@ def gated_sgd_core(
     single = rng.dim() == 1
     if single:
         rng = rng.unsqueeze(0)
+    stateful = sampler_state is not None
+    st = sampler_state
+    if stateful and single:
+        st = st.unsqueeze(0)
+    if not isinstance(sample_all, BlockSampler):
+        if stateful:
+            raise TypeError("a stateful sampler (sampler_state=) must be a "
+                            "BlockSampler, e.g. repro_torch.core.td."
+                            "td_sample_all")
+        sample_all = BlockSampler(
+            draw=functools.partial(steps_at_once, sample_all),
+            take=lambda draws: draws)
     R, m = rng.shape[0], num_agents
     thresholds = torch.as_tensor(thresholds, dtype=torch.float32).to(dev)
     if thresholds.dim() == 1:
@@ -283,21 +341,33 @@ def gated_sgd_core(
         pend_sum = torch.zeros((R, delay_cap, w.shape[-1]), device=dev)
         pend_cnt = torch.zeros((R, delay_cap), device=dev)
 
-    def step_body(w, k, rng_k):
-        rngs = trandom.split(rng_k, m + 1)                 # (R, m+1, 2)
+    step_keys = trandom.split(rng, N)                      # (R, N, 2)
+
+    def draw(k0, b):
+        """Steps [k0, k0 + b) of every key-only draw: the random-mode mask
+        (from ``rngs[-1]`` of each step's split), the keep mask and the
+        sampler's draws from the agents' keys."""
+        keys = step_keys[:, k0:k0 + b]                     # (R, b, 2)
+        rngs = trandom.split(keys, m + 1)                  # (R, b, m+1, 2)
+        alpha_rand = trandom.bernoulli(
+            rngs[:, :, m], tx_p.view(R, 1, 1), (m,)).float()
+        keep = (trandom.bernoulli(trandom.fold_in(keys, 1),
+                                  keep_p.unsqueeze(1), (m,)).float()
+                if lossy else None)
+        return alpha_rand, keep, sample_all.draw(rngs[:, :, :m])
+
+    def step_body(w, st, k, alpha_rand, keep, draws):
         w_agent = w
         if lossy:
-            keep = trandom.bernoulli(trandom.fold_in(rng_k, 1), keep_p,
-                                     (m,)).float()
             w_agent = stale_ring[runs, (k - staleness) % stale_cap]
-        phi_b, targets_b = sample_all(rngs[:, :m])
+        got = sample_all.take(*((st, w_agent) if stateful else ()), draws)
+        if stateful:
+            st, phi_b, targets_b = got
+        else:
+            phi_b, targets_b = got
         grads = vfa_lib.stochastic_gradient(w_agent.unsqueeze(1), phi_b,
                                             targets_b)
         grad_j = terms.grad(w_agent) if terms is not None else None
-        # rngs[:, -1] feeds the random-mode draw on every step backend, so
-        # the sample streams match the reference's bit for bit
-        alpha_rand = trandom.bernoulli(
-            rngs[:, m], tx_p.unsqueeze(-1), (m,)).float()
         if step_backend_r == "megastep":
             # with a channel, delay_cap == 1 (checked above): the kernel's
             # update is the immediate arrival of the kept transmissions
@@ -323,11 +393,10 @@ def gated_sgd_core(
             else:
                 w_next = server_lib.server_update(w, grads, alphas, eps)
         if not lossy:
-            return w_next, alphas, gains, None
+            return w_next, st, alphas, gains, None
         stale_ring[:, (k + 1) % stale_cap] = w_next
-        return w_next, alphas, gains, alphas * keep
+        return w_next, st, alphas, gains, alphas * keep
 
-    step_keys = trandom.split(rng, N)                      # (R, N, 2)
     full = trace == "full"
     if full:
         ws, alist, glist, dlist = [w], [], [], []
@@ -338,27 +407,40 @@ def gated_sgd_core(
         gain_min = torch.full((R, m), float("inf"), device=dev)
         gain_max = torch.full((R, m), float("-inf"), device=dev)
         j_traj, alist, glist = [], [], []
-    for k in range(N):
-        w, alphas, gains, delivered = step_body(w, k, step_keys[:, k])
-        if full:
-            ws.append(w)
-            alist.append(alphas)
-            glist.append(gains)
+    k0, per_pass = 0, 1        # the first pass draws one step and sizes the rest
+    while k0 < N:
+        b = min(per_pass, N - k0)
+        alpha_rand, keep, draws = draw(k0, b)
+        if k0 == 0:
+            per_step = _nbytes(alpha_rand, keep, *draws)
+            per_pass = max(1, DRAW_BYTES // max(per_step, 1))
+        for j in range(b):
+            k = k0 + j
+            # one step's slices, contiguous as the kernels take them
+            w, st, alphas, gains, delivered = step_body(
+                w, st, k, alpha_rand[:, j].contiguous(),
+                keep[:, j].contiguous() if lossy else None,
+                tuple(x[:, j].contiguous() for x in draws))
+            if full:
+                ws.append(w)
+                alist.append(alphas)
+                glist.append(gains)
+                if lossy:
+                    dlist.append(delivered)
+                continue
+            tx_counts = tx_counts + alphas
             if lossy:
-                dlist.append(delivered)
-            continue
-        tx_counts = tx_counts + alphas
-        if lossy:
-            dl_counts = dl_counts + delivered
-        gain_sum = gain_sum + gains
-        gain_min = torch.minimum(gain_min, gains)
-        gain_max = torch.maximum(gain_max, gains)
-        if trace.j_trajectory and terms is not None:
-            j_traj.append(terms.objective(w))
-        if trace.alphas:
-            alist.append(alphas)
-        if trace.gains:
-            glist.append(gains)
+                dl_counts = dl_counts + delivered
+            gain_sum = gain_sum + gains
+            gain_min = torch.minimum(gain_min, gains)
+            gain_max = torch.maximum(gain_max, gains)
+            if trace.j_trajectory and terms is not None:
+                j_traj.append(terms.objective(w))
+            if trace.alphas:
+                alist.append(alphas)
+            if trace.gains:
+                glist.append(gains)
+        k0 += b
 
     def stack(xs):
         return torch.stack(xs, dim=1) if xs else None
@@ -386,6 +468,14 @@ def gated_sgd_core(
     if single:
         out = type(out)(*(None if x is None else x[0] for x in out))
     return out
+
+
+def steps_at_once(sample, rngs: torch.Tensor) -> tuple:
+    """A batched i.i.d. sampler over b steps' keys ``(R, b, m, 2)`` in one
+    call: the step axis joins the run axis and splits off again."""
+    R, b = rngs.shape[:2]
+    out = sample(rngs.reshape((R * b,) + rngs.shape[2:]))
+    return tuple(x.reshape((R, b) + x.shape[1:]) for x in out)
 
 
 def make_sample_all(sampler, num_agents: int, device=None) -> SampleAll:
@@ -449,3 +539,69 @@ def performance_metric(trace: InnerTrace, lam: float,
     w = trace.weights[-1]
     return lam * trace.comm_rate + problem.objective(w.to(
         problem.phi_matrix.device))
+
+
+def run_value_iteration(
+    rng: torch.Tensor,
+    w0,
+    make_sampler: Callable,
+    cfg: GatedSGDConfig,
+    num_outer: int,
+    problem_for_v: Optional[Callable] = None,
+    device=None,
+) -> tuple[torch.Tensor, list]:
+    """Algorithm 1 in full: ``num_outer`` Bellman updates (lines 10-12).
+
+    Each outer step splits ``rng`` into the next ``rng`` and the inner
+    run's key, fits ``make_sampler(V)``'s targets from ``V`` and makes the
+    fit the next ``V``.  Returns the final weights and every inner trace.
+    """
+    dev = resolve_device(device)
+    rng = torch.as_tensor(rng).to(dev)
+    v = torch.as_tensor(w0, dtype=torch.float32).to(dev)
+    traces = []
+    for _ in range(num_outer):
+        rng, sub = trandom.split(rng).unbind(-2)
+        problem = problem_for_v(v) if problem_for_v is not None else None
+        tr = run_gated_sgd(sub, v, make_sampler(v), cfg, problem=problem,
+                           device=dev)
+        v = tr.weights[-1]
+        traces.append(tr)
+    return v, traces
+
+
+def run_value_iteration_scan(
+    rng: torch.Tensor,
+    w0,
+    sampler_fn: Callable,
+    make_params: Callable,
+    cfg: GatedSGDConfig,
+    num_outer: int,
+    terms_for_v: Optional[Callable] = None,
+    device=None,
+) -> tuple[torch.Tensor, InnerTrace]:
+    """The reference's ``lax.scan`` form of the outer loop: the outer keys
+    are ``split(rng, num_outer)`` up front, and each step rebuilds the
+    fleet's params (``make_params(V)``) and, optionally, the exact terms
+    (``terms_for_v(V)``, needed by the theoretical trigger) from V.
+    Returns the final weights and the inner traces stacked along a leading
+    outer axis."""
+    if cfg.mode == "theoretical" and terms_for_v is None:
+        raise ValueError("theoretical mode needs terms_for_v")
+    dev = resolve_device(device)
+    v = torch.as_tensor(w0, dtype=torch.float32).to(dev)
+    thresholds = cfg.trigger.schedule()
+    traces = []
+    for rng_o in trandom.split(torch.as_tensor(rng).to(dev), num_outer):
+        sampler = ParamSampler(fn=sampler_fn, params=make_params(v))
+        tr = gated_sgd_core(
+            rng_o, v, MODE_IDS[cfg.mode], thresholds, cfg.random_tx_prob,
+            make_sample_all(sampler, cfg.num_agents, dev), cfg.eps,
+            cfg.num_agents,
+            terms=terms_for_v(v) if terms_for_v is not None else None,
+            gain_backend=cfg.gain_backend, step_backend=cfg.step_backend,
+            device=dev)
+        v = tr.weights[-1]
+        traces.append(tr)
+    return v, InnerTrace(*(None if xs[0] is None else torch.stack(xs)
+                           for xs in zip(*traces)))

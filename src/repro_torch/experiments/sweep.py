@@ -12,8 +12,14 @@ Seeds map to keys as ``repro_torch.random.key(seed)``, exactly the
 reference's ``jax.random.key``, so runs that share a seed share their
 sample stream across modes and lambdas (common random numbers).  Runs that
 also share their env and fleet therefore draw identical batches, and the
-engine draws each distinct batch once per step and hands it to every run
-that shares it; the results are the same as drawing per run.
+engine draws each distinct batch once and hands it to every run that
+shares it; the results are the same as drawing per run.  The draws of many
+steps are made in one pass (``algorithm1.BlockSampler``).
+
+``sampling="markov"`` runs a stateful family sampler (``repro_torch.core.
+td.td_family_sampler_fn``) whose chain walk is drawn once per distinct
+stream, with each stream's chain state threaded through the steps; only
+the bootstrapped targets read a run's weights.
 
 ``plan_sweep`` / ``exec_plan_segment`` / ``finalize_sweep`` are the
 chunk-boundary surface the resumable runtime
@@ -21,8 +27,7 @@ chunk-boundary surface the resumable runtime
 ``chunk_size`` runs, exactly the block ``run_sweep`` runs with the same
 ``chunk_size``.
 
-One card: ``mesh`` must be None.  Markovian sampling is ROADMAP queue 1
-item 8 and raises ``NotImplementedError``.
+One card: ``mesh`` must be None.
 """
 
 from __future__ import annotations
@@ -39,11 +44,12 @@ from repro_torch import resolve_device
 from repro_torch.core import channel as channel_lib
 from repro_torch.core import gain_dispatch
 from repro_torch.core import vfa as vfa_lib
-from repro_torch.core.algorithm1 import (MODE_IDS, MODES, InnerTrace,
-                                         ParamSampler, ProblemTerms,
-                                         SummaryTrace, TraceSpec,
-                                         gated_sgd_core, refuse_unported,
-                                         resolve_trace)
+from repro_torch.core.algorithm1 import (MODE_IDS, MODES,
+                                         SAMPLER_STATE_FOLD, BlockSampler,
+                                         InnerTrace, ParamSampler,
+                                         ProblemTerms, SummaryTrace,
+                                         TraceSpec, gated_sgd_core,
+                                         resolve_trace, steps_at_once)
 from repro_torch.core.trigger import TriggerConfig
 
 BASE_AXES = ("mode", "lam", "rho", "seed")
@@ -113,9 +119,7 @@ class SweepSpec:
                     "step_backend='megastep' fuses the server update into "
                     "the per-step kernel and cannot express a channel delay "
                     "> 0; use the reference or fused step backend")
-        if self.sampling == "markov":
-            refuse_unported(sampler_state=True)
-        if self.sampling != "iid":
+        if self.sampling not in ("iid", "markov"):
             raise ValueError(
                 f"sampling must be 'iid' or 'markov', got {self.sampling!r}")
         if self.chunk_size is not None:
@@ -193,6 +197,9 @@ class SweepPlan(NamedTuple):
     device: object = None
     channel_stack: object = None  # stacked ChannelInputs (C, ...), or None
     channel_caps: object = None   # (delay_cap, stale_cap), or None
+    # sampling="markov": (agent_params (U, m, ...), rngs (U, 2)) -> chain
+    # state (U, m), e.g. repro_torch.core.td.td_init_states
+    state_init_fn: object = None
 
     @property
     def segment_runs(self) -> int:
@@ -224,10 +231,21 @@ def plan_sweep(
     if mesh is not None:
         raise NotImplementedError(
             "repro_torch sweeps run on one card: mesh must be None")
-    if state_init_fn is not None:
+    if spec.sampling == "markov":
+        if state_init_fn is None:
+            raise ValueError(
+                "sampling='markov' threads per-agent sampler state through "
+                "the step loop and needs state_init_fn=(agent_params, rng) "
+                "-> state (e.g. repro_torch.core.td.td_init_states)")
+        if not all(hasattr(sampler.fn, a) for a in ("draw", "walk")):
+            raise TypeError(
+                "sampling='markov' needs a family sampler with draw and "
+                "walk (repro_torch.core.td.td_family_sampler_fn)")
+    elif state_init_fn is not None:
         raise ValueError(
             "state_init_fn was given but spec.sampling is 'iid' — the "
-            "stateless sampler contract has no state to initialize")
+            "stateless sampler contract has no state to initialize; set "
+            "SweepSpec(sampling='markov') for stateful (Markovian) sweeps")
     dev = resolve_device(device)
     terms = (problem if isinstance(problem, ProblemTerms)
              else ProblemTerms.from_problem(problem) if problem is not None
@@ -288,8 +306,11 @@ def plan_sweep(
     # a run's sample stream depends on its seed, env row and agent fleet,
     # not on its channel: the i.i.d. sampler never reads the weights, and
     # the keep mask draws from fold_in(rng_k, 1), not from the agents' keys.
-    # Markovian sampling (queue 1 item 8) reads w_stale, so there the
-    # stream id must include the channel.
+    # Under Markovian sampling the chain walk (its start from the seed's
+    # key, its randint and Gumbel draws, the target noise) never reads the
+    # weights either; only the targets c[x] + gamma w[x'] + noise read a
+    # run's w (w_stale on a channel), and they are formed per run after the
+    # walk is handed out.  So the stream id leaves the channel out there too.
     _, streams = np.unique(np.stack([col(si), col(ei), col(pi)], -1),
                            axis=0, return_inverse=True)
 
@@ -331,7 +352,8 @@ def plan_sweep(
                        channel_lib.stack_channels(
                            spec.channel_sets, spec.num_agents, dev)),
         channel_caps=(None if spec.channel_sets is None else
-                      channel_lib.channel_caps(spec.channel_sets)))
+                      channel_lib.channel_caps(spec.channel_sets)),
+        state_init_fn=state_init_fn)
 
 
 def _gather(tree: dict, idx: torch.Tensor) -> dict:
@@ -361,13 +383,45 @@ def _exec_block(plan: SweepPlan, rows: np.ndarray):
     env = (_gather(plan.env_stack, plan.per_run.env_idx[rep])
            if plan.env_stack is not None else None)
     local_rep = torch.as_tensor(first, device=dev)
+    fn = plan.sampler_fn
 
-    def sample_all(rngs):
-        if not every_run:
-            rngs = rngs[local_rep]
-        phi, targets = (plan.sampler_fn(env, params, rngs) if env is not None
-                        else plan.sampler_fn(params, rngs))
-        return (phi, targets) if every_run else (phi[inv], targets[inv])
+    def streams(rngs):
+        """The distinct streams' keys of b steps: (U, b, m, 2)."""
+        return rngs if every_run else rngs[local_rep]
+
+    def to_runs(x):
+        return x if every_run else x[inv]
+
+    state = None
+    if spec.sampling == "markov":
+        # each stream's chain starts from its first run's key, folded
+        # inside the block, so a resumed segment rebuilds the same state
+        state = plan.state_init_fn(params, trandom.fold_in(
+            run.keys[local_rep], SAMPLER_STATE_FOLD))
+
+        def take(st, w, draws):
+            st, walk = fn.walk(env, params, st, draws)
+            return (st,) + walk.to_runs(to_runs).batch(w)
+
+        sampler = BlockSampler(draw=lambda rngs: fn.draw(env, streams(rngs)),
+                               take=take)
+    else:
+        def draw(rngs):
+            rngs = streams(rngs)
+            U, b = rngs.shape[:2]
+
+            def per_step(t):      # a stream's leaf, once for each step
+                return t.unsqueeze(1).expand((U, b) + t.shape[1:]).reshape(
+                    (U * b,) + t.shape[1:])
+            pb = {k: per_step(v) for k, v in params.items()}
+            eb = (None if env is None else
+                  {k: per_step(v) for k, v in env.items()})
+            return steps_at_once(
+                lambda r: fn(eb, pb, r) if eb is not None else fn(pb, r),
+                rngs)
+
+        sampler = BlockSampler(
+            draw=draw, take=lambda draws: tuple(to_runs(x) for x in draws))
 
     terms = plan.shared_terms
     if plan.env_terms is not None:
@@ -377,10 +431,10 @@ def _exec_block(plan: SweepPlan, rows: np.ndarray):
                                         for t in plan.channel_stack)))
     return gated_sgd_core(
         run.keys, plan.w0, run.mode_ids, run.thresholds, run.tx_probs,
-        sample_all, spec.eps, spec.num_agents, terms=terms,
+        sampler, spec.eps, spec.num_agents, terms=terms,
         gain_backend=spec.gain_backend, trace=spec.trace,
         step_backend=spec.step_backend, channel=chan,
-        channel_caps=plan.channel_caps, device=dev)
+        channel_caps=plan.channel_caps, sampler_state=state, device=dev)
 
 
 def _concat(parts):

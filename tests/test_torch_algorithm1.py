@@ -55,6 +55,18 @@ def decision_ties(got_alphas, ref_alphas, ref_gains, thresholds):
     return tied
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for a test that loops over thousands of tiny
+    ops: a small matmul that opens the thread pool costs ~100x more when
+    the test workers share the cores (53 us alone, 7.3 ms beside three
+    busy processes, 46 us on one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def problem():
     w0 = np.zeros(S, np.float32)
@@ -193,6 +205,120 @@ def test_run_gated_sgd_and_metric(mode):
         float(ja1.performance_metric(ref, 1e-2, jprob)), rtol=TOL)
 
 
+@pytest.mark.parametrize("step", ["reference", "fused", "megastep"])
+def test_each_step_hands_contiguous_slices(problem, monkeypatch, step):
+    """The loop draws many steps in one pass; each step's slices of it
+    (samples, random-mode and keep masks) reach the kernel wrappers
+    contiguous, as the CUDA kernels require of their inputs."""
+    from repro_torch.kernels import gain as K
+    p, seen = problem, []
+    for name in ("gain_matvec", "practical_gain", "gain_family_stats",
+                 "megastep_call"):
+        def spy(*args, _real=getattr(K, name), **kw):
+            seen.extend(a for a in list(args) + list(kw.values())
+                        if torch.is_tensor(a))
+            return _real(*args, **kw)
+        monkeypatch.setattr(K, name, spy)
+    chan, caps = tchannel.channel_inputs(tchannel.ChannelSpec(0.3), M,
+                                         device="cpu")
+    sampler = ta1.make_sample_all(ta1.ParamSampler(
+        p["tenv"].sampler_fn(T), p["tparams"]), M, "cpu")
+    ta1.gated_sgd_core(p["tkeys"], torch.from_numpy(p["w0"]),
+                       torch.from_numpy(p["modes"]),
+                       torch.from_numpy(p["thresholds"]), 0.4, sampler, EPS,
+                       M, terms=p["tterms"], gain_backend="kernel",
+                       step_backend=step, channel=chan, channel_caps=caps,
+                       device="cpu")
+    assert len(seen) >= 2 * N
+    assert all(t.is_contiguous() for t in seen)
+
+
+VI_OUTER = 4          # outer steps held against the reference, per call
+
+
+def _vi_setup():
+    jgw, tgw = JGrid(gamma=0.9), TGrid(gamma=0.9)
+    prob0 = jgw.vfa_problem(np.zeros(jgw.num_states))
+    rho = prob0.min_rho(0.5) * 1.0001
+    kw = dict(eps=0.5, num_agents=2, mode="practical")
+    return (jgw, tgw, ja1.GatedSGDConfig(trigger=JTrig(1e-4, rho, 200), **kw),
+            ta1.GatedSGDConfig(trigger=TTrig(1e-4, rho, 200), **kw,
+                               step_backend="megastep", gain_backend="kernel"),
+            JTrig(1e-4, rho, 200))
+
+
+def _hold_vi(tw, ttraces, jw, jtraces, trig):
+    """The port's outer loop against the reference's, step by step."""
+    thr = np.asarray(trig.schedule())[None]
+    for i, (tt, jt) in enumerate(zip(ttraces, jtraces)):
+        assert not decision_ties(tt.alphas[None].numpy(),
+                                 np.asarray(jt.alphas)[None],
+                                 np.asarray(jt.gains)[None], thr), i
+        np.testing.assert_allclose(tt.weights.numpy(), np.asarray(jt.weights),
+                                   rtol=TOL, atol=TOL, err_msg=f"outer {i}")
+    np.testing.assert_allclose(tw.numpy(), np.asarray(jw), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("form", ["loop", "scan"])
+def test_value_iteration_matches_reference(form):
+    """run_value_iteration (closure samplers, tests/test_algorithm1.py:159)
+    and run_value_iteration_scan (stacked params rebuilt from V and the
+    exact terms, tests/test_sweep.py:338) against the reference's, on the
+    discounted gridworld, for VI_OUTER outer steps of 200 inner."""
+    jgw, tgw, jcfg, tcfg, trig = _vi_setup()
+    if form == "loop":
+        jw, jtr = ja1.run_value_iteration(
+            jax.random.key(0), jnp.zeros(25),
+            lambda vw: jgw.make_sampler(vw, 20), jcfg, num_outer=VI_OUTER)
+        tw, ttr = ta1.run_value_iteration(
+            trandom.key(0), torch.zeros(25),
+            lambda vw: tgw.make_sampler(vw, 20), tcfg, num_outer=VI_OUTER,
+            device="cpu")
+    else:
+        jw, jst = ja1.run_value_iteration_scan(
+            jax.random.key(0), jnp.zeros(25), jgw.sampler_fn(20),
+            lambda v: jgw.agent_params(v, 2), jcfg, num_outer=VI_OUTER,
+            terms_for_v=jgw.problem_terms)
+        tw, tst = ta1.run_value_iteration_scan(
+            trandom.key(0), torch.zeros(25), tgw.sampler_fn(20),
+            lambda v: tgw.agent_params(v, 2), tcfg, num_outer=VI_OUTER,
+            terms_for_v=tgw.problem_terms, device="cpu")
+        assert tst.comm_rate.shape == (VI_OUTER,)
+        assert tst.weights.shape == (VI_OUTER, 201, 25)
+        jtr = [ja1.InnerTrace(*(None if x is None else x[i] for x in jst))
+               for i in range(VI_OUTER)]
+        ttr = [ta1.InnerTrace(*(None if x is None else x[i] for x in tst))
+               for i in range(VI_OUTER)]
+    _hold_vi(tw, ttr, jw, jtr, trig)
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("form", ["loop", "scan"])
+def test_outer_value_iteration_approaches_true_value(form):
+    """The reference tests' own setting on the port (40 outer x 200 inner,
+    T = 20, practical): within 15 % of V_pi's scale."""
+    _, tgw, _, tcfg, _ = _vi_setup()
+    v_true = tgw.exact_value()
+    if form == "loop":
+        w, traces = ta1.run_value_iteration(
+            trandom.key(0), torch.zeros(25),
+            lambda vw: tgw.make_sampler(vw, 20), tcfg, num_outer=40,
+            device="cpu")
+        rates = torch.stack([t.comm_rate for t in traces])
+    else:
+        w, traces = ta1.run_value_iteration_scan(
+            trandom.key(0), torch.zeros(25), tgw.sampler_fn(20),
+            lambda v: tgw.agent_params(v, 2), tcfg, num_outer=40,
+            terms_for_v=tgw.problem_terms, device="cpu")
+        rates = traces.comm_rate
+    err0 = float(np.max(np.abs(v_true)))
+    err = float(np.max(np.abs(w.numpy() - v_true)))
+    assert err < 0.15 * err0, (err, err0)
+    assert rates.shape == (40,)
+    assert bool(((rates >= 0) & (rates <= 1)).all())
+
+
 def test_config_validation_and_refusals(problem):
     with pytest.raises(ValueError):
         ta1.GatedSGDConfig(trigger=TTrig(1e-2, 0.9, 4), eps=0.1,
@@ -210,8 +336,18 @@ def test_config_validation_and_refusals(problem):
                            channel_caps=(2, 1))
     with pytest.raises(ValueError, match="channel_caps"):
         ta1.gated_sgd_core(**kw, channel=chan)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ta1.gated_sgd_core(**kw, sampler_state=torch.zeros(M))
+    # the reference's own refusals of the slice's new surface
+    from repro_torch.experiments import sweep as tsweep
+    with pytest.raises(ValueError, match="sampling"):
+        tsweep.SweepSpec(modes=("always",), lambdas=(1e-2,), seeds=(0,),
+                         rhos=(0.9,), eps=0.1, num_iterations=N,
+                         num_agents=M, sampling="nope")
+    cfg = ta1.GatedSGDConfig(trigger=TTrig(1e-2, 0.9, 4), eps=0.1,
+                             num_agents=M, mode="theoretical")
+    with pytest.raises(ValueError, match="terms_for_v"):
+        ta1.run_value_iteration_scan(trandom.key(0), torch.zeros(S),
+                                     lambda p, r: None, lambda v: {}, cfg,
+                                     num_outer=1, device="cpu")
     if not torch.cuda.is_available():
         kw.pop("device")
         with pytest.raises(RuntimeError, match="device='cpu'"):

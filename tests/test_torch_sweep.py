@@ -258,8 +258,18 @@ def test_sweep_refusals(inputs):
     with pytest.raises(ValueError, match="megastep.*delay"):
         tsweep.SweepSpec(**GRID, step_backend="megastep",
                          channel_sets=((0.0, 1, 0),))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tsweep.SweepSpec(**GRID, sampling="markov")
+    # the reference's own checks of the sampling axis
+    markov = tsweep.SweepSpec(**GRID, sampling="markov")
+    with pytest.raises(ValueError, match="state_init_fn"):
+        tsweep.plan_sweep(markov, ta1.ParamSampler(tfamily_fn(T), None),
+                          inputs["w0"], env_sets=inputs["tfam"],
+                          fleet_sets=inputs["tfleet"], device="cpu")
+    with pytest.raises(ValueError, match="iid"):
+        tsweep.plan_sweep(tsweep.SweepSpec(**GRID),
+                          ta1.ParamSampler(tfamily_fn(T), None),
+                          inputs["w0"], env_sets=inputs["tfam"],
+                          fleet_sets=inputs["tfleet"],
+                          state_init_fn=lambda p, r: None, device="cpu")
     spec = tsweep.SweepSpec(**GRID)
     sampler = ta1.ParamSampler(tfamily_fn(T), None)
     with pytest.raises(NotImplementedError, match="one card"):
