@@ -73,6 +73,21 @@ Phases, in order; any failed check exits non-zero and prints no ok line:
    from ``prefill_32k``'s 32768 x 32) three times and ``serve`` at batch
    4, 64 + 32 tokens, with each kernel's launch count held to layers x
    prefill calls; last, one prefill under ``torch.profiler``.
+6. Train the LM substrate (``TRAIN_CELLS``), random weights from a seeded
+   generator, on the plain path (no kernel is on it: each entry run is
+   driven with the kernel counts at 0 and must leave them there):
+   ``train-mamba2-370m`` at full width runs ``launch.train.train`` for
+   20 steps (8 agents, 8 x 1024 tokens, adamw on the cosine schedule at
+   lr 3e-4, the ``hvp`` gain, eps 1, lambda 1e-3; a checkpoint written
+   and restored bitwise; the loss must fall), the reference's
+   ``comm_savings`` study at full width (``COMM_SAVINGS``; the batches'
+   tokens held to JAX 0.9.0's digests, lambda 0 at comm rate 1, one
+   step at lambda 1e9 frozen bitwise), the step on the card against the
+   port's own CPU run (``TRAIN_PARITY``) and g^T H g against a central
+   difference (``FD_CHECK``); ``train-yi-6b-4l`` runs the dense family
+   cut to 4 layers for 5 steps.  Each reports the step's stages by CUDA
+   events, an ``hvp`` step against a ``gnorm`` step, tokens/s, peak
+   memory and one profiled step.
 
 Every line before the last is one JSON object (device, build, kernels,
 sweeps, studies, serving cells, each phase's seconds) except the card's
@@ -2461,6 +2476,497 @@ def serve_phase(dev, cell):
     return line, {k: counts[c] for k, c in zip(cell.kernels, cell.counters)}
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: federated gain-gated training of the LM substrate
+# ---------------------------------------------------------------------------
+
+
+class TrainCell(NamedTuple):
+    name: str
+    arch: str
+    layers: Optional[int]     # depth cut; None keeps the published depth
+    agents: int
+    global_batch: int
+    seq_len: int
+    steps: int
+    lam: float
+
+
+# launch/train.py's run: adamw on its cosine schedule, eps 1, the hvp gain;
+# lambda 1e-3 is tests/test_system.py:24's
+TRAIN_CELLS = (
+    TrainCell("train-mamba2-370m", "mamba2-370m", None, 8, 8, 1024, 20, 1e-3),
+    TrainCell("train-yi-6b-4l", "yi-6b", 4, 4, 8, 1024, 5, 1e-3),
+)
+TRAIN_LR = 3e-4
+TRAIN_TIMING_REPS = 3
+STAGE_AGENTS = 2          # agents timed eagerly stage by stage
+# benchmarks/comm_savings.py:44-64 (sgd(0.1), 8 agents, 8 x 128 tokens,
+# batches from key(1), FedConfig(eps=0.1, rho=0.995, horizon=30, hvp)),
+# at mamba2-370m's full width where the study ran reduced
+COMM_SAVINGS = dict(agents=8, global_batch=8, seq_len=128, steps=30, lr=0.1,
+                    eps=0.1, rho=0.995, horizon=30,
+                    lambdas=(0.0, 1.0, 30.0, 300.0), batch_seed=1)
+# sha256 of the int32 tokens of the reference's make_lm_batch(
+# SyntheticLMConfig(50280, 128, 8), jax.random.key(1), step), JAX 0.9.0 on
+# the CPU: the study's first three batches
+LM_TOKENS_JAX = {
+    0: "a9311455b45c827bc8cf097a089eedea2d47a4ec255349f32c8306a2667f7b45",
+    1: "8f62f5425e5ea39e931f0a8f73ff3f54104c8a56ff329ec08c36af3ce22a36d2",
+    2: "8ab0e01177ee67f0644e2c79da40b574f20dc3a7af434bd0f7904662cb0246b4",
+}
+# the train step on the card against the port's own CPU run: reduced
+# mamba2-370m in float32, 4 agents, 2 steps, a lambda that mixes
+# decisions; sgd with momentum, since Adam's per-element normalisation
+# turns summation-order noise on near-zero gradients into full-size
+# updates (tests/test_torch_train.py)
+TRAIN_PARITY = dict(agents=4, steps=2, seq_len=32, global_batch=8, lr=0.1,
+                    momentum=0.9,
+                    fed=dict(eps=1.0, lam=2.0, rho=0.9, horizon=4,
+                             estimator="hvp"))
+TRAIN_PARITY_TOL = 1e-5   # parameters (absolute), gains (of their scale)
+# g^T H g against a float32 central difference of the gradient along the
+# clipped g, at full width with the depth cut to 2 layers, float32
+FD_CHECK = dict(layers=2, seq_len=1024, h=1e-3)
+FD_TOL = 1e-3             # of |g^T H g| + ||g||^2
+
+
+def _train_cfg(cell):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(cell.arch)
+    if cell.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=cell.layers)
+    return cfg
+
+
+def token_digest(tokens):
+    import hashlib
+    import numpy as np
+    arr = tokens.to("cpu").numpy().astype("<i4")
+    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+def train_entry_run(dev, cell, cfg):
+    """``launch.train``'s function, as its command line runs it, with a
+    checkpoint written and then restored bitwise.  The kernel counts are
+    set to 0 just before and read just after: the training path runs the
+    plain path and launches none."""
+    import math
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import restore
+    from repro_torch.convert import state_dict_from_jax, tree_from_state_dict
+    from repro_torch.launch.train import train
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    path = os.path.join(tmp, "train.npz")
+    logs = []
+    try:
+        sync(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()                       # the main path starts here
+        t0 = time.perf_counter()
+        out = train(cfg, steps=cell.steps, seq_len=cell.seq_len,
+                    global_batch=cell.global_batch, lr=TRAIN_LR, lam=cell.lam,
+                    estimator="hvp", agents=cell.agents, log_every=1,
+                    checkpoint=path, seed=0, device=dev, log=logs.append)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        counts = all_launches()                    # ... and ends here
+        peak = (int(torch.cuda.max_memory_allocated()) if dev.type == "cuda"
+                else None)
+        check(sum(counts.values()) == 0,
+              f"{cell.name}: the training path launched kernels: {counts}")
+        losses = [h["loss"] for h in out["history"]]
+        check(len(losses) == cell.steps and all(map(math.isfinite, losses)),
+              f"{cell.name}: losses {losses}")
+        sd = out["model"].state_dict()
+        tree, meta = restore(path, tree_from_state_dict(sd))
+        back = state_dict_from_jax(tree)
+        check(set(back) == set(sd) and meta["steps"] == cell.steps
+              and all(torch.equal(back[k], v) for k, v in sd.items()),
+              f"{cell.name}: the checkpoint did not restore bitwise")
+        ck_bytes = os.path.getsize(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    walls = [h["wall_s"] for h in out["history"]]
+    run = dict(steps=cell.steps, wall_s=wall, losses=losses,
+               comm_rates=[h["comm_rate"] for h in out["history"]],
+               grad_norms=[h["grad_norm"] for h in out["history"]],
+               step_wall_s=[b - a for a, b in zip([0.0] + walls, walls)],
+               peak_mem_bytes=peak, launches=counts,
+               checkpoint=dict(bytes=ck_bytes, restored_bitwise=True),
+               log_tail=logs[-2:])
+    return out, run
+
+
+def comm_savings_run(dev, cfg):
+    """The reference's comm_savings study (benchmarks/comm_savings.py) at
+    full width, plus one step at lambda 1e9, which must leave every
+    parameter as it was, bit for bit."""
+    import math
+    import torch
+    from repro_torch import random
+    from repro_torch.core.fed_sgd import FedConfig, FedStats, tree_bytes
+    from repro_torch.data.synthetic_lm import SyntheticLMConfig, make_lm_batch
+    from repro_torch.launch.steps import build_train_step, trainable_params
+    from repro_torch.models import build_model
+    from repro_torch.optim import sgd
+
+    cs = COMM_SAVINGS
+    lm = SyntheticLMConfig(cfg.vocab_size, cs["seq_len"], cs["global_batch"])
+    key = random.key(cs["batch_seed"], dev)
+    t0 = time.perf_counter()
+    batches = [make_lm_batch(lm, key, s) for s in range(cs["steps"])]
+    sync(dev)
+    batch_s = time.perf_counter() - t0
+    digests = {s: token_digest(batches[s]["tokens"]) for s in LM_TOKENS_JAX}
+    check(digests == LM_TOKENS_JAX,
+          f"LM batch tokens differ from JAX 0.9.0's: {digests}")
+    model = build_model(cfg, dev, seed=0)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    opt = sgd(cs["lr"])
+    rows = []
+
+    def run(lam, steps):
+        model.load_state_dict(init)
+        fed = FedConfig(eps=cs["eps"], lam=lam, rho=cs["rho"],
+                        horizon=cs["horizon"], estimator="hvp")
+        bundle = build_train_step(model, cfg, opt,
+                                  fed_cfg=fed if lam > 0 else None,
+                                  num_agents=cs["agents"], device=dev)
+        params = trainable_params(model)
+        st, fs = opt.init(params), FedStats.init(cs["agents"], dev)
+        losses, ends = [], []
+        sync(dev)
+        t0 = time.perf_counter()
+        for b in batches[:steps]:
+            params, st, fs, m = bundle.step(params, st, fs, b)
+            losses.append(m["loss"])
+            if not ends:                     # the first step captures
+                sync(dev)
+                ends.append(time.perf_counter() - t0)
+        sync(dev)
+        return (params, fs, m, [float(x) for x in losses],
+                time.perf_counter() - t0, ends[0])
+
+    for lam in cs["lambdas"]:
+        params, fs, m, losses, wall, first = run(lam, cs["steps"])
+        rate = float(m["comm_rate"])
+        gbytes = tree_bytes(params)
+        check(all(map(math.isfinite, losses)),
+              f"comm_savings lam={lam}: losses {losses}")
+        rows.append(dict(lam=lam, comm_rate=rate, tx=float(fs.tx),
+                         grad_bytes=gbytes,
+                         bytes_per_step_full=gbytes * cs["agents"],
+                         bytes_per_step_gated=gbytes * cs["agents"] * rate,
+                         loss_first=losses[0], loss_last=losses[-1],
+                         wall_s=wall, first_step_s=first,
+                         step_ms=(wall - first) / (cs["steps"] - 1) * 1e3))
+    check(rows[0]["lam"] == 0.0 and rows[0]["comm_rate"] == 1.0,
+          f"comm_savings: lambda 0 gives comm rate {rows[0]['comm_rate']}")
+    params, fs, m, _, _, _ = run(1e9, 1)
+    frozen = all(torch.equal(params[k].detach(), init[k]) for k in init)
+    check(frozen and float(m["comm_rate"]) == 0.0,
+          "comm_savings: a step at lambda 1e9 moved the parameters")
+    return dict(settings=dict(cs, lambdas=list(cs["lambdas"]),
+                              estimator="hvp", grad_clip=1.0),
+                batches_s=batch_s, token_digests_equal_jax=True,
+                rows=rows, lambda_1e9_frozen_bitwise=True)
+
+
+def train_parity_check(dev):
+    """The train step on the card against the port's own run on the CPU:
+    same weights and batches, reduced mamba2-370m in float32."""
+    import torch
+    from repro_torch import random
+    from repro_torch.configs import get_config
+    from repro_torch.core.fed_sgd import FedConfig, FedStats
+    from repro_torch.data.synthetic_lm import SyntheticLMConfig, make_lm_batch
+    from repro_torch.launch.steps import build_train_step, trainable_params
+    from repro_torch.models import build_model
+    from repro_torch.optim import sgd
+
+    tp = TRAIN_PARITY
+    cfg = get_config("mamba2-370m").reduced()
+    fed = FedConfig(**tp["fed"])
+    lm = SyntheticLMConfig(cfg.vocab_size, tp["seq_len"], tp["global_batch"])
+    init = build_model(cfg, "cpu", seed=0).state_dict()
+    runs = {}
+    for where in ("cpu", dev):
+        model = build_model(cfg, where, seed=0)
+        model.load_state_dict(init)
+        opt = sgd(tp["lr"], momentum=tp["momentum"])
+        bundle = build_train_step(model, cfg, opt, fed_cfg=fed,
+                                  num_agents=tp["agents"], device=where)
+        params = trainable_params(model)
+        st, fs = opt.init(params), FedStats.init(tp["agents"], where)
+        key = random.key(1, where)
+        steps = []
+        for s in range(tp["steps"]):
+            batch = make_lm_batch(lm, key, s)
+            params, st, fs, m = bundle.step(params, st, fs, batch)
+            steps.append(dict(        # copies: the CPU run's .cpu() aliases
+                tokens=batch["tokens"].cpu().clone(),
+                alpha=fs.last_alpha.cpu().clone(),
+                gain=fs.last_gain.cpu().clone(),
+                metrics={k: float(v) for k, v in m.items()},
+                params={k: v.detach().cpu().clone()
+                        for k, v in params.items()}))
+        runs[str(where)] = steps
+    cpu, gpu = runs["cpu"], runs[str(dev)]
+    worst = dict(params=0.0, gain=0.0, metrics=0.0)
+    for s, (a, b) in enumerate(zip(cpu, gpu)):
+        check(torch.equal(a["tokens"], b["tokens"]),
+              f"train parity: step {s} batches differ between devices")
+        check(torch.equal(a["alpha"], b["alpha"]),
+              f"train parity: step {s} decisions {a['alpha']} vs {b['alpha']}")
+        scale = 1.0 + float(a["gain"].abs().max())
+        worst["gain"] = max(worst["gain"],
+                            float((a["gain"] - b["gain"]).abs().max()) / scale)
+        worst["params"] = max(worst["params"], max(
+            float((a["params"][k] - b["params"][k]).abs().max())
+            for k in a["params"]))
+        worst["metrics"] = max(worst["metrics"], max(
+            abs(a["metrics"][k] - b["metrics"][k]) / max(abs(a["metrics"][k]), 1.0)
+            for k in a["metrics"]))
+    check(max(worst.values()) <= TRAIN_PARITY_TOL,
+          f"train parity: card vs CPU {worst} > {TRAIN_PARITY_TOL}")
+    alphas = torch.stack([s["alpha"] for s in cpu])
+    check(0 < float(alphas.sum()) < alphas.numel(),
+          f"train parity: no mix of decisions {alphas.tolist()}")
+    return dict(settings=dict(tp, arch=cfg.name, dtype=cfg.dtype),
+                decisions=alphas.tolist(), decisions_equal=True,
+                max_err=worst, tolerance=TRAIN_PARITY_TOL)
+
+
+def curvature_fd_check(dev):
+    """g^T H g (the hvp estimator's reverse-over-reverse product, through
+    per-block remat) against a float32 central difference of the gradient
+    along the clipped g: mamba2-370m at full width, 2 layers, float32."""
+    import dataclasses
+    import torch
+    from repro_torch import random
+    from repro_torch.configs import get_config
+    from repro_torch.core.fed_sgd import curvature_dot, make_grad_fn, tree_vdot
+    from repro_torch.data.synthetic_lm import SyntheticLMConfig, make_lm_batch
+    from repro_torch.launch.steps import trainable_params
+    from repro_torch.models import build_model
+    from repro_torch.optim import clip_by_global_norm
+
+    cfg = dataclasses.replace(get_config("mamba2-370m"),
+                              num_layers=FD_CHECK["layers"], dtype="float32")
+    model = build_model(cfg, dev, seed=0)
+    model.requires_grad_(True)
+    p = trainable_params(model)
+    batch = make_lm_batch(SyntheticLMConfig(cfg.vocab_size,
+                                            FD_CHECK["seq_len"], 1),
+                          random.key(1, dev), 0)
+    grad_fn = make_grad_fn(lambda q: model.loss_fn(batch)[0])
+
+    def grads():
+        loss = model.loss_fn(batch)[0]
+        return dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+
+    raw = grads()
+    with torch.no_grad():
+        g, norm = clip_by_global_norm(raw, 1.0)
+    ghg = float(curvature_dot(grad_fn, p, g))
+    h = FD_CHECK["h"]
+    with torch.no_grad():
+        for k in p:
+            p[k].add_(g[k], alpha=h)
+    plus = grads()
+    with torch.no_grad():
+        for k in p:
+            p[k].add_(g[k], alpha=-2 * h)
+    minus = grads()
+    with torch.no_grad():
+        for k in p:
+            p[k].add_(g[k], alpha=h)
+    fd = float(tree_vdot(g, {k: (plus[k] - minus[k]) / (2 * h) for k in p}))
+    gg = float(tree_vdot(g, g))
+    err = abs(ghg - fd) / (abs(ghg) + gg)
+    check(err <= FD_TOL, f"g^T H g {ghg} vs central difference {fd}: "
+          f"{err} > {FD_TOL}")
+    return dict(layers=cfg.num_layers, d_model=cfg.d_model, dtype=cfg.dtype,
+                remat=cfg.remat, seq_len=FD_CHECK["seq_len"], h=h,
+                grad_norm_preclip=float(norm), ghg=ghg, central_difference=fd,
+                rel_err=err, tolerance=FD_TOL)
+
+
+def _events(n):
+    import torch
+    return [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+
+
+def train_stage_ms(dev, model, cfg, cell, batch, fed_cfg):
+    """The ``hvp`` step's stages run eagerly (no CUDA graph), by CUDA
+    events: forward + backward (with the clip), curvature (the gain),
+    aggregation (decision and masked sum), each the median over the first
+    ``STAGE_AGENTS`` agents times the agent count, and the optimizer
+    (update and apply).
+    Mirrors ``build_train_step``'s agent loop; eager, so each stage's time
+    is bound by its launches, which the graphed step replays without."""
+    import torch
+    from repro_torch.core.fed_sgd import GatedSum, local_gain
+    from repro_torch.launch.steps import trainable_params
+    from repro_torch.optim import adamw, apply_updates, clip_by_global_norm
+
+    params = trainable_params(model)
+    keys = list(params)
+    opt = adamw(TRAIN_LR)
+    st = opt.init(params)
+    A = cell.agents
+    b = cell.global_batch // A
+    thr = fed_cfg.threshold(torch.zeros((), dtype=torch.int32, device=dev))
+    acc = GatedSum(fed_cfg.agg_dtype)
+    marks = []
+    sync(dev)
+    for i in range(min(A, STAGE_AGENTS)):
+        ev = _events(4)
+        ev[0].record()
+        local = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
+        loss = model.loss_fn(local)[0]
+        grads = dict(zip(keys, torch.autograd.grad(
+            loss, [params[k] for k in keys], create_graph=True)))
+        with torch.no_grad():
+            g, _ = clip_by_global_norm(grads, 1.0)
+        ev[1].record()
+        gain = local_gain(g, fed_cfg, grad_fn=lambda q: grads, params=params)
+        ev[2].record()
+        acc.add(g, (gain <= -thr).float())
+        ev[3].record()
+        marks.append(ev)
+        del loss, grads, g, gain
+    ev = _events(2)
+    ev[0].record()
+    with torch.no_grad():
+        agg, _ = acc.mean()
+        updates, st = opt.update(agg, st, params)
+        new = apply_updates(params, updates)
+        for k, p in params.items():
+            p.copy_(new[k])
+    ev[1].record()
+    sync(dev)
+    per_agent = {name: statistics.median(e[j].elapsed_time(e[j + 1])
+                                         for e in marks)
+                 for j, name in enumerate(("forward_backward", "curvature",
+                                           "aggregation"))}
+    out = {k: v * A for k, v in per_agent.items()}
+    out["optimizer"] = ev[0].elapsed_time(ev[1])
+    return out
+
+
+def train_timings(dev, cell, cfg, out):
+    """The entry run's own train step (``out`` from ``launch.train.train``:
+    the graphed ``hvp`` step, already captured) timed by CUDA events
+    (median), its peak memory and one profiled step; a graphed ``gnorm``
+    step on the same model; the ``hvp`` step's stages run eagerly;
+    tokens/s."""
+    import torch
+    from repro_torch import random
+    from repro_torch.core.fed_sgd import FedConfig, FedStats
+    from repro_torch.data.synthetic_lm import SyntheticLMConfig, make_lm_batch
+    from repro_torch.launch.steps import build_train_step, trainable_params
+    from repro_torch.optim import adamw
+
+    model = out["model"]
+    batch = make_lm_batch(SyntheticLMConfig(cfg.vocab_size, cell.seq_len,
+                                            cell.global_batch),
+                          random.key(0, dev), cell.steps)
+    state = [out["params"], out["opt_state"], out["fed_state"]]
+
+    def hvp_step():
+        state[:3] = out["bundle"].step(*state, batch)[:3]
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    hvp_ms = time_ms(hvp_step, reps=TRAIN_TIMING_REPS, warmup=0)
+    peak = (int(torch.cuda.max_memory_allocated()) if dev.type == "cuda"
+            else None)
+    t0 = time.perf_counter()
+    profile = prefill_breakdown(dev, lambda b: hvp_step(), batch, ())
+    profile["seconds_with_processing"] = time.perf_counter() - t0
+    del state
+    out["opt_state"] = out["fed_state"] = None
+    empty_cache(dev)
+
+    fed = FedConfig(eps=1.0, lam=cell.lam, rho=0.999, horizon=cell.steps,
+                    estimator="gnorm")
+    opt = adamw(TRAIN_LR)
+    bundle = build_train_step(model, cfg, opt, fed_cfg=fed,
+                              num_agents=cell.agents, device=dev)
+    params = trainable_params(model)
+    gstate = [params, opt.init(params), FedStats.init(cell.agents, dev)]
+
+    def gnorm_step():
+        gstate[:3] = bundle.step(*gstate, batch)[:3]
+    sync(dev)
+    t0 = time.perf_counter()
+    gnorm_step()                               # captures the agent's graph
+    sync(dev)
+    capture_s = time.perf_counter() - t0
+    gnorm_ms = time_ms(gnorm_step, reps=TRAIN_TIMING_REPS, warmup=0)
+    del gstate, bundle
+    empty_cache(dev)
+    stages = train_stage_ms(dev, model, cfg, cell, batch, FedConfig(
+        eps=1.0, lam=cell.lam, rho=0.999, horizon=cell.steps))
+    empty_cache(dev)
+    tokens = cell.global_batch * cell.seq_len
+    return dict(step_ms=hvp_ms, gnorm_step_ms=gnorm_ms,
+                hvp_over_gnorm=hvp_ms / gnorm_ms,
+                tokens_per_s=tokens / (hvp_ms / 1e3),
+                gnorm_first_step_s_with_capture=capture_s,
+                eager_stages_ms=stages,
+                eager_step_ms=sum(stages.values()),
+                stage_agents_timed=min(cell.agents, STAGE_AGENTS),
+                peak_mem_bytes_step=peak, profile=profile)
+
+
+def train_phase(dev, cell):
+    """One training cell: ``launch.train``'s function on the cell (the
+    main path, kernel counts 0 before and after), then for mamba2-370m the
+    comm_savings study at full width, the card-vs-CPU parity of the step
+    and the curvature check, then the timings."""
+    cfg = _train_cfg(cell)
+    out, run = train_entry_run(dev, cell, cfg)
+    t0 = time.perf_counter()
+    timings = train_timings(dev, cell, cfg, out)
+    timings["seconds"] = time.perf_counter() - t0
+    del out
+    empty_cache(dev)
+    line = dict(cell=cell.name, arch=cell.arch, dtype=cfg.dtype,
+                layers=cfg.num_layers, d_model=cfg.d_model,
+                vocab=cfg.vocab_size, agents=cell.agents,
+                global_batch=cell.global_batch, seq_len=cell.seq_len,
+                optimizer=f"adamw(cosine_schedule({TRAIN_LR}))",
+                estimator="hvp", lam=cell.lam, remat=cfg.remat,
+                reduced=["random weights (seeded torch.Generator)"]
+                + ([f"depth {cfg.num_layers} of the published "
+                    f"{_train_cfg(cell._replace(layers=None)).num_layers}"]
+                   if cell.layers is not None else []),
+                entry_run=run, timings=timings)
+    if cell.arch == "mamba2-370m":
+        check(run["losses"][-1] < run["losses"][0],
+              f"{cell.name}: loss {run['losses'][0]} -> {run['losses'][-1]}")
+        t0 = time.perf_counter()
+        line["comm_savings"] = comm_savings_run(dev, cfg)
+        line["comm_savings"]["reduced"] = [
+            "mamba2-370m at its published width (48 layers, d 1024); the "
+            "study ran the reduced config", "random weights (seeded "
+            "torch.Generator), not jax.random.key(0)'s"]
+        line["comm_savings"]["seconds"] = time.perf_counter() - t0
+        empty_cache(dev)
+        line["parity_card_vs_cpu"] = train_parity_check(dev)
+        line["curvature_vs_central_difference"] = curvature_fd_check(dev)
+        empty_cache(dev)
+    return line, {}
+
+
 REPLACES = {
     "gain_matvec": "src/repro/kernels/gain.py:144",
     "gain_family_stats": "src/repro/kernels/gain.py:241",
@@ -2595,6 +3101,8 @@ def main():
     timings.update(lm_timings)
     for cell in SERVE_CELLS:
         main_path(cell.name, serve_phase, cell)
+    for cell in TRAIN_CELLS:
+        main_path(cell.name, train_phase, cell)
     lines.append({"phase_seconds": seconds})
     kernels = kernel_lines(logs, timings, launches)
     for k in kernels:

@@ -7,9 +7,13 @@ only: where it needs code that ``repro`` also has, it keeps its own copy.
 
 Every entry point takes ``device=`` and defaults to ``"cuda"``; on a
 machine without a GPU it raises unless the caller asks for the CPU
-explicitly (``device="cpu"``, as the tests do).  The gain kernels are
-hand-written CUDA (``repro_torch/kernels/csrc/gain.cu``), built on first
-use by ``repro_torch.kernels.build``.
+explicitly (``device="cpu"``, as the tests do).  The kernels are
+hand-written CUDA (``repro_torch/kernels/csrc/``), built on first use by
+``repro_torch.kernels.build``.  Entry points: the sweep engine
+(``experiments.sweep.run_sweep`` and the resumable runtime), serving
+(``python -m repro_torch.launch.serve``) and federated gain-gated training
+of the LM substrate (``python -m repro_torch.launch.train``, or
+``launch.train.train``).
 """
 
 from __future__ import annotations

@@ -8,7 +8,8 @@ the same name.  PRNG keys cross as their data (``jax.random.key_data``), a
 (..., 2) uint32 array the port's ``random`` module reads as int64 words.
 ``to_numpy`` goes back, so both packages can compute from one set of inputs.
 ``model_from_jax`` loads an LM's parameter tree (as numpy) into the port's
-``nn.Module`` of the same config.  Like every entry point of the port, the
+``nn.Module`` of the same config; ``state_dict_to_jax`` goes back, so
+parameters, gradients and optimizer moments cross in both directions.  Like every entry point of the port, the
 functions that make tensors default to ``device="cuda"`` and raise without
 a GPU (``repro_torch.resolve_device``); the tests pass ``device="cpu"``.
 """
@@ -73,6 +74,8 @@ def to_numpy(tree):
 
 def _tensor(leaf) -> torch.Tensor:
     """One array as a tensor of the same dtype (bf16 included)."""
+    if torch.is_tensor(leaf):
+        return leaf
     arr = np.asarray(leaf)
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
@@ -105,6 +108,55 @@ def state_dict_from_jax(params: dict) -> dict:
         else:
             out[key] = t
     return out
+
+
+def tree_from_state_dict(sd: dict) -> dict:
+    """The inverse of ``state_dict_from_jax``, in tensors: "."-joined keys
+    nest again and ``blocks.<i>.<...>`` stack along a new axis 0 into the
+    reference's ``blocks`` tree (layers in index order).  Dtypes are kept;
+    this is the tree a checkpoint stores."""
+    out: dict = {}
+    blocks: dict = {}
+    for key, t in sd.items():
+        if key.startswith("blocks."):
+            _, i, rest = key.split(".", 2)
+            blocks.setdefault(rest, {})[int(i)] = t
+        else:
+            _nest(out, key, t)
+    for rest, per_layer in blocks.items():
+        if sorted(per_layer) != list(range(len(per_layer))):
+            raise ValueError(f"blocks.*.{rest}: layers {sorted(per_layer)} "
+                             "are not 0..n-1")
+        _nest(out, f"blocks.{rest}",
+              torch.stack([per_layer[i] for i in range(len(per_layer))]))
+    return out
+
+
+def _nest(tree: dict, key: str, value) -> None:
+    *path, last = key.split(".")
+    for part in path:
+        tree = tree.setdefault(part, {})
+    tree[last] = value
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy; bf16 as ``ml_dtypes.bfloat16``, JAX's numpy
+    bf16 (imported only for bf16 tensors)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def state_dict_to_jax(sd: dict) -> dict:
+    """A port ``state_dict``-keyed dict (parameters, gradients, moments)
+    -> the reference's tree as numpy, ``blocks`` stacked."""
+    def walk(tree):
+        return {k: walk(v) if isinstance(v, dict) else _numpy(v)
+                for k, v in tree.items()}
+
+    return walk(tree_from_state_dict(sd))
 
 
 def model_from_jax(cfg, params_np: dict, device=None):

@@ -17,8 +17,7 @@ Two orthogonal axes, both plain strings:
 Tensors carry the sweep's run axis in front where the reference is vmapped:
 ``grads`` (R, m, n), ``phi_t`` (R, m, T, n), ``grad_j`` (R, n), ``phi_matrix``
 (n, n) shared or (R, n, n) per run, ``mode_id`` an int or an (R,) tensor.
-``tree_gain`` (pytree HVP gains for LM training) waits for the federated
-LM substrate of ROADMAP queue 1 item 12.
+``tree_gain`` is the tree gain of LM training (``core/fed_sgd.py``).
 """
 
 from __future__ import annotations
@@ -195,3 +194,14 @@ def megastep(mode_id: ModeId, w: torch.Tensor, grads: torch.Tensor,
     return fn(phi_t, grads, w, ctl, alpha_rand.contiguous(),
               grad_j if have_model else None,
               phi_matrix if have_model else None, deliver=deliver, eps=eps)
+
+
+def tree_gain(g, cfg, grad_fn=None, params=None) -> torch.Tensor:
+    """Tree gain for deep-net training (HVP eq. 13 / gnorm ablation).
+
+    Thin re-export of ``repro_torch.core.fed_sgd.local_gain`` so the train
+    step and the sweep stack share one entry point.  Imported lazily, as
+    the reference does, to keep ``core`` free of an import cycle.
+    """
+    from repro_torch.core import fed_sgd
+    return fed_sgd.local_gain(g, cfg, grad_fn=grad_fn, params=params)

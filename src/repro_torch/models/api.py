@@ -1,11 +1,12 @@
 """Model factory, ported from ``repro/models/api.py``: ModelConfig -> module.
 
-Every model exposes the reference's serving surface as methods of an
+Every model exposes the reference's surface as methods of an
 ``nn.Module`` that holds its weights:
+  loss_fn(batch) -> (loss, metrics)          # training, on the plain path
   prefill(tokens, prefix_emb) -> (logits, aux)
   init_cache(batch, seq_len) / decode_step(cache, token, t)
   cache_len(seq_len)
-The port serves the ssm and dense families; the others raise.
+The port trains and serves the ssm and dense families; the others raise.
 """
 
 from __future__ import annotations

@@ -5,13 +5,16 @@ these functions take them explicitly, as the reference's do.  Weights are
 drawn from an explicit ``torch.Generator`` at the reference's scales: the
 numbers differ from ``jax.random``'s, so parity tests carry the
 reference's parameters across with ``repro_torch.convert.model_from_jax``.
-``chunked_xent_loss`` waits for the training slice.
+``chunked_xent_loss`` is the training loss (``loss_fn`` of each model);
+``run_block`` applies a block, under per-block activation checkpointing
+when the config asks for remat and autograd is recording.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 
@@ -20,7 +23,8 @@ def model_dtype(cfg) -> torch.dtype:
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    """A serving weight: forward-only, so autograd never tracks it."""
+    """A weight, made with ``requires_grad=False`` so that serving never
+    records a graph; the train step turns it on (``requires_grad_``)."""
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -110,3 +114,52 @@ def init_embedding(gen: torch.Generator, vocab: int, d_model: int,
 
 def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return table[tokens]
+
+
+# ---------------------------------------------------------------------------
+# Blocks under remat + sequence-chunked cross-entropy
+# ---------------------------------------------------------------------------
+
+def run_block(fn, h: torch.Tensor, remat: bool, *args) -> torch.Tensor:
+    """``fn(h, *args)``; with ``remat`` and autograd recording, under
+    non-reentrant activation checkpointing (the reference's
+    ``jax.checkpoint`` of each block).  The non-reentrant form also
+    recomputes under double backward, so the curvature term's
+    reverse-over-reverse passes through it.  The blocks draw no random
+    numbers, so no RNG state is stashed (which also keeps the recompute
+    capturable in a CUDA graph)."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(
+            fn, h, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(h, *args)
+
+
+def chunked_xent_loss(hidden: torch.Tensor, lm_head: torch.Tensor,
+                      targets: torch.Tensor, mask: torch.Tensor,
+                      chunk: int) -> torch.Tensor:
+    """Masked mean next-token cross-entropy without full (B, L, V) logits.
+
+    hidden (B, L, d) final hidden states; lm_head (d, V); targets (B, L)
+    int; mask (B, L) float32.  Loops over sequence chunks of ``chunk``
+    (padding the last with masked positions when L % chunk != 0), each
+    with (B, chunk, V) float32 logits, and sums in chunk order as the
+    reference's scan does.
+    """
+    B, L, d = hidden.shape
+    if L % chunk:
+        pad = chunk - L % chunk
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask = F.pad(mask, (0, pad))
+        L += pad
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    denom = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(0, L, chunk):
+        logits = (hidden[:, c:c + chunk] @ lm_head).float()      # (B, chunk, V)
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1,
+                              targets[:, c:c + chunk, None].long())[..., 0]
+        m_c = mask[:, c:c + chunk]
+        total = total + torch.sum((lse - picked) * m_c)
+        denom = denom + torch.sum(m_c)
+    return total / torch.clamp(denom, min=1.0)

@@ -5,7 +5,9 @@ Blocks are {norm, mamba2-mixer} only (the SSD architecture folds the MLP
 into the expanded mixer, hence d_ff = 0).  Decode is O(1) in context
 length.  The reference's stacked ``blocks`` tree is an ``nn.ModuleList``
 here (``repro_torch.convert.model_from_jax`` splits it), and the model
-methods take no params argument: the module holds them.
+methods take no params argument: the module holds them.  ``loss_fn``
+trains on the plain chunked SSD, as the reference trains through its jnp
+SSD: the SSD kernels are forward-only.
 """
 
 from __future__ import annotations
@@ -15,9 +17,10 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import (embed_tokens, init_embedding,
-                                       model_dtype, param, param_dict,
-                                       rms_norm, truncated_normal)
+from repro_torch.models.layers import (chunked_xent_loss, embed_tokens,
+                                       init_embedding, model_dtype, param,
+                                       param_dict, rms_norm, run_block,
+                                       truncated_normal)
 
 
 class MambaBlock(nn.Module):
@@ -49,17 +52,35 @@ class MambaLM(nn.Module):
     def head(self) -> torch.Tensor:
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
 
-    def hidden_states(self, tokens: torch.Tensor, prefix_emb=None):
-        """Embed and run all blocks.  Returns (final-normed hidden, aux 0)."""
+    def _block(self, h: torch.Tensor, block: MambaBlock,
+               use_kernels: bool) -> torch.Tensor:
         cfg = self.cfg
+        m_in = rms_norm(h, block.ln1, cfg.norm_eps)
+        return h + ssm_lib.apply_mamba2(
+            block.mamba, m_in, cfg.ssm_state, cfg.ssm_head_dim,
+            norm_eps=cfg.norm_eps, use_kernel=use_kernels)
+
+    def hidden_states(self, tokens: torch.Tensor, prefix_emb=None,
+                      use_kernels=None):
+        """Embed and run all blocks.  Returns (final-normed hidden, aux 0).
+        ``use_kernels`` defaults to the module's switch."""
+        cfg = self.cfg
+        use_kernels = self.use_kernels if use_kernels is None else use_kernels
         h = embed_tokens(self.embed, tokens)
         for block in self.blocks:
-            m_in = rms_norm(h, block.ln1, cfg.norm_eps)
-            h = h + ssm_lib.apply_mamba2(
-                block.mamba, m_in, cfg.ssm_state, cfg.ssm_head_dim,
-                norm_eps=cfg.norm_eps, use_kernel=self.use_kernels)
+            h = run_block(self._block, h, cfg.remat, block, use_kernels)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         return rms_norm(h, self.final_norm, cfg.norm_eps), aux
+
+    def loss_fn(self, batch: dict):
+        """Next-token cross-entropy of ``batch`` (tokens / targets / mask).
+        Returns (loss, {"xent", "aux"}).  Runs the plain path whatever
+        ``use_kernels`` says: the kernels are forward-only and raise under
+        autograd (``forward_only``)."""
+        hidden, aux = self.hidden_states(batch["tokens"], use_kernels=False)
+        xent = chunked_xent_loss(hidden, self.head(), batch["targets"],
+                                 batch["mask"], self.cfg.loss_chunk)
+        return xent, {"xent": xent, "aux": aux}
 
     def cache_len(self, seq_len: int) -> int:
         return 1   # O(1) recurrent state; seq_len only sets position bookkeeping

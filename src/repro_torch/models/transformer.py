@@ -7,7 +7,9 @@ frontends are not ported yet: they raise ``NotImplementedError`` naming
 their ROADMAP item.  Layers are an ``nn.ModuleList`` (the reference stacks
 them on a leading axis for ``lax.scan``); prefill runs the flash-attention
 kernel per layer unless ``use_kernels`` is False, and decode threads a
-per-layer KV cache that is updated in place.
+per-layer KV cache that is updated in place.  ``loss_fn`` trains through
+the plain attention, as the reference trains through its jnp attention:
+the flash kernel is forward-only.
 """
 
 from __future__ import annotations
@@ -20,9 +22,10 @@ from torch import nn
 from repro_torch.configs import NOT_PORTED_ITEM
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.layers import (apply_mlp, embed_tokens, init_embedding,
-                                       init_mlp, model_dtype, param,
-                                       param_dict, rms_norm, truncated_normal)
+from repro_torch.models.layers import (apply_mlp, chunked_xent_loss,
+                                       embed_tokens, init_embedding, init_mlp,
+                                       model_dtype, param, param_dict,
+                                       rms_norm, run_block, truncated_normal)
 
 NOT_PORTED = f"not ported to repro_torch yet ({NOT_PORTED_ITEM})"
 
@@ -60,25 +63,47 @@ class Transformer(nn.Module):
     def head(self) -> torch.Tensor:
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
 
+    def _block(self, h: torch.Tensor, block: Block, positions: torch.Tensor,
+               use_kernels: bool) -> torch.Tensor:
+        cfg = self.cfg
+        a_in = rms_norm(h, block.ln1, cfg.norm_eps)
+        h = h + attn_lib.attention_block(
+            block.attn, a_in, positions, cfg.rope_theta, causal=True,
+            window=cfg.sliding_window, chunk=cfg.attn_chunk,
+            use_chunked=h.shape[1] > 512, use_kernel=use_kernels)
+        m_in = rms_norm(h, block.ln2, cfg.norm_eps)
+        return h + apply_mlp(block.mlp, m_in, cfg.mlp_activation)
+
     def hidden_states(self, tokens: torch.Tensor,
-                      prefix_emb: Optional[torch.Tensor] = None):
-        """Embed and run all blocks.  Returns (final-normed hidden, aux 0)."""
+                      prefix_emb: Optional[torch.Tensor] = None,
+                      use_kernels=None):
+        """Embed and run all blocks.  Returns (final-normed hidden, aux 0).
+        ``use_kernels`` defaults to the module's switch."""
         if prefix_emb is not None:
             raise NotImplementedError(f"prefix embeddings are {NOT_PORTED}")
         cfg = self.cfg
+        use_kernels = self.use_kernels if use_kernels is None else use_kernels
         h = embed_tokens(self.embed, tokens)
-        L = h.shape[1]
-        positions = torch.arange(L, device=h.device)
+        positions = torch.arange(h.shape[1], device=h.device)
         for block in self.blocks:
-            a_in = rms_norm(h, block.ln1, cfg.norm_eps)
-            h = h + attn_lib.attention_block(
-                block.attn, a_in, positions, cfg.rope_theta, causal=True,
-                window=cfg.sliding_window, chunk=cfg.attn_chunk,
-                use_chunked=L > 512, use_kernel=self.use_kernels)
-            m_in = rms_norm(h, block.ln2, cfg.norm_eps)
-            h = h + apply_mlp(block.mlp, m_in, cfg.mlp_activation)
+            h = run_block(self._block, h, cfg.remat, block, positions,
+                          use_kernels)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         return rms_norm(h, self.final_norm, cfg.norm_eps), aux
+
+    def loss_fn(self, batch: dict):
+        """Next-token cross-entropy (+ aux, 0 without MoE) of ``batch``
+        (tokens / targets / mask).  Returns (loss, {"xent", "aux"}).  Runs
+        the plain path whatever ``use_kernels`` says: the kernels are
+        forward-only and raise under autograd (``forward_only``).  The
+        reference's ``prefix_emb`` batches wait for the frontends
+        (ROADMAP.md queue 1 item 14)."""
+        if batch.get("prefix_emb") is not None:
+            raise NotImplementedError(f"prefix embeddings are {NOT_PORTED}")
+        hidden, aux = self.hidden_states(batch["tokens"], use_kernels=False)
+        xent = chunked_xent_loss(hidden, self.head(), batch["targets"],
+                                 batch["mask"], self.cfg.loss_chunk)
+        return xent + aux, {"xent": xent, "aux": aux}
 
     # -- serving ---------------------------------------------------------------
 

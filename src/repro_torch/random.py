@@ -24,7 +24,8 @@ few ulp, ``categorical`` exactly except at argmax near-ties.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+import struct
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -101,12 +102,19 @@ def fold_in(keys_: torch.Tensor, data: int) -> torch.Tensor:
     return torch.stack([b0[..., 0], b1[..., 0]], dim=-1)
 
 
-def random_bits(keys_: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    """``jax.random.bits(key, shape)`` (uint32 words as int64): (*B, *shape)."""
+def random_bits(keys_: torch.Tensor, shape: Sequence[int],
+                start: int = 0) -> torch.Tensor:
+    """``jax.random.bits(key, shape)`` (uint32 words as int64): (*B, *shape).
+
+    With ``start`` the draw is the slice of a larger one that begins at
+    flat element ``start``: counters are positional, so a draw of shape
+    (n, *rest) at ``start = i * prod(rest)`` equals rows i..i+n of the
+    whole draw, bit for bit.
+    """
     shape = tuple(shape)
-    if math.prod(shape) >= 2**32:
+    if start + math.prod(shape) >= 2**32:
         raise NotImplementedError("draws of 2**32 or more values per key")
-    idx = torch.arange(math.prod(shape), dtype=torch.int64,
+    idx = torch.arange(start, start + math.prod(shape), dtype=torch.int64,
                        device=keys_.device)
     b0, b1 = _hash_at(keys_, idx)
     return b0.bitwise_xor_(b1).reshape(keys_.shape[:-1] + shape)
@@ -125,9 +133,11 @@ def _scale(floats: torch.Tensor, minval: float, maxval: float):
 
 
 def uniform(keys_: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform`` (float32): (*B, *shape)."""
-    return _scale(_bits_to_unit(random_bits(keys_, shape)), minval, maxval)
+            maxval: float = 1.0, start: int = 0) -> torch.Tensor:
+    """``jax.random.uniform`` (float32): (*B, *shape); ``start`` as in
+    ``random_bits``."""
+    return _scale(_bits_to_unit(random_bits(keys_, shape, start)), minval,
+                  maxval)
 
 
 def bernoulli(keys_: torch.Tensor, p, shape: Sequence[int]) -> torch.Tensor:
@@ -157,27 +167,36 @@ def randint(keys_: torch.Tensor, shape: Sequence[int], minval: int,
     return int(minval) + (off & MASK32) % span
 
 
-def gumbel(keys_: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+def gumbel(keys_: torch.Tensor, shape: Sequence[int], start: int = 0,
+           log: Optional[Callable] = None) -> torch.Tensor:
     """``jax.random.gumbel`` (float32, mode="low"): (*B, *shape),
-    ``-log(-log(uniform(tiny, 1)))``."""
-    return uniform(keys_, shape, _F32_TINY, 1.0).log_().neg_().log_().neg_()
+    ``-log(-log(uniform(tiny, 1)))``; ``start`` as in ``random_bits``.
+    ``log`` defaults to torch's (correctly rounded); ``xla_log`` gives
+    XLA's CPU rounding, bit for bit."""
+    u = uniform(keys_, shape, _F32_TINY, 1.0, start)
+    if log is None:
+        return u.log_().neg_().log_().neg_()
+    return log(log(u).neg_()).neg_()
 
 
 def categorical(keys_: torch.Tensor, logits: torch.Tensor,
-                shape: Optional[Sequence[int]] = None) -> torch.Tensor:
+                shape: Optional[Sequence[int]] = None, start: int = 0,
+                log: Optional[Callable] = None) -> torch.Tensor:
     """``jax.random.categorical(key, logits, axis=-1, shape)`` per key.
 
     ``logits`` is (*B, *batch, K) with B the key batch; ``shape`` (default
     ``batch``) is each key's result shape and may add leading sample dims,
     exactly as JAX's ``shape`` argument.  Gumbel-argmax over K, first index
-    on ties.  Returns (*B, *shape) int64.
+    on ties.  Returns (*B, *shape) int64.  ``start`` and ``log`` go to
+    ``gumbel``: a draw of leading sample rows i..i+n of a larger ``shape``
+    passes that slice's shape and ``start = i * prod(rest) * K``.
     """
     nb = keys_.dim() - 1
     batch = tuple(logits.shape[nb:-1])
     shape = batch if shape is None else tuple(shape)
     prefix = shape[:len(shape) - len(batch)]
     K = logits.shape[-1]
-    g = gumbel(keys_, prefix + batch + (K,))
+    g = gumbel(keys_, prefix + batch + (K,), start, log)
     lg = logits.reshape(logits.shape[:nb] + (1,) * len(prefix)
                         + logits.shape[nb:])
     return torch.argmax(g.add_(lg), dim=-1)
@@ -218,3 +237,62 @@ def normal(keys_: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     u = uniform(keys_, shape, _NORMAL_LO, 1.0)
     return erfinv(u) * torch.tensor(math.sqrt(2), dtype=torch.float32,
                                     device=u.device)
+
+
+def _f32(c: float) -> float:
+    """The float32 nearest ``c``, as a Python float."""
+    return struct.unpack("f", struct.pack("f", c))[0]
+
+
+# Cephes' logf coefficients (float32), as XLA's CPU backend expands log
+_LOG_P = tuple(_f32(c) for c in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+    1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+    3.3333331174e-1))
+_LOG_Q1, _LOG_Q2 = _f32(-2.12194440e-4), 0.693359375
+_SQRT_HALF = 0.707106781186547524
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 a*b + c with one rounding (exact float64 product and sum)."""
+    return (a.double() * b + c).float()
+
+
+def xla_log(x: torch.Tensor) -> torch.Tensor:
+    """float32 natural log rounded exactly as XLA's CPU code rounds it.
+
+    XLA expands ``log`` into Cephes' polynomial (frexp, a shift into
+    [sqrt(1/2), sqrt(2)), a degree-8 polynomial in fused multiply-adds);
+    it is not correctly rounded, and torch's ``log`` differs from it in
+    the last ulp for ~1 in 7 inputs, enough to flip a Gumbel argmax.
+    Each step here rounds to float32 where XLA's does, so results are
+    XLA's bit for bit on both devices.  Subnormal inputs count as zero,
+    as XLA's CPU code flushes them.
+    """
+    f32 = torch.float32
+    xc = torch.clamp(x.to(f32), min=_F32_TINY)
+    bits = xc.view(torch.int32).to(torch.int64)
+    e = ((bits >> 23) - 0x7E).to(f32)                     # frexp exponent
+    m = ((bits & 0x807FFFFF) | 0x3F000000).to(torch.int32).view(f32)
+    low = m < _SQRT_HALF                                  # m in [0.5, 1)
+    e = e - low.to(f32)
+    t = (m - 1.0) + torch.where(low, m, torch.zeros_like(m))
+    t2 = t * t
+    t3 = t2 * t
+    td = t.double()
+    y = _fma(td, _LOG_P[0], _LOG_P[1])
+    y1 = _fma(td, _LOG_P[3], _LOG_P[4])
+    y2 = _fma(td, _LOG_P[6], _LOG_P[7])
+    y = _fma(y, td, _LOG_P[2])
+    y1 = _fma(y1, td, _LOG_P[5])
+    y2 = _fma(y2, td, _LOG_P[8])
+    t3d = t3.double()
+    y = _fma(y, t3d, y1.double())
+    y = _fma(y, t3d, y2.double())
+    y = _fma(y, t3d, (e * _LOG_Q1).double())
+    out = (t - t2 * 0.5) + y
+    out = out + e * _LOG_Q2
+    out = torch.where(x < _F32_TINY, torch.full_like(out, -math.inf), out)
+    out = torch.where(x == math.inf, torch.full_like(out, math.inf), out)
+    return torch.where((x < 0) | torch.isnan(x),
+                       torch.full_like(out, math.nan), out)
