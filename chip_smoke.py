@@ -58,13 +58,17 @@ Phases, in order; any failed check exits non-zero and prints no ok line:
    shapes ``ssd_chunk_kernel`` (float32 CUDA cores, reported inside the
    tile's record).  The tile is held at ``SSD_TILE_TOL`` at the slice, at
    a smaller case with a partial head group and at the route's other
-   shapes; the inter-chunk pass (``ssd_state_pass_kernel``) alone at the
-   slice, and the whole ``ssd_chunked`` (tile + pass) against the plain
-   chunked SSD at the reference's cases, at L=1000 (a padded last chunk)
-   and at the slice.
+   shapes.  The inter-chunk pass routes the same way: Q in {64, 128}, N a
+   multiple of 16 and P a multiple of 32 run ``ssd_state_pass_wgmma_kernel``
+   (tensor cores; the main path's), other shapes ``ssd_state_pass_kernel``
+   (float32 CUDA cores, reported and timed at the slice inside the pass's
+   record); the pass alone at the slice and the reference's small case,
+   and the whole ``ssd_chunked`` (tile + pass) against the plain chunked
+   SSD at the reference's cases, at L=1000 (a padded last chunk) and at
+   the slice.
 5. Serve the LM substrate at full width in two cells (``SERVE_CELLS``):
    ``serve-mamba2-370m`` (the SSD kernels' path: per layer one tensor-core
-   tile and one state pass) and ``serve-yi-6b`` (the flash kernel's
+   tile and one tensor-core state pass) and ``serve-yi-6b`` (the flash kernel's
    path), random weights from a seeded generator.  Each
    first checks the float32 model at a 1024-token prompt (kernel vs plain
    prefill within 1e-4 of the max logit; decode vs prefill at t = 3 and
@@ -1923,7 +1927,8 @@ def ssd_tensor_core_ops(c, bc_itemsize):
 def ssd_state_pass_work(c, c_itemsize, y_itemsize, length=None):
     """Bytes (y_intra, the states, cum, C read once; y and the final state
     written once) and float32 operations (C . h per chunk, the combine and
-    the state update) of the inter-chunk pass."""
+    the state update) of the inter-chunk pass, as ssd_state_pass_kernel
+    computes them on CUDA cores."""
     B, nc, Q, H, P, N = (c[k] for k in ("B", "nc", "Q", "H", "P", "N"))
     L = nc * Q if length is None else length
     moved = (4 * (B * nc * Q * H * P + B * nc * H * N * P + B * nc * Q * H
@@ -1931,6 +1936,22 @@ def ssd_state_pass_work(c, c_itemsize, y_itemsize, length=None):
              + c_itemsize * B * nc * Q * N + y_itemsize * B * L * H * P)
     ops = 2 * B * nc * H * (Q * N * P + N * P + Q * P)
     return moved, ops
+
+
+def ssd_state_pass_tc_bound(c, c_itemsize, y_itemsize):
+    """(bound ms, bound_by, tensor-core operations) of
+    ssd_state_pass_wgmma_kernel: the same bytes, C . h as its bf16-piece
+    products on the tensor cores (two with bf16 C, six with float32 C) and
+    the combine and state update in float32 on CUDA cores."""
+    B, nc, Q, H, P, N = (c[k] for k in ("B", "nc", "Q", "H", "P", "N"))
+    moved, _ = ssd_state_pass_work(c, c_itemsize, y_itemsize)
+    products = 6 if c_itemsize == 4 else 2
+    tc_ops = products * 2 * B * nc * H * Q * N * P
+    t_ops = (tc_ops / PEAK_BF16_FLOPS
+             + 2 * B * nc * H * (N * P + Q * P) / PEAK_F32_FLOPS) * 1e3
+    t_bytes = moved / PEAK_BYTES_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            tc_ops)
 
 
 def empty_cache(dev):
@@ -2101,56 +2122,97 @@ def ssd_tile_phase(dev, gen, logs, timings):
     empty_cache(dev)
 
 
-def ssd_pass_phase(dev, gen, logs, timings):
-    """The inter-chunk pass alone at the slice: float32 C and output at
-    ``SSD_CHUNKED_TOL``, bf16 C and output within ``SSD_ULP_LIMIT`` bf16
-    ulps of the float32 reference, a padded length, a bitwise repeat, and
-    the bf16 case's times."""
-    import torch
-    from repro_torch.kernels import ref
-    from repro_torch.kernels import ssd_scan as SS
-
-    lp = logs["ssd_state_pass"]
-    c = SSD_SLICE
+def _pass_inputs(gen, dev, c):
     B, nc, Q, H, P, N = (c[k] for k in ("B", "nc", "Q", "H", "P", "N"))
     y_intra = _randn(gen, (B, nc, Q, H, P)).to(dev)
     states = _randn(gen, (B, nc, H, N, P)).to(dev)
     cum = (-_randn(gen, (B, nc, Q, H)).abs().cumsum(dim=2) * 0.1).to(dev)
     c32 = _randn(gen, (B, nc, Q, N)).to(dev)
+    return y_intra, states, cum, c32
+
+
+def ssd_pass_phase(dev, gen, logs, timings):
+    """The inter-chunk pass alone on both routes: at the slice on the
+    tensor cores, float32 C and output at ``SSD_CHUNKED_TOL`` (full and a
+    padded length) and bf16 C and output within ``SSD_ULP_LIMIT`` bf16 ulps
+    of the float32 reference; the reference's small case on the CUDA-core
+    route; the CUDA-core kernel also at the slice in bf16 (asked for by
+    route); a bitwise repeat of each, and both routes' times at the slice
+    in bf16, the CUDA-core kernel's nested in the pass's record."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as SS
+
+    lp, simt = logs["ssd_state_pass"], KernelLog()
     ulps = lp.extra["bf16_ulp_check"] = dict(max_ulps=0.0, cases=0,
                                              limit=SSD_ULP_LIMIT)
-    for cdt, ydt, length in ((torch.float32, torch.float32, nc * Q),
-                             (torch.float32, torch.float32, nc * Q - 24),
-                             (torch.bfloat16, torch.bfloat16, nc * Q)):
-        cm = c32.to(cdt)
-        label = f"ssd state pass C {cdt} y {ydt} length {length}"
-        run = lambda: SS.ssd_state_pass(y_intra, states, cum, cm, length, ydt)
-        y, h = _ssd_launch(label, {SS.STATE_PASS.counter: 1}, run)
-        yr, hr = ref.ssd_state_pass_ref(y_intra, states, cum, cm, length,
-                                        torch.float32)
-        check(tuple(y.shape) == (B, length, H, P) and y.dtype == ydt,
-              f"{label}: y {tuple(y.shape)} {y.dtype}")
-        lp.close(label + " state", h, hr, SSD_CHUNKED_TOL)
-        if ydt == torch.float32:
-            lp.close(label + " y", y, yr, SSD_CHUNKED_TOL)
-        else:
-            u = bf16_ulps(y, yr)
-            check(u <= SSD_ULP_LIMIT, f"{label}: {u:.3f} bf16 ulps from the "
-                  f"float32 reference, limit {SSD_ULP_LIMIT}")
-            ulps["max_ulps"] = max(ulps["max_ulps"], u)
-            ulps["cases"] += 1
-        lp.repeat(label, run)
-        lp.cases += 1
-        del y, h, yr, hr
-    b_ms, b_by = bound(*ssd_state_pass_work(c, 2, 2))
+    f32, bf16 = torch.float32, torch.bfloat16
+    # per shape: (dtype of C and y, rows cut from the last chunk, route forced)
+    for c, runs in ((SSD_SLICE, ((f32, 0, None), (f32, 24, None),
+                                 (bf16, 0, None), (bf16, 0, SS.STATE_PASS_SIMT))),
+                    (SSD_TILE_CASE, ((f32, 5, None),))):
+        y_intra, states, cum, c32 = _pass_inputs(gen, dev, c)
+        B, nc, Q, H, P, N = (c[k] for k in ("B", "nc", "Q", "H", "P", "N"))
+        for dt, cut, force in runs:
+            length, cm = nc * Q - cut, c32.to(dt)
+            r = force or SS.state_pass_route(Q, N, P, dt)
+            log = lp if r == SS.STATE_PASS_WGMMA else simt
+            label = f"ssd state pass {c} {dt} length {length} ({r.kernel})"
+            run = lambda: SS.ssd_state_pass(y_intra, states, cum, cm, length,
+                                            dt, route=force)
+            y, h = _ssd_launch(label, {r.counter: 1}, run)
+            yr, hr = ref.ssd_state_pass_ref(y_intra, states, cum, cm, length,
+                                            f32)
+            check(tuple(y.shape) == (B, length, H, P) and y.dtype == dt,
+                  f"{label}: y {tuple(y.shape)} {y.dtype}")
+            log.close(label + " state", h, hr, SSD_CHUNKED_TOL)
+            if dt == f32:
+                log.close(label + " y", y, yr, SSD_CHUNKED_TOL)
+            else:
+                u = bf16_ulps(y, yr)
+                check(u <= SSD_ULP_LIMIT, f"{label}: {u:.3f} bf16 ulps from "
+                      f"the float32 reference, limit {SSD_ULP_LIMIT}")
+                if log is lp:
+                    ulps["max_ulps"] = max(ulps["max_ulps"], u)
+                    ulps["cases"] += 1
+            log.repeat(label, run)
+            log.cases += 1
+            del y, h, yr, hr
+        del y_intra, states, cum, c32
+        empty_cache(dev)
+    check(all(SS.state_pass_route(*(SSD_SLICE[k] for k in "QNP"), dt)
+              == SS.STATE_PASS_WGMMA for dt in (f32, bf16)),
+          "ssd state pass: the slice does not take the tensor-core route")
+    # timed at the slice with bf16 C and output, as the bf16 model runs it
+    c = SSD_SLICE
+    y_intra, states, cum, c32 = _pass_inputs(gen, dev, c)
+    cm, length = c32.bfloat16(), c["nc"] * c["Q"]
+    timed = lambda route, cmat=cm, dt=bf16: time_ms(lambda: SS.ssd_state_pass(
+        y_intra, states, cum, cmat, length, dt, route=route), reps=10)
+    b_ms, b_by, tc_ops = ssd_state_pass_tc_bound(c, 2, 2)
+    simt_ms, simt_by = bound(*ssd_state_pass_work(c, 2, 2))
+    # float32 C and output (the float32 model's checks): both routes' times
+    f32_ms = {r.kernel: timed(r, c32, f32)
+              for r in (SS.STATE_PASS_WGMMA, SS.STATE_PASS_SIMT)}
+    del c32
+    lp.extra.update(
+        kernel=SS.STATE_PASS_WGMMA.kernel, tensor_core_ops=tc_ops,
+        bound_f32_cuda_cores_ms=simt_ms,
+        float32_c_ms=f32_ms[SS.STATE_PASS_WGMMA.kernel],
+        float32_c_bound_ms=ssd_state_pass_tc_bound(c, 4, 4)[0],
+        cuda_core_route=dict(
+            kernel=SS.STATE_PASS_SIMT.kernel, cases=simt.cases,
+            max_abs_err=simt.max_abs, max_rel_err=simt.max_rel,
+            repeat_bitwise=simt.repeat_bitwise,
+            ms=timed(SS.STATE_PASS_SIMT), bound_ms=simt_ms,
+            bound_by=simt_by,
+            float32_c_ms=f32_ms[SS.STATE_PASS_SIMT.kernel]))
     timings["ssd_state_pass"] = dict(
-        ms=time_ms(lambda: SS.ssd_state_pass(y_intra, states, cum, cm, nc * Q,
-                                             torch.bfloat16), reps=10),
+        ms=timed(None),
         plain_ms=time_ms(lambda: ref.ssd_state_pass_ref(
-            y_intra, states, cum, cm, nc * Q, torch.bfloat16), reps=5,
-            warmup=1),
+            y_intra, states, cum, cm, length, bf16), reps=5, warmup=1),
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
-    del y_intra, states, cum, c32, cm
+    del y_intra, states, cum, cm
     empty_cache(dev)
 
 
@@ -2180,10 +2242,11 @@ def ssd_chunked_phase(dev, gen, logs):
         cm = _randn(gen, (B, L, N)).to(dt).to(dev)
         Q = min(chunk, L)
         tile = SS.route(Q, N, P, dt)
-        label = f"ssd_chunked {c} chunk={chunk} {dt} ({tile.kernel})"
+        sp = SS.state_pass_route(Q, N, P, dt)
+        label = (f"ssd_chunked {c} chunk={chunk} {dt} ({tile.kernel}, "
+                 f"{sp.kernel})")
         run = lambda: SS.ssd_chunked(xh, dt_, a, bm, cm, chunk=chunk)
-        y1, h1 = _ssd_launch(label, {tile.counter: 1,
-                                     SS.STATE_PASS.counter: 1}, run)
+        y1, h1 = _ssd_launch(label, {tile.counter: 1, sp.counter: 1}, run)
         y2, h2 = ssm.ssd_chunked(xh.float(), dt_, a, bm.float(), cm.float(),
                                  chunk=chunk)
         check(y1.dtype == dt, f"{label}: y dtype {y1.dtype}")
@@ -2228,10 +2291,12 @@ class ServeCell(NamedTuple):
 
 
 SERVE_CELLS = (
-    # per layer one tensor-core tile and one state pass, never ssd_chunk_kernel
+    # per layer one tensor-core tile and one tensor-core state pass, never
+    # a CUDA-core route (the sum of all counts is held to these two)
     ServeCell("serve-mamba2-370m", "mamba2-370m",
               ("ssd_chunk_tiles", "ssd_state_pass"),
-              ("ssd_chunk_tiles_wgmma", "ssd_state_pass"), 4, 8192, 4, 64, 32),
+              ("ssd_chunk_tiles_wgmma", "ssd_state_pass_wgmma"), 4, 8192, 4,
+              64, 32),
     # bf16 prefill at head dim 128: the tensor-core route, never flash_kernel
     ServeCell("serve-yi-6b", "yi-6b", ("flash_attention",),
               ("flash_attention_wgmma",), 1, 8192, 4, 64, 32),
@@ -2239,7 +2304,7 @@ SERVE_CELLS = (
 # the CUDA kernel a record's main path launches, as a profiler trace names it
 CUDA_KERNEL_NAMES = {"flash_attention": "flash_wgmma_kernel",
                      "ssd_chunk_tiles": "ssd_chunk_wgmma_kernel",
-                     "ssd_state_pass": "ssd_state_pass_kernel"}
+                     "ssd_state_pass": "ssd_state_pass_wgmma_kernel"}
 # cuBLAS's and CUTLASS's matrix-product kernels (nvjet: cuBLAS on Hopper)
 MATMUL_KERNEL_WORDS = ("gemm", "nvjet", "xmma", "cutlass", "matmul")
 PREFILL_CALLS = 3          # one warm-up, two timed
@@ -2473,7 +2538,10 @@ def serve_phase(dev, cell):
                            tolerance=dict(kernel_vs_plain=KERNEL_VS_PLAIN_TOL,
                                           decode_vs_prefill=DECODE_TOL)),
         bf16_check=bf16, prefill_breakdown=breakdown)
-    return line, {k: counts[c] for k, c in zip(cell.kernels, cell.counters)}
+    # the records' launches, and every counter by its own name (a record
+    # nests its other route's main-path count)
+    return line, dict(counts, **{k: counts[c] for k, c
+                                 in zip(cell.kernels, cell.counters)})
 
 
 # ---------------------------------------------------------------------------
@@ -3000,11 +3068,16 @@ def kernel_lines(logs, timings, launches):
     float32 route (``flash_kernel``), which the main path never launches,
     and its bf16 ulp check; the SSD tile's nests its float32 route
     (``ssd_chunk_kernel``), its float32 CUDA-core bound and the whole
-    ``ssd_chunked``'s times at the slice; gain_matvec's counts the passes
-    its checked cases took and keeps its alternating trials against
-    torch.matmul.  A record that replaces no Pallas kernel says so in
-    ``replaces_note``."""
+    ``ssd_chunked``'s times at the slice; the state pass's nests its
+    CUDA-core route (``ssd_state_pass_kernel``: cases, time and bound at
+    the slice, main-path launches) beside its CUDA-core bound and both
+    routes' float32-C times; gain_matvec's counts the passes its checked
+    cases took and keeps its alternating trials against torch.matmul.  A
+    record that replaces no Pallas kernel says so in ``replaces_note``."""
     kernels = []
+    nested = logs["ssd_state_pass"].extra.get("cuda_core_route")
+    if nested is not None:
+        nested["launches"] = launches.get("ssd_state_pass_simt", 0)
     for name, log in logs.items():
         t = timings[name]
         kernels.append(dict(
@@ -3068,9 +3141,16 @@ def main():
                         lib.ssd_chunk_wgmma_smem_bytes(128, 128, 64, 1),
                     "ssd_state_pass_dynamic_smem_bytes":
                         lib.ssd_state_pass_smem_bytes(128, 128, 1),
+                    "ssd_state_pass_wgmma_dynamic_smem_bytes": {
+                        "bf16_c": lib.ssd_state_pass_wgmma_smem_bytes(
+                            128, 128, 1),
+                        "float32_c": lib.ssd_state_pass_wgmma_smem_bytes(
+                            128, 128, 0)},
                     "blocks_per_sm": {
                         "ssd_chunk_wgmma_kernel": lib.ssd_blocks_per_sm(0),
-                        "ssd_state_pass_kernel": lib.ssd_blocks_per_sm(1)}}})
+                        "ssd_state_pass_kernel": lib.ssd_blocks_per_sm(1),
+                        "ssd_state_pass_wgmma_kernel":
+                            lib.ssd_blocks_per_sm(2)}}})
 
     seconds = {}
     t0 = time.perf_counter()

@@ -111,6 +111,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ssd_state_pass_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
                                           i, p, p, p]
     lib.ssd_state_pass_smem_bytes.argtypes = [i, i, i]
+    lib.ssd_state_pass_wgmma_launch.argtypes = [p, p, p, p, i, i, i, i, i, i,
+                                                i, i, i, p, p, p]
+    lib.ssd_state_pass_wgmma_smem_bytes.argtypes = [i, i, i]
     lib.ssd_blocks_per_sm.argtypes = [i]
     lib.flash_attention_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, i,
                                            p, p]
@@ -122,6 +125,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                lib.ssd_chunk_wgmma_launch, lib.ssd_chunk_wgmma_xdt_launch,
                lib.ssd_chunk_wgmma_smem_bytes,
                lib.ssd_state_pass_launch, lib.ssd_state_pass_smem_bytes,
+               lib.ssd_state_pass_wgmma_launch,
+               lib.ssd_state_pass_wgmma_smem_bytes,
                lib.ssd_blocks_per_sm,
                lib.flash_attention_launch, lib.flash_attention_wgmma_launch,
                lib.flash_attention_wgmma_smem_bytes):

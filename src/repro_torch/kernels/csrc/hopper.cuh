@@ -1,17 +1,17 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
 // (flash_attention.cu, ssd_scan.cu): mbarriers, TMA loads, cp.async,
 // wgmma shared-memory descriptors and the wgmma instructions themselves,
-// the fences between them, and the 128-byte swizzle that ties the
-// descriptors to the bytes in shared memory.
+// the fences between them, the 128-byte swizzle that ties the descriptors
+// to the bytes in shared memory, and the split of float32 into bf16 pieces.
 //
 // Operand layout.  A bf16 operand tile of rows x cols is cols / 64 column
 // blocks ("atoms") of rows x 128 bytes, each atom 1024-byte aligned; inside
 // an atom the 16-byte chunk c of row r sits at chunk c ^ (r % 8) (the
 // 128-byte swizzle, as TMA's SWIZZLE_128B writes it and wgmma reads it).
-// K-major operands (K contiguous: Q, K, C, B_mat) step K by 32 bytes inside
-// an atom and jump an atom after four k16 steps; MN-major operands (M or N
-// contiguous: V, dtx, B_mat^T) step K by 16 rows (2048 bytes), SBO being
-// 8 rows (1024 bytes) and LBO the next atom along M or N.
+// K-major operands (K contiguous: Q, K, C, B_mat, h^T) step K by 32 bytes
+// inside an atom and jump an atom after four k16 steps; MN-major operands
+// (M or N contiguous: V, dtx, B_mat^T) step K by 16 rows (2048 bytes), SBO
+// being 8 rows (1024 bytes) and LBO the next atom along M or N.
 
 #pragma once
 
@@ -74,10 +74,14 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// cp.async: 16 bytes (both addresses 16-byte aligned, L1 bypassed) or 4.
+// cp.async: 16 bytes (both addresses 16-byte aligned, L1 bypassed), 8 or 4.
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
                "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(dst), "l"(src)
                : "memory");
 }
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
@@ -128,12 +132,14 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #define WG_D8(i)                                                          \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define WG_D32 WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+#define WG_D16 WG_D8(0), WG_D8(8)
+#define WG_D32 WG_D16, WG_D8(16), WG_D8(24)
 #define WG_D64 WG_D32, WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56)
+#define WG_R16 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
 #define WG_R32                                                            \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
-  "%30, %31"
+  WG_R16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
+  "%28, %29, %30, %31"
 #define WG_R64                                                              \
   WG_R32                                                                    \
   ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
@@ -148,6 +154,17 @@ __device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b,
       " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_R32
       "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
       : WG_D32
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (+)= A B for a 64 x 32 tile, A and B from shared memory, both K-major.
+__device__ __forceinline__ void mma_ss_n32(float (&d)[16], uint64_t a,
+                                           uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {" WG_R16
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : WG_D16
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
@@ -218,6 +235,18 @@ __device__ __forceinline__ void split_bf16(float x0, float x1,
     x0 -= hf.x;
     x1 -= hf.y;
   }
+}
+
+// Eight float32 values as K 16-byte chunks of bf16 pieces (piece k of all
+// eight in out[k]).
+template <int K>
+__device__ __forceinline__ void split8(const float (&v)[8], uint4 (&out)[K]) {
+  uint32_t p[4][K];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) split_bf16(v[2 * k], v[2 * k + 1], p[k]);
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    out[k] = make_uint4(p[0][k], p[1][k], p[2][k], p[3][k]);
 }
 
 }  // namespace hopper

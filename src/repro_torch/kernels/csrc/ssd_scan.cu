@@ -11,15 +11,18 @@
 // and C arrive in the model's dtype).  The wrapper routes Q in {64, 128}
 // and N, P in {64, 128} to ssd_chunk_wgmma_kernel (tensor cores) and every
 // other shape up to 128 to ssd_chunk_kernel (float32 CUDA cores).  The
-// third, ssd_state_pass_kernel, replaces the XLA code around the Pallas
-// tile in ssd_chunked_pallas (the inter-chunk lax.scan and the inter-chunk
-// output term, src/repro/kernels/ssd_scan.py:133-145):
+// other two replace the XLA code around the Pallas tile in
+// ssd_chunked_pallas (the inter-chunk lax.scan and the inter-chunk output
+// term, src/repro/kernels/ssd_scan.py:133-145):
 //
 //   y_c[i] = y_intra_c[i] + exp(cum_c,i) C_c,i . h_{c-1},
 //   h_c    = exp(cum_c,Q) h_{c-1} + state_c,    h_{-1} = 0,
 //
 // written straight into the (B, L, H, P) output in its dtype, pad rows
-// dropped, and the final state h.
+// dropped, and the final state h.  The wrapper routes Q in {64, 128}, N a
+// multiple of 16 and P a multiple of 32 to ssd_state_pass_wgmma_kernel
+// (tensor cores) and every other shape (the reference's small cases: Q 32,
+// N 8, P 16) to ssd_state_pass_kernel (float32 CUDA cores).
 //
 // What bounds them on an H100.  At mamba2-370m's prefill (B = 4, L = 8192:
 // 256 chunks x 32 heads, Q = 128, N = 128, P = 64, bf16 B and C) the tile
@@ -29,9 +32,13 @@
 // (67 TFLOP/s), which bounds ssd_chunk_kernel; as the bf16 pieces below,
 // on the pairs the decay lets through, they are 1.0e11 tensor-core
 // operations (989 TFLOP/s): 0.11 ms, so the tensor-core tile is bound by
-// memory.  The state pass moves 0.69 GB (y_intra and the states read, y
-// written in bf16; 0.205 ms) and does 1.7e10 float32 operations for C . h
-// on CUDA cores (0.26 ms): it is bound by operations.
+// memory.  The state pass moves 0.69 GB (y_intra and the states read at
+// 268 MB each, y written in bf16, 134 MB; 0.205 ms).  C . h is 1.7e10
+// float32 operations, 0.26 ms on CUDA cores, which bounds
+// ssd_state_pass_kernel; as the two products of bf16 C and h's hi/lo pair
+// it is 3.4e10 tensor-core operations, 0.035 ms, so the tensor-core pass is
+// bound by its bytes.  Measured (tools/ssd_probe.py), the per-chunk work of
+// its serial walk, more than its bytes, holds it at about 1.7x that bound.
 //
 // ssd_chunk_wgmma_kernel.  One block of two warpgroups takes kHeadsTc = 8
 // heads of one chunk.  B and C are shared by the heads (ngroups = 1), so
@@ -85,18 +92,52 @@
 // ssd_chunk_kernel.  Fixed order, no atomics: two launches give
 // bitwise-equal results.
 //
-// ssd_state_pass_kernel.  One block per (P slice of 32 columns, head,
-// batch row) walks the chunks in order, carrying h (N x 32, float32) in
-// shared memory, twice: h_{c-1} is read while h_c is written, so a chunk
-// needs one block barrier.  Chunk c + 1's C arrives by cp.async into the
-// other half of a double buffer while chunk c computes; each thread's rows
-// of y_intra, the state and cum are loaded into registers before C . h
-// and used after it.  C . h runs on CUDA cores in float32 (thread (ty, tx)
-// of a 32 x 8 grid owns rows ty + 32 r and 4 consecutive columns; C's rows
-// are padded by 16 bytes so that the four rows a warp reads fall in
-// distinct banks).  With bf16 C a block takes 100 KB of shared memory, so
-// two share an SM and the slice's 256 blocks run in one wave.  Fixed
-// order, no atomics.
+// ssd_state_pass_wgmma_kernel.  One block per (P slice of 32 columns, head,
+// batch row) walks the chunks in order, since the recurrence is serial in
+// c: 256 blocks at the slice, two to an SM, so that one block's per-chunk
+// latency hides under the other's.  A block has one warpgroup per 64 rows
+// of Q, and for each chunk
+//   - y_inter = C_c h_{c-1} (Q x 32) runs on wgmma.m64n32k16: A is C from
+//     shared memory in its own layout (N contiguous, K-major, 128-byte
+//     swizzle), B is h_{c-1}^T's bf16 pieces, written by the block into a
+//     swizzled K-major tile;
+//   - bf16 C, copied by cp.async straight into a ring of two swizzled
+//     stages one chunk ahead, enters exact and h as a hi/lo pair: two
+//     products.  The CPU emulation (tests/test_torch_ssd.py,
+//     tools/ssd_pass_pieces.py) keeps that within the chunked path's 2e-4
+//     of the Pallas path, where a single bf16 h is far outside; float32 C
+//     and h take three pieces each (six products a + b < 3), since a hi/lo
+//     pair of both comes to 0.2-1.3 of the tolerance.  Float32 C is staged
+//     by cp.async and split by the block, with one stage (its 230 KB leave
+//     one block an SM);
+//   - the products run smallest first, the main one (piece 0 x piece 0) in
+//     an accumulator of its own, added at the end ("Accumulation order");
+//   - while they run, each thread forms h_c = exp(cum_c,Q) h_{c-1} + state_c
+//     in float32 registers for the elements it owns (fixed: 8 rows of one
+//     column a vector, the plain version's addcmul order), writes its pieces
+//     into the other half of the double-buffered B tile, and loads chunk
+//     c + 1's states and cum into registers, C_{c+1} by cp.async, and (after
+//     the epilogue) y_intra_{c+1} by cp.async into its own shared-memory
+//     slots, so that every input arrives a chunk ahead of its use;
+//   - the epilogue writes y = y_intra + exp(cum_i) acc straight from the
+//     accumulator layout to global memory in y's dtype.
+// One block barrier a chunk (two with float32 C).  Shared memory: 115,712
+// bytes a block with bf16 C (two C stages, two B tiles of two pieces,
+// y_intra), 230,400 with float32 C.  Fixed order, no atomics: two launches
+// give bitwise-equal results.
+//
+// ssd_state_pass_kernel (every other pass shape; float32 on CUDA cores).
+// One block per (P slice of 32 columns, head, batch row) walks the chunks
+// in order, carrying h (N x 32, float32) in shared memory, twice: h_{c-1}
+// is read while h_c is written, so a chunk needs one block barrier.  Chunk
+// c + 1's C arrives by cp.async into the other half of a double buffer
+// while chunk c computes; each thread's rows of y_intra, the state and cum
+// are loaded into registers before C . h and used after it.  C . h runs on
+// CUDA cores in float32 (thread (ty, tx) of a 32 x 8 grid owns rows ty + 32
+// r and 4 consecutive columns; C's rows are padded by 16 bytes so that the
+// four rows a warp reads fall in distinct banks).  With bf16 C a block
+// takes 100 KB of shared memory, so two share an SM.  Fixed order, no
+// atomics.
 //
 // ssd_chunk_kernel (every other tile shape; float32 on CUDA cores).  One
 // block takes kHeads = 8 heads of one chunk: it computes G once into
@@ -352,17 +393,6 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* src, float (&v)[8]) {
     v[2 * k] = f.x;
     v[2 * k + 1] = f.y;
   }
-}
-
-// Eight float32 values as kPieces 16-byte chunks of bf16.
-__device__ __forceinline__ void split8(const float (&v)[8],
-                                       uint4 (&out)[kPieces]) {
-  uint32_t p[4][kPieces];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) split_bf16(v[2 * k], v[2 * k + 1], p[k]);
-#pragma unroll
-  for (int k = 0; k < kPieces; ++k)
-    out[k] = make_uint4(p[0][k], p[1][k], p[2][k], p[3][k]);
 }
 
 // Eight consecutive values of B or C as their bf16 pieces: a bf16 value
@@ -864,6 +894,344 @@ cudaError_t launch(const float* y_intra, const float* states, const float* cum,
 
 }  // namespace pass
 
+// ---------------------------------------------------------------------------
+// ssd_state_pass_wgmma_kernel: the inter-chunk pass on the tensor cores.
+// ---------------------------------------------------------------------------
+namespace pass_tc {
+
+using namespace hopper;
+
+constexpr int kSlice = 32;    // P columns of one block: the wgmma's n
+constexpr int kMaxN = 128;
+
+// bf16 pieces of h (two with bf16 C, three with float32 C), pieces of C
+// (a bf16 C is its own), and C stages in flight (float32 C's three pieces
+// leave room for one).
+template <typename T>
+__host__ __device__ constexpr int h_pieces() { return sizeof(T) == 4 ? 3 : 2; }
+template <typename T>
+__host__ __device__ constexpr int c_pieces() { return sizeof(T) == 4 ? 3 : 1; }
+template <typename T>
+__host__ __device__ constexpr int c_stages() { return sizeof(T) == 4 ? 1 : 2; }
+
+// Byte offsets from the 1024-aligned base: the C stages (each c_pieces
+// tiles of Q x N, K-major), float32 C's staging buffer (its cp.async
+// target, each thread's own slots), two buffers of h^T's pieces (kSlice x
+// N, K-major: h_{c-1} read by the products while h_c is written), and the
+// y_intra buffer (16 values a thread, its own slots).
+struct Layout {
+  int c_tile, h_tile, stage, h, yi, bytes;
+  __host__ __device__ Layout(int Q, int N, int cp, int hp, int stages) {
+    const int atoms = (N + kAtom - 1) / kAtom;
+    c_tile = Q * kAtomBytes * atoms;
+    h_tile = kSlice * kAtomBytes * atoms;
+    stage = stages * cp * c_tile;
+    h = stage + (cp > 1 ? Q * N * 4 : 0);
+    yi = h + 2 * hp * h_tile;
+    bytes = yi + 2 * Q * 16 * 4 + 1024;   // + alignment of the base
+  }
+};
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// y_intra (B, nc, Q, H, P) f32; states (B, nc, H, N, P) f32; cum (B, nc,
+// Q, H) f32; cm (B, nc, Q, N); y (B, L, H, P); final_state (B, H, N, P).
+// One warpgroup per 64 rows of Q.
+template <typename T, typename Y, int Q>
+__global__ void __launch_bounds__(2 * Q, sizeof(T) == 4 ? 1 : 2)
+ssd_state_pass_wgmma_kernel(const float* __restrict__ y_intra,
+                            const float* __restrict__ states,
+                            const float* __restrict__ cum,
+                            const T* __restrict__ cm, int nc, int H, int N,
+                            int P, int L, Y* __restrict__ y,
+                            float* __restrict__ final_state) {
+  constexpr int kThr = 2 * Q;
+  constexpr int kCP = c_pieces<T>(), kHP = h_pieces<T>();
+  constexpr int kStages = c_stages<T>();
+  // at most: 8-vectors of h a thread owns, of C a thread loads
+  constexpr int kVec = 4 * kMaxN / kThr;
+  constexpr int kCVec = Q * kMaxN / 8 / kThr;
+  const Layout lay(Q, N, kCP, kHP, kStages);
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* gbase = smem_raw + (base - raw);
+
+  const int p0 = blockIdx.x * kSlice, hd = blockIdx.y;
+  const int64_t b = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int lane = tid % 32, t4 = lane % 4;
+  // this thread's accumulator rows (and the y rows it writes)
+  const int i0 = 64 * wg + ((tid % 128) / 32) * 16 + lane / 4, i1 = i0 + 8;
+  // h is N x kSlice; thread tid owns the 8-vectors v = tid + kThr j: column
+  // p = v % 32 (a warp's lanes read a state row's 128 bytes together) and
+  // rows 8 (v / 32) .. + 7 (one 16-byte chunk of each piece of h^T)
+  const int nvec = 4 * N;
+  // C's 8-vectors e = tid + kThr m: row j, columns n .. n + 7.  Where N / 8
+  // divides kThr into whole swizzle periods of rows (N a power of two), each
+  // m moves both offsets by a constant; otherwise j and n step with a carry.
+  const int cpr = N / 8, cvec = Q * cpr;
+  const int cj0 = tid / cpr, cn0 = (tid % cpr) * 8;
+  const int dcj = kThr / cpr, dcn = (kThr % cpr) * 8;
+  const bool c_even = dcn == 0 && dcj % 8 == 0;
+  auto for_c = [&](auto&& fn) {   // fn(m, swizzled offset, offset in C_c)
+    int j = cj0, n = cn0;
+    uint32_t off = swizzle_offset(j, n, Q);
+    int g = j * N + n;
+#pragma unroll 1
+    for (int m = 0; m < kCVec && tid + kThr * m < cvec; ++m) {
+      fn(m, off, g);
+      if (c_even) {
+        off += dcj * kAtomBytes;
+        g += dcj * N;
+      } else {
+        j += dcj;
+        n += dcn;
+        if (n >= N) {
+          n -= N;
+          ++j;
+        }
+        off = swizzle_offset(j, n, Q);
+        g = j * N + n;
+      }
+    }
+  };
+
+  // chunk 0's rows of each input for this block (and, for y_intra, cum
+  // and y, this thread's row i0); chunk c is c strides on
+  const int64_t HP = (int64_t)H * P;
+  const T* c_base = cm + b * nc * Q * N;
+  const float* st_base = states + (b * nc * H + hd) * (int64_t)N * P + p0;
+  const float* cum_base = cum + b * nc * Q * H + hd;
+  const float* yi_base = y_intra + (b * nc * Q + i0) * HP + hd * P + p0 + 2 * t4;
+  Y* y_base = y + (b * L + i0) * HP + hd * P + p0 + 2 * t4;
+
+  // chunk c's C by cp.async: bf16 straight into stage s's swizzled tile,
+  // float32 into this thread's slots of the staging buffer
+  auto issue_c = [&](int c, int s) {
+    const T* src = c_base + (int64_t)c * Q * N;
+    for_c([&](int m, uint32_t off, int g) {
+      if constexpr (kCP == 1) {
+        cp_async16(base + s * lay.c_tile + off, src + g);
+      } else {
+        const uint32_t slot = base + lay.stage + ((2 * m) * kThr + tid) * 16;
+        cp_async16(slot, src + g);
+        cp_async16(slot + kThr * 16, src + g + 4);
+      }
+    });
+  };
+  // float32 C: this thread's staged values -> their pieces in the stage
+  auto split_c = [&]() {
+    for_c([&](int m, uint32_t off, int) {
+      const float* slot = reinterpret_cast<const float*>(
+          gbase + lay.stage + ((2 * m) * kThr + tid) * 16);
+      const float4 a = *reinterpret_cast<const float4*>(slot);
+      const float4 c = *reinterpret_cast<const float4*>(slot + 4 * kThr);
+      const float v[8] = {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w};
+      uint4 pc[kCP];
+      split8(v, pc);
+#pragma unroll
+      for (int k = 0; k < kCP; ++k)
+        *reinterpret_cast<uint4*>(gbase + off + k * lay.c_tile) = pc[k];
+    });
+  };
+
+  // chunk c's y_intra at this thread's accumulator positions, by cp.async
+  // into its own slots (read back by this thread alone)
+  auto issue_rows = [&](int c) {
+    const float* src = yi_base + c * Q * HP;
+#pragma unroll
+    for (int e = 0; e < 16; e += 2)
+      cp_async8(base + lay.yi + ((e / 2) * kThr + tid) * 8,
+                src + ((e & 2) ? 8 * HP : 0) + 8 * (e / 4));
+  };
+
+  // chunk c's state rows of this thread's vectors, and its rows' cum and
+  // cum_Q, into registers a chunk ahead of their use
+  float sn[kVec][8], cn[2], dn;
+  auto load_states = [&](int c) {
+    const float* src = st_base + c * H * (int64_t)N * P;
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      const int v = tid + kThr * j;
+      if (v >= nvec) continue;
+      const float* row = src + (8 * (v / 32)) * P + v % 32;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) sn[j][k] = __ldg(row + k * P);
+    }
+    const float* cu = cum_base + (int64_t)c * Q * H;
+    cn[0] = __ldg(cu + i0 * H);
+    cn[1] = __ldg(cu + i1 * H);
+    dn = __ldg(cu + (Q - 1) * H);
+  };
+
+  // h_c (float32, this thread's vectors) and its bf16 pieces in buffer buf
+  float h[kVec][8];
+  auto store_h = [&](int buf) {
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      const int v = tid + kThr * j;
+      if (v >= nvec) continue;
+      uint4 pc[kHP];
+      split8(h[j], pc);
+      const uint32_t off = lay.h + buf * kHP * lay.h_tile +
+                           swizzle_offset(v % 32, 8 * (v / 32), kSlice);
+#pragma unroll
+      for (int k = 0; k < kHP; ++k)
+        *reinterpret_cast<uint4*>(gbase + off + k * lay.h_tile) = pc[k];
+    }
+  };
+
+#pragma unroll
+  for (int j = 0; j < kVec; ++j)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) h[j][k] = 0.f;
+  store_h(0);    // h_{-1} = 0
+  issue_c(0, 0);
+  cp_async_commit();
+  issue_rows(0);
+  cp_async_commit();
+  load_states(0);
+  if constexpr (kCP > 1) {
+    cp_async_wait<0>();
+    split_c();
+  }
+
+  for (int c = 0; c < nc; ++c) {
+    const int s = kStages == 2 ? (c & 1) : 0, buf = c & 1;
+    // cp.async groups in flight: C_c's, then y_intra_c's
+    cp_async_wait<1>();   // this thread's copies of C_c (bf16)
+    fence_proxy_async();
+    __syncthreads();      // C_c and h_{c-1}'s pieces are in place, and every
+                          // warpgroup is done with chunk c - 1's products
+
+    // y_inter = C_c h_{c-1}, smallest products first, the main product
+    // (piece 0 x piece 0) in its own accumulator
+    float acc_main[16], acc_cross[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc_main[e] = acc_cross[e] = 0.f;
+    // descriptors of this warpgroup's rows of C_c and of h_{c-1}'s tile;
+    // an operand's k-step adds its byte offset / 16 to the address field
+    const uint64_t dc = desc(base + s * kCP * lay.c_tile + wg * 64 * kAtomBytes,
+                             16, 1024);
+    const uint64_t dh = desc(base + lay.h + buf * kHP * lay.h_tile, 16, 1024);
+    wg_fence();
+#pragma unroll
+    for (int ord = kHP - 1; ord >= 0; --ord)
+#pragma unroll
+      for (int pa = 0; pa < kCP && pa <= ord; ++pa)
+#pragma unroll 1
+        for (int kk = 0; kk < N / 16; ++kk) {
+          const int k_off = (kk / 4) * kAtomBytes, k_in = (kk % 4) * 32;
+          const uint64_t da =
+              dc + ((pa * lay.c_tile + k_off * Q + k_in) >> 4);
+          const uint64_t db =
+              dh + (((ord - pa) * lay.h_tile + k_off * kSlice + k_in) >> 4);
+          if (ord)
+            mma_ss_n32(acc_cross, da, db, 1);
+          else
+            mma_ss_n32(acc_main, da, db, 1);
+        }
+    wg_commit();
+
+    // while they run: h_c = exp(cum_c,Q) h_{c-1} + state_c (the plain
+    // version's addcmul), chunk c + 1's loads, h_c's pieces into the other
+    // buffer
+    const float e0 = expf(cn[0]), e1 = expf(cn[1]), dec = expf(dn);
+#pragma unroll
+    for (int j = 0; j < kVec; ++j)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) h[j][k] = fmaf(dec, h[j][k], sn[j][k]);
+    if (c + 1 < nc) {
+      issue_c(c + 1, s ^ 1);
+      cp_async_commit();
+      load_states(c + 1);
+      store_h(buf ^ 1);
+    }
+
+    // groups in flight: y_intra_c's, then C_{c+1}'s
+    if (c + 1 < nc)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    wg_wait0();
+    fence_regs(acc_main);
+    fence_regs(acc_cross);
+    // y_c = y_intra_c + exp(cum_c) y_inter, pad rows dropped
+    const int t0 = c * Q;
+    Y* yc = y_base + t0 * HP;
+#pragma unroll
+    for (int e = 0; e < 16; e += 2) {
+      const int i = (e & 2) ? i1 : i0;
+      const float2 yi = *reinterpret_cast<const float2*>(
+          gbase + lay.yi + ((e / 2) * kThr + tid) * 8);
+      if (t0 + i >= L) continue;
+      const float ex = (e & 2) ? e1 : e0;
+      store2(yc + ((e & 2) ? 8 * HP : 0) + 8 * (e / 4),
+             fmaf(ex, acc_main[e] + acc_cross[e], yi.x),
+             fmaf(ex, acc_main[e + 1] + acc_cross[e + 1], yi.y));
+    }
+    if (c + 1 < nc) {
+      issue_rows(c + 1);   // after this thread's reads of its slots
+      cp_async_commit();
+      if constexpr (kCP > 1) {
+        __syncthreads();     // every warpgroup is done reading C_c's pieces
+        cp_async_wait<1>();  // this thread's staged C_{c + 1}
+        split_c();
+      }
+    }
+  }
+
+  float* dst = final_state + (b * H + hd) * (int64_t)N * P + p0;
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) {
+    const int v = tid + kThr * j;
+    if (v >= nvec) continue;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) dst[(8 * (v / 32) + k) * P + v % 32] = h[j][k];
+  }
+}
+
+template <typename T>
+int smem_bytes(int Q, int N) {
+  return Layout(Q, N, c_pieces<T>(), h_pieces<T>(), c_stages<T>()).bytes;
+}
+
+template <typename T, typename Y, int Q>
+cudaError_t launch(const float* y_intra, const float* states, const float* cum,
+                   const void* cm, int B, int nc, int H, int N, int P, int L,
+                   void* y, float* final_state, cudaStream_t s) {
+  const int bytes = smem_bytes<T>(Q, N);
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_state_pass_wgmma_kernel<T, Y, Q>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(P / kSlice, H, B);
+  ssd_state_pass_wgmma_kernel<T, Y, Q><<<grid, 2 * Q, bytes, s>>>(
+      y_intra, states, cum, static_cast<const T*>(cm), nc, H, N, P, L,
+      static_cast<Y*>(y), final_state);
+  return cudaGetLastError();
+}
+
+template <typename T, typename Y>
+cudaError_t dispatch(const float* y_intra, const float* states,
+                     const float* cum, const void* cm, int B, int nc, int Q,
+                     int H, int N, int P, int L, void* y, float* final_state,
+                     cudaStream_t s) {
+  if (Q == 64)
+    return launch<T, Y, 64>(y_intra, states, cum, cm, B, nc, H, N, P, L, y,
+                            final_state, s);
+  return launch<T, Y, 128>(y_intra, states, cum, cm, B, nc, H, N, P, L, y,
+                           final_state, s);
+}
+
+}  // namespace pass_tc
+
 }  // namespace
 
 
@@ -970,8 +1338,46 @@ int ssd_state_pass_smem_bytes(int Q, int N, int c_dtype) {
                       : pass::smem_bytes<__nv_bfloat16>(Q, N);
 }
 
+// The tensor-core pass: Q in {64, 128}, N a multiple of 16 up to 128, P
+// a multiple of 32, every pointer 16-byte aligned.  Dtypes as above.
+int ssd_state_pass_wgmma_launch(const void* y_intra, const void* states,
+                                const void* cum, const void* cm, int c_dtype,
+                                int y_dtype, int B, int nc, int Q, int H,
+                                int N, int P, int L, void* y,
+                                void* final_state, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((Q != 64 && Q != 128) || N < 16 || N > pass_tc::kMaxN || N % 16 ||
+      P < pass_tc::kSlice || P % pass_tc::kSlice || L < 1 || L > nc * Q)
+    return (int)cudaErrorInvalidValue;
+  const float* yi = static_cast<const float*>(y_intra);
+  const float* st = static_cast<const float*>(states);
+  const float* cu = static_cast<const float*>(cum);
+  float* fs = static_cast<float*>(final_state);
+  cudaError_t err;
+  if (c_dtype == 0 && y_dtype == 0)
+    err = pass_tc::dispatch<float, float>(yi, st, cu, cm, B, nc, Q, H, N, P,
+                                          L, y, fs, s);
+  else if (c_dtype == 0)
+    err = pass_tc::dispatch<float, __nv_bfloat16>(yi, st, cu, cm, B, nc, Q, H,
+                                                  N, P, L, y, fs, s);
+  else if (y_dtype == 0)
+    err = pass_tc::dispatch<__nv_bfloat16, float>(yi, st, cu, cm, B, nc, Q, H,
+                                                  N, P, L, y, fs, s);
+  else
+    err = pass_tc::dispatch<__nv_bfloat16, __nv_bfloat16>(
+        yi, st, cu, cm, B, nc, Q, H, N, P, L, y, fs, s);
+  return (int)err;
+}
+
+// Dynamic shared memory of one ssd_state_pass_wgmma_kernel block.
+int ssd_state_pass_wgmma_smem_bytes(int Q, int N, int c_dtype) {
+  return c_dtype == 0 ? pass_tc::smem_bytes<float>(Q, N)
+                      : pass_tc::smem_bytes<__nv_bfloat16>(Q, N);
+}
+
 // Blocks of each kernel an SM holds at once (bf16 B/C and output, the
-// slice's Q = N = 128, P = 64), or -1 if the query failed.
+// slice's Q = N = 128, P = 64): 0 the tensor-core tile, 1 the CUDA-core
+// pass, 2 the tensor-core pass; -1 if the query failed.
 int ssd_blocks_per_sm(int which) {
   int n = -1;
   cudaError_t err;
@@ -984,6 +1390,16 @@ int ssd_blocks_per_sm(int which) {
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &n, tc::ssd_chunk_wgmma_kernel<__nv_bfloat16, __nv_bfloat16, 128, 64>,
           tc::kThreadsTc, bytes);
+  } else if (which == 2) {
+    const int bytes = pass_tc::smem_bytes<__nv_bfloat16>(128, 128);
+    err = cudaFuncSetAttribute(
+        pass_tc::ssd_state_pass_wgmma_kernel<__nv_bfloat16, __nv_bfloat16, 128>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, pass_tc::ssd_state_pass_wgmma_kernel<__nv_bfloat16, __nv_bfloat16,
+                                                   128>,
+          256, bytes);
   } else {
     const int bytes = pass::smem_bytes<__nv_bfloat16>(128, 128);
     err = cudaFuncSetAttribute(

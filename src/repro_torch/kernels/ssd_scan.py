@@ -22,10 +22,18 @@ Routing of the tile (``route``), by shape and the dtype of B and C:
 - every other shape up to ``MAX_DIM`` -> ``ssd_chunk_kernel``: float32 on
   CUDA cores.  Counted in ``LAUNCHES["ssd_chunk_tiles_simt"]``.
 
-``ssd_state_pass`` launches ``ssd_state_pass_kernel`` (one block per
-(P slice, head, batch row) walking the chunks in order), counted in
-``LAUNCHES["ssd_state_pass"]``; it takes Q, N <= ``MAX_DIM``, P a multiple
-of 4 and rows of C a multiple of 16 bytes.
+Routing of the state pass (``state_pass_route``), by shape; each kernel
+runs one block per (P slice, head, batch row) walking the chunks in order:
+
+- Q in {64, 128}, N a multiple of 16 up to ``MAX_DIM``, P a multiple of
+  ``PASS_SLICE`` -> ``ssd_state_pass_wgmma_kernel``: C . h on the tensor
+  cores (wgmma), h as two bf16 pieces with bf16 C (two products), three
+  pieces of h and of a float32 C (six products), float32 accumulation.
+  Counted in ``LAUNCHES["ssd_state_pass_wgmma"]``.  Both dtypes of C take
+  it: float32 C's pieces fit one block an SM.
+- every other shape with Q, N <= ``MAX_DIM``, P a multiple of 4 and rows of
+  C a multiple of 16 bytes -> ``ssd_state_pass_kernel``: float32 on CUDA
+  cores.  Counted in ``LAUNCHES["ssd_state_pass_simt"]``.
 
 ``ssd_chunked`` is the port of ``ssd_chunked_pallas``, a drop-in for
 ``repro_torch.models.ssm.ssd_chunked``: padding to the chunk and the cumsum
@@ -55,13 +63,16 @@ class Route(NamedTuple):
 
 WGMMA = Route("ssd_chunk_wgmma_kernel", "ssd_chunk_tiles_wgmma")
 SIMT = Route("ssd_chunk_kernel", "ssd_chunk_tiles_simt")
-STATE_PASS = Route("ssd_state_pass_kernel", "ssd_state_pass")
-LAUNCHES = {WGMMA.counter: 0, SIMT.counter: 0, STATE_PASS.counter: 0}
+STATE_PASS_WGMMA = Route("ssd_state_pass_wgmma_kernel", "ssd_state_pass_wgmma")
+STATE_PASS_SIMT = Route("ssd_state_pass_kernel", "ssd_state_pass_simt")
+LAUNCHES = {r.counter: 0 for r in (WGMMA, SIMT, STATE_PASS_WGMMA,
+                                   STATE_PASS_SIMT)}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_DIM = 128   # largest chunk, state and head width one block covers (kMaxDim)
 WGMMA_CHUNKS = (64, 128)
 WGMMA_DIMS = (64, 128)   # N and P the tensor-core tile takes
+PASS_SLICE = 32          # P columns of one tensor-core pass block (kSlice)
 
 
 def reset_launches() -> None:
@@ -171,10 +182,29 @@ def ssd_chunk_tiles_xdt(xh: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
     return y, states
 
 
+def state_pass_route(Q: int, N: int, P: int, c_dtype: torch.dtype) -> Route:
+    """The kernel a CUDA state-pass call of this shape and dtype of C
+    launches; raise for a shape neither kernel takes."""
+    if max(Q, N) > MAX_DIM or P % 4:
+        raise ValueError(f"ssd_state_pass takes Q, N <= {MAX_DIM} and P a "
+                         f"multiple of 4, got Q={Q} N={N} P={P}")
+    if c_dtype not in _DTYPES:
+        raise TypeError(f"c_mat dtype {c_dtype} not in {tuple(_DTYPES)}")
+    size = torch.finfo(c_dtype).bits // 8
+    if (N * size) % 16:
+        raise ValueError(f"ssd_state_pass: a row of C ({N} x {size} bytes) "
+                         "must be a multiple of 16 bytes")
+    if Q in WGMMA_CHUNKS and N % 16 == 0 and P % PASS_SLICE == 0:
+        return STATE_PASS_WGMMA
+    return STATE_PASS_SIMT
+
+
 def check_state_pass(y_intra: torch.Tensor, states: torch.Tensor,
                      cum: torch.Tensor, c_mat: torch.Tensor, length: int,
-                     dtype: torch.dtype) -> None:
-    """Check the state pass's inputs against what its kernel takes; raise on
+                     dtype: torch.dtype, route: Route | None = None) -> Route:
+    """Check the state pass's inputs against what its kernels take and
+    return the route a CUDA call takes (``route`` if given: the CUDA-core
+    kernel takes every shape, the tensor-core one only its own); raise on
     anything else.  Runs on tensors of any device."""
     forward_only("ssd_state_pass", y_intra, states, cum, c_mat)
     if y_intra.dim() != 5:
@@ -182,13 +212,7 @@ def check_state_pass(y_intra: torch.Tensor, states: torch.Tensor,
                          f"{tuple(y_intra.shape)}")
     B, nc, Q, H, P = y_intra.shape
     N = c_mat.shape[-1]
-    if max(Q, N) > MAX_DIM or P % 4:
-        raise ValueError(f"ssd_state_pass takes Q, N <= {MAX_DIM} and P a "
-                         f"multiple of 4, got Q={Q} N={N} P={P}")
-    if (N * c_mat.element_size()) % 16:
-        raise ValueError(f"ssd_state_pass: a row of C ({N} x "
-                         f"{c_mat.element_size()} bytes) must be a multiple "
-                         "of 16 bytes")
+    r = state_pass_route(Q, N, P, c_mat.dtype)
     if not 0 < length <= nc * Q:
         raise ValueError(f"length {length} outside 1..{nc * Q}")
     if dtype not in _DTYPES:
@@ -200,17 +224,24 @@ def check_state_pass(y_intra: torch.Tensor, states: torch.Tensor,
     if not _aligned(y_intra, states, cum, c_mat):
         raise ValueError("ssd_state_pass: inputs must start on 16-byte "
                          "boundaries")
+    if route is None or route == r or route == STATE_PASS_SIMT:
+        return r if route is None else route
+    raise ValueError(f"ssd_state_pass: {route.kernel} does not take Q={Q} "
+                     f"N={N} P={P}")
 
 
 def ssd_state_pass(y_intra: torch.Tensor, states: torch.Tensor,
                    cum: torch.Tensor, c_mat: torch.Tensor, length: int,
-                   dtype: torch.dtype):
+                   dtype: torch.dtype, route: Route | None = None):
     """The inter-chunk recurrence and output term (``ref.ssd_state_pass_ref``
     has the formulas).  Returns (y (B, length, H, P) in ``dtype``, final
-    state (B, H, N, P) float32)."""
+    state (B, H, N, P) float32).  ``route`` (CUDA tensors) overrides the
+    shape's route, as ``check_state_pass`` allows: ``STATE_PASS_SIMT`` runs
+    the CUDA-core kernel where the tensor cores would (to time the two
+    side by side)."""
     if not on_cuda(y_intra, states, cum, c_mat):
         return ref.ssd_state_pass_ref(y_intra, states, cum, c_mat, length, dtype)
-    check_state_pass(y_intra, states, cum, c_mat, length, dtype)
+    r = check_state_pass(y_intra, states, cum, c_mat, length, dtype, route)
     B, nc, Q, H, P = y_intra.shape
     N = c_mat.shape[-1]
     y = torch.empty((B, length, H, P), dtype=dtype, device=y_intra.device)
@@ -218,11 +249,13 @@ def ssd_state_pass(y_intra: torch.Tensor, states: torch.Tensor,
                         device=y_intra.device)
     if not final.numel():
         return y, final
-    LAUNCHES[STATE_PASS.counter] += 1
-    check(_build.load().ssd_state_pass_launch(
-        ptr(y_intra), ptr(states), ptr(cum), ptr(c_mat), _DTYPES[c_mat.dtype],
-        _DTYPES[dtype], B, nc, Q, H, N, P, length, ptr(y), ptr(final),
-        stream(y_intra)), "ssd_state_pass")
+    LAUNCHES[r.counter] += 1
+    launch = (_build.load().ssd_state_pass_wgmma_launch
+              if r == STATE_PASS_WGMMA else _build.load().ssd_state_pass_launch)
+    check(launch(ptr(y_intra), ptr(states), ptr(cum), ptr(c_mat),
+                 _DTYPES[c_mat.dtype], _DTYPES[dtype], B, nc, Q, H, N, P,
+                 length, ptr(y), ptr(final), stream(y_intra)),
+          f"ssd_state_pass ({r.kernel})")
     return y, final
 
 

@@ -119,7 +119,9 @@ def test_cpu_tensors_never_count_launches(rng):
     tss.reset_launches()
     tss.ssd_chunked(*map(_t, _chunked_inputs(rng, 40)), chunk=16)
     assert tss.LAUNCHES == {"ssd_chunk_tiles_wgmma": 0,
-                            "ssd_chunk_tiles_simt": 0, "ssd_state_pass": 0}
+                            "ssd_chunk_tiles_simt": 0,
+                            "ssd_state_pass_wgmma": 0,
+                            "ssd_state_pass_simt": 0}
 
 
 def test_non_cpu_tensors_raise_instead_of_falling_back():
@@ -267,6 +269,89 @@ def test_fewer_pieces_leave_the_tile_tolerance(rng, variant):
         _close(y, yj, 1e-4)
 
 
+def _emulate_state_pass(y_intra, states, cum, c, length, pieces):
+    """ssd_state_pass_wgmma_kernel's arithmetic in plain torch: h carried in
+    float32 as the plain version carries it (addcmul), C . h_{c-1} as the
+    products of bf16 pieces with a + b < ``pieces`` (h in ``pieces``; a
+    float32 C in as many, a bf16 C as it is), the smaller products summed
+    first and the main one (piece 0 x piece 0) added last, then y_intra +
+    exp(cum) (C . h)."""
+    B, nc, Q, H, P = y_intra.shape
+    cum = cum.float()
+    decay = torch.exp(cum[:, :, -1, :])[..., None, None]
+    h = torch.zeros_like(states[:, 0])
+    h_before = torch.empty_like(states)
+    for ci in range(nc):
+        h_before[:, ci] = h
+        h = torch.addcmul(states[:, ci], decay[:, ci], h)
+
+    def split(x, k):
+        out, r = [], x.float()
+        for _ in range(k):
+            out.append(r.bfloat16().float())
+            r = r - out[-1]
+        return out
+    kc = 1 if c.dtype == torch.bfloat16 else pieces
+    cp, hp = split(c, kc), split(h_before, pieces)
+    cross = torch.zeros_like(y_intra)
+    for order in range(pieces - 1, 0, -1):
+        for a in range(min(order + 1, kc)):
+            cross = cross + torch.einsum("bcin,bchnp->bcihp", cp[a],
+                                         hp[order - a])
+    main = torch.einsum("bcin,bchnp->bcihp", cp[0], hp[0])
+    y = y_intra + torch.exp(cum)[..., None] * (cross + main)
+    return y.reshape(B, nc * Q, H, P)[:, :length], h
+
+
+PASS_PIECES = {"bf16": 2, "f32": 3}   # the kernel's pieces of h, by C's dtype
+
+
+def _tensor_core_chunked(rng, L, c_dtype, pieces, B=1):
+    """The tensor-core path's arithmetic (the tile's emulation, then the
+    pass's) and ssd_chunked_pallas on the same inputs at mamba2's widths
+    (Q 128, N 128, P 64, 4 heads): B and C given to both as bf16 values
+    for a bf16 C."""
+    arrs = list(_chunked_inputs(rng, L, B=B, H=4, P=64, N=128))
+    if c_dtype == "bf16":
+        arrs[3], arrs[4] = (np.asarray(jnp.asarray(x).astype(jnp.bfloat16)
+                                       .astype(jnp.float32))
+                            for x in arrs[3:])
+    want = jss.ssd_chunked_pallas(*map(jnp.asarray, arrs), chunk=128,
+                                  interpret=True)
+    dtx, cum, bm, cm = _chunk_prologue(*map(_t, arrs), 128)
+    if c_dtype == "bf16":
+        bm, cm = bm.bfloat16(), cm.bfloat16()
+    y_intra, states = _emulate_tile(dtx, cum, bm, cm)
+    return _emulate_state_pass(y_intra, states, cum, cm, L, pieces), want
+
+
+@pytest.mark.parametrize("L", [512, 500])
+@pytest.mark.parametrize("c_dtype", ["bf16", "f32"])
+def test_tensor_core_pass_arithmetic_matches_the_pallas_path(rng, c_dtype, L):
+    """The tensor-core tile and pass together, in the kernels' arithmetic,
+    stay within the chunked path's 2e-4 of ssd_chunked_pallas, 4 chunks
+    (500: a padded last chunk).  With bf16 C a hi/lo pair of h (two
+    products) is enough, so the kernel uses two pieces; float32 C needs
+    three of each (six products; see the next test)."""
+    (y, h), (yj, hj) = _tensor_core_chunked(rng, L, c_dtype,
+                                            PASS_PIECES[c_dtype])
+    assert y.shape == (1, L, 4, 64) and h.shape == (1, 4, 128, 64)
+    _close(y, yj, 2e-4)
+    _close(h, hj, 2e-4)
+
+
+@pytest.mark.parametrize("c_dtype,pieces", [("f32", 2), ("bf16", 1)])
+def test_fewer_pass_pieces_leave_the_chunked_tolerance(rng, c_dtype, pieces):
+    """A hi/lo pair of float32 C and h (three products), or a single bf16
+    h with bf16 C, moves y beyond 2e-4 of ssd_chunked_pallas over eight
+    sequences of 500 tokens.  On one sequence the pair's error is 0.18-1.33
+    of the tolerance (3 of 16 seeds over it), three pieces' under 0.1
+    (tools/ssd_pass_pieces.py)."""
+    (y, _), (yj, _) = _tensor_core_chunked(rng, 500, c_dtype, pieces, B=8)
+    with pytest.raises(AssertionError):
+        _close(y, yj, 2e-4)
+
+
 @pytest.mark.parametrize("Q,N,P,dtype,route", [
     (128, 128, 64, torch.bfloat16, "WGMMA"), (128, 128, 64, torch.float32, "WGMMA"),
     (64, 64, 64, torch.bfloat16, "WGMMA"), (64, 128, 128, torch.float32, "WGMMA"),
@@ -282,9 +367,13 @@ def test_routing_table(Q, N, P, dtype, route):
     assert tss.cuda_route(dtx, cum, b, b) == want
     assert tss.WGMMA == ("ssd_chunk_wgmma_kernel", "ssd_chunk_tiles_wgmma")
     assert tss.SIMT == ("ssd_chunk_kernel", "ssd_chunk_tiles_simt")
-    assert tss.STATE_PASS == ("ssd_state_pass_kernel", "ssd_state_pass")
+    assert tss.STATE_PASS_WGMMA == ("ssd_state_pass_wgmma_kernel",
+                                    "ssd_state_pass_wgmma")
+    assert tss.STATE_PASS_SIMT == ("ssd_state_pass_kernel",
+                                   "ssd_state_pass_simt")
     assert set(tss.LAUNCHES) == {tss.WGMMA.counter, tss.SIMT.counter,
-                                 tss.STATE_PASS.counter}
+                                 tss.STATE_PASS_WGMMA.counter,
+                                 tss.STATE_PASS_SIMT.counter}
 
 
 def test_cuda_route_refuses_what_the_tiles_do_not_take():
@@ -317,7 +406,11 @@ def test_state_pass_checks_refuse_what_it_does_not_take():
     s = torch.zeros((1, 2, 2, 8, 16))
     cum = torch.zeros((1, 2, 32, 2))
     c = torch.zeros((1, 2, 32, 8))
-    tss.check_state_pass(y, s, cum, c, 60, torch.bfloat16)
+    assert (tss.check_state_pass(y, s, cum, c, 60, torch.bfloat16)
+            == tss.STATE_PASS_SIMT)
+    with pytest.raises(ValueError, match="does not take"):
+        tss.check_state_pass(y, s, cum, c, 60, torch.float32,
+                             route=tss.STATE_PASS_WGMMA)
     with pytest.raises(ValueError, match="multiple of 4"):
         tss.check_state_pass(torch.zeros((1, 2, 32, 2, 6)),
                              torch.zeros((1, 2, 2, 8, 6)), cum, c, 60,
@@ -345,6 +438,36 @@ def test_cpu_tile_and_state_pass_count_no_launches(rng):
     assert set(tss.LAUNCHES.values()) == {0}
 
 
+@pytest.mark.parametrize("Q,N,P,dtype,route", [
+    (128, 128, 64, torch.bfloat16, "WGMMA"), (128, 128, 64, torch.float32, "WGMMA"),
+    (64, 128, 32, torch.bfloat16, "WGMMA"), (64, 16, 96, torch.float32, "WGMMA"),
+    (128, 48, 128, torch.bfloat16, "WGMMA"), (128, 128, 16, torch.float32, "SIMT"),
+    (32, 8, 16, torch.float32, "SIMT"), (96, 128, 64, torch.bfloat16, "SIMT"),
+    (128, 8, 64, torch.bfloat16, "SIMT"), (128, 120, 64, torch.float32, "SIMT"),
+    (64, 128, 36, torch.float32, "SIMT")])
+def test_state_pass_routing_table(Q, N, P, dtype, route):
+    """The tensor-core pass takes Q 64/128, N a multiple of 16 and P a
+    multiple of the 32-column slice, in either dtype of C; every other
+    shape the pass takes stays on the CUDA-core kernel, which can also be
+    asked for on any shape (the smoke times the two side by side)."""
+    want = getattr(tss, "STATE_PASS_" + route)
+    assert tss.state_pass_route(Q, N, P, dtype) == want
+    args = (torch.zeros((1, 2, Q, 2, P)), torch.zeros((1, 2, 2, N, P)),
+            torch.zeros((1, 2, Q, 2)), torch.zeros((1, 2, Q, N), dtype=dtype),
+            2 * Q - 5, torch.bfloat16)
+    assert tss.check_state_pass(*args) == want
+    assert tss.check_state_pass(*args, route=tss.STATE_PASS_SIMT) == \
+        tss.STATE_PASS_SIMT
+    assert tss.PASS_SLICE == 32
+
+
+@pytest.mark.parametrize("Q,N,P", [(128, 256, 64), (256, 128, 64),
+                                   (128, 128, 30)])
+def test_state_pass_route_refuses_what_neither_kernel_takes(Q, N, P):
+    with pytest.raises(ValueError, match="<= 128 and P a multiple of 4"):
+        tss.state_pass_route(Q, N, P, torch.bfloat16)
+
+
 @pytest.mark.cuda
 def test_cuda_state_pass_refuses_what_it_does_not_take():
     if not torch.cuda.is_available():
@@ -355,6 +478,10 @@ def test_cuda_state_pass_refuses_what_it_does_not_take():
     c = torch.zeros((1, 2, 32, 8), device="cuda")
     with pytest.raises(ValueError, match="multiple of 4"):
         tss.ssd_state_pass(y, s, cum, c, 60, torch.float32)
+    with pytest.raises(ValueError, match="does not take"):
+        tss.ssd_state_pass(y[..., :4].contiguous(), s[..., :4].contiguous(),
+                           cum, c, 60, torch.float32,
+                           route=tss.STATE_PASS_WGMMA)
 
 
 def test_tile_with_dtx_on_load_refuses_what_it_does_not_take(rng):

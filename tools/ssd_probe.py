@@ -12,8 +12,11 @@ Two probes of ``csrc/ssd_scan.cu`` at ``chip_smoke``'s shapes:
   temporary directory, timed by ``chip_smoke.time_ms`` at ``SSD_SLICE``
   (bf16): the tile as the main path calls it (dt x formed on load) whole,
   without its products, without the y products, without the state
-  products and without its stores; the state pass whole and without C . h.
-  A copy's output is wrong by design; only its time is read.
+  products and without its stores; the CUDA-core state pass whole and
+  without C . h; the tensor-core state pass whole, without its products,
+  without its y stores, without its state loads, and without any input
+  load (states, y_intra, C).  A copy's output is wrong by design; only its
+  time is read.  The copies build in parallel.
 
 Needs one GPU with sm_90a and nvcc.  Run from the repository root:
 
@@ -31,6 +34,7 @@ import os
 import subprocess
 import sys
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -45,6 +49,17 @@ Y_STORE = ("          *reinterpret_cast<float2*>(y + ((bc * Q + i) * H + h) "
            "* P + p) =\n")
 STATE_STORE = "        *reinterpret_cast<float2*>(st + n * P + p) =\n"
 PASS_PRODUCT = "    for (int n = 0; n < N; n += 4) {\n"
+TC_PRODUCTS = ("            mma_ss_n32(acc_cross, da, db, 1);\n",
+               "            mma_ss_n32(acc_main, da, db, 1);\n")
+TC_Y_STORE = "      store2(yc + ((e & 2) ? 8 * HP : 0) + 8 * (e / 4),\n"
+TC_STATE_LOAD = ("      for (int k = 0; k < 8; ++k) sn[j][k] = "
+                 "__ldg(row + k * P);\n")
+TC_INPUT_LOADS = [
+    (TC_STATE_LOAD, "      for (int k = 0; k < 8; ++k) sn[j][k] = k + v;\n"),
+    ("      cp_async8(base + lay.yi + ((e / 2) * kThr + tid) * 8,\n",
+     "      if (H < 0) cp_async8(base + lay.yi + ((e / 2) * kThr + tid) * 8,\n"),
+    ("        cp_async16(base + s * lay.c_tile + off, src + g);\n",
+     "        if (H < 0) cp_async16(base + s * lay.c_tile + off, src + g);\n")]
 
 # each copy: (what it removes, [(line, replacement)])
 COPIES = {
@@ -57,7 +72,16 @@ COPIES = {
     "no_stores": [(Y_STORE, "          if (H < 0)" + Y_STORE[9:]),
                   (STATE_STORE, "        if (H < 0)" + STATE_STORE[7:])],
     "pass_no_c_h": [(PASS_PRODUCT, "    for (int n = 0; n < 0; n += 4) {\n")],
+    "tc_pass_no_products": [(line, "            ;\n") for line in TC_PRODUCTS],
+    "tc_pass_no_y_stores": [(TC_Y_STORE, "      if (H < 0)" + TC_Y_STORE[5:])],
+    "tc_pass_no_state_loads": TC_INPUT_LOADS[:1],
+    "tc_pass_no_input_loads": TC_INPUT_LOADS,
 }
+# the kernels each copy is timed on
+TIMED = {name: ("tile",) for name in COPIES}
+TIMED["whole"] = ("tile", "state_pass", "tc_pass")
+TIMED["pass_no_c_h"] = ("state_pass",)
+TIMED.update({name: ("tc_pass",) for name in COPIES if name.startswith("tc_")})
 
 
 def ref64(dtx, cum, b, c):
@@ -128,6 +152,7 @@ def build_copy(tmp, name, subs):
     p, i = ctypes.c_void_p, ctypes.c_int
     dll.ssd_chunk_wgmma_xdt_launch.argtypes = [p] * 5 + [i] * 6 + [p] * 3
     dll.ssd_state_pass_launch.argtypes = [p] * 4 + [i] * 9 + [p] * 3
+    dll.ssd_state_pass_wgmma_launch.argtypes = [p] * 4 + [i] * 9 + [p] * 3
     return dll
 
 
@@ -144,8 +169,10 @@ def times(dev, gen):
     out = torch.empty((B, nc * Q, H, P), dtype=torch.bfloat16, device=dev)
     final = torch.empty((B, H, N, P), device=dev)
     with tempfile.TemporaryDirectory() as tmp:
-        for name, subs in COPIES.items():
-            dll = build_copy(tmp, name, subs)
+        with ThreadPoolExecutor(max_workers=os.cpu_count()) as pool:
+            dlls = dict(zip(COPIES, pool.map(lambda kv: build_copy(tmp, *kv),
+                                             COPIES.items())))
+        for name, dll in dlls.items():
 
             def tile():
                 check(dll.ssd_chunk_wgmma_xdt_launch(
@@ -153,18 +180,17 @@ def times(dev, gen):
                     bm.data_ptr(), cm.data_ptr(), 1, B * nc, Q, H, N, P,
                     y.data_ptr(), st.data_ptr(), stream(xh)), name)
 
-            def state_pass():
-                check(dll.ssd_state_pass_launch(
+            def state_pass(launch):
+                return lambda: check(launch(
                     y.data_ptr(), st.data_ptr(), cum.data_ptr(), cm.data_ptr(),
                     1, 1, B, nc, Q, H, N, P, nc * Q, out.data_ptr(),
                     final.data_ptr(), stream(xh)), name)
 
-            row = {"copy": name}
-            if name != "pass_no_c_h":
-                row["tile_ms"] = S.time_ms(tile, reps=10)
-            if name in ("whole", "pass_no_c_h"):
-                row["state_pass_ms"] = S.time_ms(state_pass, reps=10)
-            S.emit(row)
+            fns = {"tile": tile,
+                   "state_pass": state_pass(dll.ssd_state_pass_launch),
+                   "tc_pass": state_pass(dll.ssd_state_pass_wgmma_launch)}
+            S.emit(dict({"copy": name}, **{
+                k + "_ms": S.time_ms(fns[k], reps=10) for k in TIMED[name]}))
 
 
 def main():
