@@ -46,7 +46,7 @@ Phases, in order; any failed check exits non-zero and prints no ok line:
    slice's shapes in float32 and bf16, plus a bitwise repeat of every
    launch; time kernel, plain version and (flash)
    ``scaled_dot_product_attention``.  Flash attention has two routes:
-   bf16 at head dims 64 and 128 runs ``flash_wgmma_kernel`` (tensor
+   bf16 at head dims 64, 96 and 128 runs ``flash_wgmma_kernel`` (tensor
    cores; the main path's), everything else ``flash_kernel`` (float32 on
    CUDA cores); each case is checked to have launched its route's kernel,
    and the float32 route is reported inside the flash record.  The
@@ -65,26 +65,44 @@ Phases, in order; any failed check exits non-zero and prints no ok line:
    record); the pass alone at the slice and the reference's small case,
    and the whole ``ssd_chunked`` (tile + pass) against the plain chunked
    SSD at the reference's cases, at L=1000 (a padded last chunk) and at
-   the slice.
-5. Serve the LM substrate at full width in two cells (``SERVE_CELLS``):
+   the slice.  Then head dim 96 on both flash routes
+   (``flash_d96_phase``: the ``flash_attention_d96`` record, phi3-mini's
+   prefill attention, timed beside SDPA) and the SSD at jamba's state
+   width N 16 (``jamba_ssd_phase``: the CUDA-core tile, the tensor-core
+   pass with one k16 step, and the whole ``ssd_chunked``; the
+   ``ssd_chunk_tiles_simt`` and ``ssd_state_pass_n16`` records).
+5. Serve the LM substrate at full width in five cells (``SERVE_CELLS``):
    ``serve-mamba2-370m`` (the SSD kernels' path: per layer one tensor-core
-   tile and one tensor-core state pass) and ``serve-yi-6b`` (the flash kernel's
-   path), random weights from a seeded generator.  Each
-   first checks the float32 model at a 1024-token prompt (kernel vs plain
-   prefill within 1e-4 of the max logit; decode vs prefill at t = 3 and
-   1023 within 2e-3) and compares kernel and plain prefill in bf16, then
-   runs the main path in bf16: ``build_prefill_step`` at 8192 tokens (cut
-   from ``prefill_32k``'s 32768 x 32) three times and ``serve`` at batch
-   4, 64 + 32 tokens, with each kernel's launch count held to layers x
-   prefill calls; last, one prefill under ``torch.profiler``.
+   tile and one tensor-core state pass), ``serve-yi-6b`` (the flash
+   kernel's path), ``serve-olmoe-1b-7b`` (MoE: 64 experts, top 8),
+   ``serve-phi3-mini-3.8b`` (flash at head dim 96) and
+   ``serve-jamba-v0.1-52b-8l`` (one super-block of the hybrid: flash, the
+   CUDA-core SSD tile and the tensor-core pass at N 16, MoE), random
+   weights from a seeded generator.  Each first checks the float32 model
+   at a 1024-token prompt (kernel vs plain prefill within 1e-4 of the max
+   logit, the kernel path replaying the plain path's MoE routing, with the
+   free routing's flips reported and failed above ``ROUTING_TIE_MARGIN``;
+   decode vs prefill at t = 3 and 1023 within 2e-3, MoE at capacity factor
+   8) and compares kernel and plain prefill in bf16 (both on the float32
+   plain path's MoE routing, flash also checked at the cell's attention
+   shape in ``lm-kernels``), then runs the main
+   path in bf16: ``build_prefill_step`` at 8192 tokens (cut from
+   ``prefill_32k``'s 32768 x 32) three times and ``serve`` at batch 4, 64
+   + 32 tokens, with each kernel's launch count held to the cell's
+   per-prefill count x prefill calls; last, one prefill under
+   ``torch.profiler`` (and, for MoE, its stages by CUDA events).  Then
+   every ported arch's reduced config in float32 (``reduced_archs_phase``:
+   kernel vs plain and decode vs prefill at 2 x 256 tokens; checks, not a
+   main path).
 6. Train the LM substrate (``TRAIN_CELLS``), random weights from a seeded
    generator, on the plain path (no kernel is on it: each entry run is
    driven with the kernel counts at 0 and must leave them there):
-   ``train-mamba2-370m`` at full width runs ``launch.train.train`` for
+   ``train-mamba2-370m-24l`` at full width (d 1024) with its depth cut to
+   24 of 48 layers runs ``launch.train.train`` for
    20 steps (8 agents, 8 x 1024 tokens, adamw on the cosine schedule at
    lr 3e-4, the ``hvp`` gain, eps 1, lambda 1e-3; a checkpoint written
    and restored bitwise; the loss must fall), the reference's
-   ``comm_savings`` study at full width (``COMM_SAVINGS``; the batches'
+   ``comm_savings`` study at that size (``COMM_SAVINGS``; the batches'
    tokens held to JAX 0.9.0's digests, lambda 0 at comm rate 1, one
    step at lambda 1e9 frozen bitwise), the step on the card against the
    port's own CPU run (``TRAIN_PARITY``) and g^T H g against a central
@@ -1858,6 +1876,26 @@ SSD_CHUNKED_WIDE = (dict(B=1, L=1000, H=32, P=64, N=128),
 # bf16 inputs) against the float32 reference on the same inputs, in bf16
 # ulps (``bf16_ulps``): rounding a float32-accurate result costs half an ulp.
 SSD_ULP_LIMIT = 1.0
+# Head dim 96 on both flash routes: the reference-style cases (GQA causal,
+# a ragged length under a window) and phi3-mini's prefill attention (3072 /
+# 32 heads, 32 kv heads) at B=1, L=8192.
+FLASH_D96_CASES = (
+    dict(B=1, L=128, H=4, KVH=2, D=96, causal=True, window=0),
+    dict(B=2, L=100, H=2, KVH=2, D=96, causal=True, window=48),
+)
+FLASH_SLICE_D96 = dict(B=1, L=8192, H=32, KVH=32, D=96, causal=True, window=0)
+# The other serving cells' attention at their main-path shapes, in bf16 as
+# the main path runs it: olmoe's prefill (B=4, 16 query and kv heads) and
+# jamba's attention layer (32 query heads, 8 kv heads), d=128.
+FLASH_MAIN_PATH = (dict(B=4, L=8192, H=16, KVH=16, D=128, causal=True, window=0),
+                   dict(B=1, L=8192, H=32, KVH=8, D=128, causal=True, window=0))
+# jamba's SSM at B=1, L=8192: 64 chunks of Q=128, 128 heads of P=64, N=16
+# (d_inner 8192).  The tile takes the CUDA-core route there (N 16 is not a
+# tensor-core width), the pass the tensor-core one (one k16 step of C . h).
+JAMBA_SSD_SLICE = dict(B=1, nc=64, Q=128, H=128, P=64, N=16)
+JAMBA_SSD_SMALL = dict(B=1, nc=3, Q=128, H=12, P=64, N=16)
+JAMBA_SSD_CHUNKED = (dict(B=1, L=1000, H=128, P=64, N=16),
+                     dict(B=1, L=8192, H=128, P=64, N=16))
 
 
 def _randn(gen, shape):
@@ -1965,7 +2003,8 @@ def empty_cache(dev):
 def lm_kernel_phase(dev):
     """Flash attention and the SSD tile against their plain versions: the
     reference's test cases at their tolerances and the slice's shapes in
-    float32 and bf16, a bitwise repeat of every launch, and timings of
+    float32 and bf16 (flash also at the other serving cells' shapes in
+    bf16, ``FLASH_MAIN_PATH``), a bitwise repeat of every launch, and timings of
     kernel, plain version and (flash) scaled_dot_product_attention."""
     import torch
     import torch.nn.functional as F
@@ -2036,11 +2075,255 @@ def lm_kernel_phase(dev):
         library_ms=time_ms(sdpa, reps=10), bound_ms=b_ms, bound_by=b_by)
     del q, k, v
     empty_cache(dev)
+    # the other serving cells' shapes, against the float32 reference one
+    # batch row at a time (its (H, L, L) scores are 4.3 GB a row at olmoe's)
+    for c in FLASH_MAIN_PATH:
+        q, k, v = _flash_inputs(gen, dev, c, torch.bfloat16)
+        label = f"flash {c} bf16 (a serving cell's shape)"
+        FA.reset_launches()
+        got = FA.flash_attention(q, k, v, causal=True)
+        check(FA.LAUNCHES[FA.WGMMA.counter] == 1
+              and sum(FA.LAUNCHES.values()) == 1,
+              f"{label}: launches {FA.LAUNCHES}, expected one {FA.WGMMA.kernel}")
+        want32 = torch.cat([ref.flash_attention_ref(
+            q[b:b + 1].float(), k[b:b + 1].float(), v[b:b + 1].float(),
+            causal=True) for b in range(c["B"])])
+        lf.close(label, got, want32.bfloat16(), FLASH_TOL["bfloat16"])
+        ulps = bf16_ulps(got, want32)
+        check(ulps <= FLASH_ULP_LIMIT, f"{label}: {ulps:.3f} bf16 ulps from "
+              f"the float32 reference, limit {FLASH_ULP_LIMIT}")
+        ulp_check["max_ulps"] = max(ulp_check["max_ulps"], ulps)
+        ulp_check["cases"] += 1
+        lf.repeat(label, lambda: FA.flash_attention(q, k, v, causal=True))
+        lf.cases += 1
+        del q, k, v, got, want32
+        empty_cache(dev)
 
+    flash_d96_phase(dev, gen, logs, timings)
     ssd_tile_phase(dev, gen, logs, timings)
     ssd_pass_phase(dev, gen, logs, timings)
     ssd_chunked_phase(dev, gen, logs)
+    jamba_ssd_phase(dev, gen, logs, timings)
     return logs, timings
+
+
+def flash_d96_phase(dev, gen, logs, timings):
+    """Head dim 96 on both routes (the ``flash_attention_d96`` record: the
+    tensor-core route, ``flash_wgmma_kernel`` in tiles padded to 128
+    columns; ``flash_kernel`` nested as its float32 route):
+    ``FLASH_D96_CASES`` and phi3-mini's prefill slice in float32 and bf16
+    at ``FLASH_TOL``, the tensor-core cases within ``FLASH_ULP_LIMIT`` of
+    the float32 reference, a bitwise repeat of each, each case's launch
+    checked, and the slice's times beside ``scaled_dot_product_attention``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+
+    lf = logs["flash_attention_d96"] = KernelLog()
+    simt = KernelLog()
+    ulp_check = lf.extra["bf16_ulp_check"] = dict(
+        max_ulps=0.0, cases=0, limit=FLASH_ULP_LIMIT)
+    for c in FLASH_D96_CASES + (FLASH_SLICE_D96,):
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = _flash_inputs(gen, dev, c, dt)
+            kw = dict(causal=c["causal"], window=c["window"])
+            tol = FLASH_TOL[str(dt).split(".")[-1]]
+            route = FA.route(dt, c["D"])
+            check(route is (FA.WGMMA if dt == torch.bfloat16 else FA.SIMT),
+                  f"flash d96 {dt}: route {route.kernel}")
+            label = f"flash {c} {dt} ({route.kernel})"
+            log = lf if route is FA.WGMMA else simt
+            FA.reset_launches()
+            got = FA.flash_attention(q, k, v, **kw)
+            check(FA.LAUNCHES[route.counter] == 1
+                  and sum(FA.LAUNCHES.values()) == 1,
+                  f"{label}: launches {FA.LAUNCHES}, expected one {route.kernel}")
+            log.close(label, got, ref.flash_attention_ref(q, k, v, **kw), tol)
+            if route is FA.WGMMA:
+                want32 = ref.flash_attention_ref(q.float(), k.float(),
+                                                 v.float(), **kw)
+                ulps = bf16_ulps(got, want32)
+                check(ulps <= FLASH_ULP_LIMIT,
+                      f"{label}: {ulps:.3f} bf16 ulps from the float32 "
+                      f"reference, limit {FLASH_ULP_LIMIT}")
+                ulp_check["max_ulps"] = max(ulp_check["max_ulps"], ulps)
+                ulp_check["cases"] += 1
+                del want32
+            log.repeat(label, lambda: FA.flash_attention(q, k, v, **kw))
+            log.cases += 1
+            del got
+            if c is FLASH_SLICE_D96 and dt == torch.float32:
+                b_ms, b_by = bound(*flash_work(c, 4))
+                simt_time = dict(ms=time_ms(lambda: FA.flash_attention(q, k, v),
+                                            reps=5, warmup=1),
+                                 bound_ms=b_ms, bound_by=b_by)
+            if c is not FLASH_SLICE_D96 or dt == torch.float32:
+                del q, k, v
+    from repro_torch.kernels import build
+    lib = build.load()
+    lf.extra.update(
+        kernel=FA.WGMMA.kernel, head_dim=96,
+        design="TMA boxes of 64 columns over the 96-wide tensor maps, tiles "
+               "padded to 128 columns (TMA fills 96-127 with zeros); Q K^T "
+               "over 96, P V at n128 with the last 32 columns never stored",
+        dynamic_smem_bytes=lib.flash_attention_wgmma_smem_bytes(96),
+        float32_route=dict(
+            kernel=FA.SIMT.kernel, cases=simt.cases, max_abs_err=simt.max_abs,
+            max_rel_err=simt.max_rel, repeat_bitwise=simt.repeat_bitwise,
+            tolerance=dict(FLASH_TOL), slice_dtype="float32", **simt_time))
+    # timed at phi3-mini's slice in bf16 (the serving cells' dtype)
+    sdpa = lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True)
+    lf.close("flash d96 slice vs scaled_dot_product_attention",
+             FA.flash_attention(q, k, v), sdpa().transpose(1, 2),
+             FLASH_TOL["bfloat16"])
+    moved, ops = flash_work(FLASH_SLICE_D96, 2)
+    b_ms, b_by = bound(moved, ops, PEAK_BF16_FLOPS)
+    # the kernel's own tensor-core products: Q K^T at 96 columns, P V as a
+    # hi/lo pair at n128
+    lf.extra["tensor_core_ops"] = ops // 2 * (96 + 2 * 128) // 96
+    timings["flash_attention_d96"] = dict(
+        ms=time_ms(lambda: FA.flash_attention(q, k, v), reps=10),
+        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v), reps=5,
+                         warmup=1),
+        library_ms=time_ms(sdpa, reps=10), bound_ms=b_ms, bound_by=b_by)
+    del q, k, v
+    empty_cache(dev)
+
+
+def jamba_ssd_phase(dev, gen, logs, timings):
+    """The SSD at jamba's state width N 16, where the main path runs the
+    CUDA-core tile (``ssd_chunk_tiles_simt`` record) and the tensor-core
+    pass with a single k16 step (``ssd_state_pass_n16`` record): the tile
+    alone and the pass alone at ``JAMBA_SSD_SLICE`` (the tile also at a
+    partial head group), the whole ``ssd_chunked`` at
+    ``JAMBA_SSD_CHUNKED``, each in float32 and bf16 against its plain
+    version, each launch checked and repeated bitwise, and the times."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.models import ssm
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    lt = logs["ssd_chunk_tiles_simt"] = KernelLog()
+    lp = logs["ssd_state_pass_n16"] = KernelLog()
+    c = JAMBA_SSD_SLICE
+    # the tile alone
+    for shape in (JAMBA_SSD_SMALL, c):
+        for dt in (f32, bf16):
+            dtx, cum, bm, cm = _ssd_inputs(gen, dev, shape, dt)
+            r = SS.route(shape["Q"], shape["N"], shape["P"], dt)
+            check(r is SS.SIMT, f"jamba ssd tile {shape} {dt}: {r.kernel}")
+            label = f"ssd tile {shape} {dt} ({r.kernel})"
+            run = lambda: SS.ssd_chunk_tiles(dtx, cum, bm, cm)
+            y, st = _ssd_launch(label, {r.counter: 1}, run)
+            yr, sr = ref.ssd_chunk_ref(dtx, cum, bm, cm)
+            lt.close(label + " y", y, yr, SSD_TILE_TOL)
+            lt.close(label + " state", st, sr, SSD_TILE_TOL)
+            lt.repeat(label, run)
+            lt.cases += 1
+            del y, st, yr, sr
+            if shape is c and dt == bf16:
+                # the card does these bf16 products on its tensor cores,
+                # so that is the bound, as for ssd_chunk_tiles; the kernel's
+                # own float32 CUDA-core rate sits beside it
+                moved, f32_ops = ssd_work(c, 2)
+                b_ms, b_by = bound(moved, ssd_tensor_core_ops(c, 2),
+                                   PEAK_BF16_FLOPS)
+                lt.extra.update(
+                    kernel=SS.SIMT.kernel, shape=dict(c),
+                    bound_f32_cuda_cores_ms=bound(moved, f32_ops)[0],
+                    tensor_core_ops=ssd_tensor_core_ops(c, 2))
+                timings["ssd_chunk_tiles_simt"] = dict(
+                    ms=time_ms(run, reps=10),
+                    plain_ms=time_ms(lambda: ref.ssd_chunk_ref(
+                        dtx, cum, bm, cm), reps=5, warmup=1),
+                    library_ms=None, bound_ms=b_ms, bound_by=b_by)
+            del dtx, cum, bm, cm
+    empty_cache(dev)
+    # the pass alone
+    y_intra, states, cum, c32 = _pass_inputs(gen, dev, c)
+    B, nc, Q, H, P, N = (c[k] for k in ("B", "nc", "Q", "H", "P", "N"))
+    ulps = lp.extra["bf16_ulp_check"] = dict(max_ulps=0.0, cases=0,
+                                             limit=SSD_ULP_LIMIT)
+    for dt, cut in ((f32, 0), (f32, 24), (bf16, 0), (bf16, 24)):
+        length, cm = nc * Q - cut, c32.to(dt)
+        r = SS.state_pass_route(Q, N, P, dt)
+        check(r == SS.STATE_PASS_WGMMA, f"jamba pass {dt}: {r.kernel}")
+        label = f"ssd state pass {c} {dt} length {length} ({r.kernel})"
+        run = lambda: SS.ssd_state_pass(y_intra, states, cum, cm, length, dt)
+        y, h = _ssd_launch(label, {r.counter: 1}, run)
+        yr, hr = ref.ssd_state_pass_ref(y_intra, states, cum, cm, length, f32)
+        check(tuple(y.shape) == (B, length, H, P) and y.dtype == dt,
+              f"{label}: y {tuple(y.shape)} {y.dtype}")
+        lp.close(label + " state", h, hr, SSD_CHUNKED_TOL)
+        if dt == f32:
+            lp.close(label + " y", y, yr, SSD_CHUNKED_TOL)
+        else:
+            u = bf16_ulps(y, yr)
+            check(u <= SSD_ULP_LIMIT, f"{label}: {u:.3f} bf16 ulps from the "
+                  f"float32 reference, limit {SSD_ULP_LIMIT}")
+            ulps["max_ulps"] = max(ulps["max_ulps"], u)
+            ulps["cases"] += 1
+        lp.repeat(label, run)
+        lp.cases += 1
+        del y, h, yr, hr
+    cm, length = c32.bfloat16(), nc * Q
+    del c32
+    timed = lambda route: time_ms(lambda: SS.ssd_state_pass(
+        y_intra, states, cum, cm, length, bf16, route=route), reps=10)
+    b_ms, b_by, tc_ops = ssd_state_pass_tc_bound(c, 2, 2)
+    simt_ms, simt_by = bound(*ssd_state_pass_work(c, 2, 2))
+    lp.extra.update(kernel=SS.STATE_PASS_WGMMA.kernel, shape=dict(c),
+                    tensor_core_ops=tc_ops,
+                    cuda_core_route=dict(kernel=SS.STATE_PASS_SIMT.kernel,
+                                         ms=timed(SS.STATE_PASS_SIMT),
+                                         bound_ms=simt_ms, bound_by=simt_by))
+    timings["ssd_state_pass_n16"] = dict(
+        ms=timed(None),
+        plain_ms=time_ms(lambda: ref.ssd_state_pass_ref(
+            y_intra, states, cum, cm, length, bf16), reps=5, warmup=1),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    del y_intra, states, cum, cm
+    empty_cache(dev)
+    # the whole ssd_chunked: tile + pass
+    worst = 0.0
+    for shape in JAMBA_SSD_CHUNKED:
+        for dt in (f32, bf16):
+            B, L, H, P, N = (shape[k] for k in ("B", "L", "H", "P", "N"))
+            xh = _randn(gen, (B, L, H, P)).to(dt).to(dev)
+            dt_ = (_randn(gen, (B, L, H)).abs() * 0.1).to(dev)
+            a = -_randn(gen, (H,)).abs().to(dev)
+            bm = _randn(gen, (B, L, N)).to(dt).to(dev)
+            cm = _randn(gen, (B, L, N)).to(dt).to(dev)
+            label = f"ssd_chunked {shape} chunk=128 {dt}"
+            run = lambda: SS.ssd_chunked(xh, dt_, a, bm, cm, chunk=128)
+            y1, h1 = _ssd_launch(label, {SS.SIMT.counter: 1,
+                                         SS.STATE_PASS_WGMMA.counter: 1}, run)
+            y2, h2 = ssm.ssd_chunked(xh.float(), dt_, a, bm.float(), cm.float(),
+                                     chunk=128)
+            check(y1.dtype == dt, f"{label}: y dtype {y1.dtype}")
+            lp.close(label + " state", h1, h2, SSD_CHUNKED_TOL)
+            if dt == f32:
+                lp.close(label + " y", y1, y2, SSD_CHUNKED_TOL)
+            else:
+                u = bf16_ulps(y1, y2)
+                check(u <= SSD_ULP_LIMIT, f"{label}: {u:.3f} bf16 ulps from "
+                      f"the float32 plain path, limit {SSD_ULP_LIMIT}")
+                worst = max(worst, u)
+            lp.repeat(label, run)
+            lp.cases += 1
+            if shape is JAMBA_SSD_CHUNKED[-1] and dt == bf16:
+                lt.extra["ssd_chunked_slice"] = dict(
+                    dtype="bfloat16", shape=dict(shape),
+                    ms=time_ms(run, reps=10),
+                    plain_ms=time_ms(lambda: ssm.ssd_chunked(
+                        xh, dt_, a, bm, cm, chunk=128), reps=3, warmup=1))
+            del xh, dt_, bm, cm, y1, h1, y2, h2
+            empty_cache(dev)
+    lt.extra["ssd_chunked_bf16_ulps"] = worst
 
 
 def _ssd_launch(label, counter, fn):
@@ -2283,11 +2566,13 @@ class ServeCell(NamedTuple):
     arch: str
     kernels: tuple         # the kernel records this cell's prefill runs
     counters: tuple        # their launch counters, in the same order
+    per_prefill: tuple     # each counter's launches in one prefill call
     prefill_batch: int     # cut from prefill_32k's 32 (configs/base.py)
     prefill_len: int       # cut from prefill_32k's 32768
     serve_batch: int
     prompt_len: int
     gen_len: int
+    layers: Optional[int] = None   # depth cut; None keeps the published depth
 
 
 SERVE_CELLS = (
@@ -2295,23 +2580,47 @@ SERVE_CELLS = (
     # a CUDA-core route (the sum of all counts is held to these two)
     ServeCell("serve-mamba2-370m", "mamba2-370m",
               ("ssd_chunk_tiles", "ssd_state_pass"),
-              ("ssd_chunk_tiles_wgmma", "ssd_state_pass_wgmma"), 4, 8192, 4,
-              64, 32),
+              ("ssd_chunk_tiles_wgmma", "ssd_state_pass_wgmma"), (48, 48),
+              4, 8192, 4, 64, 32),
     # bf16 prefill at head dim 128: the tensor-core route, never flash_kernel
     ServeCell("serve-yi-6b", "yi-6b", ("flash_attention",),
-              ("flash_attention_wgmma",), 1, 8192, 4, 64, 32),
+              ("flash_attention_wgmma",), (32,), 1, 8192, 4, 64, 32),
+    # MoE at full width: 64 experts, top 8, d 128 attention in every layer
+    ServeCell("serve-olmoe-1b-7b", "olmoe-1b-7b", ("flash_attention",),
+              ("flash_attention_wgmma",), (16,), 4, 8192, 4, 64, 32),
+    # head dim 96 on the tensor-core route
+    ServeCell("serve-phi3-mini-3.8b", "phi3-mini-3.8b", ("flash_attention_d96",),
+              ("flash_attention_wgmma",), (32,), 1, 8192, 4, 64, 32),
+    # one super-block of the hybrid (the whole model needs ~104 GB in bf16):
+    # one attention layer, seven mamba2 layers at N 16 (the CUDA-core tile,
+    # the tensor-core pass), four MoE MLPs of 16 experts and four dense ones
+    ServeCell("serve-jamba-v0.1-52b-8l", "jamba-v0.1-52b",
+              ("flash_attention", "ssd_chunk_tiles_simt", "ssd_state_pass_n16"),
+              ("flash_attention_wgmma", "ssd_chunk_tiles_simt",
+               "ssd_state_pass_wgmma"), (1, 7, 7), 1, 8192, 4, 64, 32,
+              layers=8),
 )
-# the CUDA kernel a record's main path launches, as a profiler trace names it
-CUDA_KERNEL_NAMES = {"flash_attention": "flash_wgmma_kernel",
-                     "ssd_chunk_tiles": "ssd_chunk_wgmma_kernel",
-                     "ssd_state_pass": "ssd_state_pass_wgmma_kernel"}
 # cuBLAS's and CUTLASS's matrix-product kernels (nvjet: cuBLAS on Hopper)
 MATMUL_KERNEL_WORDS = ("gemm", "nvjet", "xmma", "cutlass", "matmul")
+# indexing, scatter and gather kernels: the MoE's dispatch and combine (and
+# the embedding lookup), a part of the rest
+INDEX_KERNEL_WORDS = ("index", "gather", "scatter", "scan", "sort")
 PREFILL_CALLS = 3          # one warm-up, two timed
 CHECK_LEN = 1024           # float32 full-width correctness prompt
 CHECK_BATCH = 2
 KERNEL_VS_PLAIN_TOL = 1e-4     # of the logits' max |value|, float32
 DECODE_TOL = 2e-3              # rtol = atol, tests/test_models_smoke.py:67-103
+# tests/test_models_smoke.py:73-77: decode equals prefill only where
+# prefill drops nothing, so decode-vs-prefill runs MoE configs at this
+# capacity factor (every other check keeps the published one)
+DECODE_CAPACITY_FACTOR = 8.0
+# A token whose k-th and (k+1)-th router probabilities lie this close
+# (relative to the k-th) is a tie: float noise between two computations of
+# the same model may swap its experts.  A flip of the expert set at a wider
+# margin in the plain path is a fault.
+ROUTING_TIE_MARGIN = 1e-5
+REDUCED_LEN = 256          # reduced-archs prompt: beyond the reduced window 64
+REDUCED_BATCH = 2
 
 
 def _lm_kernels():
@@ -2330,6 +2639,81 @@ def all_launches():
     return {k: v for mod in _lm_kernels() for k, v in mod.LAUNCHES.items()}
 
 
+class Routing:
+    """Record the MoE routing of one forward and replay it in another.
+
+    ``route`` picks each MoE layer's experts through the module-level
+    ``repro_torch.models.moe.top_k_ids``, once a layer, in layer order.
+    ``record()`` wraps it so that each call keeps its expert choices and
+    the relative margin between its k-th and (k+1)-th probabilities;
+    ``replay()`` makes the same calls of a second forward return the
+    recorded experts (the gates are that forward's own probabilities at
+    them) and counts, afresh for each replay, the tokens whose own top-k
+    set differs from the recorded one, with the recorded margin.  A
+    comparison under replay then measures what the kernels (or the dtype)
+    change, and the flips (free routing) are reported beside it, layer by
+    layer, without the cascade a flip would start in later layers."""
+
+    def __init__(self):
+        self.ids, self.margins = [], []
+        self.flips = []                 # (call, margin) of each flipped token
+
+    def _swap(self, fn):
+        import contextlib
+        from repro_torch.models import moe
+
+        @contextlib.contextmanager
+        def ctx():
+            orig = moe.top_k_ids
+            moe.top_k_ids = lambda probs, k: fn(orig, probs, k)
+            try:
+                yield self
+            finally:
+                moe.top_k_ids = orig
+        return ctx()
+
+    def record(self):
+        import torch
+
+        def fn(orig, probs, k):
+            ids = orig(probs, k)
+            self.ids.append(ids)
+            if k < probs.shape[-1]:
+                top = torch.topk(probs, k + 1, dim=-1).values
+                self.margins.append((top[..., k - 1] - top[..., k])
+                                    / top[..., k - 1])
+            else:
+                self.margins.append(torch.ones_like(probs[..., 0]))
+            return ids
+        return self._swap(fn)
+
+    def replay(self):
+        calls = iter(range(len(self.ids)))
+        self.flips = []
+
+        def fn(orig, probs, k):
+            i = next(calls)
+            want = self.ids[i]
+            own = orig(probs, k)
+            differ = (own.sort(-1).values != want.sort(-1).values).any(-1)
+            for m in self.margins[i][differ].tolist():
+                self.flips.append((i, m))
+            return want
+        return self._swap(fn)
+
+    def report(self, label):
+        """The flips' count and margins; fails on one wider than a tie."""
+        margins = [m for _, m in self.flips]
+        out = dict(moe_calls=len(self.ids), flips=len(margins),
+                   flip_margins=sorted(margins, reverse=True)[:16],
+                   flip_layers=sorted({i for i, _ in self.flips}),
+                   tie_margin=ROUTING_TIE_MARGIN)
+        check(all(m <= ROUTING_TIE_MARGIN for m in margins),
+              f"{label}: routing flips at margins {out['flip_margins']}, "
+              f"over the tie margin {ROUTING_TIE_MARGIN}")
+        return out
+
+
 def _all_logits(model, tokens, use_kernels):
     """(B, L, V) float32 logits of every position, through the kernels or
     through the plain versions."""
@@ -2343,27 +2727,50 @@ def _all_logits(model, tokens, use_kernels):
         model.use_kernels = True
 
 
-def float32_checks(dev, cell, tokens):
-    """Full width in float32: kernel vs plain prefill, and decode vs prefill
-    (the reference's contract, now with the kernel on one side).  Returns
-    the line's fields and the plain float32 logits of every position."""
+def _serve_cfg(cell, **changes):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(cell.arch)
+    if cell.layers is not None:
+        changes["num_layers"] = cell.layers
+    return dataclasses.replace(cfg, **changes)
+
+
+def model_checks(dev, name, cfg, tokens, keep_plain=False):
+    """Float32 checks of one model: kernel vs plain prefill at the last
+    position (the kernel path replaying the plain path's MoE routing) with
+    the free routing's flips reported, and decode vs prefill at t = 3 and
+    L - 1 (MoE at ``DECODE_CAPACITY_FACTOR``).  Returns the line's fields,
+    the plain logits of every position (with ``keep_plain``, else None) and
+    the plain path's recorded routing."""
     import dataclasses
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.steps import build_prefill_step, build_serve_step
     from repro_torch.models import build_model
 
-    cfg = dataclasses.replace(get_config(cell.arch), dtype="float32")
     model = build_model(cfg, dev, seed=0)
     prefill = build_prefill_step(model, cfg, dev)
-    plain = _all_logits(model, tokens, use_kernels=False)
-    kern = prefill(tokens)[0]
+    routing = Routing()
+    with routing.record():
+        plain = _all_logits(model, tokens, use_kernels=False)
+    with routing.replay():
+        kern = prefill(tokens)[0]
     scale = float(plain[:, -1].abs().max())
     kvp = float((kern - plain[:, -1]).abs().max())
     check(bool(torch.isfinite(kern).all()) and kvp <= KERNEL_VS_PLAIN_TOL * scale,
-          f"{cell.name} float32: kernel vs plain prefill differ by {kvp:.3g} "
+          f"{name} float32: kernel vs plain prefill differ by {kvp:.3g} "
           f"(max |logit| {scale:.3g}, tolerance {KERNEL_VS_PLAIN_TOL} of it)")
+    out = dict(kernel_vs_plain_max_abs=kvp, max_abs_logit=scale)
+    if cfg.is_moe:
+        out["routing"] = routing.report(f"{name} float32")
+        model.cfg = cfg = dataclasses.replace(
+            cfg, capacity_factor=DECODE_CAPACITY_FACTOR)
+        kern = prefill(tokens)[0]
+        out["decode_capacity_factor"] = DECODE_CAPACITY_FACTOR
+    if not keep_plain:
+        del plain
+        plain = None
 
     B, L = tokens.shape
     step, init_cache = build_serve_step(
@@ -2376,26 +2783,43 @@ def float32_checks(dev, cell, tokens):
             want = kern if t == L - 1 else prefill(tokens[:, :t + 1])[0]
             err = float(((logits - want).abs()
                          / (DECODE_TOL + DECODE_TOL * want.abs())).max())
-            check(err <= 1.0, f"{cell.name} float32: decode at t={t} vs "
+            check(err <= 1.0, f"{name} float32: decode at t={t} vs "
                   f"prefill is {err:.3g} of its {DECODE_TOL} tolerance")
             decode_err[str(t)] = float((logits - want).abs().max())
+    out["decode_vs_prefill_max_abs"] = decode_err
     del model, prefill, step, cache
     empty_cache(dev)
-    return dict(kernel_vs_plain_max_abs=kvp, max_abs_logit=scale,
-                decode_vs_prefill_max_abs=decode_err), plain
+    return out, plain, routing
 
 
-def bf16_comparison(model, tokens, plain32):
+def bf16_comparison(model, tokens, plain32, routing32):
     """Kernel vs plain prefill in bf16, over every position, beside the
-    plain bf16 path's own distance from float32 (its yardstick)."""
-    kern = _all_logits(model, tokens, use_kernels=True)
-    plain = _all_logits(model, tokens, use_kernels=False)
+    plain bf16 path's own distance from float32 (its yardstick).  Both bf16
+    paths replay ``routing32``, the float32 plain path's MoE routing, so
+    that the yardstick measures bf16 rounding alone and the comparison what
+    the kernels change; the tokens whose bf16 routing would differ are
+    reported."""
+    with routing32.replay():
+        plain = _all_logits(model, tokens, use_kernels=False)
+    plain_flips = routing32.flips
+    with routing32.replay():
+        kern = _all_logits(model, tokens, use_kernels=True)
+    kernel_flips = routing32.flips
     top1 = lambda a, b: float((a.argmax(-1) == b.argmax(-1)).float().mean())
     out = dict(kernel_vs_plain_max_abs=float((kern - plain).abs().max()),
                kernel_vs_plain_top1=top1(kern, plain),
                plain_vs_float32_max_abs=float((plain - plain32).abs().max()),
                plain_vs_float32_top1=top1(plain, plain32),
                max_abs_logit=float(plain.abs().max()))
+    if routing32.ids:
+        # bf16 noise is far coarser than float32's: the flips (against the
+        # float32 routing, with its margins) are reported, not held to the
+        # float32 tie margin
+        out["routing"] = dict(
+            moe_calls=len(routing32.ids), replayed="float32 plain path's",
+            plain_flips=len(plain_flips), kernel_flips=len(kernel_flips),
+            flip_margin_max=max((m for _, m in plain_flips + kernel_flips),
+                                default=0.0))
     # both paths accumulate attention / the SSD in float32 and round to bf16
     # at the same places, so the kernel may move the bf16 model's logits no
     # further than bf16 itself moves them from the float32 model
@@ -2409,8 +2833,9 @@ def prefill_breakdown(dev, prefill, tokens, kernel_names):
     """Device time of one prefill (or any ``prefill(tokens)`` call: the TD
     phase traces a sweep) by kernel class from a torch.profiler trace (the
     ported kernels ``kernel_names``, together and each, matrix products,
-    the rest) and the device's idle share of the wall time; "not
-    measured" if the trace has no device time."""
+    the rest, and of the rest the indexing kernels) and the device's idle
+    share of the wall time; "not measured" if the trace has no device
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     sync(dev)
@@ -2420,6 +2845,7 @@ def prefill_breakdown(dev, prefill, tokens, kernel_names):
         sync(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups = {"kernel_ms": 0.0, "matmul_ms": 0.0, "other_ms": 0.0}
+    index_ms = 0.0
     per_kernel = dict.fromkeys(kernel_names, 0.0)
     by_name = {}
     for evt in prof.key_averages():
@@ -2437,37 +2863,85 @@ def prefill_breakdown(dev, prefill, tokens, kernel_names):
             groups["matmul_ms"] += ms
         else:
             groups["other_ms"] += ms
+            if any(w in name for w in INDEX_KERNEL_WORDS):
+                index_ms += ms
     busy = sum(groups.values())
     if busy == 0:
         return {"device_time": "not measured", "wall_ms": wall_ms}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return dict(groups, kernels_ms=per_kernel, device_busy_ms=busy,
-                wall_ms=wall_ms,
+                index_kernels_ms=index_ms, wall_ms=wall_ms,
                 device_idle_share=max(0.0, 1 - busy / wall_ms),
                 top_kernels_ms=dict(top))
+
+
+def moe_stage_ms(dev, prefill, tokens):
+    """The MoE layers' stages in one prefill, by CUDA events recorded around
+    each call of ``route`` (router, softmax, top-k, slots), ``dispatch``
+    (the slot table and the gather of tokens), ``expert_ffn`` (the batched
+    expert products and the activation) and ``combine`` (the gather of the
+    outputs and the gated sum), summed over the layers; the interval holds
+    any device idle time inside a stage."""
+    import torch
+    from repro_torch.models import moe
+    stages = ("route", "dispatch", "expert_ffn", "combine")
+    events = {s: [] for s in stages}
+    orig = {s: getattr(moe, s) for s in stages}
+
+    def timed(stage):
+        def fn(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = orig[stage](*a, **kw)
+            e1.record()
+            events[stage].append((e0, e1))
+            return out
+        return fn
+
+    for s in stages:
+        setattr(moe, s, timed(s))
+    try:
+        sync(dev)
+        t0 = time.perf_counter()
+        prefill(tokens)
+        sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for s in stages:
+            setattr(moe, s, orig[s])
+    out = {f"{s}_ms": sum(a.elapsed_time(b) for a, b in events[s])
+           for s in stages}
+    out.update(calls=len(events["route"]), prefill_wall_ms=wall_ms)
+    return out
 
 
 def serve_phase(dev, cell):
     """One serving cell: the float32 full-width checks and the bf16
     comparison, then the main path — prefill at the cell's length and
     ``serve`` — with the launch counts reset just before and read after,
-    then one profiled prefill."""
+    then one profiled prefill (and, for MoE, its stages by CUDA events)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
     from repro_torch.launch.steps import build_prefill_step
     from repro_torch.models import build_model
 
-    cfg = get_config(cell.arch)
+    cfg = _serve_cfg(cell)
     gen = torch.Generator(device=dev).manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (CHECK_BATCH, CHECK_LEN),
                            generator=gen, device=dev)
-    f32, plain32 = float32_checks(dev, cell, tokens)
+    # full width in float32 (the reference's contract, now with the kernel
+    # on one side), keeping the plain logits and MoE routing for the bf16
+    # check's yardstick
+    f32, plain32, routing32 = model_checks(
+        dev, cell.name, _serve_cfg(cell, dtype="float32"), tokens,
+        keep_plain=True)
 
     model = build_model(cfg, dev, seed=0)   # bf16: the float32 draws, rounded
     prefill = build_prefill_step(model, cfg, dev)
-    bf16 = bf16_comparison(model, tokens, plain32)
-    del plain32
+    bf16 = bf16_comparison(model, tokens, plain32, routing32)
+    del plain32, routing32
     empty_cache(dev)
 
     big = torch.randint(0, cfg.vocab_size, (cell.prefill_batch, cell.prefill_len),
@@ -2493,12 +2967,13 @@ def serve_phase(dev, cell):
     res = serve(cfg, batch=cell.serve_batch, prompt_len=cell.prompt_len,
                 gen_len=cell.gen_len, seed=0, device=dev)
     counts = all_launches()                        # ... and ends here
-    expect = cfg.num_layers * PREFILL_CALLS
-    for counter in cell.counters:
-        check(counts[counter] == expect,
+    expect = {c: n * PREFILL_CALLS
+              for c, n in zip(cell.counters, cell.per_prefill)}
+    for counter, n in expect.items():
+        check(counts[counter] == n,
               f"{cell.name}: {counter} launched {counts[counter]} times, "
-              f"expected {expect} (layers x prefill calls)")
-    check(sum(counts.values()) == expect * len(cell.counters),
+              f"expected {n} (per prefill call x prefill calls)")
+    check(sum(counts.values()) == sum(expect.values()),
           f"{cell.name}: other kernels launched: {counts}")
     toks = res["tokens"]
     check(tuple(toks.shape) == (cell.serve_batch, cell.gen_len)
@@ -2515,18 +2990,25 @@ def serve_phase(dev, cell):
     del res
     empty_cache(dev)
     model = build_model(cfg, dev, seed=0)
-    breakdown = prefill_breakdown(dev, build_prefill_step(model, cfg, dev),
-                                  big, tuple(CUDA_KERNEL_NAMES[k]
-                                             for k in cell.kernels))
-    del model
+    prefill = build_prefill_step(model, cfg, dev)
+    breakdown = prefill_breakdown(dev, prefill, big,
+                                  tuple(dict.fromkeys(
+                                      RECORDS[k].cuda_kernel
+                                      for k in cell.kernels)))
+    if cfg.is_moe and dev.type == "cuda":
+        breakdown["moe_stages_ms"] = moe_stage_ms(dev, prefill, big)
+    del model, prefill
     empty_cache(dev)
     prefill_ms = statistics.median(times[1:])     # the first is the warm-up
+    published = get_config(cell.arch).num_layers
     line = dict(
         cell=cell.name, arch=cell.arch, dtype=cfg.dtype,
         layers=cfg.num_layers, d_model=cfg.d_model,
         reduced=[f"prefill length {cell.prefill_len} of prefill_32k's 32768",
                  f"prefill batch {cell.prefill_batch} of prefill_32k's 32",
-                 "random weights (seeded torch.Generator)"],
+                 "random weights (seeded torch.Generator)"]
+        + ([f"depth {cfg.num_layers} of the published {published}"]
+           if cell.layers is not None else []),
         prefill_batch=cell.prefill_batch, prefill_len=cell.prefill_len,
         prefill_ms=prefill_ms, prefill_ms_all=times,
         prefill_tokens_per_s=cell.prefill_batch * cell.prefill_len
@@ -2542,6 +3024,33 @@ def serve_phase(dev, cell):
     # nests its other route's main-path count)
     return line, dict(counts, **{k: counts[c] for k, c
                                  in zip(cell.kernels, cell.counters)})
+
+
+def reduced_archs_phase(dev):
+    """Every ported arch's reduced config (``reduced()``: 2 layers, d 256,
+    4 experts, head dim 64, the sliding window cut to 64) on the card in
+    float32 (``model_checks``: kernel vs plain prefill with the routing
+    replayed and its flips reported, decode vs prefill) at a 2 x 256 prompt,
+    longer than the window so that mixtral's window mask is live.  The
+    kernels' launches are checks here, not a main path: they are reported
+    and not counted in the ``kernels`` line."""
+    import torch
+    from repro_torch.configs import ARCH_NAMES, get_config
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    for arch in ARCH_NAMES:
+        cfg = get_config(arch).reduced()
+        tokens = torch.randint(0, cfg.vocab_size, (REDUCED_BATCH, REDUCED_LEN),
+                               generator=gen, device=dev)
+        reset_all_launches()
+        fields, _, _ = model_checks(dev, f"{arch} reduced", cfg, tokens)
+        fields["launches"] = {k: v for k, v in all_launches().items() if v}
+        check(sum(fields["launches"].values()) > 0,
+              f"{arch} reduced: no kernel launched")
+        out[arch] = fields
+    return dict(phase="reduced-archs", prompt=[REDUCED_BATCH, REDUCED_LEN],
+                archs=out, tolerance=dict(kernel_vs_plain=KERNEL_VS_PLAIN_TOL,
+                                          decode_vs_prefill=DECODE_TOL)), {}
 
 
 # ---------------------------------------------------------------------------
@@ -2561,9 +3070,12 @@ class TrainCell(NamedTuple):
 
 
 # launch/train.py's run: adamw on its cosine schedule, eps 1, the hvp gain;
-# lambda 1e-3 is tests/test_system.py:24's
+# lambda 1e-3 is tests/test_system.py:24's.  mamba2-370m's depth is cut to
+# 24 of 48 layers to keep the whole smoke inside its time limit beside the
+# serving cells of later slices (its step's time is linear in the depth).
 TRAIN_CELLS = (
-    TrainCell("train-mamba2-370m", "mamba2-370m", None, 8, 8, 1024, 20, 1e-3),
+    TrainCell("train-mamba2-370m-24l", "mamba2-370m", 24, 8, 8, 1024, 20,
+              1e-3),
     TrainCell("train-yi-6b-4l", "yi-6b", 4, 4, 8, 1024, 5, 1e-3),
 )
 TRAIN_LR = 3e-4
@@ -3024,9 +3536,10 @@ def train_phase(dev, cell):
         t0 = time.perf_counter()
         line["comm_savings"] = comm_savings_run(dev, cfg)
         line["comm_savings"]["reduced"] = [
-            "mamba2-370m at its published width (48 layers, d 1024); the "
-            "study ran the reduced config", "random weights (seeded "
-            "torch.Generator), not jax.random.key(0)'s"]
+            f"mamba2-370m at its published width (d 1024), depth "
+            f"{cfg.num_layers} of 48; the study ran the reduced config",
+            "random weights (seeded torch.Generator), not "
+            "jax.random.key(0)'s"]
         line["comm_savings"]["seconds"] = time.perf_counter() - t0
         empty_cache(dev)
         line["parity_card_vs_cpu"] = train_parity_check(dev)
@@ -3035,30 +3548,54 @@ def train_phase(dev, cell):
     return line, {}
 
 
-REPLACES = {
-    "gain_matvec": "src/repro/kernels/gain.py:144",
-    "gain_family_stats": "src/repro/kernels/gain.py:241",
-    "megastep": "src/repro/kernels/gain.py:428",
-    "flash_attention": "src/repro/kernels/flash_attention.py:75",
-    "ssd_chunk_tiles": "src/repro/kernels/ssd_scan.py:53",
-    "ssd_state_pass": "src/repro/kernels/ssd_scan.py:133",
-}
-# a record that replaces code of the reference other than a Pallas kernel
-REPLACES_NOTE = {
-    "ssd_state_pass": "XLA code around the Pallas tile in ssd_chunked_pallas "
-                      "(the inter-chunk lax.scan :133-140 and the inter-chunk "
-                      "output term :143-145), not a Pallas kernel",
-}
+class Record(NamedTuple):
+    """What a ``kernels`` record says of its kernel besides the numbers."""
+    source: str             # the CUDA source, in the repo
+    replaces: str           # file:line of the reference code it replaces
+    tolerance: dict
+    cuda_kernel: str = ""   # the kernel the main path launches, as a trace names it
+    replaces_note: str = ""   # set where that code is not a Pallas kernel
+    route_of: str = ""      # set for one route or shape of a recorded kernel
+
+
 CSRC = "src/repro_torch/kernels/csrc/"
-SOURCES = {"gain_matvec": CSRC + "gain.cu", "gain_family_stats": CSRC + "gain.cu",
-           "megastep": CSRC + "gain.cu",
-           "flash_attention": CSRC + "flash_attention.cu",
-           "ssd_chunk_tiles": CSRC + "ssd_scan.cu",
-           "ssd_state_pass": CSRC + "ssd_scan.cu"}
-TOLERANCES = {"flash_attention": dict(FLASH_TOL),
-              "ssd_chunk_tiles": dict(tile=SSD_TILE_TOL),
-              "ssd_state_pass": dict(chunked=SSD_CHUNKED_TOL,
-                                     bf16_ulps=SSD_ULP_LIMIT)}
+_GAIN = dict(source=CSRC + "gain.cu",
+             tolerance=dict(ragged=KERNEL_TOL, main_path=WEIGHT_TOL))
+_FLASH = dict(source=CSRC + "flash_attention.cu",
+              replaces="src/repro/kernels/flash_attention.py:75",
+              tolerance=dict(FLASH_TOL), cuda_kernel="flash_wgmma_kernel")
+_TILE = dict(source=CSRC + "ssd_scan.cu",
+             replaces="src/repro/kernels/ssd_scan.py:53")
+_PASS = dict(source=CSRC + "ssd_scan.cu",
+             replaces="src/repro/kernels/ssd_scan.py:133",
+             tolerance=dict(chunked=SSD_CHUNKED_TOL, bf16_ulps=SSD_ULP_LIMIT),
+             cuda_kernel="ssd_state_pass_wgmma_kernel",
+             replaces_note="XLA code around the Pallas tile in "
+                           "ssd_chunked_pallas (the inter-chunk lax.scan "
+                           ":133-140 and the inter-chunk output term "
+                           ":143-145), not a Pallas kernel")
+RECORDS = {
+    "gain_matvec": Record(replaces="src/repro/kernels/gain.py:144", **_GAIN),
+    "gain_family_stats": Record(replaces="src/repro/kernels/gain.py:241",
+                                **_GAIN),
+    "megastep": Record(replaces="src/repro/kernels/gain.py:428", **_GAIN),
+    "flash_attention": Record(**_FLASH),
+    "flash_attention_d96": Record(
+        **_FLASH, route_of="flash_attention's tensor-core route at head dim "
+                           "96 (phi3-mini): flash_wgmma_kernel<96>"),
+    "ssd_chunk_tiles": Record(**_TILE, tolerance=dict(tile=SSD_TILE_TOL),
+                              cuda_kernel="ssd_chunk_wgmma_kernel"),
+    "ssd_chunk_tiles_simt": Record(
+        **_TILE, tolerance=dict(tile=SSD_TILE_TOL, chunked=SSD_CHUNKED_TOL,
+                                bf16_ulps=SSD_ULP_LIMIT),
+        cuda_kernel="ssd_chunk_kernel",
+        route_of="ssd_chunk_tiles' CUDA-core route at N 16 (jamba): "
+                 "ssd_chunk_kernel"),
+    "ssd_state_pass": Record(**_PASS),
+    "ssd_state_pass_n16": Record(
+        **_PASS, route_of="ssd_state_pass' tensor-core route at N 16 "
+                          "(jamba): ssd_state_pass_wgmma_kernel"),
+}
 
 
 def kernel_lines(logs, timings, launches):
@@ -3073,23 +3610,23 @@ def kernel_lines(logs, timings, launches):
     the slice, main-path launches) beside its CUDA-core bound and both
     routes' float32-C times; gain_matvec's counts the passes its checked
     cases took and keeps its alternating trials against torch.matmul.  A
-    record that replaces no Pallas kernel says so in ``replaces_note``."""
+    record that replaces no Pallas kernel says so in ``replaces_note``;
+    a record of one route or shape of a kernel that has its own record
+    (head dim 96, jamba's N 16) says which in ``route_of``."""
     kernels = []
     nested = logs["ssd_state_pass"].extra.get("cuda_core_route")
     if nested is not None:
         nested["launches"] = launches.get("ssd_state_pass_simt", 0)
     for name, log in logs.items():
         t = timings[name]
+        rec = RECORDS[name]
         kernels.append(dict(
-            name=name, route="cuda",
-            source=SOURCES[name],
-            replaces=REPLACES[name],
-            **({"replaces_note": REPLACES_NOTE[name]}
-               if name in REPLACES_NOTE else {}),
+            name=name, route="cuda", source=rec.source, replaces=rec.replaces,
+            **{k: getattr(rec, k) for k in ("replaces_note", "route_of")
+               if getattr(rec, k)},
             launches=launches.get(name, 0),
             max_abs_err=log.max_abs, max_rel_err=log.max_rel,
-            tolerance=TOLERANCES.get(
-                name, dict(ragged=KERNEL_TOL, main_path=WEIGHT_TOL)),
+            tolerance=rec.tolerance,
             repeat_bitwise=log.repeat_bitwise,
             decision_tie_flips=log.tie_flips, cases=log.cases,
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
@@ -3136,7 +3673,10 @@ def main():
                     "nvcc_seconds": made.seconds, "ptxas": regs,
                     "flash_wgmma_dynamic_smem_bytes": {
                         d: lib.flash_attention_wgmma_smem_bytes(d)
-                        for d in (64, 128)},
+                        for d in (64, 96, 128)},
+                    "flash_wgmma_blocks_per_sm": {
+                        d: lib.flash_attention_wgmma_blocks_per_sm(d)
+                        for d in (64, 96, 128)},
                     "ssd_chunk_wgmma_dynamic_smem_bytes":
                         lib.ssd_chunk_wgmma_smem_bytes(128, 128, 64, 1),
                     "ssd_state_pass_dynamic_smem_bytes":
@@ -3145,12 +3685,17 @@ def main():
                         "bf16_c": lib.ssd_state_pass_wgmma_smem_bytes(
                             128, 128, 1),
                         "float32_c": lib.ssd_state_pass_wgmma_smem_bytes(
-                            128, 128, 0)},
+                            128, 128, 0),
+                        "bf16_c_n16": lib.ssd_state_pass_wgmma_smem_bytes(
+                            128, 16, 1)},
                     "blocks_per_sm": {
-                        "ssd_chunk_wgmma_kernel": lib.ssd_blocks_per_sm(0),
-                        "ssd_state_pass_kernel": lib.ssd_blocks_per_sm(1),
+                        "ssd_chunk_wgmma_kernel": lib.ssd_blocks_per_sm(0, 128),
+                        "ssd_state_pass_kernel": lib.ssd_blocks_per_sm(1, 128),
                         "ssd_state_pass_wgmma_kernel":
-                            lib.ssd_blocks_per_sm(2)}}})
+                            lib.ssd_blocks_per_sm(2, 128),
+                        "ssd_chunk_kernel_n16": lib.ssd_blocks_per_sm(3, 16),
+                        "ssd_state_pass_wgmma_kernel_n16":
+                            lib.ssd_blocks_per_sm(2, 16)}}})
 
     seconds = {}
     t0 = time.perf_counter()
@@ -3181,6 +3726,9 @@ def main():
     timings.update(lm_timings)
     for cell in SERVE_CELLS:
         main_path(cell.name, serve_phase, cell)
+    t0 = time.perf_counter()
+    lines.append(reduced_archs_phase(dev)[0])   # checks, not a main path
+    seconds["reduced-archs"] = time.perf_counter() - t0
     for cell in TRAIN_CELLS:
         main_path(cell.name, train_phase, cell)
     lines.append({"phase_seconds": seconds})

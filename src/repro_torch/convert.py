@@ -16,6 +16,8 @@ a GPU (``repro_torch.resolve_device``); the tests pass ``device="cpu"``.
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
@@ -82,53 +84,84 @@ def _tensor(leaf) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True))
 
 
+# The reference's stacked subtrees: a leading layer axis consumed by
+# ``lax.scan``, and inside each hybrid super-block a leading axis over its
+# mamba2 mixers, MoE MLPs and dense MLPs.  The port holds each stack as an
+# ``nn.ModuleList`` (``<name>.<i>.<...>``); an MoE's (E, d, ff) expert
+# stacks stay one tensor.
+_STACKS = {"blocks": (), "superblocks": ("mamba", "moe", "mlp")}
+
+
+def _split(key: str, t: torch.Tensor, out: dict) -> None:
+    """One reference leaf -> the port's leaves, split along each stacked
+    axis its key passes through."""
+    top, _, rest = key.partition(".")
+    if top not in _STACKS or not rest:
+        out[key] = t
+        return
+    inner, _, leaf = rest.partition(".")
+    for i in range(t.shape[0]):
+        if inner in _STACKS[top] and leaf:
+            for j in range(t.shape[1]):
+                out[f"{top}.{i}.{inner}.{j}.{leaf}"] = t[i, j]
+        else:
+            out[f"{top}.{i}.{rest}"] = t[i]
+
+
 def state_dict_from_jax(params: dict) -> dict:
     """The reference's LM parameter tree -> the port module's state_dict.
 
-    Nested dict keys join with "."; the stacked ``blocks`` leaves (leading
-    layer axis, consumed by ``lax.scan`` in the reference) are split along
-    axis 0 into ``blocks.<i>.<...>`` of the ``nn.ModuleList``.  Dtypes are
-    kept.
+    Nested dict keys join with "."; the stacked ``blocks`` leaves are split
+    along axis 0 into ``blocks.<i>.<...>`` of the ``nn.ModuleList``, and a
+    hybrid's ``superblocks`` into ``superblocks.<i>.<...>``, with their
+    ``mamba`` / ``moe`` / ``mlp`` stacks split once more into
+    ``superblocks.<i>.mamba.<j>.<...>``.  Dtypes are kept.
     """
-    flat = {}
+    out: dict = {}
 
     def walk(tree, prefix):
         for k, v in tree.items():
             if isinstance(v, dict):
                 walk(v, f"{prefix}{k}.")
             else:
-                flat[f"{prefix}{k}"] = _tensor(v)
+                _split(f"{prefix}{k}", _tensor(v), out)
 
     walk(params, "")
-    out = {}
-    for key, t in flat.items():
-        if key.startswith("blocks."):
-            for i in range(t.shape[0]):
-                out[f"blocks.{i}.{key[len('blocks.'):]}"] = t[i]
-        else:
+    return out
+
+
+def _stack(sd: dict, pattern: str) -> dict:
+    """Keys ``<head>.<i>.<rest>`` whose head matches ``pattern`` (a regex)
+    -> ``<head>.<rest>``, the leaves stacked along a new axis 0 in index
+    order; other keys unchanged."""
+    rx = re.compile(rf"({pattern})\.(\d+)\.(.+)")
+    out, groups = {}, {}
+    for key, t in sd.items():
+        m = rx.fullmatch(key)
+        if m is None:
             out[key] = t
+        else:
+            groups.setdefault(f"{m[1]}.{m[3]}", {})[int(m[2])] = t
+    for key, per in groups.items():
+        if sorted(per) != list(range(len(per))):
+            raise ValueError(f"{key}: indices {sorted(per)} are not 0..n-1")
+        out[key] = torch.stack([per[i] for i in range(len(per))])
     return out
 
 
 def tree_from_state_dict(sd: dict) -> dict:
-    """The inverse of ``state_dict_from_jax``, in tensors: "."-joined keys
-    nest again and ``blocks.<i>.<...>`` stack along a new axis 0 into the
-    reference's ``blocks`` tree (layers in index order).  Dtypes are kept;
-    this is the tree a checkpoint stores."""
+    """The inverse of ``state_dict_from_jax``, in tensors: the inner stacks
+    of each super-block, then ``blocks.<i>`` / ``superblocks.<i>`` stack
+    along a new axis 0 (in index order), and "."-joined keys nest again
+    into the reference's tree.  Dtypes are kept; this is the tree a
+    checkpoint stores."""
+    for top, inner in _STACKS.items():
+        if inner:
+            sd = _stack(sd, rf"{top}\.\d+\.(?:{'|'.join(inner)})")
+    sd = _stack(sd, "|".join(_STACKS))
     out: dict = {}
-    blocks: dict = {}
     for key, t in sd.items():
-        if key.startswith("blocks."):
-            _, i, rest = key.split(".", 2)
-            blocks.setdefault(rest, {})[int(i)] = t
-        else:
-            _nest(out, key, t)
-    for rest, per_layer in blocks.items():
-        if sorted(per_layer) != list(range(len(per_layer))):
-            raise ValueError(f"blocks.*.{rest}: layers {sorted(per_layer)} "
-                             "are not 0..n-1")
-        _nest(out, f"blocks.{rest}",
-              torch.stack([per_layer[i] for i in range(len(per_layer))]))
+        _nest(out, key, t)
     return out
 
 

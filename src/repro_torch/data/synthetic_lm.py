@@ -17,7 +17,7 @@ here it is drawn a slice of rows at a time (``_SLICE_ELEMS`` values a
 slice), which gives the same bits because threefry counters are
 positional.  The multimodal prefix embeddings of the reference's
 vision/audio configs wait for their model families (ROADMAP.md queue 1
-item 14).
+item 18).
 """
 
 from __future__ import annotations

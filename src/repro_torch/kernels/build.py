@@ -114,12 +114,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ssd_state_pass_wgmma_launch.argtypes = [p, p, p, p, i, i, i, i, i, i,
                                                 i, i, i, p, p, p]
     lib.ssd_state_pass_wgmma_smem_bytes.argtypes = [i, i, i]
-    lib.ssd_blocks_per_sm.argtypes = [i]
+    lib.ssd_blocks_per_sm.argtypes = [i, i]
     lib.flash_attention_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, i,
                                            p, p]
     lib.flash_attention_wgmma_launch.argtypes = [p, p, p, i, i, i, i, i, i,
                                                  i, p, p]
     lib.flash_attention_wgmma_smem_bytes.argtypes = [i]
+    lib.flash_attention_wgmma_blocks_per_sm.argtypes = [i]
     for fn in (lib.gain_matvec_launch, lib.gain_family_stats_launch,
                lib.megastep_launch, lib.ssd_chunk_launch,
                lib.ssd_chunk_wgmma_launch, lib.ssd_chunk_wgmma_xdt_launch,
@@ -129,7 +130,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                lib.ssd_state_pass_wgmma_smem_bytes,
                lib.ssd_blocks_per_sm,
                lib.flash_attention_launch, lib.flash_attention_wgmma_launch,
-               lib.flash_attention_wgmma_smem_bytes):
+               lib.flash_attention_wgmma_smem_bytes,
+               lib.flash_attention_wgmma_blocks_per_sm):
         fn.restype = ctypes.c_int
     return lib
 

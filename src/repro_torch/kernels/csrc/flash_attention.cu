@@ -11,8 +11,9 @@
 // masked scores take -1e30, the running max, normalizer and accumulator
 // are float32, and the output is in q's dtype.  Positions are arange(L) on
 // both sides, so the kernels take Lq == Lk (the wrapper checks).  The
-// wrapper routes bf16 inputs with head dim 64 or 128 to flash_wgmma_kernel
-// and everything else (float32, and bf16 at d = 16 or 32) to flash_kernel.
+// wrapper routes bf16 inputs with head dim 64, 96 or 128 to
+// flash_wgmma_kernel and everything else (float32, and bf16 at d = 16 or
+// 32) to flash_kernel.
 //
 // What bounds them on an H100.  At yi-6b's prefill (B = 1, L = 8192, 32
 // query heads, 4 kv heads, d = 128) causal attention is about 5.5e11
@@ -20,7 +21,7 @@
 // 0.556 ms on bf16 tensor cores (989 TFLOP/s), 8.2 ms on float32 CUDA cores
 // (67 TFLOP/s).
 //
-// flash_wgmma_kernel (bf16, d = 64 or 128): both products on the tensor
+// flash_wgmma_kernel (bf16, d = 64, 96 or 128): both products on the tensor
 // cores, so it can run below the 8.2 ms CUDA-core floor, which flash_kernel
 // cannot.  One block per (query head, q tile of 128 rows, batch row), two
 // warpgroups of 64 rows each.  Q (once) and every 64-key K and V tile
@@ -53,6 +54,14 @@
 // and q tiles run longest first (the q tile is the slower grid axis, so
 // every head of a tile is dispatched before the next shorter tile).  No
 // atomics: two launches give bitwise-equal outputs.
+// Head dim 96 (phi3-mini) is 1.5 of the 64-column atoms: the kernel runs as
+// at d = 128 with every tile 128 columns wide in shared memory.  The tensor
+// maps keep d = 96, so the second atom's TMA box reads columns 64-127 and
+// TMA fills 96-127 with zeros.  S = Q K^T takes only the six k16 steps of
+// the real columns; P V runs at n128 (wgmma's MN-major V needs whole
+// 64-column atoms) and the last 32 output columns, zero, are never stored:
+// 4/3 of the P V products.  The scale stays 96^-1/2.  Shared memory and
+// blocks per SM are d = 128's.
 //
 // flash_kernel (float32 inputs, and bf16 at d = 16 or 32): every product in
 // float32 on CUDA cores (bf16 inputs are widened on load; float32 inputs
@@ -265,6 +274,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, int B,
     case 16: return launch<T, 16>(q, k, v, B, L, H, KVH, causal, window, o, s);
     case 32: return launch<T, 32>(q, k, v, B, L, H, KVH, causal, window, o, s);
     case 64: return launch<T, 64>(q, k, v, B, L, H, KVH, causal, window, o, s);
+    case 96: return launch<T, 96>(q, k, v, B, L, H, KVH, causal, window, o, s);
     case 128: return launch<T, 128>(q, k, v, B, L, H, KVH, causal, window, o, s);
     default: return cudaErrorInvalidValue;
   }
@@ -285,14 +295,20 @@ constexpr int kThreadsWg = 128 * kWarpgroups;
 constexpr int kStages = 2;       // K/V ring
 constexpr float kLog2e = 1.4426950408889634f;
 
+// Head dim D held as whole 64-column atoms (96 -> 128).
+template <int D>
+__host__ __device__ constexpr int padded() {
+  return (D + kAtom - 1) / kAtom * kAtom;
+}
+
 // Shared memory, every region 1024-byte aligned (a 128-byte swizzle repeats
-// every 8 rows).  A (rows x d) bf16 tile is d / 64 column blocks ("atoms")
-// of rows x 128 bytes, one TMA box each, as wgmma's 128-byte-swizzled
-// layouts want them.
+// every 8 rows).  A (rows x d) bf16 tile is padded<D>() / 64 column blocks
+// ("atoms") of rows x 128 bytes, one TMA box each, as wgmma's
+// 128-byte-swizzled layouts want them.
 template <int D>
 struct Layout {
-  static constexpr int kQBytes = kQRows * D * 2;
-  static constexpr int kTileBytes = kBlockN * D * 2;
+  static constexpr int kQBytes = kQRows * padded<D>() * 2;
+  static constexpr int kTileBytes = kBlockN * padded<D>() * 2;
   static constexpr int kK = kQBytes;
   static constexpr int kV = kK + kStages * kTileBytes;
   static constexpr int kBar = kV + kStages * kTileBytes;   // q, full[kStages]
@@ -309,7 +325,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    int KVH, int causal, int window, float scale_log2,
                    __nv_bfloat16* __restrict__ o) {
   using Lay = Layout<D>;
-  constexpr int kAtoms = D / kAtom;
+  constexpr int DP = padded<D>();   // columns of a tile and of acc
+  constexpr int kAtoms = DP / kAtom;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base, sk = base + Lay::kK, sv = base + Lay::kV;
@@ -355,9 +372,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       load_kv(st, k_begin + st * kBlockN);
   }
 
-  float acc[D / 2];
+  float acc[DP / 2];
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  for (int e = 0; e < DP / 2; ++e) acc[e] = 0.f;
   float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
   // rows of this warpgroup, for the test of a fully visible tile
   const int wg_first = q0 + wgi * kRows, wg_last = wg_first + kRows - 1;
@@ -371,7 +388,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const uint32_t k_st = sk + st * Lay::kTileBytes;
     const uint32_t v_st = sv + st * Lay::kTileBytes;
 
-    // S = Q K^T over d in steps of 16 (32 bytes inside a 128-byte atom)
+    // S = Q K^T over the real d in steps of 16 (32 bytes inside a 128-byte
+    // atom)
     float s[kBlockN / 2];
 #pragma unroll
     for (int e = 0; e < kBlockN / 2; ++e) s[e] = 0.f;
@@ -431,7 +449,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       l_run[r] = l_run[r] * corr[r] + sum[r];
     }
 #pragma unroll
-    for (int e = 0; e < D / 2; ++e) acc[e] *= corr[(e % 4) / 2];
+    for (int e = 0; e < DP / 2; ++e) acc[e] *= corr[(e % 4) / 2];
 
     // P as hi/lo bf16 A fragments: k-step kk takes s[8 kk .. 8 kk + 7]
     uint32_t p_hi[kBlockN / 16][4], p_lo[kBlockN / 16][4];
@@ -452,8 +470,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int kk = 0; kk < kBlockN / 16; ++kk) {
       const uint64_t bv =
           desc(v_st + kk * 16 * kAtomBytes, kBlockN * kAtomBytes, 1024);
-      mma_rs<D>(acc, p_hi[kk], bv, 1);
-      mma_rs<D>(acc, p_lo[kk], bv, 1);
+      mma_rs<DP>(acc, p_hi[kk], bv, 1);
+      mma_rs<DP>(acc, p_lo[kk], bv, 1);
     }
     wg_commit();
     wg_wait0();
@@ -504,7 +522,7 @@ EncodeTiled encode_tiled() {
 
 // A 4-D (d, heads, L, B) map of a contiguous (B, L, heads, d) bf16 tensor,
 // read in boxes of 64 columns of d x rows positions of one head and batch
-// row; positions past L read as zeros.
+// row; positions past L, and columns past d, read as zeros.
 bool tensor_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int D,
                 int heads, int L, int B, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)L,
@@ -563,7 +581,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   return (int)err;
 }
 
-// bf16 q, k, v and o with D 64 or 128, on the tensor cores.
+// bf16 q, k, v and o with D 64, 96 or 128, on the tensor cores.
 int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
                                  int B, int L, int H, int KVH, int D,
                                  int causal, int window, void* o,
@@ -572,6 +590,7 @@ int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
   if (KVH < 1 || H % KVH) return (int)cudaErrorInvalidValue;
   switch (D) {
     case 64: return (int)wg::launch<64>(q, k, v, B, L, H, KVH, causal, window, o, s);
+    case 96: return (int)wg::launch<96>(q, k, v, B, L, H, KVH, causal, window, o, s);
     case 128: return (int)wg::launch<128>(q, k, v, B, L, H, KVH, causal, window, o, s);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -581,7 +600,28 @@ int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
 int flash_attention_wgmma_smem_bytes(int D) {
   switch (D) {
     case 64: return wg::Layout<64>::kBytes;
+    case 96: return wg::Layout<96>::kBytes;
     case 128: return wg::Layout<128>::kBytes;
+    default: return -1;
+  }
+}
+
+// Blocks of flash_wgmma_kernel an SM holds at once at head dim D; -1 if the
+// query failed.
+int flash_attention_wgmma_blocks_per_sm(int D) {
+  auto query = [](auto kernel, int bytes) {
+    int n = -1;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel,
+                                                          wg::kThreadsWg, bytes);
+    return err == cudaSuccess ? n : -1;
+  };
+  switch (D) {
+    case 64: return query(wg::flash_wgmma_kernel<64>, wg::Layout<64>::kBytes);
+    case 96: return query(wg::flash_wgmma_kernel<96>, wg::Layout<96>::kBytes);
+    case 128: return query(wg::flash_wgmma_kernel<128>, wg::Layout<128>::kBytes);
     default: return -1;
   }
 }

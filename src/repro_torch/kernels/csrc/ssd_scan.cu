@@ -1375,42 +1375,36 @@ int ssd_state_pass_wgmma_smem_bytes(int Q, int N, int c_dtype) {
                       : pass_tc::smem_bytes<__nv_bfloat16>(Q, N);
 }
 
-// Blocks of each kernel an SM holds at once (bf16 B/C and output, the
-// slice's Q = N = 128, P = 64): 0 the tensor-core tile, 1 the CUDA-core
-// pass, 2 the tensor-core pass; -1 if the query failed.
-int ssd_blocks_per_sm(int which) {
-  int n = -1;
-  cudaError_t err;
-  if (which == 0) {
-    const int bytes = tc::smem_bytes(128, 128, 64, 1);
-    err = cudaFuncSetAttribute(
-        tc::ssd_chunk_wgmma_kernel<__nv_bfloat16, __nv_bfloat16, 128, 64>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+// Blocks of one kernel an SM holds at once, with bf16 B/C and output at
+// Q = 128, P = 64 and the given N: which 0 the tensor-core tile, 1 the
+// CUDA-core pass, 2 the tensor-core pass, 3 the CUDA-core tile; -1 if the
+// query failed.
+int ssd_blocks_per_sm(int which, int N) {
+  auto query = [](auto kernel, int threads, int bytes) {
+    int n = -1;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, tc::ssd_chunk_wgmma_kernel<__nv_bfloat16, __nv_bfloat16, 128, 64>,
-          tc::kThreadsTc, bytes);
-  } else if (which == 2) {
-    const int bytes = pass_tc::smem_bytes<__nv_bfloat16>(128, 128);
-    err = cudaFuncSetAttribute(
-        pass_tc::ssd_state_pass_wgmma_kernel<__nv_bfloat16, __nv_bfloat16, 128>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, pass_tc::ssd_state_pass_wgmma_kernel<__nv_bfloat16, __nv_bfloat16,
-                                                   128>,
-          256, bytes);
-  } else {
-    const int bytes = pass::smem_bytes<__nv_bfloat16>(128, 128);
-    err = cudaFuncSetAttribute(
-        pass::ssd_state_pass_kernel<__nv_bfloat16, __nv_bfloat16>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, pass::ssd_state_pass_kernel<__nv_bfloat16, __nv_bfloat16>,
-          pass::kThreadsPass, bytes);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads,
+                                                          bytes);
+    return err == cudaSuccess ? n : -1;
+  };
+  using bf = __nv_bfloat16;
+  switch (which) {
+    case 0:
+      return query(tc::ssd_chunk_wgmma_kernel<bf, bf, 128, 64>, tc::kThreadsTc,
+                   tc::smem_bytes(128, N, 64, 1));
+    case 1:
+      return query(pass::ssd_state_pass_kernel<bf, bf>, pass::kThreadsPass,
+                   pass::smem_bytes<bf>(128, N));
+    case 2:
+      return query(pass_tc::ssd_state_pass_wgmma_kernel<bf, bf, 128>, 2 * 128,
+                   pass_tc::smem_bytes<bf>(128, N));
+    case 3:
+      return query(ssd_chunk_kernel<bf>, kThreads, (int)smem_bytes(128, N, 64));
+    default:
+      return -1;
   }
-  return err == cudaSuccess ? n : -1;
 }
 
 }  // extern "C"

@@ -12,12 +12,13 @@ requires grad raises) and take Lq == Lk.
 
 Routing (``route``), by dtype and head dim:
 
-- bf16 with head dim 64 or 128 -> ``flash_wgmma_kernel``: both products on
-  the tensor cores (wgmma), K/V tiles by TMA, P entering P V as a hi/lo
-  pair of bf16.  Counted in ``LAUNCHES["flash_attention_wgmma"]``.  Its
-  inputs must start on 16-byte boundaries (TMA).
-- everything else it takes (float32 at head dims 16, 32, 64, 128; bf16 at
-  16 and 32) -> ``flash_kernel``: float32 on CUDA cores, never TF32, the
+- bf16 with head dim 64, 96 or 128 -> ``flash_wgmma_kernel``: both
+  products on the tensor cores (wgmma), K/V tiles by TMA, P entering P V
+  as a hi/lo pair of bf16 (head dim 96 in tiles padded to 128 columns, the
+  kernel's notes say how).  Counted in ``LAUNCHES["flash_attention_wgmma"]``.
+  Its inputs must start on 16-byte boundaries (TMA).
+- everything else it takes (float32 at head dims 16, 32, 64, 96, 128;
+  bf16 at 16 and 32) -> ``flash_kernel``: float32 on CUDA cores, never TF32, the
   checked float32 route.  Counted in ``LAUNCHES["flash_attention_simt"]``.
 
 The reference's ``block_q`` / ``block_k`` are TPU tile sizes; the CUDA
@@ -46,8 +47,8 @@ SIMT = Route("flash_kernel", "flash_attention_simt")
 LAUNCHES = {WGMMA.counter: 0, SIMT.counter: 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
-WGMMA_HEAD_DIMS = (64, 128)
+HEAD_DIMS = (16, 32, 64, 96, 128)
+WGMMA_HEAD_DIMS = (64, 96, 128)
 
 
 def reset_launches() -> None:

@@ -35,7 +35,7 @@ def make_batch_fn(cfg: ModelConfig, seq_len: int, global_batch: int):
     """``fn(rng, step)`` -> the synthetic LM batch of ``step`` on ``rng``'s
     device.  The vision / audio prefix embeddings of the reference's
     frontend configs wait for those families (ROADMAP.md queue 1 item
-    14)."""
+    18)."""
     if cfg.frontend != "none":
         raise NotImplementedError(
             f"the {cfg.frontend} frontend's batches are not ported to "

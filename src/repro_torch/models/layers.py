@@ -120,8 +120,9 @@ def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 # Blocks under remat + sequence-chunked cross-entropy
 # ---------------------------------------------------------------------------
 
-def run_block(fn, h: torch.Tensor, remat: bool, *args) -> torch.Tensor:
-    """``fn(h, *args)``; with ``remat`` and autograd recording, under
+def run_block(fn, h: torch.Tensor, remat: bool, *args):
+    """``fn(h, *args)`` (a tensor, or a tuple such as an MoE block's
+    hidden and aux loss); with ``remat`` and autograd recording, under
     non-reentrant activation checkpointing (the reference's
     ``jax.checkpoint`` of each block).  The non-reentrant form also
     recomputes under double backward, so the curvature term's

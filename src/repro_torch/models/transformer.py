@@ -1,15 +1,18 @@
-"""Decoder-only dense transformer (yi-6b family), ported from
-``repro/models/transformer.py`` as an ``nn.Module``.
+"""Decoder-only transformer (dense and MoE: yi-6b, phi3-mini, nemotron-4,
+olmoe, mixtral, moonshot), ported from ``repro/models/transformer.py`` as
+an ``nn.Module``.
 
-Supported: GQA + RoPE, sliding window, swiglu/relu2/gelu MLPs, tied
-embeddings.  The reference's MoE MLPs, vision/audio prefix embeddings and
-frontends are not ported yet: they raise ``NotImplementedError`` naming
-their ROADMAP item.  Layers are an ``nn.ModuleList`` (the reference stacks
-them on a leading axis for ``lax.scan``); prefill runs the flash-attention
-kernel per layer unless ``use_kernels`` is False, and decode threads a
-per-layer KV cache that is updated in place.  ``loss_fn`` trains through
-the plain attention, as the reference trains through its jnp attention:
-the flash kernel is forward-only.
+Supported: GQA + RoPE, sliding window, swiglu/relu2/gelu MLPs, MoE MLPs in
+every block when the config has experts (``models/moe.py``; their aux
+losses summed over the layers), tied embeddings.  The reference's
+vision/audio prefix embeddings and frontends are not ported yet: they
+raise ``NotImplementedError`` naming their ROADMAP item.  Layers are an
+``nn.ModuleList`` (the reference stacks them on a leading axis for
+``lax.scan``); prefill runs the flash-attention kernel per layer unless
+``use_kernels`` is False, and decode threads a per-layer KV cache that is
+updated in place (its MoE with aux coefficients 0, as the reference's).
+``loss_fn`` trains through the plain attention, as the reference trains
+through its jnp attention: the flash kernel is forward-only.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from torch import nn
 from repro_torch.configs import NOT_PORTED_ITEM
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (apply_mlp, chunked_xent_loss,
                                        embed_tokens, init_embedding, init_mlp,
                                        model_dtype, param, param_dict,
@@ -39,15 +43,18 @@ class Block(nn.Module):
         self.attn = param_dict(attn_lib.init_attention(
             gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
             cfg.resolved_head_dim, dt))
-        self.mlp = param_dict(init_mlp(gen, cfg.d_model, cfg.d_ff,
-                                       cfg.mlp_activation, dt))
+        if cfg.is_moe:
+            self.moe = param_dict(moe_lib.init_moe(
+                gen, cfg.d_model, cfg.d_ff, cfg.num_experts,
+                cfg.mlp_activation, dt))
+        else:
+            self.mlp = param_dict(init_mlp(gen, cfg.d_model, cfg.d_ff,
+                                           cfg.mlp_activation, dt))
 
 
 class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, gen: torch.Generator):
         super().__init__()
-        if cfg.is_moe:
-            raise NotImplementedError(f"MoE MLPs are {NOT_PORTED}")
         if cfg.frontend != "none":
             raise NotImplementedError(f"the {cfg.frontend} frontend is {NOT_PORTED}")
         self.cfg = cfg
@@ -63,8 +70,18 @@ class Transformer(nn.Module):
     def head(self) -> torch.Tensor:
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
 
+    def _mlp(self, block: Block, m_in: torch.Tensor, aux_coef: float,
+             z_coef: float):
+        """The block's MLP: (output, aux loss or None for a dense MLP)."""
+        cfg = self.cfg
+        if cfg.is_moe:
+            return moe_lib.apply_moe(
+                block.moe, m_in, cfg.experts_per_token, cfg.capacity_factor,
+                cfg.mlp_activation, aux_coef, z_coef)
+        return apply_mlp(block.mlp, m_in, cfg.mlp_activation), None
+
     def _block(self, h: torch.Tensor, block: Block, positions: torch.Tensor,
-               use_kernels: bool) -> torch.Tensor:
+               use_kernels: bool):
         cfg = self.cfg
         a_in = rms_norm(h, block.ln1, cfg.norm_eps)
         h = h + attn_lib.attention_block(
@@ -72,23 +89,28 @@ class Transformer(nn.Module):
             window=cfg.sliding_window, chunk=cfg.attn_chunk,
             use_chunked=h.shape[1] > 512, use_kernel=use_kernels)
         m_in = rms_norm(h, block.ln2, cfg.norm_eps)
-        return h + apply_mlp(block.mlp, m_in, cfg.mlp_activation)
+        m_out, aux = self._mlp(block, m_in, cfg.router_aux_coef,
+                               cfg.router_z_coef)
+        return h + m_out, aux
 
     def hidden_states(self, tokens: torch.Tensor,
                       prefix_emb: Optional[torch.Tensor] = None,
                       use_kernels=None):
-        """Embed and run all blocks.  Returns (final-normed hidden, aux 0).
-        ``use_kernels`` defaults to the module's switch."""
+        """Embed and run all blocks.  Returns (final-normed hidden, aux: the
+        MoE losses summed over the layers, 0 without MoE).  ``use_kernels``
+        defaults to the module's switch."""
         if prefix_emb is not None:
             raise NotImplementedError(f"prefix embeddings are {NOT_PORTED}")
         cfg = self.cfg
         use_kernels = self.use_kernels if use_kernels is None else use_kernels
         h = embed_tokens(self.embed, tokens)
         positions = torch.arange(h.shape[1], device=h.device)
-        for block in self.blocks:
-            h = run_block(self._block, h, cfg.remat, block, positions,
-                          use_kernels)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        for block in self.blocks:
+            h, a = run_block(self._block, h, cfg.remat, block, positions,
+                             use_kernels)
+            if a is not None:
+                aux = aux + a
         return rms_norm(h, self.final_norm, cfg.norm_eps), aux
 
     def loss_fn(self, batch: dict):
@@ -97,7 +119,7 @@ class Transformer(nn.Module):
         the plain path whatever ``use_kernels`` says: the kernels are
         forward-only and raise under autograd (``forward_only``).  The
         reference's ``prefix_emb`` batches wait for the frontends
-        (ROADMAP.md queue 1 item 14)."""
+        (ROADMAP.md queue 1 item 18)."""
         if batch.get("prefix_emb") is not None:
             raise NotImplementedError(f"prefix embeddings are {NOT_PORTED}")
         hidden, aux = self.hidden_states(batch["tokens"], use_kernels=False)
@@ -134,7 +156,7 @@ class Transformer(nn.Module):
                 chunk=cfg.attn_chunk, use_chunked=not cfg.decode_dense_attn)
             h = h + a_out
             m_in = rms_norm(h, block.ln2, cfg.norm_eps)
-            h = h + apply_mlp(block.mlp, m_in, cfg.mlp_activation)
+            h = h + self._mlp(block, m_in, 0.0, 0.0)[0]
         h = rms_norm(h, self.final_norm, cfg.norm_eps)
         return (h[:, 0, :] @ self.head()).float(), cache
 

@@ -4,12 +4,12 @@
 (its plain version) is held against the Pallas kernel run as
 tests/test_kernels.py runs it (interpret mode) and against
 ``repro.kernels.ref.flash_attention_ref``, over the five cases of
-tests/test_kernels.py:175-181 in float32 and bf16 at that test's
-tolerances (3e-4 / 3e-2, rtol = atol).  Both sides get the same numpy
+tests/test_kernels.py:175-181, plus two at head dim 96 (phi3-mini's), in
+float32 and bf16 at that test's tolerances (3e-4 / 3e-2, rtol = atol).  Both sides get the same numpy
 inputs.  The CUDA kernels run only on the card (chip_smoke.py); here the
 wrapper must refuse, not fall back, on any non-CPU tensor.
 
-The tensor-core route (bf16, head dims 64 and 128) is held on the CPU
+The tensor-core route (bf16, head dims 64, 96 and 128) is held on the CPU
 through ``_emulate_wgmma``, a plain-torch emulation of its arithmetic: bf16
 q and k, float32 scores scaled after the product, the online softmax over
 64-key tiles in the exp2 domain, P split into a hi/lo pair of bf16 and
@@ -43,6 +43,10 @@ CASES = [
     dict(B=2, Lq=100, Lk=100, H=4, KVH=1, D=16, causal=True, window=32),
     dict(B=1, Lq=96, Lk=96, H=2, KVH=2, D=128, causal=False, window=0),
     dict(B=1, Lq=160, Lk=160, H=2, KVH=1, D=64, causal=True, window=64),
+    # head dim 96 (phi3-mini's 3072 / 32): GQA causal, and a ragged length
+    # with a window
+    dict(B=1, Lq=128, Lk=128, H=4, KVH=2, D=96, causal=True, window=0),
+    dict(B=2, Lq=100, Lk=100, H=2, KVH=2, D=96, causal=True, window=48),
 ]
 DTYPES = {"f32": (jnp.float32, torch.float32, 3e-4),
           "bf16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
@@ -107,7 +111,7 @@ def test_non_cpu_tensors_raise_instead_of_falling_back():
         tflash.flash_attention(q, torch.zeros((1, 8, 2, 16)), q)
 
 
-WGMMA_CASES = [c for c in CASES if c["D"] in (64, 128)]
+WGMMA_CASES = [c for c in CASES if c["D"] in tflash.WGMMA_HEAD_DIMS]
 
 
 def _emulate_wgmma(q, k, v, *, causal, window, split=True, block_k=64):
@@ -218,7 +222,8 @@ def test_bf16_ulp_check_sees_a_single_bf16_p(rng, case):
 
 
 @pytest.mark.parametrize("dtype,dim,route", [
-    (torch.bfloat16, 64, "WGMMA"), (torch.bfloat16, 128, "WGMMA"),
+    (torch.bfloat16, 64, "WGMMA"), (torch.bfloat16, 96, "WGMMA"),
+    (torch.bfloat16, 128, "WGMMA"), (torch.float32, 96, "SIMT"),
     (torch.bfloat16, 16, "SIMT"), (torch.bfloat16, 32, "SIMT"),
     (torch.float32, 16, "SIMT"), (torch.float32, 32, "SIMT"),
     (torch.float32, 64, "SIMT"), (torch.float32, 128, "SIMT")])

@@ -1,14 +1,18 @@
 """The port's serving path (configs, models, steps, serve) against repro.
 
-Reduced configs of the two families the port serves — mamba2-370m (ssm,
-the SSD tile kernel's path) and yi-6b (dense, the flash kernel's path),
-the latter also with 2 kv heads of 4 so that GQA is covered (``reduced()``
-keeps 4 of 4) — are built by the reference, and its parameters carried into
-the port with ``convert.model_from_jax``.  On shared numpy tokens: prefill
-logits and ten decode steps' logits match the reference at 1e-4, greedy
-tokens are equal, the port's ``generate`` (what ``serve`` runs) yields the
-reference serve loop's tokens, and the port's decode reproduces its own
-prefill (tests/test_models_smoke.py's contract, 2e-3).
+Reduced configs of every family the port serves — mamba2-370m (ssm, the
+SSD kernels' path), yi-6b, phi3-mini and nemotron-4 (dense, the flash
+kernel's path; yi-6b also with 2 kv heads of 4 so that GQA is covered,
+since ``reduced()`` keeps 4 of 4), olmoe, mixtral and moonshot (MoE) and
+jamba (hybrid: mamba2, attention and MoE in one super-block) — are built
+by the reference, and its parameters carried into the port with
+``convert.model_from_jax``.  On shared numpy tokens: prefill logits and
+ten decode steps' logits match the reference at 1e-4, greedy tokens are
+equal, the port's ``generate`` (what ``serve`` runs) yields the reference
+serve loop's tokens, the port's decode reproduces its own prefill
+(tests/test_models_smoke.py's contract, 2e-3, at capacity factor 8 for the
+MoE configs as there), and ``loss_fn`` (cross-entropy + MoE aux) matches
+the reference's at 1e-5.
 """
 
 import dataclasses
@@ -37,7 +41,10 @@ from repro_torch.models import build_model  # noqa: E402
 TOL = 1e-4
 DECODE_TOL = 2e-3
 B, T = 2, 10
-CONFIGS = {"mamba2-370m": {}, "yi-6b": {}, "yi-6b-gqa": {"num_kv_heads": 2}}
+LOSS_TOL = 1e-5
+CONFIGS = {"mamba2-370m": {}, "yi-6b": {}, "yi-6b-gqa": {"num_kv_heads": 2},
+           "olmoe-1b-7b": {}, "mixtral-8x7b": {}, "moonshot-v1-16b-a3b": {},
+           "jamba-v0.1-52b": {}, "phi3-mini-3.8b": {}, "nemotron-4-15b": {}}
 
 
 def _configs(name):
@@ -71,6 +78,15 @@ def _close(got, want, tol):
 def test_configs_are_the_references(pair):
     jc, _, _, tc, _, _ = pair
     assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
+
+
+def test_published_configs_are_the_references():
+    """Every arch the port registers, at its published size, equals the
+    reference's config field for field."""
+    from repro_torch.configs import ARCH_NAMES
+    for arch in ARCH_NAMES:
+        assert dataclasses.asdict(get_config(arch)) == \
+            dataclasses.asdict(jget_config(arch)), arch
 
 
 def test_prefill_logits_match_reference(pair):
@@ -121,8 +137,14 @@ def test_generate_yields_the_reference_serve_tokens(pair):
 
 def test_decode_matches_own_prefill(pair):
     """tests/test_models_smoke.py:67-103 on the port: decode logits at t ==
-    prefill logits of the length-(t+1) prompt."""
-    _, _, _, tc, model, tokens = pair
+    prefill logits of the length-(t+1) prompt.  As there, MoE configs run
+    at capacity factor 8: prefill routes t + 1 tokens a row and decode one,
+    so the two agree only where prefill drops nothing."""
+    _, _, params, tc, model, tokens = pair
+    if tc.is_moe:
+        tc = dataclasses.replace(tc, capacity_factor=8.0)
+        model = model_from_jax(tc, jax.tree.map(np.asarray, params),
+                               device="cpu")
     prefill = build_prefill_step(model, tc, device="cpu")
     step, init_cache = build_serve_step(model, tc, ShapeConfig("t", T, B, "decode"),
                                         device="cpu")
@@ -147,7 +169,25 @@ def test_plain_and_kernel_paths_agree(pair):
     _close(kern, plain, TOL)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "yi-6b"])
+def test_loss_fn_matches_reference(pair):
+    """Next-token cross-entropy plus the MoE aux losses (0 elsewhere) of one
+    batch, on the plain path, against the reference's ``loss_fn``."""
+    jc, jm, params, tc, model, tokens = pair
+    targets = np.roll(tokens, -1, axis=1)
+    mask = np.ones(tokens.shape, np.float32)
+    mask[:, -1] = 0.0
+    want, wm = jm.loss_fn(params, {"tokens": jnp.asarray(tokens),
+                                   "targets": jnp.asarray(targets),
+                                   "mask": jnp.asarray(mask)})
+    got, gm = model.loss_fn({"tokens": _tt(tokens), "targets": _tt(targets),
+                             "mask": torch.from_numpy(mask)})
+    _close(got.detach(), want, LOSS_TOL)
+    _close(gm["aux"].detach(), wm["aux"], LOSS_TOL)
+    assert (float(gm["aux"]) > 0) == tc.is_moe
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "yi-6b", "olmoe-1b-7b",
+                                  "jamba-v0.1-52b"])
 def test_serve_runs_on_cpu(arch):
     cfg = get_config(arch).reduced()
     res = serve(cfg, batch=2, prompt_len=5, gen_len=3, seed=1, device="cpu")
@@ -173,12 +213,22 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_archs_and_families_raise():
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        get_config("mixtral-8x7b")
-    moe = dataclasses.replace(get_config("yi-6b").reduced(), arch_type="moe",
-                              num_experts=4, experts_per_token=2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        build_model(moe, device="cpu")
+    """The encoder-decoder and frontend archs and families wait for ROADMAP
+    queue 1 item 18; every other arch of the reference is ported."""
+    for arch in ("seamless-m4t-medium", "internvl2-2b"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 18"):
+            get_config(arch)
+    base = get_config("yi-6b").reduced()
+    encdec = dataclasses.replace(base, arch_type="audio", encoder_layers=2)
+    vision = dataclasses.replace(base, arch_type="vlm", frontend="vision",
+                                 frontend_dim=64, num_prefix=8)
+    for cfg in (encdec, vision):
+        with pytest.raises(NotImplementedError, match="queue 1 item 18"):
+            build_model(cfg, device="cpu")
+    from repro.configs import ARCH_NAMES as JARCH_NAMES
+    from repro_torch.configs import ARCH_NAMES
+    assert set(ARCH_NAMES) == set(JARCH_NAMES) - {"seamless-m4t-medium",
+                                                  "internvl2-2b"}
 
 
 def test_model_from_jax_keeps_dtypes_and_splits_layers():
@@ -193,6 +243,34 @@ def test_model_from_jax_keeps_dtypes_and_splits_layers():
     assert sd["blocks.0.ln1"].dtype == torch.float32
     want = np.asarray(params["blocks"]["attn"]["wq"][1].astype(jnp.float32))
     np.testing.assert_array_equal(sd["blocks.1.attn.wq"].float().numpy(), want)
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "olmoe-1b-7b"])
+def test_convert_round_trip_is_bitwise_for_hybrid_and_moe(arch):
+    """A bf16 hybrid or MoE tree crosses into the port and back bit for bit,
+    dtypes kept: the hybrid's super-blocks split twice
+    (``superblocks.<i>.mamba.<j>``, ``.moe.<j>``, ``.mlp.<j>``), each MoE's
+    (E, d, ff) expert stacks stay one tensor and its router float32."""
+    jc = dataclasses.replace(jget_config(arch).reduced(), dtype="bfloat16")
+    tc = dataclasses.replace(get_config(arch).reduced(), dtype="bfloat16")
+    params = jax.tree.map(np.asarray, jbuild_model(jc).init(jax.random.key(6)))
+    model = model_from_jax(tc, params, device="cpu")
+    sd = model.state_dict()
+    E, d, ff = tc.num_experts, tc.d_model, tc.d_ff
+    if arch.startswith("jamba"):
+        up, router = "superblocks.0.moe.0.w_up", "superblocks.0.moe.0.router"
+        assert sd["superblocks.0.mamba.0.w_in"].dtype == torch.bfloat16
+        assert sd["superblocks.0.mlp.0.w_up"].shape == (d, ff)
+        assert sd["superblocks.0.ln1"].shape == (tc.attn_period, d)
+    else:
+        up, router = "blocks.1.moe.w_up", "blocks.1.moe.router"
+    assert sd[up].shape == (E, d, ff) and sd[up].dtype == torch.bfloat16
+    assert sd[router].dtype == torch.float32
+    back = convert.state_dict_to_jax(sd)
+    assert jax.tree.structure(back) == jax.tree.structure(params)
+    for want, got in zip(jax.tree.leaves(params), jax.tree.leaves(back)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
 
 
 def test_model_from_jax_defaults_to_cuda():

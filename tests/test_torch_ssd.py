@@ -169,7 +169,8 @@ def _chunk_prologue(xh, dt, a, b_mat, c_mat, chunk):
 
 
 @pytest.mark.parametrize("L,chunk,N,P", [(64, 32, 8, 16), (200, 64, 8, 16),
-                                         (128, 128, 8, 16), (200, 128, 128, 64)])
+                                         (128, 128, 8, 16), (200, 128, 128, 64),
+                                         (300, 128, 16, 64)])
 def test_state_pass_ref_composes_to_the_pallas_path(rng, L, chunk, N, P):
     """ref.ssd_chunk_ref then ref.ssd_state_pass_ref (the two kernels'
     plain versions) give ssd_chunked_pallas and the reference's plain
@@ -340,6 +341,58 @@ def test_tensor_core_pass_arithmetic_matches_the_pallas_path(rng, c_dtype, L):
     _close(h, hj, 2e-4)
 
 
+# jamba's SSM: state width N 16 (one k16 step of the pass's product, 32-byte
+# rows of a bf16 C), head dim P 64, chunk 128
+JAMBA_SSM = dict(N=16, P=64, chunk=128)
+
+
+@pytest.mark.parametrize("L", [384, 300])
+def test_ssd_chunked_at_jamba_state_width_matches_pallas(rng, L):
+    """The kernel module's ssd_chunked (on the CPU: the tile's and the
+    pass's plain versions) and the plain chunked SSD at N 16 against
+    ssd_chunked_pallas (interpret mode) and the reference's plain SSD, at
+    the chunked path's 2e-4; on the card the tile takes the CUDA-core route
+    there and the pass the tensor-core one."""
+    N, P, chunk = JAMBA_SSM["N"], JAMBA_SSM["P"], JAMBA_SSM["chunk"]
+    assert tss.route(chunk, N, P, torch.bfloat16) == tss.SIMT
+    assert tss.state_pass_route(chunk, N, P, torch.bfloat16) == \
+        tss.STATE_PASS_WGMMA
+    arrs = _chunked_inputs(rng, L, B=1, H=4, P=P, N=N)
+    jarrs = list(map(jnp.asarray, arrs))
+    yp, hp = jss.ssd_chunked_pallas(*jarrs, chunk=chunk, interpret=True)
+    yr, hr = jssm.ssd_chunked(*jarrs, chunk=chunk)
+    for fn in (tss.ssd_chunked, tssm.ssd_chunked):
+        y, h = fn(*map(_t, arrs), chunk=chunk)
+        assert y.shape == (1, L, 4, P) and h.shape == (1, 4, N, P)
+        for yw, hw in ((yp, hp), (yr, hr)):
+            _close(y, yw, 2e-4)
+            _close(h, hw, 2e-4)
+
+
+@pytest.mark.parametrize("c_dtype", ["bf16", "f32"])
+def test_tensor_core_pass_at_jamba_state_width(rng, c_dtype):
+    """The tensor-core pass's arithmetic (``_emulate_state_pass``, its
+    pieces by C's dtype) after the CUDA-core tile's plain version, at N 16
+    over 3 chunks with a padded last one: within the chunked path's 2e-4
+    of ssd_chunked_pallas."""
+    L, N, P, chunk = 300, JAMBA_SSM["N"], JAMBA_SSM["P"], JAMBA_SSM["chunk"]
+    arrs = list(_chunked_inputs(rng, L, B=1, H=4, P=P, N=N))
+    if c_dtype == "bf16":
+        arrs[3], arrs[4] = (np.asarray(jnp.asarray(x).astype(jnp.bfloat16)
+                                       .astype(jnp.float32))
+                            for x in arrs[3:])
+    yj, hj = jss.ssd_chunked_pallas(*map(jnp.asarray, arrs), chunk=chunk,
+                                    interpret=True)
+    dtx, cum, bm, cm = _chunk_prologue(*map(_t, arrs), chunk)
+    y_intra, states = tref.ssd_chunk_ref(dtx, cum, bm, cm)
+    if c_dtype == "bf16":
+        cm = cm.bfloat16()
+    y, h = _emulate_state_pass(y_intra, states, cum, cm, L,
+                               PASS_PIECES[c_dtype])
+    _close(y, yj, 2e-4)
+    _close(h, hj, 2e-4)
+
+
 @pytest.mark.parametrize("c_dtype,pieces", [("f32", 2), ("bf16", 1)])
 def test_fewer_pass_pieces_leave_the_chunked_tolerance(rng, c_dtype, pieces):
     """A hi/lo pair of float32 C and h (three products), or a single bf16
@@ -357,7 +410,8 @@ def test_fewer_pass_pieces_leave_the_chunked_tolerance(rng, c_dtype, pieces):
     (64, 64, 64, torch.bfloat16, "WGMMA"), (64, 128, 128, torch.float32, "WGMMA"),
     (128, 128, 128, torch.bfloat16, "WGMMA"), (128, 128, 128, torch.float32, "SIMT"),
     (32, 8, 16, torch.float32, "SIMT"), (128, 96, 64, torch.bfloat16, "SIMT"),
-    (96, 128, 64, torch.bfloat16, "SIMT"), (128, 128, 32, torch.float32, "SIMT")])
+    (96, 128, 64, torch.bfloat16, "SIMT"), (128, 128, 32, torch.float32, "SIMT"),
+    (128, 16, 64, torch.bfloat16, "SIMT"), (128, 16, 64, torch.float32, "SIMT")])
 def test_routing_table(Q, N, P, dtype, route):
     want = getattr(tss, route)
     assert tss.route(Q, N, P, dtype) == want
@@ -444,7 +498,8 @@ def test_cpu_tile_and_state_pass_count_no_launches(rng):
     (128, 48, 128, torch.bfloat16, "WGMMA"), (128, 128, 16, torch.float32, "SIMT"),
     (32, 8, 16, torch.float32, "SIMT"), (96, 128, 64, torch.bfloat16, "SIMT"),
     (128, 8, 64, torch.bfloat16, "SIMT"), (128, 120, 64, torch.float32, "SIMT"),
-    (64, 128, 36, torch.float32, "SIMT")])
+    (64, 128, 36, torch.float32, "SIMT"), (128, 16, 64, torch.bfloat16, "WGMMA"),
+    (128, 16, 64, torch.float32, "WGMMA")])
 def test_state_pass_routing_table(Q, N, P, dtype, route):
     """The tensor-core pass takes Q 64/128, N a multiple of 16 and P a
     multiple of the 32-column slice, in either dtype of C; every other
