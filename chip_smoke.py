@@ -52,11 +52,12 @@ Phases, in order; any failed check exits non-zero and prints no ok line:
    and the float32 route is reported inside the flash record.  The
    tensor-core route is also held within one bf16 ulp of the reference
    computed in float32 (``bf16_ulps``), a check that a single bf16 P
-   fails (``tools/flash_single_p.py``).  The SSD tile has two routes too:
+   fails (``tools/flash_single_p.py``).  The SSD tile has three routes:
    Q in {64, 128} with N, P in {64, 128} runs ``ssd_chunk_wgmma_kernel``
-   (tensor cores; the main path's), the reference's small case and other
-   shapes ``ssd_chunk_kernel`` (float32 CUDA cores, reported inside the
-   tile's record).  The tile is held at ``SSD_TILE_TOL`` at the slice, at
+   (tensor cores; mamba2's main path), the same Q and P at N 16
+   ``ssd_chunk_wgmma_n16_kernel`` (tensor cores; jamba's), the reference's
+   small case and other shapes ``ssd_chunk_kernel`` (float32 CUDA cores,
+   reported inside the tile's record).  The tile is held at ``SSD_TILE_TOL`` at the slice, at
    a smaller case with a partial head group and at the route's other
    shapes.  The inter-chunk pass routes the same way: Q in {64, 128}, N a
    multiple of 16 and P a multiple of 32 run ``ssd_state_pass_wgmma_kernel``
@@ -68,16 +69,17 @@ Phases, in order; any failed check exits non-zero and prints no ok line:
    the slice.  Then head dim 96 on both flash routes
    (``flash_d96_phase``: the ``flash_attention_d96`` record, phi3-mini's
    prefill attention, timed beside SDPA) and the SSD at jamba's state
-   width N 16 (``jamba_ssd_phase``: the CUDA-core tile, the tensor-core
-   pass with one k16 step, and the whole ``ssd_chunked``; the
-   ``ssd_chunk_tiles_simt`` and ``ssd_state_pass_n16`` records).
+   width N 16 (``jamba_ssd_phase``: the narrow tensor-core tile
+   ``ssd_chunk_wgmma_n16_kernel``, timed beside ``ssd_chunk_kernel``, the
+   tensor-core pass with one k16 step, and the whole ``ssd_chunked``; the
+   ``ssd_chunk_tiles_n16`` and ``ssd_state_pass_n16`` records).
 5. Serve the LM substrate at full width in five cells (``SERVE_CELLS``):
    ``serve-mamba2-370m`` (the SSD kernels' path: per layer one tensor-core
    tile and one tensor-core state pass), ``serve-yi-6b`` (the flash
    kernel's path), ``serve-olmoe-1b-7b`` (MoE: 64 experts, top 8),
    ``serve-phi3-mini-3.8b`` (flash at head dim 96) and
    ``serve-jamba-v0.1-52b-8l`` (one super-block of the hybrid: flash, the
-   CUDA-core SSD tile and the tensor-core pass at N 16, MoE), random
+   narrow tensor-core SSD tile and the tensor-core pass at N 16, MoE), random
    weights from a seeded generator.  Each first checks the float32 model
    at a 1024-token prompt (kernel vs plain prefill within 1e-4 of the max
    logit, the kernel path replaying the plain path's MoE routing, with the
@@ -1890,8 +1892,9 @@ FLASH_SLICE_D96 = dict(B=1, L=8192, H=32, KVH=32, D=96, causal=True, window=0)
 FLASH_MAIN_PATH = (dict(B=4, L=8192, H=16, KVH=16, D=128, causal=True, window=0),
                    dict(B=1, L=8192, H=32, KVH=8, D=128, causal=True, window=0))
 # jamba's SSM at B=1, L=8192: 64 chunks of Q=128, 128 heads of P=64, N=16
-# (d_inner 8192).  The tile takes the CUDA-core route there (N 16 is not a
-# tensor-core width), the pass the tensor-core one (one k16 step of C . h).
+# (d_inner 8192).  The tile takes its narrow tensor-core route there
+# (ssd_chunk_wgmma_n16_kernel: B and C in one swizzle atom, an M-64 state
+# product), the pass its tensor-core one (one k16 step of C . h).
 JAMBA_SSD_SLICE = dict(B=1, nc=64, Q=128, H=128, P=64, N=16)
 JAMBA_SSD_SMALL = dict(B=1, nc=3, Q=128, H=12, P=64, N=16)
 JAMBA_SSD_CHUNKED = (dict(B=1, L=1000, H=128, P=64, N=16),
@@ -1938,13 +1941,17 @@ def flash_work(c, itemsize):
             4 * B * H * pairs * D)
 
 
-def ssd_work(c, bc_itemsize):
+def ssd_work(c, bc_itemsize, x_itemsize=None):
     """Bytes (dtx, cum, B, C read once; y, states written once) and
     operations in float32 (C B^T once per chunk, y and the state per
-    head, as ssd_chunk_kernel computes them on CUDA cores)."""
+    head, as ssd_chunk_kernel computes them on CUDA cores).  With
+    ``x_itemsize`` the tile forms dt x on load: it reads x in that size and
+    float32 dt in place of dtx."""
     B, nc, Q, H, P, N = (c[k] for k in ("B", "nc", "Q", "H", "P", "N"))
     chunks = B * nc
-    moved = (4 * chunks * (2 * Q * H * P + Q * H + H * N * P)
+    x_in = (4 * Q * H * P if x_itemsize is None
+            else x_itemsize * Q * H * P + 4 * Q * H)
+    moved = (chunks * (x_in + 4 * (Q * H * P + Q * H + H * N * P))
              + bc_itemsize * 2 * chunks * Q * N)
     return moved, chunks * (2 * Q * Q * N + H * (2 * Q * Q * P + 2 * N * Q * P))
 
@@ -2195,53 +2202,83 @@ def flash_d96_phase(dev, gen, logs, timings):
 
 def jamba_ssd_phase(dev, gen, logs, timings):
     """The SSD at jamba's state width N 16, where the main path runs the
-    CUDA-core tile (``ssd_chunk_tiles_simt`` record) and the tensor-core
-    pass with a single k16 step (``ssd_state_pass_n16`` record): the tile
-    alone and the pass alone at ``JAMBA_SSD_SLICE`` (the tile also at a
-    partial head group), the whole ``ssd_chunked`` at
-    ``JAMBA_SSD_CHUNKED``, each in float32 and bf16 against its plain
-    version, each launch checked and repeated bitwise, and the times."""
+    narrow tensor-core tile (``ssd_chunk_tiles_n16`` record) and the
+    tensor-core pass with a single k16 step (``ssd_state_pass_n16``
+    record): the tile alone at ``JAMBA_SSD_SMALL`` (a partial head group)
+    and ``JAMBA_SSD_SLICE``, with dtx and with dt x formed on load, the pass
+    alone at the slice, the whole ``ssd_chunked`` at ``JAMBA_SSD_CHUNKED``,
+    each in float32 and bf16 against its plain version, each launch checked
+    and repeated bitwise, and the times: at the slice the tile, its dt x on
+    load form and ``ssd_chunk_kernel`` asked for at the same shape (nested
+    in the record as ``cuda_core_route``), each with its bound."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as SS
     from repro_torch.models import ssm
 
     f32, bf16 = torch.float32, torch.bfloat16
-    lt = logs["ssd_chunk_tiles_simt"] = KernelLog()
+    lt = logs["ssd_chunk_tiles_n16"] = KernelLog()
     lp = logs["ssd_state_pass_n16"] = KernelLog()
+    simt = KernelLog()
     c = JAMBA_SSD_SLICE
     # the tile alone
     for shape in (JAMBA_SSD_SMALL, c):
         for dt in (f32, bf16):
             dtx, cum, bm, cm = _ssd_inputs(gen, dev, shape, dt)
+            xh, dts = dtx.to(dt), dtx[..., 0].abs() * 0.1
             r = SS.route(shape["Q"], shape["N"], shape["P"], dt)
-            check(r is SS.SIMT, f"jamba ssd tile {shape} {dt}: {r.kernel}")
+            check(r is SS.WGMMA_N16, f"jamba ssd tile {shape} {dt}: {r.kernel}")
             label = f"ssd tile {shape} {dt} ({r.kernel})"
             run = lambda: SS.ssd_chunk_tiles(dtx, cum, bm, cm)
-            y, st = _ssd_launch(label, {r.counter: 1}, run)
-            yr, sr = ref.ssd_chunk_ref(dtx, cum, bm, cm)
-            lt.close(label + " y", y, yr, SSD_TILE_TOL)
-            lt.close(label + " state", st, sr, SSD_TILE_TOL)
-            lt.repeat(label, run)
-            lt.cases += 1
-            del y, st, yr, sr
+            run_xdt = lambda: SS.ssd_chunk_tiles_xdt(xh, dts, cum, bm, cm)
+            for name, fn, want_dtx in (
+                    (label, run, dtx),
+                    (label + " dtx on load", run_xdt,
+                     dts[..., None] * xh.float())):
+                y, st = _ssd_launch(name, {r.counter: 1}, fn)
+                yr, sr = ref.ssd_chunk_ref(want_dtx, cum, bm, cm)
+                lt.close(name + " y", y, yr, SSD_TILE_TOL)
+                lt.close(name + " state", st, sr, SSD_TILE_TOL)
+                lt.repeat(name, fn)
+                lt.cases += 1
+                del y, st, yr, sr, want_dtx
             if shape is c and dt == bf16:
-                # the card does these bf16 products on its tensor cores,
-                # so that is the bound, as for ssd_chunk_tiles; the kernel's
-                # own float32 CUDA-core rate sits beside it
+                # ssd_chunk_kernel at the same shape, held and timed beside
+                name = f"ssd tile {c} {dt} ({SS.SIMT.kernel})"
+                run_simt = lambda: SS.ssd_chunk_tiles(dtx, cum, bm, cm,
+                                                      force=SS.SIMT)
+                y, st = _ssd_launch(name, {SS.SIMT.counter: 1}, run_simt)
+                yr, sr = ref.ssd_chunk_ref(dtx, cum, bm, cm)
+                simt.close(name + " y", y, yr, SSD_TILE_TOL)
+                simt.close(name + " state", st, sr, SSD_TILE_TOL)
+                simt.repeat(name, run_simt)
+                simt.cases += 1
+                del y, st, yr, sr
+                # the card does these bf16 products on its tensor cores, so
+                # that is the bound of both kernels; ssd_chunk_kernel's own
+                # float32 CUDA-core rate sits beside it
                 moved, f32_ops = ssd_work(c, 2)
-                b_ms, b_by = bound(moved, ssd_tensor_core_ops(c, 2),
-                                   PEAK_BF16_FLOPS)
+                tc_ops = ssd_tensor_core_ops(c, 2)
+                b_ms, b_by = bound(moved, tc_ops, PEAK_BF16_FLOPS)
                 lt.extra.update(
-                    kernel=SS.SIMT.kernel, shape=dict(c),
-                    bound_f32_cuda_cores_ms=bound(moved, f32_ops)[0],
-                    tensor_core_ops=ssd_tensor_core_ops(c, 2))
-                timings["ssd_chunk_tiles_simt"] = dict(
+                    kernel=SS.WGMMA_N16.kernel, shape=dict(c),
+                    tensor_core_ops=tc_ops,
+                    dtx_on_load_ms=time_ms(run_xdt, reps=10),
+                    dtx_on_load_bound_ms=bound(ssd_work(c, 2, x_itemsize=2)[0],
+                                               tc_ops, PEAK_BF16_FLOPS)[0],
+                    cuda_core_route=dict(
+                        kernel=SS.SIMT.kernel, cases=simt.cases,
+                        max_abs_err=simt.max_abs, max_rel_err=simt.max_rel,
+                        repeat_bitwise=simt.repeat_bitwise,
+                        ms=time_ms(run_simt, reps=10), bound_ms=b_ms,
+                        bound_by=b_by,
+                        bound_f32_cuda_cores_ms=bound(moved, f32_ops)[0]))
+                timings["ssd_chunk_tiles_n16"] = dict(
                     ms=time_ms(run, reps=10),
                     plain_ms=time_ms(lambda: ref.ssd_chunk_ref(
                         dtx, cum, bm, cm), reps=5, warmup=1),
                     library_ms=None, bound_ms=b_ms, bound_by=b_by)
-            del dtx, cum, bm, cm
+            del dtx, cum, bm, cm, xh, dts
     empty_cache(dev)
     # the pass alone
     y_intra, states, cum, c32 = _pass_inputs(gen, dev, c)
@@ -2300,7 +2337,7 @@ def jamba_ssd_phase(dev, gen, logs, timings):
             cm = _randn(gen, (B, L, N)).to(dt).to(dev)
             label = f"ssd_chunked {shape} chunk=128 {dt}"
             run = lambda: SS.ssd_chunked(xh, dt_, a, bm, cm, chunk=128)
-            y1, h1 = _ssd_launch(label, {SS.SIMT.counter: 1,
+            y1, h1 = _ssd_launch(label, {SS.WGMMA_N16.counter: 1,
                                          SS.STATE_PASS_WGMMA.counter: 1}, run)
             y2, h2 = ssm.ssd_chunked(xh.float(), dt_, a, bm.float(), cm.float(),
                                      chunk=128)
@@ -2592,14 +2629,18 @@ SERVE_CELLS = (
     ServeCell("serve-phi3-mini-3.8b", "phi3-mini-3.8b", ("flash_attention_d96",),
               ("flash_attention_wgmma",), (32,), 1, 8192, 4, 64, 32),
     # one super-block of the hybrid (the whole model needs ~104 GB in bf16):
-    # one attention layer, seven mamba2 layers at N 16 (the CUDA-core tile,
-    # the tensor-core pass), four MoE MLPs of 16 experts and four dense ones
+    # one attention layer, seven mamba2 layers at N 16 (the narrow
+    # tensor-core tile, the tensor-core pass; never a CUDA-core route), four
+    # MoE MLPs of 16 experts and four dense ones
     ServeCell("serve-jamba-v0.1-52b-8l", "jamba-v0.1-52b",
-              ("flash_attention", "ssd_chunk_tiles_simt", "ssd_state_pass_n16"),
-              ("flash_attention_wgmma", "ssd_chunk_tiles_simt",
+              ("flash_attention", "ssd_chunk_tiles_n16", "ssd_state_pass_n16"),
+              ("flash_attention_wgmma", "ssd_chunk_tiles_wgmma_n16",
                "ssd_state_pass_wgmma"), (1, 7, 7), 1, 8192, 4, 64, 32,
               layers=8),
 )
+# the CUDA-core routes of the serving kernels, which no serving cell's
+# prefill launches
+CUDA_CORE_KERNELS = ("flash_kernel", "ssd_chunk_kernel", "ssd_state_pass_kernel")
 # cuBLAS's and CUTLASS's matrix-product kernels (nvjet: cuBLAS on Hopper)
 MATMUL_KERNEL_WORDS = ("gemm", "nvjet", "xmma", "cutlass", "matmul")
 # indexing, scatter and gather kernels: the MoE's dispatch and combine (and
@@ -2829,11 +2870,12 @@ def bf16_comparison(model, tokens, plain32, routing32):
     return out
 
 
-def prefill_breakdown(dev, prefill, tokens, kernel_names):
+def prefill_breakdown(dev, prefill, tokens, kernel_names, also=()):
     """Device time of one prefill (or any ``prefill(tokens)`` call: the TD
     phase traces a sweep) by kernel class from a torch.profiler trace (the
     ported kernels ``kernel_names``, together and each, matrix products,
-    the rest, and of the rest the indexing kernels) and the device's idle
+    the rest, and of the rest the indexing kernels), the calls of each of
+    ``kernel_names`` and ``also`` in the trace, and the device's idle
     share of the wall time; "not measured" if the trace has no device
     time."""
     import torch
@@ -2847,6 +2889,7 @@ def prefill_breakdown(dev, prefill, tokens, kernel_names):
     groups = {"kernel_ms": 0.0, "matmul_ms": 0.0, "other_ms": 0.0}
     index_ms = 0.0
     per_kernel = dict.fromkeys(kernel_names, 0.0)
+    calls = dict.fromkeys(tuple(kernel_names) + tuple(also), 0)
     by_name = {}
     for evt in prof.key_averages():
         if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
@@ -2855,6 +2898,9 @@ def prefill_breakdown(dev, prefill, tokens, kernel_names):
                      getattr(evt, "self_cuda_time_total", 0.0)) / 1e3
         name = evt.key.lower()
         by_name[evt.key[:80]] = by_name.get(evt.key[:80], 0.0) + ms
+        for k in calls:
+            if k in name:
+                calls[k] += evt.count
         ported = [k for k in kernel_names if k in name]
         if ported:
             groups["kernel_ms"] += ms
@@ -2869,7 +2915,8 @@ def prefill_breakdown(dev, prefill, tokens, kernel_names):
     if busy == 0:
         return {"device_time": "not measured", "wall_ms": wall_ms}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return dict(groups, kernels_ms=per_kernel, device_busy_ms=busy,
+    return dict(groups, kernels_ms=per_kernel, kernel_calls=calls,
+                device_busy_ms=busy,
                 index_kernels_ms=index_ms, wall_ms=wall_ms,
                 device_idle_share=max(0.0, 1 - busy / wall_ms),
                 top_kernels_ms=dict(top))
@@ -2991,10 +3038,16 @@ def serve_phase(dev, cell):
     empty_cache(dev)
     model = build_model(cfg, dev, seed=0)
     prefill = build_prefill_step(model, cfg, dev)
-    breakdown = prefill_breakdown(dev, prefill, big,
-                                  tuple(dict.fromkeys(
-                                      RECORDS[k].cuda_kernel
-                                      for k in cell.kernels)))
+    names = tuple(RECORDS[k].cuda_kernel for k in cell.kernels)
+    breakdown = prefill_breakdown(dev, prefill, big, names,
+                                  also=CUDA_CORE_KERNELS)
+    # the profiled prefill launched each of the cell's kernels its count a
+    # prefill, and no CUDA-core route
+    want = dict(zip(names, cell.per_prefill),
+                **dict.fromkeys(CUDA_CORE_KERNELS, 0))
+    calls = breakdown.get("kernel_calls")
+    check(calls is None or calls == want,
+          f"{cell.name}: the profiled prefill launched {calls}, expected {want}")
     if cfg.is_moe and dev.type == "cuda":
         breakdown["moe_stages_ms"] = moe_stage_ms(dev, prefill, big)
     del model, prefill
@@ -3585,12 +3638,12 @@ RECORDS = {
                            "96 (phi3-mini): flash_wgmma_kernel<96>"),
     "ssd_chunk_tiles": Record(**_TILE, tolerance=dict(tile=SSD_TILE_TOL),
                               cuda_kernel="ssd_chunk_wgmma_kernel"),
-    "ssd_chunk_tiles_simt": Record(
+    "ssd_chunk_tiles_n16": Record(
         **_TILE, tolerance=dict(tile=SSD_TILE_TOL, chunked=SSD_CHUNKED_TOL,
                                 bf16_ulps=SSD_ULP_LIMIT),
-        cuda_kernel="ssd_chunk_kernel",
-        route_of="ssd_chunk_tiles' CUDA-core route at N 16 (jamba): "
-                 "ssd_chunk_kernel"),
+        cuda_kernel="ssd_chunk_wgmma_n16_kernel",
+        route_of="ssd_chunk_tiles' tensor-core route at N 16 (jamba): "
+                 "ssd_chunk_wgmma_n16_kernel"),
     "ssd_state_pass": Record(**_PASS),
     "ssd_state_pass_n16": Record(
         **_PASS, route_of="ssd_state_pass' tensor-core route at N 16 "
@@ -3608,15 +3661,20 @@ def kernel_lines(logs, timings, launches):
     ``ssd_chunked``'s times at the slice; the state pass's nests its
     CUDA-core route (``ssd_state_pass_kernel``: cases, time and bound at
     the slice, main-path launches) beside its CUDA-core bound and both
-    routes' float32-C times; gain_matvec's counts the passes its checked
-    cases took and keeps its alternating trials against torch.matmul.  A
+    routes' float32-C times, and the N 16 tile's its CUDA-core route
+    (``ssd_chunk_kernel``: cases, time and bounds at jamba's slice,
+    main-path launches) and its dt x on load time and bound; gain_matvec's
+    counts the passes its checked cases took and keeps its alternating
+    trials against torch.matmul.  A
     record that replaces no Pallas kernel says so in ``replaces_note``;
     a record of one route or shape of a kernel that has its own record
     (head dim 96, jamba's N 16) says which in ``route_of``."""
     kernels = []
-    nested = logs["ssd_state_pass"].extra.get("cuda_core_route")
-    if nested is not None:
-        nested["launches"] = launches.get("ssd_state_pass_simt", 0)
+    for name, counter in (("ssd_state_pass", "ssd_state_pass_simt"),
+                          ("ssd_chunk_tiles_n16", "ssd_chunk_tiles_simt")):
+        nested = logs[name].extra.get("cuda_core_route")
+        if nested is not None:
+            nested["launches"] = launches.get(counter, 0)
     for name, log in logs.items():
         t = timings[name]
         rec = RECORDS[name]
@@ -3679,6 +3737,11 @@ def main():
                         for d in (64, 96, 128)},
                     "ssd_chunk_wgmma_dynamic_smem_bytes":
                         lib.ssd_chunk_wgmma_smem_bytes(128, 128, 64, 1),
+                    "ssd_chunk_wgmma_n16_dynamic_smem_bytes": {
+                        "bf16_bc": lib.ssd_chunk_wgmma_smem_bytes(
+                            128, 16, 64, 1),
+                        "float32_bc": lib.ssd_chunk_wgmma_smem_bytes(
+                            128, 16, 64, 0)},
                     "ssd_state_pass_dynamic_smem_bytes":
                         lib.ssd_state_pass_smem_bytes(128, 128, 1),
                     "ssd_state_pass_wgmma_dynamic_smem_bytes": {
@@ -3694,6 +3757,8 @@ def main():
                         "ssd_state_pass_wgmma_kernel":
                             lib.ssd_blocks_per_sm(2, 128),
                         "ssd_chunk_kernel_n16": lib.ssd_blocks_per_sm(3, 16),
+                        "ssd_chunk_wgmma_n16_kernel":
+                            lib.ssd_blocks_per_sm(4, 16),
                         "ssd_state_pass_wgmma_kernel_n16":
                             lib.ssd_blocks_per_sm(2, 16)}}})
 

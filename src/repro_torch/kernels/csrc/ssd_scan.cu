@@ -1,6 +1,6 @@
 // Hopper (sm_90a) kernels for the Mamba2 SSD (arXiv:2405.21060 §6), bound
 // to Python through a plain C interface and ctypes
-// (repro_torch/kernels/ssd_scan.py).  Two of them replace the Pallas TPU
+// (repro_torch/kernels/ssd_scan.py).  Three of them replace the Pallas TPU
 // kernel src/repro/kernels/ssd_scan.py::ssd_chunk_tiles (_ssd_chunk_kernel),
 // the intra-chunk tile: for every (batch x chunk, head)
 //
@@ -9,9 +9,11 @@
 //
 // with the decay masked before the exponential and float32 accumulation (B
 // and C arrive in the model's dtype).  The wrapper routes Q in {64, 128}
-// and N, P in {64, 128} to ssd_chunk_wgmma_kernel (tensor cores) and every
-// other shape up to 128 to ssd_chunk_kernel (float32 CUDA cores).  The
-// other two replace the XLA code around the Pallas tile in
+// and N, P in {64, 128} to ssd_chunk_wgmma_kernel (tensor cores), the same
+// Q and P at N = 16 (jamba's state width) to ssd_chunk_wgmma_n16_kernel
+// (tensor cores), and every other shape up to 128 to ssd_chunk_kernel
+// (float32 CUDA cores).  The other two replace the XLA code around the
+// Pallas tile in
 // ssd_chunked_pallas (the inter-chunk lax.scan and the inter-chunk output
 // term, src/repro/kernels/ssd_scan.py:133-145):
 //
@@ -39,6 +41,11 @@
 // it is 3.4e10 tensor-core operations, 0.035 ms, so the tensor-core pass is
 // bound by its bytes.  Measured (tools/ssd_probe.py), the per-chunk work of
 // its serial walk, more than its bytes, holds it at about 1.7x that bound.
+// At jamba's prefill (B = 1, L = 8192: 64 chunks x 128 heads, P = 64, N =
+// 16) the tile moves 0.58 GB (0.172 ms; 0.45 GB, 0.133 ms, with dt x on
+// load): its state product is an eighth of mamba2's, so it is bound by
+// dtx and y alone, as its loads, splits and stores are (tools/ssd_probe.py
+// has the copies without products and without stores).
 //
 // ssd_chunk_wgmma_kernel.  One block of two warpgroups takes kHeadsTc = 8
 // heads of one chunk.  B and C are shared by the heads (ngroups = 1), so
@@ -92,6 +99,26 @@
 // ssd_chunk_kernel.  Fixed order, no atomics: two launches give
 // bitwise-equal results.
 //
+// ssd_chunk_wgmma_n16_kernel (N = 16).  The same body (chunk_tile), the
+// same arithmetic and order, with three changes:
+//   - B and C share one 128-byte swizzle atom a row and a piece: B in
+//     columns 0-15, C in 16-31, zeros in 32-63.  G = C B^T is one k16 step
+//     whose A descriptor starts 32 bytes into the atom, as the second k16
+//     step of a wider tile does;
+//   - the state B^T (w dtx) keeps wgmma's M = 64: its A is the whole atom
+//     as an MN-major operand, so rows 16-31 (C's) and 32-63 (zeros) are
+//     computed and dropped, and only the first warp stores.  That is 4x a
+//     16-row product, still below the bytes' time; the first warpgroup's
+//     state product then matches the second's extra half of y;
+//   - two blocks an SM (kN16Blocks = 2, at most 128 registers a thread):
+//     G costs one k16 step a half, so it is made for each head where it is
+//     used instead of held in 64 registers across the heads, and w dtx
+//     always reuses dtx's tiles (two-phase).  101,376 bytes a block with
+//     bf16 B/C, 134,144 with float32 (one block an SM).  Measured on an
+//     H100 (tools/ssd_probe.py, PERF.md), this is about a quarter faster
+//     than one block an SM holding G in registers (kN16Blocks = 1),
+//     though ptxas spills about 120 bytes a thread to fit 128 registers.
+//
 // ssd_state_pass_wgmma_kernel.  One block per (P slice of 32 columns, head,
 // batch row) walks the chunks in order, since the recurrence is serial in
 // c: 256 blocks at the slice, two to an SM, so that one block's per-chunk
@@ -139,7 +166,8 @@
 // takes 100 KB of shared memory, so two share an SM.  Fixed order, no
 // atomics.
 //
-// ssd_chunk_kernel (every other tile shape; float32 on CUDA cores).  One
+// ssd_chunk_kernel (every other tile shape: the reference's small cases
+// and float32 B/C at Q = N = P = 128; float32 on CUDA cores).  One
 // block takes kHeads = 8 heads of one chunk: it computes G once into
 // registers, then for each head forms G * decay in shared memory and runs
 // the two products.  8 heads per block gives 1,024 blocks at the slice and
@@ -354,23 +382,38 @@ constexpr int kThreadsTc = 128 * kWarpgroups;
 constexpr int kHeadsTc = 8;           // heads per block
 constexpr int kPieces = 3;            // bf16 pieces of a float32 operand
 constexpr int kMaxSmem = 232448;      // dynamic shared memory a block can use
+constexpr int kNarrowN = 16;          // the state width of the narrow tile
+// Blocks of ssd_chunk_wgmma_n16_kernel an SM: 2 makes G per head and runs
+// two-phase, so that two blocks fit; 1 keeps G in registers across the
+// heads, as ssd_chunk_wgmma_kernel does (tools/ssd_probe.py times both).
+constexpr int kN16Blocks = 2;
 
 // Byte offsets from the 1024-aligned base.  parts: bf16 pieces of B and C
 // (kPieces for float32, 1 for bf16).  Every operand tile is rows x cols
 // bf16 in the swizzled layout of hopper.cuh: B and C Q x N (K-major for
 // G), the pieces of dtx and w dtx Q x P (MN-major).  Piece k of an operand
 // sits one tile after piece k - 1.  C's tiles are dead once G is made and
-// then hold the dtx operands; two-phase, w dtx reuses dtx's tiles.
+// then hold the dtx operands; two-phase, w dtx reuses dtx's tiles.  At N
+// 16, B and C share one atom-wide tile a piece (B in columns 0-15, C in
+// 16-31, zeros in 32-63: c is C's byte offset in a row), kept for every
+// head, and the operands follow it.
 struct Layout {
   int b, c, x, w, stage, cum, bytes;
   __host__ __device__ Layout(int Q, int N, int P, int parts, int split) {
-    const int bc_tiles = parts * Q * N * 2, x_tiles = kPieces * Q * P * 2;
+    const int x_tiles = kPieces * Q * P * 2;
     const int ops = (split ? 1 : 2) * x_tiles;
     b = 0;
-    c = bc_tiles;
-    x = c;
+    if (N == kNarrowN) {
+      c = 2 * kNarrowN;
+      x = parts * Q * kAtomBytes;
+      stage = x + ops;
+    } else {
+      const int bc_tiles = parts * Q * N * 2;
+      c = bc_tiles;
+      x = c;
+      stage = c + (bc_tiles > ops ? bc_tiles : ops);
+    }
     w = split ? x : x + x_tiles;
-    stage = c + (bc_tiles > ops ? bc_tiles : ops);
     cum = stage + Q * P * 4;           // cum, then dt, of two heads
     bytes = cum + 4 * Q * 4 + 1024;    // + alignment of the base
   }
@@ -408,20 +451,21 @@ __device__ __forceinline__ void pieces8(const __nv_bfloat16* src,
   out[0] = *reinterpret_cast<const uint4*>(src);
 }
 
-// xs (BC, Q, H, P) and dt (BC, Q, H) f32: dtx = dt * xs, formed on load
-// (dt null: xs is dtx, f32); cum (BC, Q, H) f32; bm, cm (BC, Q, N);
-// y (BC, Q, H, P) f32; states (BC, H, N, P) f32.
-template <typename T, typename X, int Q, int P>
-__global__ void __launch_bounds__(kThreadsTc, 1)
-ssd_chunk_wgmma_kernel(const X* __restrict__ xs, const float* __restrict__ dt,
-                       const float* __restrict__ cum,
-                       const T* __restrict__ bm, const T* __restrict__ cm,
-                       int H, int N, int split, float* __restrict__ y,
-                       float* __restrict__ states) {
+// The body of both tensor-core tiles.  xs (BC, Q, H, P) and dt (BC, Q, H)
+// f32: dtx = dt * xs, formed on load (dt null: xs is dtx, f32); cum (BC,
+// Q, H) f32; bm, cm (BC, Q, N); y (BC, Q, H, P) f32; states (BC, H, N, P)
+// f32.  kNarrow: N = 16 in B's tile (Layout); kPerHead: G made for each
+// head where it is used instead of once a block.
+template <typename T, typename X, int Q, int P, bool kNarrow, bool kPerHead>
+__device__ __forceinline__ void chunk_tile(
+    const X* __restrict__ xs, const float* __restrict__ dt,
+    const float* __restrict__ cum, const T* __restrict__ bm,
+    const T* __restrict__ cm, int H, int N, int split, float* __restrict__ y,
+    float* __restrict__ states) {
   constexpr int parts = sizeof(T) == 4 ? kPieces : 1;
   constexpr int kHalf = 4;                 // k16 steps of a 64-column half
   const Layout lay(Q, N, P, parts, split);
-  const int bc_tile = Q * N * 2, x_tile = Q * P * 2;
+  const int bc_tile = kNarrow ? Q * kAtomBytes : Q * N * 2, x_tile = Q * P * 2;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -496,46 +540,68 @@ ssd_chunk_wgmma_kernel(const X* __restrict__ xs, const float* __restrict__ dt,
       for (int k = 0; k < parts; ++k)
         *reinterpret_cast<uint4*>(gbase + lay.b + off + k * bc_tile) = v[k];
       pieces8(csrc + j * N + n, v);
+      const uint32_t c_off =
+          kNarrow ? swizzle_offset(j, kNarrowN + n, Q) : lay.c + off;
 #pragma unroll
       for (int k = 0; k < parts; ++k)
-        *reinterpret_cast<uint4*>(gbase + lay.c + off + k * bc_tile) = v[k];
+        *reinterpret_cast<uint4*>(gbase + c_off + k * bc_tile) = v[k];
+    }
+    if constexpr (kNarrow) {
+      // zeros in columns 32-63, which the padded rows of the M-64 state
+      // product read
+      for (int e = tid; e < Q * 4; e += kThreadsTc) {
+        const uint32_t off = swizzle_offset(e / 4, 2 * kNarrowN + (e % 4) * 8, Q);
+#pragma unroll
+        for (int k = 0; k < parts; ++k)
+          *reinterpret_cast<uint4*>(gbase + lay.b + off + k * bc_tile) =
+              make_uint4(0u, 0u, 0u, 0u);
+      }
     }
   }
   fence_proxy_async();
   __syncthreads();
 
-  // G = C B^T: this warpgroup's rows, the column halves they can see; for
-  // float32 the six products C_a B_b with a + b < 3.
+  // G = C B^T into acc (zeroed, fenced): this warpgroup's rows, column half
+  // hf; for float32 the six products C_a B_b with a + b < 3, smallest first
+  // (see "Accumulation order" above).  At N 16 one k16 step: C's columns
+  // sit 32 bytes into B's tile, as a second k16 step of a wider tile would.
+  const int ksteps = kNarrow ? 1 : N / 16;
+  auto make_g = [&](float (&acc)[32], int hf) {
+#pragma unroll
+    for (int ord = parts - 1; ord >= 0; --ord)
+#pragma unroll
+      for (int pa = 0; pa <= ord; ++pa)
+        for (int kk = 0; kk < ksteps; ++kk) {
+          const uint32_t koff = (kk / 4) * Q * kAtomBytes + (kk % 4) * 32;
+          mma_ss(acc,
+                 desc(base + lay.c + koff + wg * 64 * kAtomBytes +
+                          pa * bc_tile, 16, 1024),
+                 desc(base + lay.b + koff + hf * 64 * kAtomBytes +
+                          (ord - pa) * bc_tile, 16, 1024), 1);
+        }
+  };
+
+  // G once a block, kept in registers for every head (unless kPerHead)
   float g[Q / 64][32];
+  if constexpr (!kPerHead) {
 #pragma unroll
-  for (int hf = 0; hf < Q / 64; ++hf)
+    for (int hf = 0; hf < Q / 64; ++hf)
 #pragma unroll
-    for (int e = 0; e < 32; ++e) g[hf][e] = 0.f;
-  if (has_y) {
-    wg_fence();
+      for (int e = 0; e < 32; ++e) g[hf][e] = 0.f;
+    if (has_y) {
+      wg_fence();
 #pragma unroll
-    for (int hf = 0; hf < Q / 64; ++hf) {
-      if (hf > wg) continue;
-      // smallest products first (see "Accumulation order" above)
+      for (int hf = 0; hf < Q / 64; ++hf) {
+        if (hf > wg) continue;
+        make_g(g[hf], hf);
+      }
+      wg_commit();
+      wg_wait0();
 #pragma unroll
-      for (int ord = parts - 1; ord >= 0; --ord)
-#pragma unroll
-        for (int pa = 0; pa <= ord; ++pa)
-          for (int kk = 0; kk < N / 16; ++kk) {
-            const uint32_t koff = (kk / 4) * Q * kAtomBytes + (kk % 4) * 32;
-            mma_ss(g[hf],
-                   desc(base + lay.c + koff + wg * 64 * kAtomBytes +
-                            pa * bc_tile, 16, 1024),
-                   desc(base + lay.b + koff + hf * 64 * kAtomBytes +
-                            (ord - pa) * bc_tile, 16, 1024), 1);
-          }
+      for (int hf = 0; hf < Q / 64; ++hf) fence_regs(g[hf]);
     }
-    wg_commit();
-    wg_wait0();
-#pragma unroll
-    for (int hf = 0; hf < Q / 64; ++hf) fence_regs(g[hf]);
+    __syncthreads();   // C is dead: its tiles now hold the dtx operands
   }
-  __syncthreads();   // C is dead: its tiles now hold the dtx operands
 
   const int i0 = 64 * wg + row_a, i1 = i0 + 8;
   for (int h = h0, it = 0; h < h1; ++h, ++it) {
@@ -563,6 +629,15 @@ ssd_chunk_wgmma_kernel(const X* __restrict__ xs, const float* __restrict__ dt,
 #pragma unroll
         for (int hf = 0; hf < Q / 64; ++hf) {
           if (hf > wg) continue;
+          if constexpr (kPerHead) {
+#pragma unroll
+            for (int e = 0; e < 32; ++e) g[hf][e] = 0.f;
+            wg_fence();
+            make_g(g[hf], hf);
+            wg_commit();
+            wg_wait0();
+            fence_regs(g[hf]);
+          }
           uint32_t a[kHalf][4][kPieces];
 #pragma unroll
           for (int kk = 0; kk < kHalf; ++kk)
@@ -643,6 +718,8 @@ ssd_chunk_wgmma_kernel(const X* __restrict__ xs, const float* __restrict__ dt,
       fence_regs(acc);
       const int n0 = 64 * wg + row_a;
       float* st = states + (bc * H + h) * N * P;
+      // at N 16 the first warp's rows are the state's, the rest padding
+      if (kNarrow && n0 >= kNarrowN) continue;
 #pragma unroll
       for (int e = 0; e < P / 2; e += 2) {
         const int n = (e % 4) ? n0 + 8 : n0;
@@ -654,13 +731,43 @@ ssd_chunk_wgmma_kernel(const X* __restrict__ xs, const float* __restrict__ dt,
   }
 }
 
-// Dynamic shared memory of a block (w dtx beside dtx's tiles where that
-// fits, else two-phase), or -1 for a shape it does not take (float32 B and
-// C at Q = N = P = 128).
+// ssd_chunk_wgmma_kernel: Q, P in {64, 128}, N in {64, 128}.
+template <typename T, typename X, int Q, int P>
+__global__ void __launch_bounds__(kThreadsTc, 1)
+ssd_chunk_wgmma_kernel(const X* __restrict__ xs, const float* __restrict__ dt,
+                       const float* __restrict__ cum,
+                       const T* __restrict__ bm, const T* __restrict__ cm,
+                       int H, int N, int split, float* __restrict__ y,
+                       float* __restrict__ states) {
+  chunk_tile<T, X, Q, P, false, false>(xs, dt, cum, bm, cm, H, N, split, y,
+                                       states);
+}
+
+// ssd_chunk_wgmma_n16_kernel: the same tile at N = 16 (jamba's state width).
+template <typename T, typename X, int Q, int P>
+__global__ void __launch_bounds__(kThreadsTc, kN16Blocks)
+ssd_chunk_wgmma_n16_kernel(const X* __restrict__ xs,
+                           const float* __restrict__ dt,
+                           const float* __restrict__ cum,
+                           const T* __restrict__ bm, const T* __restrict__ cm,
+                           int H, int N, int split, float* __restrict__ y,
+                           float* __restrict__ states) {
+  chunk_tile<T, X, Q, P, true, kN16Blocks == 2>(xs, dt, cum, bm, cm, H, N,
+                                                split, y, states);
+}
+
+// Whether a block runs two-phase: the N 16 tile with G per head always
+// (two blocks an SM), every other where w dtx does not fit beside dtx.
+int split_of(int Q, int N, int P, int parts) {
+  if (N == kNarrowN && kN16Blocks == 2) return 1;
+  return Layout(Q, N, P, parts, 0).bytes > kMaxSmem;
+}
+
+// Dynamic shared memory of a block, or -1 for a shape it does not take
+// (float32 B and C at Q = N = P = 128).
 int smem_bytes(int Q, int N, int P, int parts) {
-  const Layout one(Q, N, P, parts, 0), two(Q, N, P, parts, 1);
-  if (one.bytes <= kMaxSmem) return one.bytes;
-  return two.bytes <= kMaxSmem ? two.bytes : -1;
+  const int bytes = Layout(Q, N, P, parts, split_of(Q, N, P, parts)).bytes;
+  return bytes <= kMaxSmem ? bytes : -1;
 }
 
 template <typename T, typename X, int Q, int P>
@@ -670,15 +777,22 @@ cudaError_t launch(const X* xs, const float* dt, const float* cum,
   constexpr int parts = sizeof(T) == 4 ? kPieces : 1;
   const int bytes = smem_bytes(Q, N, P, parts);
   if (bytes < 0) return cudaErrorInvalidValue;
-  const int split = Layout(Q, N, P, parts, 0).bytes > kMaxSmem;
+  const bool narrow = N == kNarrowN;
+  void (*kernel)(const X*, const float*, const float*, const T*, const T*, int,
+                 int, int, float*, float*) =
+      narrow ? &ssd_chunk_wgmma_n16_kernel<T, X, Q, P>
+             : &ssd_chunk_wgmma_kernel<T, X, Q, P>;
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_chunk_wgmma_kernel<T, X, Q, P>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && narrow)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   dim3 grid(bc, (H + kHeadsTc - 1) / kHeadsTc);
-  ssd_chunk_wgmma_kernel<T, X, Q, P><<<grid, kThreadsTc, bytes, s>>>(
+  kernel<<<grid, kThreadsTc, bytes, s>>>(
       xs, dt, cum, static_cast<const T*>(bm), static_cast<const T*>(cm), H, N,
-      split, y, states);
+      split_of(Q, N, P, parts), y, states);
   return cudaGetLastError();
 }
 
@@ -686,7 +800,7 @@ template <typename T, typename X>
 cudaError_t dispatch(const X* xs, const float* dt, const float* cum,
                      const void* bm, const void* cm, int bc, int Q, int H,
                      int N, int P, float* y, float* states, cudaStream_t s) {
-  if (N != 64 && N != 128) return cudaErrorInvalidValue;
+  if (N != kNarrowN && N != 64 && N != 128) return cudaErrorInvalidValue;
   if (Q == 64 && P == 64)
     return launch<T, X, 64, 64>(xs, dt, cum, bm, cm, bc, H, N, y, states, s);
   if (Q == 64 && P == 128)
@@ -1255,8 +1369,9 @@ int ssd_chunk_launch(const void* dtx, const void* cum, const void* bm,
   return (int)err;
 }
 
-// The tensor-core tile: Q in {64, 128}, N and P in {64, 128}; every pointer
-// 16-byte aligned.  dtype of B and C: 0 float32, 1 bfloat16.
+// The tensor-core tile: Q in {64, 128}, N in {16, 64, 128} (16:
+// ssd_chunk_wgmma_n16_kernel), P in {64, 128}; every pointer 16-byte
+// aligned.  dtype of B and C: 0 float32, 1 bfloat16.
 int ssd_chunk_wgmma_launch(const void* dtx, const void* cum, const void* bm,
                            const void* cm, int dtype, int bc, int Q, int H,
                            int N, int P, void* y, void* states, void* stream) {
@@ -1377,8 +1492,8 @@ int ssd_state_pass_wgmma_smem_bytes(int Q, int N, int c_dtype) {
 
 // Blocks of one kernel an SM holds at once, with bf16 B/C and output at
 // Q = 128, P = 64 and the given N: which 0 the tensor-core tile, 1 the
-// CUDA-core pass, 2 the tensor-core pass, 3 the CUDA-core tile; -1 if the
-// query failed.
+// CUDA-core pass, 2 the tensor-core pass, 3 the CUDA-core tile, 4 the
+// tensor-core tile at N 16; -1 if the query failed.
 int ssd_blocks_per_sm(int which, int N) {
   auto query = [](auto kernel, int threads, int bytes) {
     int n = -1;
@@ -1402,6 +1517,15 @@ int ssd_blocks_per_sm(int which, int N) {
                    pass_tc::smem_bytes<bf>(128, N));
     case 3:
       return query(ssd_chunk_kernel<bf>, kThreads, (int)smem_bytes(128, N, 64));
+    case 4: {
+      auto kernel = tc::ssd_chunk_wgmma_n16_kernel<bf, bf, 128, 64>;
+      if (cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared) != cudaSuccess)
+        return -1;   // as its launch sets it
+      return query(kernel, tc::kThreadsTc,
+                   tc::smem_bytes(128, tc::kNarrowN, 64, 1));
+    }
     default:
       return -1;
   }

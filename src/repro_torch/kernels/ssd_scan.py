@@ -19,8 +19,14 @@ Routing of the tile (``route``), by shape and the dtype of B and C:
   accumulation.  Its inputs must start on 16-byte boundaries.  Counted in
   ``LAUNCHES["ssd_chunk_tiles_wgmma"]``.  Float32 B/C at Q = N = P = 128
   is the exception: its pieces do not fit a block's shared memory.
+- Q in {64, 128}, N 16 (jamba's state width), P in {64, 128}, float32 or
+  bf16 B/C -> ``ssd_chunk_wgmma_n16_kernel``: the same tile and arithmetic
+  with B and C in one swizzle atom and G made for each head, two blocks an
+  SM.  Counted in ``LAUNCHES["ssd_chunk_tiles_wgmma_n16"]``.
 - every other shape up to ``MAX_DIM`` -> ``ssd_chunk_kernel``: float32 on
-  CUDA cores.  Counted in ``LAUNCHES["ssd_chunk_tiles_simt"]``.
+  CUDA cores.  Counted in ``LAUNCHES["ssd_chunk_tiles_simt"]``; it takes
+  every shape, so a call can ask for it (``force=SIMT``) to time it where
+  the tensor cores would run.
 
 Routing of the state pass (``state_pass_route``), by shape; each kernel
 runs one block per (P slice, head, batch row) walking the chunks in order:
@@ -38,9 +44,9 @@ runs one block per (P slice, head, batch row) walking the chunks in order:
 ``ssd_chunked`` is the port of ``ssd_chunked_pallas``, a drop-in for
 ``repro_torch.models.ssm.ssd_chunked``: padding to the chunk and the cumsum
 stay plain torch, then for CUDA tensors exactly two kernels run, the tile
-and the state pass.  Where the tile takes the tensor-core route and xh
-comes in the dtype of B and C (the model's), the tile forms dtx = dt xh on
-load (``ssd_chunk_tiles_xdt``) instead of reading a float32 dtx that plain
+and the state pass.  Where the tile takes a tensor-core route and xh comes
+in the dtype of B and C (the model's), the tile forms dtx = dt xh on load
+(``ssd_chunk_tiles_xdt``) instead of reading a float32 dtx that plain
 torch would first write.
 """
 
@@ -62,16 +68,19 @@ class Route(NamedTuple):
 
 
 WGMMA = Route("ssd_chunk_wgmma_kernel", "ssd_chunk_tiles_wgmma")
+WGMMA_N16 = Route("ssd_chunk_wgmma_n16_kernel", "ssd_chunk_tiles_wgmma_n16")
 SIMT = Route("ssd_chunk_kernel", "ssd_chunk_tiles_simt")
 STATE_PASS_WGMMA = Route("ssd_state_pass_wgmma_kernel", "ssd_state_pass_wgmma")
 STATE_PASS_SIMT = Route("ssd_state_pass_kernel", "ssd_state_pass_simt")
-LAUNCHES = {r.counter: 0 for r in (WGMMA, SIMT, STATE_PASS_WGMMA,
+LAUNCHES = {r.counter: 0 for r in (WGMMA, WGMMA_N16, SIMT, STATE_PASS_WGMMA,
                                    STATE_PASS_SIMT)}
+TENSOR_CORE_TILES = (WGMMA, WGMMA_N16)   # one C entry, counted apart
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_DIM = 128   # largest chunk, state and head width one block covers (kMaxDim)
 WGMMA_CHUNKS = (64, 128)
 WGMMA_DIMS = (64, 128)   # N and P the tensor-core tile takes
+NARROW_N = 16            # the N of the narrow tensor-core tile (kNarrowN)
 PASS_SLICE = 32          # P columns of one tensor-core pass block (kSlice)
 
 
@@ -86,9 +95,12 @@ def route(Q: int, N: int, P: int, dtype: torch.dtype) -> Route:
     if max(Q, N, P) > MAX_DIM:
         raise ValueError(f"ssd_chunk_tiles takes Q, N, P <= {MAX_DIM}, got "
                          f"Q={Q} N={N} P={P}")
-    if (Q in WGMMA_CHUNKS and N in WGMMA_DIMS and P in WGMMA_DIMS
-            and not (dtype == torch.float32 and Q == N == P == MAX_DIM)):
-        return WGMMA
+    if Q in WGMMA_CHUNKS and P in WGMMA_DIMS:
+        if N == NARROW_N:
+            return WGMMA_N16
+        if N in WGMMA_DIMS and not (dtype == torch.float32
+                                    and Q == N == P == MAX_DIM):
+            return WGMMA
     return SIMT
 
 
@@ -97,10 +109,12 @@ def _aligned(*tensors) -> bool:
 
 
 def cuda_route(dtx: torch.Tensor, cum: torch.Tensor, b_mat: torch.Tensor,
-               c_mat: torch.Tensor) -> Route:
+               c_mat: torch.Tensor, force: Route | None = None) -> Route:
     """Check the tile's inputs against what the kernels take and return the
-    route a CUDA call takes; raise on anything else.  Reads only shapes,
-    dtypes, strides and addresses, so it runs on tensors of any device."""
+    route a CUDA call takes (``force`` if given: the CUDA-core kernel takes
+    every shape, a tensor-core one only its own); raise on anything else.
+    Reads only shapes, dtypes, strides and addresses, so it runs on tensors
+    of any device."""
     forward_only("ssd_chunk_tiles", dtx, cum, b_mat, c_mat)
     if dtx.dim() != 5:
         raise ValueError(f"dtx must be (B, nc, Q, H, P), got {tuple(dtx.shape)}")
@@ -111,23 +125,30 @@ def cuda_route(dtx: torch.Tensor, cum: torch.Tensor, b_mat: torch.Tensor,
     need(cum, "cum", (B, nc, Q, H))
     need(b_mat, "b_mat", (B, nc, Q, N), tuple(_DTYPES))
     need(c_mat, "c_mat", (B, nc, Q, N), (b_mat.dtype,))
-    if r is WGMMA and not _aligned(dtx, cum, b_mat, c_mat):
+    if force not in (None, r, SIMT):
+        raise ValueError(f"ssd_chunk_tiles: {force.kernel} does not take Q={Q} "
+                         f"N={N} P={P} {b_mat.dtype}")
+    r = force or r
+    if r in TENSOR_CORE_TILES and not _aligned(dtx, cum, b_mat, c_mat):
         raise ValueError("ssd_chunk_tiles: the tensor-core tile's inputs must "
                          "start on 16-byte boundaries")
     return r
 
 
 def ssd_chunk_tiles(dtx: torch.Tensor, cum: torch.Tensor, b_mat: torch.Tensor,
-                    c_mat: torch.Tensor):
+                    c_mat: torch.Tensor, force: Route | None = None):
     """All intra-chunk outputs + per-chunk states.
 
     dtx (B, nc, Q, H, P) and cum (B, nc, Q, H) float32; b_mat, c_mat
     (B, nc, Q, N) float32 or bf16 (accumulated in float32).  Returns
     (y_intra (B, nc, Q, H, P) float32, states (B, nc, H, N, P) float32).
+    ``force`` (CUDA tensors) overrides the shape's route, as ``cuda_route``
+    allows: ``SIMT`` runs the CUDA-core kernel where the tensor cores would
+    (to time the two side by side).
     """
     if not on_cuda(dtx, cum, b_mat, c_mat):
         return ref.ssd_chunk_ref(dtx, cum, b_mat, c_mat)
-    r = cuda_route(dtx, cum, b_mat, c_mat)
+    r = cuda_route(dtx, cum, b_mat, c_mat, force)
     B, nc, Q, H, P = dtx.shape
     N = b_mat.shape[-1]
     y = torch.empty_like(dtx)
@@ -136,7 +157,7 @@ def ssd_chunk_tiles(dtx: torch.Tensor, cum: torch.Tensor, b_mat: torch.Tensor,
     if not y.numel():
         return y, states
     LAUNCHES[r.counter] += 1
-    launch = (_build.load().ssd_chunk_wgmma_launch if r is WGMMA
+    launch = (_build.load().ssd_chunk_wgmma_launch if r in TENSOR_CORE_TILES
               else _build.load().ssd_chunk_launch)
     check(launch(ptr(dtx), ptr(cum), ptr(b_mat), ptr(c_mat),
                  _DTYPES[b_mat.dtype], B * nc, Q, H, N, P, ptr(y), ptr(states),
@@ -147,9 +168,9 @@ def ssd_chunk_tiles(dtx: torch.Tensor, cum: torch.Tensor, b_mat: torch.Tensor,
 def ssd_chunk_tiles_xdt(xh: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
                         b_mat: torch.Tensor, c_mat: torch.Tensor):
     """``ssd_chunk_tiles(dt[..., None] * xh.float(), cum, b_mat, c_mat)``
-    on the tensor-core route, with dtx formed on load: xh (B, nc, Q, H, P)
+    on a tensor-core route, with dtx formed on load: xh (B, nc, Q, H, P)
     in b_mat's dtype, dt (B, nc, Q, H) float32.  CUDA tensors only; for
-    CPU tensors (and shapes the tensor-core route does not take) call
+    CPU tensors (and shapes no tensor-core route takes) call
     ``ssd_chunk_tiles`` on dtx instead."""
     if xh.dim() != 5:
         raise ValueError(f"xh must be (B, nc, Q, H, P), got {tuple(xh.shape)}")
@@ -158,9 +179,10 @@ def ssd_chunk_tiles_xdt(xh: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
     forward_only("ssd_chunk_tiles", xh, dt, cum, b_mat, c_mat)
     if not on_cuda(xh, dt, cum, b_mat, c_mat):
         raise ValueError("ssd_chunk_tiles_xdt runs on CUDA tensors only")
-    if route(Q, N, P, b_mat.dtype) is not WGMMA:
+    r = route(Q, N, P, b_mat.dtype)
+    if r not in TENSOR_CORE_TILES:
         raise ValueError(f"ssd_chunk_tiles_xdt: Q={Q} N={N} P={P} "
-                         f"{b_mat.dtype} does not take the tensor-core route")
+                         f"{b_mat.dtype} does not take a tensor-core route")
     need(xh, "xh", (B, nc, Q, H, P), (b_mat.dtype,))
     need(dt, "dt", (B, nc, Q, H))
     need(cum, "cum", (B, nc, Q, H))
@@ -174,11 +196,11 @@ def ssd_chunk_tiles_xdt(xh: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
                          device=xh.device)
     if not y.numel():
         return y, states
-    LAUNCHES[WGMMA.counter] += 1
+    LAUNCHES[r.counter] += 1
     check(_build.load().ssd_chunk_wgmma_xdt_launch(
         ptr(xh), ptr(dt), ptr(cum), ptr(b_mat), ptr(c_mat),
         _DTYPES[b_mat.dtype], B * nc, Q, H, N, P, ptr(y), ptr(states),
-        stream(xh)), f"ssd_chunk_tiles ({WGMMA.kernel}, dtx on load)")
+        stream(xh)), f"ssd_chunk_tiles ({r.kernel}, dtx on load)")
     return y, states
 
 
@@ -285,7 +307,7 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     cum = torch.cumsum(dt_c * a.float(), dim=2).contiguous()   # (B, nc, Q, H)
 
     if (on_cuda(xh_c, dt_c, cum, b_c, c_c) and xh.dtype == b_c.dtype
-            and route(Q, N, P, b_c.dtype) is WGMMA):
+            and route(Q, N, P, b_c.dtype) in TENSOR_CORE_TILES):
         y_intra, s_chunk = ssd_chunk_tiles_xdt(xh_c.contiguous(), dt_c, cum,
                                                b_c, c_c)
     else:

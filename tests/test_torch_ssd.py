@@ -119,6 +119,7 @@ def test_cpu_tensors_never_count_launches(rng):
     tss.reset_launches()
     tss.ssd_chunked(*map(_t, _chunked_inputs(rng, 40)), chunk=16)
     assert tss.LAUNCHES == {"ssd_chunk_tiles_wgmma": 0,
+                            "ssd_chunk_tiles_wgmma_n16": 0,
                             "ssd_chunk_tiles_simt": 0,
                             "ssd_state_pass_wgmma": 0,
                             "ssd_state_pass_simt": 0}
@@ -143,6 +144,20 @@ def test_cuda_kernel_refuses_what_it_does_not_take():
         tss.ssd_chunk_tiles(dtx, cum, b, b)
     with pytest.raises(RuntimeError, match="forward-only"):
         tss.ssd_chunk_tiles(dtx[..., :4].contiguous().requires_grad_(), cum, b, b)
+    # N 16 on the tensor cores: 16-byte-aligned inputs only; a CUDA-core
+    # launch asked for at the same shape gives the same values
+    dtx, cum, b, c = (t.to("cuda") for t in map(_t, _tile_inputs(
+        np.random.default_rng(0), B=1, nc=2, Q=64, H=3, P=64, N=16)))
+    flat = torch.zeros(b.numel() + 4, device="cuda")
+    with pytest.raises(ValueError, match="16-byte"):
+        tss.ssd_chunk_tiles(dtx, cum, flat[1:1 + b.numel()].view(b.shape), c)
+    tss.reset_launches()
+    y, st = tss.ssd_chunk_tiles(dtx, cum, b, c)
+    y2, st2 = tss.ssd_chunk_tiles(dtx, cum, b, c, force=tss.SIMT)
+    assert tss.LAUNCHES["ssd_chunk_tiles_wgmma_n16"] == 1
+    assert tss.LAUNCHES["ssd_chunk_tiles_simt"] == 1
+    _close(y.cpu(), y2.cpu(), 1e-4)
+    _close(st.cpu(), st2.cpu(), 1e-4)
 
 
 # ---------------------------------------------------------------------------
@@ -206,12 +221,15 @@ def _products(a, b, pieces_a, pieces_b, order):
 
 
 def _emulate_tile(dtx, cum, b, c, pieces=3, single=None):
-    """ssd_chunk_wgmma_kernel's arithmetic in plain torch.  Every float32
-    operand enters as ``pieces`` bf16 pieces in the products i + j <
-    ``pieces`` (3: six products; 2: the hi/lo pair's three); a bf16 B or C
-    enters as it is.  ``single`` ("dtx" or "decay") rounds that operand of
-    the y product to one bf16 instead."""
-    Q = dtx.shape[2]
+    """ssd_chunk_wgmma_kernel's arithmetic in plain torch (and, at N 16,
+    ssd_chunk_wgmma_n16_kernel's).  Every float32 operand enters as
+    ``pieces`` bf16 pieces in the products i + j < ``pieces`` (3: six
+    products; 2: the hi/lo pair's three); a bf16 B or C enters as it is.
+    ``single`` ("dtx" or "decay") rounds that operand of the y product to
+    one bf16 instead.  At N 16 the state product has wgmma's 64 rows: B^T,
+    then C^T (C sits in B's swizzle atom, columns 16-31), then zeros, and
+    the rows past N are dropped."""
+    Q, N = dtx.shape[2], b.shape[-1]
     bf16_bc = b.dtype == torch.bfloat16
     x = dtx.float().permute(0, 1, 3, 2, 4)                 # (B, nc, H, Q, P)
     cm = cum.float().permute(0, 1, 3, 2)                   # (B, nc, H, Q)
@@ -226,16 +244,19 @@ def _emulate_tile(dtx, cum, b, c, pieces=3, single=None):
     kx = 1 if single == "dtx" else pieces
     y = _products(a, x, ka, kx, max(ka, kx))
     w = torch.exp(cm[..., -1:] - cm).unsqueeze(-1)
-    state = _products(b.transpose(-1, -2).unsqueeze(2), w * x, kb, pieces,
-                      pieces)
+    bt = b.transpose(-1, -2)
+    if N == tss.NARROW_N:
+        zeros = torch.zeros(bt.shape[:-2] + (64 - 2 * N, Q), dtype=bt.dtype)
+        bt = torch.cat([bt, c.transpose(-1, -2), zeros], dim=-2)
+    state = _products(bt.unsqueeze(2), w * x, kb, pieces, pieces)[..., :N, :]
     return y.permute(0, 1, 3, 2, 4), state
 
 
 SLICE_TILE = dict(B=1, nc=2, Q=128, H=2, P=64, N=128)
 
 
-def _slice_tile(rng, bc_dtype):
-    dtx, cum, bm, cm = _tile_inputs(rng, **SLICE_TILE)
+def _slice_tile(rng, bc_dtype, N=SLICE_TILE["N"]):
+    dtx, cum, bm, cm = _tile_inputs(rng, **dict(SLICE_TILE, N=N))
     if bc_dtype == "bf16":
         bm, cm = (np.asarray(jnp.asarray(x).astype(jnp.bfloat16)
                              .astype(jnp.float32)) for x in (bm, cm))
@@ -246,13 +267,17 @@ def _slice_tile(rng, bc_dtype):
     return got_inputs, want
 
 
-@pytest.mark.parametrize("bc_dtype", ["f32", "bf16"])
-def test_tensor_core_arithmetic_matches_the_pallas_tile(rng, bc_dtype):
+@pytest.mark.parametrize("bc_dtype,N", [("f32", 128), ("bf16", 128),
+                                        ("f32", 16), ("bf16", 16)],
+                         ids=["f32", "bf16", "f32-n16", "bf16-n16"])
+def test_tensor_core_arithmetic_matches_the_pallas_tile(rng, bc_dtype, N):
     """Three bf16 pieces of every float32 operand (six products) keep the
-    tensor-core tile within the tile's 1e-4 of the Pallas tile at the
-    serving slice's widths (Q=128, N=128, P=64)."""
-    inputs, (yj, sj) = _slice_tile(rng, bc_dtype)
+    tensor-core tiles within the tile's 1e-4 of the Pallas tile at the
+    serving slices' widths (Q=128, P=64; N=128 mamba2's, N=16 jamba's with
+    the M-64 state product)."""
+    inputs, (yj, sj) = _slice_tile(rng, bc_dtype, N)
     y, st = _emulate_tile(*inputs)
+    assert st.shape == sj.shape
     _close(y, yj, 1e-4)
     _close(st, sj, 1e-4)
 
@@ -351,10 +376,11 @@ def test_ssd_chunked_at_jamba_state_width_matches_pallas(rng, L):
     """The kernel module's ssd_chunked (on the CPU: the tile's and the
     pass's plain versions) and the plain chunked SSD at N 16 against
     ssd_chunked_pallas (interpret mode) and the reference's plain SSD, at
-    the chunked path's 2e-4; on the card the tile takes the CUDA-core route
-    there and the pass the tensor-core one."""
+    the chunked path's 2e-4; on the card the tile and the pass both take
+    their tensor-core routes there."""
     N, P, chunk = JAMBA_SSM["N"], JAMBA_SSM["P"], JAMBA_SSM["chunk"]
-    assert tss.route(chunk, N, P, torch.bfloat16) == tss.SIMT
+    for dtype in (torch.bfloat16, torch.float32):
+        assert tss.route(chunk, N, P, dtype) == tss.WGMMA_N16
     assert tss.state_pass_route(chunk, N, P, torch.bfloat16) == \
         tss.STATE_PASS_WGMMA
     arrs = _chunked_inputs(rng, L, B=1, H=4, P=P, N=N)
@@ -372,9 +398,9 @@ def test_ssd_chunked_at_jamba_state_width_matches_pallas(rng, L):
 @pytest.mark.parametrize("c_dtype", ["bf16", "f32"])
 def test_tensor_core_pass_at_jamba_state_width(rng, c_dtype):
     """The tensor-core pass's arithmetic (``_emulate_state_pass``, its
-    pieces by C's dtype) after the CUDA-core tile's plain version, at N 16
-    over 3 chunks with a padded last one: within the chunked path's 2e-4
-    of ssd_chunked_pallas."""
+    pieces by C's dtype) after the tensor-core tile's (``_emulate_tile``,
+    the M-64 state product), at N 16 over 3 chunks with a padded last one:
+    within the chunked path's 2e-4 of ssd_chunked_pallas."""
     L, N, P, chunk = 300, JAMBA_SSM["N"], JAMBA_SSM["P"], JAMBA_SSM["chunk"]
     arrs = list(_chunked_inputs(rng, L, B=1, H=4, P=P, N=N))
     if c_dtype == "bf16":
@@ -384,9 +410,9 @@ def test_tensor_core_pass_at_jamba_state_width(rng, c_dtype):
     yj, hj = jss.ssd_chunked_pallas(*map(jnp.asarray, arrs), chunk=chunk,
                                     interpret=True)
     dtx, cum, bm, cm = _chunk_prologue(*map(_t, arrs), chunk)
-    y_intra, states = tref.ssd_chunk_ref(dtx, cum, bm, cm)
     if c_dtype == "bf16":
-        cm = cm.bfloat16()
+        bm, cm = bm.bfloat16(), cm.bfloat16()
+    y_intra, states = _emulate_tile(dtx, cum, bm, cm)
     y, h = _emulate_state_pass(y_intra, states, cum, cm, L,
                                PASS_PIECES[c_dtype])
     _close(y, yj, 2e-4)
@@ -411,7 +437,12 @@ def test_fewer_pass_pieces_leave_the_chunked_tolerance(rng, c_dtype, pieces):
     (128, 128, 128, torch.bfloat16, "WGMMA"), (128, 128, 128, torch.float32, "SIMT"),
     (32, 8, 16, torch.float32, "SIMT"), (128, 96, 64, torch.bfloat16, "SIMT"),
     (96, 128, 64, torch.bfloat16, "SIMT"), (128, 128, 32, torch.float32, "SIMT"),
-    (128, 16, 64, torch.bfloat16, "SIMT"), (128, 16, 64, torch.float32, "SIMT")])
+    (128, 16, 64, torch.bfloat16, "WGMMA_N16"),
+    (128, 16, 64, torch.float32, "WGMMA_N16"),
+    (64, 16, 64, torch.bfloat16, "WGMMA_N16"),
+    (128, 16, 128, torch.float32, "WGMMA_N16"),
+    (32, 16, 16, torch.float32, "SIMT"), (128, 16, 32, torch.bfloat16, "SIMT"),
+    (96, 16, 64, torch.bfloat16, "SIMT")])
 def test_routing_table(Q, N, P, dtype, route):
     want = getattr(tss, route)
     assert tss.route(Q, N, P, dtype) == want
@@ -420,12 +451,15 @@ def test_routing_table(Q, N, P, dtype, route):
     b = torch.zeros((1, 1, Q, N), dtype=dtype)
     assert tss.cuda_route(dtx, cum, b, b) == want
     assert tss.WGMMA == ("ssd_chunk_wgmma_kernel", "ssd_chunk_tiles_wgmma")
+    assert tss.WGMMA_N16 == ("ssd_chunk_wgmma_n16_kernel",
+                             "ssd_chunk_tiles_wgmma_n16")
     assert tss.SIMT == ("ssd_chunk_kernel", "ssd_chunk_tiles_simt")
     assert tss.STATE_PASS_WGMMA == ("ssd_state_pass_wgmma_kernel",
                                     "ssd_state_pass_wgmma")
     assert tss.STATE_PASS_SIMT == ("ssd_state_pass_kernel",
                                    "ssd_state_pass_simt")
-    assert set(tss.LAUNCHES) == {tss.WGMMA.counter, tss.SIMT.counter,
+    assert set(tss.LAUNCHES) == {tss.WGMMA.counter, tss.WGMMA_N16.counter,
+                                 tss.SIMT.counter,
                                  tss.STATE_PASS_WGMMA.counter,
                                  tss.STATE_PASS_SIMT.counter}
 
@@ -452,6 +486,21 @@ def test_cuda_route_refuses_what_the_tiles_do_not_take():
         tss.cuda_route(dtx, cum, odd, b)
     with pytest.raises(RuntimeError, match="forward-only"):
         tss.cuda_route(dtx.requires_grad_(), cum, b, b)
+
+
+@pytest.mark.parametrize("N,tc", [(16, "WGMMA_N16"), (64, "WGMMA")])
+def test_cuda_route_takes_a_forced_cuda_core_route(N, tc):
+    """A tile call may ask for the CUDA-core kernel on any shape (the smoke
+    times it beside the tensor cores), and for a tensor-core kernel only
+    on its own shapes."""
+    dtx = torch.zeros((1, 1, 128, 2, 64))
+    cum = torch.zeros((1, 1, 128, 2))
+    b = torch.zeros((1, 1, 128, N), dtype=torch.bfloat16)
+    assert tss.cuda_route(dtx, cum, b, b) == getattr(tss, tc)
+    assert tss.cuda_route(dtx, cum, b, b, force=tss.SIMT) == tss.SIMT
+    other = tss.WGMMA if tc == "WGMMA_N16" else tss.WGMMA_N16
+    with pytest.raises(ValueError, match="does not take"):
+        tss.cuda_route(dtx, cum, b, b, force=other)
 
 
 def test_state_pass_checks_refuse_what_it_does_not_take():
