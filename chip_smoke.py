@@ -40,6 +40,21 @@ Phases, in order; any failed check exits non-zero and prints no ok line:
    gridworld (``run_value_iteration_scan``, megastep) and Q-learning
    (``run_value_iteration``, gain_matvec) against plain torch and the
    reference tests' error bounds (``value_iteration_phase``).
+3d. The sweep service (``sweep_service_phase``, after td-speedup) over
+   the degraded-edge and td-speedup phases' own stores:
+   ``generate_report`` twice over each, byte for byte, the degraded-edge
+   artifact's per-channel rates against the phase's own
+   (``per_channel_rates``, within ``RATE_TOL``) and the td_speedup
+   artifact's speedups against td-speedup's (``SERVICE_TD_RTOL``); both
+   roots behind one ``serve_sweeps`` server, every endpoint and a
+   ``POST /query/batch`` over one keep-alive ``QueryServiceClient`` equal
+   to the port's query functions exactly, with the warm GET's p50 and the
+   batch's round trip; ``serve_sweeps --once`` and the report CLI in
+   subprocesses, each torch-free; then two cells of
+   ``benchmarks/torch_chaos.py`` on the card (a raise-mode torn write plus
+   crash in this process, a hard-crash child at the lock's release), each
+   recovered bitwise against a clean run; these toy-shape sweeps' launches
+   stand in the phase's own line, not in the kernels line.
 4. Hold flash attention and the SSD kernels (the LM substrate's) against
    their plain versions on the card: the reference's own test cases at
    their tolerances (tests/test_kernels.py:175-213) and the serving
@@ -616,7 +631,7 @@ def sweep_phase(dev, cell):
         sync(dev)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
-        reset_all_launches()                   # the main path starts here
+        reset_all_launches()                   # the chaos sweeps start here
         t0 = time.perf_counter()
         res = run_sweep(spec, sampler, w0, env_sets=fam, fleet_sets=fleets,
                         device=dev)
@@ -865,7 +880,7 @@ def timed(dev, fn):
     sync(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    reset_all_launches()                   # the main path starts here
+    reset_all_launches()                   # the chaos sweeps start here
     t0 = time.perf_counter()
     out = fn()
     sync(dev)
@@ -902,10 +917,11 @@ def bitwise_equal(a, b, squeeze=None):
     return True
 
 
-def degraded_edge_phase(dev, cell=DEGRADED_EDGE):
+def degraded_edge_phase(dev, cell, store_root):
     """The degraded-edge study (benchmarks/degraded_edge.py) at its own
     scale: four backend pairs against plain torch, clean channel against
-    none, crash-resume of the resumable runtime, and a store reload."""
+    none, crash-resume of the resumable runtime, and a store reload.  The
+    study's store goes to ``store_root``, kept for the sweep service."""
     import shutil
     import tempfile
     import numpy as np
@@ -1100,7 +1116,7 @@ def degraded_edge_phase(dev, cell=DEGRADED_EDGE):
         # -- store-first: the study's own call, then a reload
         spec = edge_spec(cell, cell.channels, step_backend="fused",
                          gain_backend="kernel", trace="summary")
-        store = SweepStore(os.path.join(tmp, "store"))
+        store = SweepStore(store_root)
         extra = {"figure": "degraded_edge", "channels": labels}
         first, wall_first, counts, _ = timed(dev, lambda: sweep_or_load(
             store, spec, inp["sampler"], inp["w0"], extra=extra, **kw))
@@ -1119,6 +1135,7 @@ def degraded_edge_phase(dev, cell=DEGRADED_EDGE):
                           compute_wall_s=wall_first, reload_wall_s=wall_again,
                           reload_launches=counts, reload_bitwise=True,
                           unchunked_equals_chunked_bitwise=True,
+                          per_channel=per_channel_rates(first, labels),
                           entry_bytes=sum(
                               os.path.getsize(os.path.join(r, f))
                               for r, _, fs in os.walk(store.root)
@@ -1405,13 +1422,12 @@ def td_cell(m, iters, name):
                 TD_MODES, (s["lam"],), (s["rho"],), s["seeds"], s["eps"])
 
 
-def td_speedup_phase(dev):
+def td_speedup_phase(dev, store_root):
     """The TD(0) linear-speedup study (benchmarks/td_speedup.py) at its
     full scale on the fused backend, through the study's own store-first
-    call; then the backend parity at m = 64 with N cut to TD_CUT_ITERS
-    and the step's stages with the walk apart."""
-    import shutil
-    import tempfile
+    call (into ``store_root``, kept for the sweep service); then the
+    backend parity at m = 64 with N cut to TD_CUT_ITERS and the step's
+    stages with the walk apart."""
     import torch
     from repro_torch.core.algorithm1 import TraceSpec
     from repro_torch.experiments import SweepStore, run_sweep, sweep_or_load
@@ -1419,39 +1435,35 @@ def td_speedup_phase(dev):
     s = TD_STUDY
     N = s["iters"]
     lines, launches, tail, comm, walls = [], {}, {}, {}, {}
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_td_")
-    try:
-        store = SweepStore(os.path.join(tmp, "store"))
-        for m in s["agents"]:
-            inp = td_inputs(dev, m)
-            spec = td_spec(m, N, trace=TraceSpec(j_trajectory=True),
-                           step_backend="fused", gain_backend="kernel")
-            res, wall, counts, peak = timed(dev, lambda: sweep_or_load(
-                store, spec, inp["sampler"], inp["w0"],
-                env_sets=inp["env_sets"], state_init_fn=inp["state_init_fn"],
-                extra={"figure": "td_speedup", "m": m, "gamma": s["gamma"],
-                       "noise_scale": s["noise_scale"],
-                       "tail_frac": s["tail_frac"]}, device=dev))
-            check_launches(f"td-speedup m={m}", counts,
-                           {"gain_family_stats": N})
-            launches["gain_family_stats"] = (
-                launches.get("gain_family_stats", 0) + counts["gain_family_stats"])
-            jt = res.trace.j_trajectory.double()      # (E, M, L, R, S, N)
-            check(tuple(jt.shape) == (s["envs"], 2, 1, 1, len(s["seeds"]), N)
-                  and bool(torch.isfinite(jt).all()),
-                  f"td-speedup m={m}: j_trajectory {tuple(jt.shape)}")
-            n_tail = max(1, int(round(s["tail_frac"] * N)))
-            t = jt[..., N - n_tail:].mean(-1)
-            for mi, mode in enumerate(TD_MODES):
-                tail.setdefault(mode, []).append(float(t[:, mi].mean()))
-                comm.setdefault(mode, []).append(
-                    float(res.comm_rate[:, mi].mean()))
-            walls[m] = dict(wall_s=wall, peak_mem_bytes=peak,
-                            step_ms=wall / N * 1e3,
-                            run_agent_steps_per_s=(
-                                res.comm_rate.numel() * m * N / wall))
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    store = SweepStore(store_root)
+    for m in s["agents"]:
+        inp = td_inputs(dev, m)
+        spec = td_spec(m, N, trace=TraceSpec(j_trajectory=True),
+                       step_backend="fused", gain_backend="kernel")
+        res, wall, counts, peak = timed(dev, lambda: sweep_or_load(
+            store, spec, inp["sampler"], inp["w0"],
+            env_sets=inp["env_sets"], state_init_fn=inp["state_init_fn"],
+            extra={"figure": "td_speedup", "m": m, "gamma": s["gamma"],
+                   "noise_scale": s["noise_scale"],
+                   "tail_frac": s["tail_frac"]}, device=dev))
+        check_launches(f"td-speedup m={m}", counts,
+                       {"gain_family_stats": N})
+        launches["gain_family_stats"] = (
+            launches.get("gain_family_stats", 0) + counts["gain_family_stats"])
+        jt = res.trace.j_trajectory.double()      # (E, M, L, R, S, N)
+        check(tuple(jt.shape) == (s["envs"], 2, 1, 1, len(s["seeds"]), N)
+              and bool(torch.isfinite(jt).all()),
+              f"td-speedup m={m}: j_trajectory {tuple(jt.shape)}")
+        n_tail = max(1, int(round(s["tail_frac"] * N)))
+        t = jt[..., N - n_tail:].mean(-1)
+        for mi, mode in enumerate(TD_MODES):
+            tail.setdefault(mode, []).append(float(t[:, mi].mean()))
+            comm.setdefault(mode, []).append(
+                float(res.comm_rate[:, mi].mean()))
+        walls[m] = dict(wall_s=wall, peak_mem_bytes=peak,
+                        step_ms=wall / N * 1e3,
+                        run_agent_steps_per_s=(
+                            res.comm_rate.numel() * m * N / wall))
     rows, worst = {}, dict.fromkeys(TD_MODES, 0.0)
     for mode in TD_MODES:
         base = tail[mode][0]
@@ -1599,6 +1611,321 @@ def td_step_breakdown(dev, inp, m):
     out.update(key_only_draws_pass_ms=pass_ms, steps_per_pass=b,
                distinct_streams=U, runs=G)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 3d: the sweep service over the card's own stores
+# ---------------------------------------------------------------------------
+
+# a budget vector and the batch the service is asked, and how often the
+# warm GET and the batch round trip are timed
+SERVICE_BUDGETS = (0.01, 0.05, 0.1, 0.2, 0.5, 0.9)
+SERVICE_GETS = 200
+SERVICE_BATCHES = 20
+# the chaos cells of benchmarks/torch_chaos.py run here, at its smoke
+# scale: one in this process in raise mode, one as a hard-crash child
+SERVICE_RAISE_CELL = "ckpt.write:torn:1,ckpt.write:crash_after:2"
+SERVICE_CRASH_CELL = "runtime.unlock:crash_before:1"
+# The report's td_speedup speedups against td_speedup_phase's: both are
+# float64 means of the same stored float32 J trajectories, summed in two
+# orders (numpy on the host, torch on the card).
+SERVICE_TD_RTOL = 1e-12
+
+
+def _read_tree(d):
+    return {n: open(os.path.join(d, n), "rb").read()
+            for n in sorted(os.listdir(d))}
+
+
+def _json_roundtrip(obj):
+    return json.loads(json.dumps(obj))
+
+
+def _service_env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("REPRO_TORCH_FAULTS", None)
+    return env
+
+
+def _report_checks(service_root, roots, lines):
+    """Two renderings of each store, byte for byte; the artifacts' rates
+    and speedups against the phases that made the stores."""
+    from repro_torch.experiments import SweepStore, generate_report
+    out, arts = {}, {}
+    for name, root in roots.items():
+        trees = []
+        for k in range(2):
+            d = os.path.join(service_root, f"report-{name}-{k}")
+            index = generate_report(SweepStore(root), d)
+            trees.append(_read_tree(d))
+        check(trees[0] == trees[1],
+              f"sweep-service: two renderings of the {name} store differ")
+        check([a["figure"] for a in index["artifacts"]] == [name],
+              f"sweep-service: {name} store rendered "
+              f"{[a['figure'] for a in index['artifacts']]}")
+        art = json.loads(trees[0][index["artifacts"][0]["json"]])
+        arts[name] = art
+        out[name] = dict(artifacts=len(index["artifacts"]),
+                         rows=len(art["rows"]), bytes=sum(
+                             len(b) for b in trees[0].values()),
+                         byte_identical=True)
+
+    # degraded_edge: each channel's rows average to the phase's own
+    # per-channel means (float32 sums in two orders: within RATE_TOL)
+    store_line = next(l for l in lines if l.get("cell") == DEGRADED_EDGE.name
+                      and l.get("phase") == "store")
+    worst = 0.0
+    for ch, want in store_line["per_channel"].items():
+        rows = [r for r in arts["degraded_edge"]["rows"] if r["channel"] == ch]
+        check(rows, f"sweep-service: no degraded_edge rows for {ch}")
+        for key in ("delivered_rate", "comm_rate"):
+            got = sum(r[key] for r in rows) / len(rows)
+            err = abs(got - want[key + "_mean"])
+            worst = max(worst, err)
+            check(err <= RATE_TOL, f"sweep-service: degraded_edge {ch} "
+                  f"{key} {got} against the phase's {want[key + '_mean']}")
+    out["degraded_edge"]["per_channel_max_abs_err"] = worst
+
+    # td_speedup: the artifact's speedups are the phase's
+    td_line = next(l for l in lines if l.get("cell") == "td-speedup")
+    worst = 0.0
+    for mode, want_rows in td_line["rows"].items():
+        for w in want_rows:
+            (r,) = [r for r in arts["td_speedup"]["rows"]
+                    if r["mode"] == mode and r["m"] == w["m"]]
+            for key in ("speedup_vs_m1", "tail_error"):
+                rel = abs(r[key] / w[key] - 1)
+                worst = max(worst, rel)
+                check(rel <= SERVICE_TD_RTOL, f"sweep-service: td_speedup "
+                      f"{mode} m={w['m']} {key} {r[key]} against the "
+                      f"phase's {w[key]}")
+    out["td_speedup"]["speedup_max_rel_err"] = worst
+    out["td_speedup"]["tolerance"] = SERVICE_TD_RTOL
+    out["degraded_edge"]["tolerance"] = RATE_TOL
+    return out
+
+
+def _serving_checks(roots):
+    """Both roots behind one server; every endpoint over one keep-alive
+    client, each body equal to the port's query functions exactly; the
+    warm GET's p50 and a batch's round trip."""
+    import threading
+    from http.server import ThreadingHTTPServer
+    from repro_torch.experiments import SweepStore
+    from repro_torch.experiments import query as Q
+    from repro_torch.experiments.client import QueryServiceClient
+    from repro_torch.experiments.serve_sweeps import make_handler
+
+    stores = [SweepStore(r) for r in roots.values()]
+    entries = {h: s.get(h, verify=True) for s in stores for h in s.hashes()}
+    edge_h = SweepStore(roots["degraded_edge"]).hashes()[0]
+    td_hs = SweepStore(roots["td_speedup"]).hashes()
+    edge = entries[edge_h]
+    handler = make_handler(list(roots.values()), quiet=True)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    checked = 0
+    try:
+        with QueryServiceClient("127.0.0.1", httpd.server_address[1]) as c:
+            def ask(name, want, **params):
+                nonlocal checked
+                st, body = c.get(name, **params)
+                check(st == 200, f"sweep-service: {name} {params} answered "
+                      f"{st}: {body}")
+                check(body["torch_loaded"] is True,   # this process has it
+                      f"sweep-service: {name} torch_loaded "
+                      f"{body['torch_loaded']}")
+                got = body["entries"] if name == "/sweeps" else body["result"]
+                check(got == _json_roundtrip(want),
+                      f"sweep-service: {name} {params} differs from the "
+                      "port's query functions")
+                checked += 1
+
+            ask("/sweeps", [dict(m, store_root=s.root) for s in stores
+                            for m in s.entries()])
+            lam_mid = float((edge.lambdas[0] * edge.lambdas[-1]) ** 0.5)
+            for h, sel in [(edge_h, {"channel": 3})] + [(h, None)
+                                                        for h in td_hs]:
+                kw = {f"sel_{k}": v for k, v in (sel or {}).items()}
+                e = entries[h]
+                for mode in e.modes:
+                    curve = Q.tradeoff_curve(e, mode=mode, select=sel)
+                    ask("best_lambda", {"results": Q.best_lambda_batch(
+                        curve, SERVICE_BUDGETS)}, hash=h, mode=mode,
+                        budget=",".join(map(str, SERVICE_BUDGETS)), **kw)
+                    ask("best_lambda", Q.best_lambda(curve, 0.2), hash=h,
+                        mode=mode, budget=0.2, **kw)
+                    lam = lam_mid if h == edge_h else e.lambdas[0]
+                    ask("tradeoff", Q.tradeoff_at(curve, lam), hash=h,
+                        mode=mode, lam=lam, **kw)
+                    ask("pareto", {"front": Q.pareto_front(curve)}, hash=h,
+                        mode=mode, **kw)
+                    ask("curve", {"rows": curve.as_rows()}, hash=h,
+                        mode=mode, **kw)
+
+            curve = Q.tradeoff_curve(edge, select={"channel": 3})
+            batch = [{"query": "best_lambda", "hash": edge_h,
+                      "budget": b, "sel_channel": 3}
+                     for b in SERVICE_BUDGETS] + [
+                     {"query": "pareto", "hash": edge_h, "sel_channel": 3}]
+            want = [Q.best_lambda(curve, b) for b in SERVICE_BUDGETS] + [
+                {"front": Q.pareto_front(curve)}]
+            st, body = c.batch(batch)
+            check(st == 200 and body["count"] == len(batch),
+                  f"sweep-service: batch answered {st}")
+            check([r["result"] for r in body["results"]]
+                  == _json_roundtrip(want),
+                  "sweep-service: the batch differs from the port's query "
+                  "functions")
+            checked += 1
+
+            get_ms, batch_ms = [], []
+            for _ in range(SERVICE_GETS):
+                t0 = time.perf_counter()
+                st, _ = c.get("best_lambda", hash=edge_h, budget=0.2,
+                              sel_channel=3)
+                get_ms.append((time.perf_counter() - t0) * 1e3)
+                check(st == 200, f"sweep-service: timed GET answered {st}")
+            for _ in range(SERVICE_BATCHES):
+                t0 = time.perf_counter()
+                st, _ = c.batch(batch)
+                batch_ms.append((time.perf_counter() - t0) * 1e3)
+                check(st == 200, f"sweep-service: timed batch answered {st}")
+            stats = dict(c.stats)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=10)
+    check(stats["transient_retries"] == 0 and stats["response_errors"] == 0,
+          f"sweep-service: client counters {stats}")
+    return dict(roots=len(roots), entries=len(entries),
+                bodies_equal=checked, client=stats,
+                get_p50_ms=statistics.median(get_ms),
+                get_p90_ms=statistics.quantiles(get_ms, n=10)[-1],
+                gets=SERVICE_GETS, batch_queries=len(batch),
+                batch_round_trip_ms=statistics.median(batch_ms),
+                batches=SERVICE_BATCHES)
+
+
+def _cli_checks(service_root, roots):
+    """``serve_sweeps --once`` and the report CLI in subprocesses, each
+    torch-free and each equal to this process's answer."""
+    from repro_torch.experiments import SweepStore
+    from repro_torch.experiments import query as Q
+    edge = roots["degraded_edge"]
+    entry = SweepStore(edge).get(SweepStore(edge).hashes()[0])
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.experiments.serve_sweeps", edge,
+         "--once", "best_lambda?budget=0.2"], capture_output=True, text=True,
+        env=_service_env(), cwd=REPO, timeout=120)
+    once_s = time.perf_counter() - t0
+    check(r.returncode == 0, f"sweep-service: --once failed: {r.stderr}")
+    body = json.loads(r.stdout)
+    check(body["torch_loaded"] is False,
+          "sweep-service: serve_sweeps --once imported torch")
+    check(body["result"] == _json_roundtrip(
+        Q.best_lambda(Q.tradeoff_curve(entry), 0.2)),
+          "sweep-service: --once differs from the port's best_lambda")
+    out = os.path.join(service_root, "report-cli")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.experiments.report",
+         roots["td_speedup"], "--out", out], capture_output=True, text=True,
+        env=_service_env(), cwd=REPO, timeout=120)
+    report_s = time.perf_counter() - t0
+    check(r.returncode == 0, f"sweep-service: report CLI failed: {r.stderr}")
+    check(json.loads(r.stdout)["torch_loaded"] is False,
+          "sweep-service: the report CLI imported torch")
+    # index.json names its store and process; the artifacts are the bytes
+    got, want = (_read_tree(d) for d in (out, os.path.join(
+        service_root, "report-td_speedup-0")))
+    check([json.loads(t.pop("index.json"))["artifacts"] for t in (got, want)]
+          == [json.loads(r.stdout)["artifacts"]] * 2 and got == want,
+          "sweep-service: the report CLI's artifacts differ")
+    return dict(once_torch_loaded=False, once_s=once_s,
+                report_cli_torch_loaded=False, report_cli_s=report_s)
+
+
+def _chaos_checks(dev, service_root):
+    """Two cells of benchmarks/torch_chaos.py on the card: a raise-mode
+    torn write plus crash in this process, and a hard crash (os._exit) of
+    a child at the lock's release, recovered here; each recovered entry
+    equals a clean run's bit for bit."""
+    from benchmarks import torch_chaos as C
+    device = str(dev)
+    key = C.cell_hash(True, "sweep")
+
+    def digest(root):
+        return C.entry_digest(os.path.join(root, "store"), key)
+
+    sync(dev)
+    reset_all_launches()                   # the chaos sweeps start here
+    clean = os.path.join(service_root, "chaos-clean")
+    check(not C.in_process("sweep", clean, True, device),
+          "sweep-service: the clean chaos run crashed")
+    want = digest(clean)
+    raised = os.path.join(service_root, "chaos-raise")
+    check(C.in_process("sweep", raised, True, device, SERVICE_RAISE_CELL),
+          f"sweep-service: {SERVICE_RAISE_CELL} did not crash")
+    check(not C.in_process("sweep", raised, True, device),
+          "sweep-service: the raise-mode recovery crashed")
+    sync(dev)
+    check(digest(raised) == want,
+          "sweep-service: the raise-mode cell did not recover bitwise")
+    quarantined = C.count_quarantined(raised)
+    check(quarantined >= 1,
+          "sweep-service: the torn chunk was not quarantined")
+    crashed = os.path.join(service_root, "chaos-crash")
+    t0 = time.perf_counter()
+    rc, _, out = C.spawn("sweep", crashed, True, device, SERVICE_CRASH_CELL)
+    child_s = time.perf_counter() - t0
+    check(rc == C.faults.CRASH_EXIT,
+          f"sweep-service: {SERVICE_CRASH_CELL} child exited {rc}: {out}")
+    check(os.path.exists(os.path.join(crashed, "chunks", "INCOMPLETE")),
+          "sweep-service: the crashed child left no resume lock")
+    t0 = time.perf_counter()
+    check(not C.in_process("sweep", crashed, True, device),
+          "sweep-service: the hard-crash recovery crashed")
+    sync(dev)
+    recovery_s = time.perf_counter() - t0
+    counts = all_launches()                # ... and ends here
+    check(digest(crashed) == want,
+          "sweep-service: the hard-crash cell did not recover bitwise")
+    check(counts.get("megastep", 0) > 0,
+          f"sweep-service: the chaos sweeps launched {counts}")
+    return dict(cells=[dict(faults=SERVICE_RAISE_CELL, mode="raise",
+                            crashed=True, recovered_bitwise=True,
+                            quarantined=quarantined),
+                       dict(faults=SERVICE_CRASH_CELL, mode="exit",
+                            faulted_rc=rc, child_s=child_s,
+                            recovery_s=recovery_s, recovered_bitwise=True)],
+                scale=C._scale(True), launches=counts)
+
+
+def sweep_service_phase(dev, service_root, lines):
+    """The sweep service (query, report, registry, serve_sweeps, client)
+    over the degraded-edge and td-speedup phases' own stores, then two
+    chaos cells on the card.  The chaos sweeps run at the benchmark's toy
+    shape, so their launches stand in this phase's line only and stay out
+    of the kernels line, whose rows are timed at the studies' shapes."""
+    roots = {name: os.path.join(service_root, name)
+             for name in ("degraded_edge", "td_speedup")}
+    t0 = time.perf_counter()
+    report = _report_checks(service_root, roots, lines)
+    report_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serving = _serving_checks(roots)
+    serving_s = time.perf_counter() - t0
+    cli = _cli_checks(service_root, roots)
+    t0 = time.perf_counter()
+    chaos = _chaos_checks(dev, service_root)
+    chaos_s = time.perf_counter() - t0
+    return [dict(cell="sweep-service", report=report, report_s=report_s,
+                 serving=serving, serving_s=serving_s, cli=cli, chaos=chaos,
+                 chaos_s=chaos_s)], {}
 
 
 def td_runtime_channel_phase(dev):
@@ -3779,9 +4106,19 @@ def main():
 
     for cell in CELLS:
         main_path(cell.name, sweep_phase, cell)
-    main_path(DEGRADED_EDGE.name, degraded_edge_phase)
-    main_path("fig3", fig3_phase)
-    main_path("td-speedup", td_speedup_phase)
+    # the degraded-edge and td-speedup stores stay for the sweep service
+    import shutil
+    import tempfile
+    service_root = tempfile.mkdtemp(prefix="chip_smoke_service_")
+    try:
+        main_path(DEGRADED_EDGE.name, degraded_edge_phase, DEGRADED_EDGE,
+                  os.path.join(service_root, "degraded_edge"))
+        main_path("fig3", fig3_phase)
+        main_path("td-speedup", td_speedup_phase,
+                  os.path.join(service_root, "td_speedup"))
+        main_path("sweep-service", sweep_service_phase, service_root, lines)
+    finally:
+        shutil.rmtree(service_root, ignore_errors=True)
     main_path("td-markov-m64", td_runtime_channel_phase)
     main_path("value-iteration", value_iteration_phase)
     t0 = time.perf_counter()

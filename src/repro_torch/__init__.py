@@ -13,20 +13,24 @@ hand-written CUDA (``repro_torch/kernels/csrc/``), built on first use by
 (``experiments.sweep.run_sweep`` and the resumable runtime), serving
 (``python -m repro_torch.launch.serve``) and federated gain-gated training
 of the LM substrate (``python -m repro_torch.launch.train``, or
-``launch.train.train``).
+``launch.train.train``), and the sweep service (``experiments.report``,
+``experiments.serve_sweeps``), which never imports torch.
+
+Importing the package imports no torch, so ``faults`` and the serving
+half of ``experiments`` (``store``, ``query``, ``report``, ``registry``,
+``serve_sweeps``, ``client``) run on numpy and the stdlib alone.
 """
 
 from __future__ import annotations
 
-import torch
 
-
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> "torch.device":
     """The device an entry point runs on: ``device`` or, by default, cuda.
 
     Raises when CUDA is asked for (explicitly or by default) and there is
     none, so a run never drops to the CPU without the caller saying so.
     """
+    import torch
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -24,6 +24,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import faults
+
 Tree = Any
 
 _RESERVED = ("__dtypes__", "__meta__", "__checksums__")
@@ -132,19 +134,30 @@ def save(path: str, tree: Tree, metadata: dict | None = None,
     checksums = {k: _sha256(a) for k, a in payload.items()}
     directory = os.path.dirname(path) or "."
     os.makedirs(directory, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
+    # The fault sites sit inside the cleanup below, as the reference's
+    # ckpt.write / ckpt.rename scopes sit around the same calls.  So an
+    # injected raise-mode crash (FaultInjected, a BaseException) removes
+    # the temp file that an exit-mode crash (os._exit) leaves behind; the
+    # final path ends up the same either way, and resume reads only
+    # chunk_*.npz names, never a stray .tmp.
+    tmp = None
     try:
-        with os.fdopen(fd, "wb") as f:
-            np.savez(f, __dtypes__=json.dumps(dtypes),
-                     __meta__=json.dumps(metadata or {}),
-                     __checksums__=json.dumps(checksums), **payload)
-        os.replace(tmp, path)
+        with faults.scope("ckpt.write") as fs:
+            fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
+            with os.fdopen(fd, "wb") as f:
+                np.savez(f, __dtypes__=json.dumps(dtypes),
+                         __meta__=json.dumps(metadata or {}),
+                         __checksums__=json.dumps(checksums), **payload)
+            fs.mangle(tmp)
+        with faults.scope("ckpt.rename"):
+            os.replace(tmp, path)
     except BaseException:
-        if os.path.exists(tmp):
+        if tmp is not None and os.path.exists(tmp):
             os.remove(tmp)
         raise
     if durable:
-        fsync_dir(directory)
+        with faults.scope("ckpt.fsync"):
+            fsync_dir(directory)
 
 
 def load_metadata(path: str) -> dict:

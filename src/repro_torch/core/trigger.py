@@ -11,6 +11,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.bound import theorem1_bound  # noqa: F401
+
 
 @dataclasses.dataclass(frozen=True)
 class TriggerConfig:
@@ -52,11 +54,3 @@ def check_assumption_3(rho: float, eps: float, phi_eigs: torch.Tensor) -> bool:
     """rho >= max_i (1 - 2 eps lambda_i(Phi))^2 (eq. 11)."""
     return bool(rho >= float(torch.max((1.0 - 2.0 * eps * phi_eigs) ** 2))
                 - 1e-12)
-
-
-def theorem1_bound(lam: float, rho: float, eps: float, num_iterations: int,
-                   j_w0: float, j_wstar: float, trace_phi_g: float) -> float:
-    """Right-hand side of Theorem 1 (eq. 12)."""
-    geo = (1.0 - rho**num_iterations) / (1.0 - rho)
-    return (lam + j_wstar + rho**num_iterations * (j_w0 - j_wstar)
-            + geo * eps**2 * trace_phi_g)

@@ -23,8 +23,9 @@ Finished sweeps go to the port's ``SweepStore``
 λ columns the store lacks, and ``sweep_or_load`` loads a stored spec with
 no device work at all.  ``gc_finished`` deletes a finished sweep's chunk
 files once its record is in the store, never while the ``INCOMPLETE``
-resume lock stands.  The reference's fault-injection sites are ROADMAP
-queue 1 item 10.
+resume lock stands.  The lock's creation and release and the deletion
+are the fault sites ``runtime.lock``, ``runtime.unlock`` and
+``runtime.gc`` (``repro_torch.faults``), as in the reference.
 """
 
 from __future__ import annotations
@@ -270,8 +271,9 @@ def run_sweep_resumable(
         "summary_store": (summary_store.root
                           if summary_store is not None else None),
     })
-    with open(os.path.join(store_dir, _INCOMPLETE), "w") as f:
-        f.write(exec_hash)
+    with faults.scope("runtime.lock"):
+        with open(os.path.join(store_dir, _INCOMPLETE), "w") as f:
+            f.write(exec_hash)
     done = completed_chunks(store_dir, exec_hash)
     template = _segment_template(plan) if done else None
     side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
@@ -339,8 +341,12 @@ def run_sweep_resumable(
     if summary_store is not None:
         store_result(summary_store, spec, result, inputs_digest_=in_digest,
                      durable=durable)
-    # every chunk is on disk and the record committed: release the lock
-    os.remove(os.path.join(store_dir, _INCOMPLETE))
+    # every chunk is on disk and the record committed: release the lock.
+    # A crash before this remove leaves a committed entry under a live
+    # lock: _lock_is_stale lets gc_finished collect it, and a re-run
+    # restores every chunk and re-puts the same bytes.
+    with faults.scope("runtime.unlock"):
+        os.remove(os.path.join(store_dir, _INCOMPLETE))
     return result
 
 
@@ -428,12 +434,13 @@ def gc_finished(store_dir: str,
             f"({entry_digest} != {manifest['inputs_digest']}) — refusing "
             "to treat it as this sweep's final record")
     files, freed = 0, 0
-    for name in sorted(os.listdir(store_dir)):
-        if _CHUNK_RE.match(name) or name == _MANIFEST:
-            path = os.path.join(store_dir, name)
-            freed += os.path.getsize(path)
-            os.remove(path)
-            files += 1
+    with faults.scope("runtime.gc"):
+        for name in sorted(os.listdir(store_dir)):
+            if _CHUNK_RE.match(name) or name == _MANIFEST:
+                path = os.path.join(store_dir, name)
+                freed += os.path.getsize(path)
+                os.remove(path)
+                files += 1
     if not os.listdir(store_dir):
         os.rmdir(store_dir)
     return {"collected": True, "files": files, "bytes": freed,

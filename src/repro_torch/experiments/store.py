@@ -313,18 +313,24 @@ class SweepStore:
             "extra": dict(extra or {}),
         }
         d = self._dir(h)
-        os.makedirs(d, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
-        with os.fdopen(fd, "wb") as f:
-            f.write(blob)
-        os.replace(tmp, os.path.join(d, _ARRAYS))
-        fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
-        with os.fdopen(fd, "w") as f:
-            json.dump(meta, f, indent=1, sort_keys=True)
-        os.replace(tmp, os.path.join(d, _META))  # commit marker, last
-        if durable:
-            _fsync_dir(d)
-            _fsync_dir(self.root)
+        with faults.scope("store.commit") as fs:
+            os.makedirs(d, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
+            with os.fdopen(fd, "wb") as f:
+                f.write(blob)
+            os.replace(tmp, os.path.join(d, _ARRAYS))
+            # torn/flip faults land on the already-renamed arrays file, so
+            # the commit marker below still lands: the store ends up
+            # holding a committed-but-corrupt entry, the case the checksum
+            # verification and quarantine path exists for
+            fs.mangle(os.path.join(d, _ARRAYS))
+            fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
+            with os.fdopen(fd, "w") as f:
+                json.dump(meta, f, indent=1, sort_keys=True)
+            os.replace(tmp, os.path.join(d, _META))  # commit marker, last
+            if durable:
+                _fsync_dir(d)
+                _fsync_dir(self.root)
         return h
 
     def _read_meta(self, h: str) -> dict:
@@ -457,6 +463,7 @@ class SweepStore:
         results means the inputs differed and the family hash failed to
         capture it.
         """
+        faults.event("store.merge")
         if not entries:
             raise ValueError("nothing to merge")
         base = entries[0]
