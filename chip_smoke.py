@@ -2217,7 +2217,33 @@ FLASH_SLICE_D96 = dict(B=1, L=8192, H=32, KVH=32, D=96, causal=True, window=0)
 # the main path runs it: olmoe's prefill (B=4, 16 query and kv heads) and
 # jamba's attention layer (32 query heads, 8 kv heads), d=128.
 FLASH_MAIN_PATH = (dict(B=4, L=8192, H=16, KVH=16, D=128, causal=True, window=0),
-                   dict(B=1, L=8192, H=32, KVH=8, D=128, causal=True, window=0))
+                   dict(B=1, L=8192, H=32, KVH=8, D=128, causal=True, window=0),
+                   # internvl2-2b's prefill: 256 patches + 7936 tokens
+                   dict(B=4, L=8192, H=16, KVH=8, D=128, causal=True, window=0))
+# Lk != Lq (key "Lk"; without it Lk = L): query row i and key j both count
+# from 0, key j visible iff j < Lk, (causal) j <= i, (window w) j > i - w.
+# Lq below and above Lk, causal and not, GQA, ragged Lk, a window under
+# which every row sees a key (the contract leaves rows that see none out),
+# and Lq = 4 over seamless-m4t-medium's 1024 frames (decode-vs-prefill's
+# prefill at t = 3), on both routes (float32: flash_kernel; bf16 at d 64
+# and 128: flash_wgmma_kernel).
+FLASH_CROSS_CASES = (
+    dict(B=2, L=100, Lk=300, H=4, KVH=2, D=64, causal=False, window=0),
+    dict(B=1, L=260, Lk=130, H=4, KVH=4, D=128, causal=False, window=0),
+    dict(B=1, L=96, Lk=200, H=4, KVH=1, D=64, causal=True, window=0),
+    dict(B=2, L=300, Lk=150, H=2, KVH=2, D=128, causal=True, window=0),
+    dict(B=1, L=200, Lk=160, H=4, KVH=2, D=64, causal=True, window=64),
+    dict(B=2, L=4, Lk=1024, H=16, KVH=16, D=64, causal=False, window=0),
+)
+# seamless-m4t-medium's prefill attention at B=4 (16 query and kv heads,
+# d=64): the cross-attention (8192 decoder tokens over 1024 frames, no
+# mask), the decoder's causal self-attention at 8192 and the encoder's
+# bidirectional self-attention over the 1024 frames
+FLASH_CROSS_SLICE = dict(B=4, L=8192, Lk=1024, H=16, KVH=16, D=64,
+                         causal=False, window=0)
+FLASH_SLICE_D64 = dict(B=4, L=8192, H=16, KVH=16, D=64, causal=True, window=0)
+FLASH_ENCODER_D64 = dict(B=4, L=1024, H=16, KVH=16, D=64, causal=False,
+                         window=0)
 # jamba's SSM at B=1, L=8192: 64 chunks of Q=128, 128 heads of P=64, N=16
 # (d_inner 8192).  The tile takes its narrow tensor-core route there
 # (ssd_chunk_wgmma_n16_kernel: B and C in one swizzle atom, an M-64 state
@@ -2234,8 +2260,10 @@ def _randn(gen, shape):
 
 
 def _flash_inputs(gen, dev, c, dtype):
-    return tuple(_randn(gen, (c["B"], c["L"], heads, c["D"])).to(dtype).to(dev)
-                 for heads in (c["H"], c["KVH"], c["KVH"]))
+    lk = c.get("Lk", c["L"])
+    return tuple(_randn(gen, (c["B"], length, heads, c["D"])).to(dtype).to(dev)
+                 for length, heads in ((c["L"], c["H"]), (lk, c["KVH"]),
+                                       (lk, c["KVH"])))
 
 
 def _ssd_inputs(gen, dev, c, bc_dtype):
@@ -2261,10 +2289,16 @@ def bf16_ulps(got, want):
 
 def flash_work(c, itemsize):
     """Bytes (q, k, v read once, o written once) and operations (two
-    products over the visible (query, key) pairs)."""
+    products over the visible (query, key) pairs; the slices this bounds
+    have no window)."""
     B, L, H, KVH, D = (c[k] for k in ("B", "L", "H", "KVH", "D"))
-    pairs = L * (L + 1) // 2 if c["causal"] else L * L
-    return (itemsize * (2 * B * L * H * D + 2 * B * L * KVH * D),
+    lk = c.get("Lk", L)
+    if c["causal"]:   # row i sees min(i + 1, Lk) keys
+        m = min(L, lk)
+        pairs = m * (m + 1) // 2 + (L - m) * lk
+    else:
+        pairs = L * lk
+    return (itemsize * (2 * B * L * H * D + 2 * B * lk * KVH * D),
             4 * B * H * pairs * D)
 
 
@@ -2338,14 +2372,14 @@ def lm_kernel_phase(dev):
     """Flash attention and the SSD tile against their plain versions: the
     reference's test cases at their tolerances and the slice's shapes in
     float32 and bf16 (flash also at the other serving cells' shapes in
-    bf16, ``FLASH_MAIN_PATH``), a bitwise repeat of every launch, and timings of
-    kernel, plain version and (flash) scaled_dot_product_attention."""
+    bf16, ``FLASH_MAIN_PATH``, at head dim 96, and with Lk != Lq and head
+    dim 64 for seamless-m4t-medium, ``flash_cross_phase``), a bitwise
+    repeat of every launch, and timings of kernel, plain version and
+    (flash) scaled_dot_product_attention."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref
-    from repro_torch.kernels import ssd_scan as SS
-    from repro_torch.models import ssm
 
     gen = torch.Generator().manual_seed(2)
     logs = {"flash_attention": KernelLog(), "ssd_chunk_tiles": KernelLog(),
@@ -2355,8 +2389,8 @@ def lm_kernel_phase(dev):
     # the flash_attention record is the tensor-core route's (the main path's);
     # flash_kernel, the float32 route, is held and timed beside it
     lf, simt = logs["flash_attention"], KernelLog()
-    ulp_check = lf.extra["bf16_ulp_check"] = dict(
-        max_ulps=0.0, cases=0, limit=FLASH_ULP_LIMIT)
+    lf.extra["bf16_ulp_check"] = dict(max_ulps=0.0, cases=0,
+                                      limit=FLASH_ULP_LIMIT)
     for c in FLASH_CASES + (FLASH_SLICE,):
         for dt in (torch.float32, torch.bfloat16):
             q, k, v = _flash_inputs(gen, dev, c, dt)
@@ -2371,17 +2405,7 @@ def lm_kernel_phase(dev):
             check(FA.LAUNCHES[route.counter] == 1
                   and sum(FA.LAUNCHES.values()) == 1,
                   f"{label}: launches {FA.LAUNCHES}, expected one {route.kernel}")
-            log.close(label, got, ref.flash_attention_ref(q, k, v, **kw), tol)
-            if route is FA.WGMMA:
-                want32 = ref.flash_attention_ref(q.float(), k.float(),
-                                                 v.float(), **kw)
-                ulps = bf16_ulps(got, want32)
-                check(ulps <= FLASH_ULP_LIMIT,
-                      f"{label}: {ulps:.3f} bf16 ulps from the float32 "
-                      f"reference, limit {FLASH_ULP_LIMIT}")
-                ulp_check["max_ulps"] = max(ulp_check["max_ulps"], ulps)
-                ulp_check["cases"] += 1
-                del want32
+            _flash_check(log, label, got, q, k, v, kw, tol)
             log.repeat(label, lambda: FA.flash_attention(q, k, v, **kw))
             log.cases += 1
             del got
@@ -2419,21 +2443,15 @@ def lm_kernel_phase(dev):
         check(FA.LAUNCHES[FA.WGMMA.counter] == 1
               and sum(FA.LAUNCHES.values()) == 1,
               f"{label}: launches {FA.LAUNCHES}, expected one {FA.WGMMA.kernel}")
-        want32 = torch.cat([ref.flash_attention_ref(
-            q[b:b + 1].float(), k[b:b + 1].float(), v[b:b + 1].float(),
-            causal=True) for b in range(c["B"])])
-        lf.close(label, got, want32.bfloat16(), FLASH_TOL["bfloat16"])
-        ulps = bf16_ulps(got, want32)
-        check(ulps <= FLASH_ULP_LIMIT, f"{label}: {ulps:.3f} bf16 ulps from "
-              f"the float32 reference, limit {FLASH_ULP_LIMIT}")
-        ulp_check["max_ulps"] = max(ulp_check["max_ulps"], ulps)
-        ulp_check["cases"] += 1
+        _flash_check(lf, label, got, q, k, v, dict(causal=True),
+                     FLASH_TOL["bfloat16"], rows=True)
         lf.repeat(label, lambda: FA.flash_attention(q, k, v, causal=True))
         lf.cases += 1
-        del q, k, v, got, want32
+        del q, k, v, got
         empty_cache(dev)
 
     flash_d96_phase(dev, gen, logs, timings)
+    flash_cross_phase(dev, gen, logs, timings)
     ssd_tile_phase(dev, gen, logs, timings)
     ssd_pass_phase(dev, gen, logs, timings)
     ssd_chunked_phase(dev, gen, logs)
@@ -2456,8 +2474,8 @@ def flash_d96_phase(dev, gen, logs, timings):
 
     lf = logs["flash_attention_d96"] = KernelLog()
     simt = KernelLog()
-    ulp_check = lf.extra["bf16_ulp_check"] = dict(
-        max_ulps=0.0, cases=0, limit=FLASH_ULP_LIMIT)
+    lf.extra["bf16_ulp_check"] = dict(max_ulps=0.0, cases=0,
+                                      limit=FLASH_ULP_LIMIT)
     for c in FLASH_D96_CASES + (FLASH_SLICE_D96,):
         for dt in (torch.float32, torch.bfloat16):
             q, k, v = _flash_inputs(gen, dev, c, dt)
@@ -2473,17 +2491,7 @@ def flash_d96_phase(dev, gen, logs, timings):
             check(FA.LAUNCHES[route.counter] == 1
                   and sum(FA.LAUNCHES.values()) == 1,
                   f"{label}: launches {FA.LAUNCHES}, expected one {route.kernel}")
-            log.close(label, got, ref.flash_attention_ref(q, k, v, **kw), tol)
-            if route is FA.WGMMA:
-                want32 = ref.flash_attention_ref(q.float(), k.float(),
-                                                 v.float(), **kw)
-                ulps = bf16_ulps(got, want32)
-                check(ulps <= FLASH_ULP_LIMIT,
-                      f"{label}: {ulps:.3f} bf16 ulps from the float32 "
-                      f"reference, limit {FLASH_ULP_LIMIT}")
-                ulp_check["max_ulps"] = max(ulp_check["max_ulps"], ulps)
-                ulp_check["cases"] += 1
-                del want32
+            _flash_check(log, label, got, q, k, v, kw, tol)
             log.repeat(label, lambda: FA.flash_attention(q, k, v, **kw))
             log.cases += 1
             del got
@@ -2524,6 +2532,134 @@ def flash_d96_phase(dev, gen, logs, timings):
                          warmup=1),
         library_ms=time_ms(sdpa, reps=10), bound_ms=b_ms, bound_by=b_by)
     del q, k, v
+    empty_cache(dev)
+
+
+def _flash_check(log, label, got, q, k, v, kw, tol, rows=False):
+    """A flash kernel's output ``got`` against the plain version on the
+    same inputs at ``tol`` (with ``rows``, against the float32 reference
+    computed one batch row at a time and rounded to q's dtype) and, where
+    ``log`` keeps a ``bf16_ulp_check`` (the tensor-core route's), within
+    ``FLASH_ULP_LIMIT`` bf16 ulps of the float32 reference."""
+    import torch
+    from repro_torch.kernels import ref
+
+    def plain(*xs):
+        if not rows:
+            return ref.flash_attention_ref(*xs, **kw)
+        return torch.cat([ref.flash_attention_ref(*(x[b:b + 1] for x in xs),
+                                                  **kw)
+                          for b in range(xs[0].shape[0])])
+    ulp_check = log.extra.get("bf16_ulp_check")
+    want32 = None
+    if rows or ulp_check is not None:
+        want32 = plain(q.float(), k.float(), v.float())
+    log.close(label, got, want32.to(q.dtype) if rows else plain(q, k, v), tol)
+    if ulp_check is not None:
+        ulps = bf16_ulps(got, want32)
+        check(ulps <= FLASH_ULP_LIMIT, f"{label}: {ulps:.3f} bf16 ulps from "
+              f"the float32 reference, limit {FLASH_ULP_LIMIT}")
+        ulp_check["max_ulps"] = max(ulp_check["max_ulps"], ulps)
+        ulp_check["cases"] += 1
+
+
+def flash_cross_phase(dev, gen, logs, timings):
+    """Lk != Lq and head dim 64 on both flash routes, for
+    seamless-m4t-medium's prefill.  ``FLASH_CROSS_CASES`` in float32 and
+    bf16 at ``FLASH_TOL`` (bf16 also within ``FLASH_ULP_LIMIT`` of the
+    float32 reference), each launch's route checked, a bitwise repeat of
+    each; then its three attention shapes in bf16 against the float32
+    reference, one batch row at a time: the cross-attention
+    (``flash_attention_cross``: Lq 8192 over Lk 1024, also in float32 on
+    ``flash_kernel``, the float32 checks' route), the decoder's causal and
+    the encoder's bidirectional self-attention (``flash_attention_d64``).
+    The cross-attention and the decoder's self-attention are timed beside
+    the plain version (one batch row at a time: a whole batch's float32
+    scores are 17 GB at 8192 x 8192) and ``scaled_dot_product_attention``
+    on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+
+    cross = logs["flash_attention_cross"] = KernelLog()
+    d64 = logs["flash_attention_d64"] = KernelLog()
+    simt = KernelLog()
+    for lf in (cross, d64):
+        lf.extra["bf16_ulp_check"] = dict(max_ulps=0.0, cases=0,
+                                          limit=FLASH_ULP_LIMIT)
+
+    def run(log, label, c, dt, rows=False):
+        q, k, v = _flash_inputs(gen, dev, c, dt)
+        kw = dict(causal=c["causal"], window=c["window"])
+        route = FA.route(dt, c["D"])
+        check(route is (FA.WGMMA if dt == torch.bfloat16 else FA.SIMT),
+              f"{label}: route {route.kernel}")
+        log = log if route is FA.WGMMA else simt
+        label = f"{label} {c} {dt} ({route.kernel})"
+        FA.reset_launches()
+        got = FA.flash_attention(q, k, v, **kw)
+        check(FA.LAUNCHES[route.counter] == 1
+              and sum(FA.LAUNCHES.values()) == 1,
+              f"{label}: launches {FA.LAUNCHES}, expected one {route.kernel}")
+        _flash_check(log, label, got, q, k, v, kw,
+                     FLASH_TOL[str(dt).split(".")[-1]], rows)
+        log.repeat(label, lambda: FA.flash_attention(q, k, v, **kw))
+        log.cases += 1
+        return q, k, v
+
+    for c in FLASH_CROSS_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            run(cross, "flash Lk != Lq", c, dt)
+    q, k, v = run(cross, "flash cross slice", FLASH_CROSS_SLICE,
+                  torch.float32, rows=True)
+    b_ms, b_by = bound(*flash_work(FLASH_CROSS_SLICE, 4))
+    simt_time = dict(ms=time_ms(lambda: FA.flash_attention(q, k, v,
+                                                           causal=False),
+                                reps=5, warmup=1),
+                     bound_ms=b_ms, bound_by=b_by)
+    del q, k, v
+    empty_cache(dev)
+    cross.extra.update(
+        kernel=FA.WGMMA.kernel, head_dim=64,
+        design="the K and V tensor maps span Lk, so TMA zero-fills the last "
+               "K/V tile past Lk within its batch row; the Q map and the grid "
+               "span Lq; keys visible iff j < Lk (and the causal and window "
+               "masks from 0 on both sides)",
+        float32_route=dict(
+            kernel=FA.SIMT.kernel, cases=simt.cases, max_abs_err=simt.max_abs,
+            max_rel_err=simt.max_rel, repeat_bitwise=simt.repeat_bitwise,
+            tolerance=dict(FLASH_TOL), slice_dtype="float32", **simt_time))
+    d64.extra.update(kernel=FA.WGMMA.kernel, head_dim=64)
+
+    def sdpa_fn(q, k, v, causal):
+        return lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal)
+
+    for name, log, c in (("flash_attention_cross", cross, FLASH_CROSS_SLICE),
+                         ("flash_attention_d64", d64, FLASH_SLICE_D64)):
+        q, k, v = run(log, name, c, torch.bfloat16, rows=True)
+        causal = c["causal"]
+        sdpa = sdpa_fn(q, k, v, causal)
+        log.close(f"{name} slice vs scaled_dot_product_attention",
+                  FA.flash_attention(q, k, v, causal=causal),
+                  sdpa().transpose(1, 2), FLASH_TOL["bfloat16"])
+        b_ms, b_by = bound(*flash_work(c, 2), PEAK_BF16_FLOPS)
+        rows = lambda: [ref.flash_attention_ref(  # noqa: E731
+            q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=causal)
+            for b in range(c["B"])]
+        timings[name] = dict(
+            ms=time_ms(lambda: FA.flash_attention(q, k, v, causal=causal),
+                       reps=10),
+            plain_ms=time_ms(rows, reps=3, warmup=1),
+            library_ms=time_ms(sdpa, reps=10), bound_ms=b_ms, bound_by=b_by)
+        log.extra.update(timed_shape=dict(c),
+                         plain_ms_is="the plain version one batch row at a "
+                                     "time, summed")
+        del q, k, v
+        empty_cache(dev)
+    run(d64, "flash encoder", FLASH_ENCODER_D64, torch.bfloat16, rows=True)
     empty_cache(dev)
 
 
@@ -2937,6 +3073,7 @@ class ServeCell(NamedTuple):
     prompt_len: int
     gen_len: int
     layers: Optional[int] = None   # depth cut; None keeps the published depth
+    check_len: Optional[int] = None   # float32 check's tokens; None: CHECK_LEN
 
 
 SERVE_CELLS = (
@@ -2964,6 +3101,25 @@ SERVE_CELLS = (
               ("flash_attention_wgmma", "ssd_chunk_tiles_wgmma_n16",
                "ssd_state_pass_wgmma"), (1, 7, 7), 1, 8192, 4, 64, 32,
               layers=8),
+    # a decoder behind 256 vision patches: 8192 positions = 256 patches +
+    # 7936 tokens (input_specs.py:22-30), causal d 128, GQA 16/8; the
+    # float32 check at 512 tokens behind the patches
+    ServeCell("serve-internvl2-2b", "internvl2-2b", ("flash_attention",),
+              ("flash_attention_wgmma",), (24,), 4, 8192, 4, 64, 32,
+              check_len=512),
+    # the encoder-decoder over its 1024 audio frames, 8192 decoder tokens:
+    # a prefill launches the tensor-core route 36 times at d 64, 12
+    # encoder (bidirectional, 1024 x 1024) and 12 decoder (causal, 8192)
+    # self-attentions and 12 cross-attentions (Lq 8192 over Lk 1024); the
+    # float32 check at 576 tokens over the frames: past 512, where the
+    # plain decoder's self-attention takes chunked_attention (float32
+    # scores, as the kernel's) and not reference_attention (scores rounded
+    # to bf16 in the bf16 model), so that the bf16 check compares paths
+    # that round at the same places
+    ServeCell("serve-seamless-m4t-medium", "seamless-m4t-medium",
+              ("flash_attention_d64", "flash_attention_cross"),
+              ("flash_attention_wgmma", "flash_attention_wgmma"), (24, 12),
+              4, 8192, 4, 64, 32, check_len=576),
 )
 # the CUDA-core routes of the serving kernels, which no serving cell's
 # prefill launches
@@ -3082,17 +3238,72 @@ class Routing:
         return out
 
 
-def _all_logits(model, tokens, use_kernels):
-    """(B, L, V) float32 logits of every position, through the kernels or
-    through the plain versions."""
+def _all_logits(model, tokens, use_kernels, prefix=None):
+    """(B, L, V) float32 logits of every position (a vision prefix's
+    positions included; an encoder-decoder's decoder positions over the
+    frames ``prefix``), through the kernels or through the plain
+    versions."""
     import torch
     model.use_kernels = use_kernels
     try:
         with torch.inference_mode():
-            hidden, _ = model.hidden_states(tokens)
+            hidden, _ = model.hidden_states(tokens, prefix)
             return (hidden @ model.head()).float()
     finally:
         model.use_kernels = True
+
+
+def _prefix_emb(cfg, batch, gen, dev):
+    """A frontend arch's (batch, num_prefix, frontend_dim) float32 patch or
+    frame embeddings, 0.02 normal (launch/train.py's scale) from ``gen``;
+    None for the other archs."""
+    import torch
+    if cfg.frontend == "none":
+        return None
+    return 0.02 * torch.randn((batch, cfg.num_prefix, cfg.frontend_dim),
+                              generator=gen, device=dev)
+
+
+def _text_len(cfg, positions):
+    """Tokens of a prompt of ``positions`` positions: a vision arch's
+    patches take the first num_prefix of them (input_specs.py:22-30)."""
+    return positions - cfg.num_prefix if cfg.frontend == "vision" else positions
+
+
+def flash_record(q, k):
+    """The ``kernels`` record a flash call's shape belongs to."""
+    if k.shape[1] != q.shape[1]:
+        return "flash_attention_cross"
+    d = q.shape[-1]
+    return "flash_attention" if d == 128 else f"flash_attention_d{d}"
+
+
+class FlashCensus:
+    """Count the flash-attention kernel's launches by record
+    (``flash_record``: head dim, Lk != Lq) while active: the wrapper's
+    counters tell the routes apart, not the shapes.  It wraps
+    ``repro_torch.kernels.flash_attention.flash_attention``, which the
+    models look up at call time, and counts calls on CUDA tensors, each
+    one launch."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as FA
+        self._orig = orig = FA.flash_attention
+
+        def counted(q, k, v, **kw):
+            if q.is_cuda and q.numel():
+                name = flash_record(q, k)
+                self.calls[name] = self.calls.get(name, 0) + 1
+            return orig(q, k, v, **kw)
+        FA.flash_attention = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import flash_attention as FA
+        FA.flash_attention = self._orig
 
 
 def _serve_cfg(cell, **changes):
@@ -3104,13 +3315,17 @@ def _serve_cfg(cell, **changes):
     return dataclasses.replace(cfg, **changes)
 
 
-def model_checks(dev, name, cfg, tokens, keep_plain=False):
+def model_checks(dev, name, cfg, tokens, keep_plain=False, prefix=None):
     """Float32 checks of one model: kernel vs plain prefill at the last
     position (the kernel path replaying the plain path's MoE routing) with
     the free routing's flips reported, and decode vs prefill at t = 3 and
-    L - 1 (MoE at ``DECODE_CAPACITY_FACTOR``).  Returns the line's fields,
-    the plain logits of every position (with ``keep_plain``, else None) and
-    the plain path's recorded routing."""
+    L - 1 (MoE at ``DECODE_CAPACITY_FACTOR``).  A frontend arch's
+    ``prefix`` goes into both prefills; decode takes none, so an
+    encoder-decoder decodes over ``encode(prefix)`` and is held to
+    prefills over the same frames, a vision decoder to prefills without
+    its patches (tests/test_models_smoke.py:87-98).  Returns the line's
+    fields, the plain logits of every position (with ``keep_plain``, else
+    None) and the plain path's recorded routing."""
     import dataclasses
     import torch
     from repro_torch.configs.base import ShapeConfig
@@ -3121,9 +3336,9 @@ def model_checks(dev, name, cfg, tokens, keep_plain=False):
     prefill = build_prefill_step(model, cfg, dev)
     routing = Routing()
     with routing.record():
-        plain = _all_logits(model, tokens, use_kernels=False)
+        plain = _all_logits(model, tokens, False, prefix)
     with routing.replay():
-        kern = prefill(tokens)[0]
+        kern = prefill(tokens, prefix)[0]
     scale = float(plain[:, -1].abs().max())
     kvp = float((kern - plain[:, -1]).abs().max())
     check(bool(torch.isfinite(kern).all()) and kvp <= KERNEL_VS_PLAIN_TOL * scale,
@@ -3134,7 +3349,7 @@ def model_checks(dev, name, cfg, tokens, keep_plain=False):
         out["routing"] = routing.report(f"{name} float32")
         model.cfg = cfg = dataclasses.replace(
             cfg, capacity_factor=DECODE_CAPACITY_FACTOR)
-        kern = prefill(tokens)[0]
+        kern = prefill(tokens, prefix)[0]
         out["decode_capacity_factor"] = DECODE_CAPACITY_FACTOR
     if not keep_plain:
         del plain
@@ -3144,11 +3359,16 @@ def model_checks(dev, name, cfg, tokens, keep_plain=False):
     step, init_cache = build_serve_step(
         model, cfg, ShapeConfig("check", L, B, "decode"), dev)
     cache = init_cache()
+    dec_prefix = prefix if cfg.is_encdec else None
+    if dec_prefix is not None:
+        with torch.inference_mode():
+            cache["memory"] = model.encode(dec_prefix)
     decode_err = {}
     for t in range(L):
         logits, cache = step(cache, tokens[:, t], t)
         if t in (3, L - 1):
-            want = kern if t == L - 1 else prefill(tokens[:, :t + 1])[0]
+            want = (kern if t == L - 1 and dec_prefix is prefix
+                    else prefill(tokens[:, :t + 1], dec_prefix)[0])
             err = float(((logits - want).abs()
                          / (DECODE_TOL + DECODE_TOL * want.abs())).max())
             check(err <= 1.0, f"{name} float32: decode at t={t} vs "
@@ -3160,7 +3380,7 @@ def model_checks(dev, name, cfg, tokens, keep_plain=False):
     return out, plain, routing
 
 
-def bf16_comparison(model, tokens, plain32, routing32):
+def bf16_comparison(model, tokens, plain32, routing32, prefix=None):
     """Kernel vs plain prefill in bf16, over every position, beside the
     plain bf16 path's own distance from float32 (its yardstick).  Both bf16
     paths replay ``routing32``, the float32 plain path's MoE routing, so
@@ -3168,10 +3388,10 @@ def bf16_comparison(model, tokens, plain32, routing32):
     the kernels change; the tokens whose bf16 routing would differ are
     reported."""
     with routing32.replay():
-        plain = _all_logits(model, tokens, use_kernels=False)
+        plain = _all_logits(model, tokens, False, prefix)
     plain_flips = routing32.flips
     with routing32.replay():
-        kern = _all_logits(model, tokens, use_kernels=True)
+        kern = _all_logits(model, tokens, True, prefix)
     kernel_flips = routing32.flips
     top1 = lambda a, b: float((a.argmax(-1) == b.argmax(-1)).float().mean())
     out = dict(kernel_vs_plain_max_abs=float((kern - plain).abs().max()),
@@ -3292,9 +3512,11 @@ def moe_stage_ms(dev, prefill, tokens):
 
 def serve_phase(dev, cell):
     """One serving cell: the float32 full-width checks and the bf16
-    comparison, then the main path — prefill at the cell's length and
-    ``serve`` — with the launch counts reset just before and read after,
-    then one profiled prefill (and, for MoE, its stages by CUDA events)."""
+    comparison, then the main path — prefill at the cell's length (a
+    frontend arch's behind its patches or over its frames) and ``serve``
+    — with the launch counts reset just before and read after (the flash
+    launches also by record, ``FlashCensus``), then one profiled prefill
+    (and, for MoE, its stages by CUDA events)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
@@ -3303,52 +3525,64 @@ def serve_phase(dev, cell):
 
     cfg = _serve_cfg(cell)
     gen = torch.Generator(device=dev).manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab_size, (CHECK_BATCH, CHECK_LEN),
+    check_len = cell.check_len or CHECK_LEN
+    tokens = torch.randint(0, cfg.vocab_size, (CHECK_BATCH, check_len),
                            generator=gen, device=dev)
+    prefix = _prefix_emb(cfg, CHECK_BATCH, gen, dev)
     # full width in float32 (the reference's contract, now with the kernel
     # on one side), keeping the plain logits and MoE routing for the bf16
     # check's yardstick
     f32, plain32, routing32 = model_checks(
         dev, cell.name, _serve_cfg(cell, dtype="float32"), tokens,
-        keep_plain=True)
+        keep_plain=True, prefix=prefix)
 
     model = build_model(cfg, dev, seed=0)   # bf16: the float32 draws, rounded
     prefill = build_prefill_step(model, cfg, dev)
-    bf16 = bf16_comparison(model, tokens, plain32, routing32)
+    bf16 = bf16_comparison(model, tokens, plain32, routing32, prefix)
     del plain32, routing32
     empty_cache(dev)
 
-    big = torch.randint(0, cfg.vocab_size, (cell.prefill_batch, cell.prefill_len),
+    big = torch.randint(0, cfg.vocab_size,
+                        (cell.prefill_batch, _text_len(cfg, cell.prefill_len)),
                         generator=gen, device=dev)
+    big_prefix = _prefix_emb(cfg, cell.prefill_batch, gen, dev)
     sync(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     reset_all_launches()                           # the main path starts here
     times = []
-    for _ in range(PREFILL_CALLS):
-        sync(dev)
-        t0 = time.perf_counter()
-        logits, _ = prefill(big)
-        sync(dev)
-        times.append((time.perf_counter() - t0) * 1e3)
-    peak_prefill = (int(torch.cuda.max_memory_allocated())
-                    if dev.type == "cuda" else None)
-    check(tuple(logits.shape) == (cell.prefill_batch, cfg.padded_vocab)
-          and bool(torch.isfinite(logits).all()),
-          f"{cell.name}: prefill logits {tuple(logits.shape)} not finite")
-    del model, prefill, logits                     # serve builds its own
-    empty_cache(dev)
-    res = serve(cfg, batch=cell.serve_batch, prompt_len=cell.prompt_len,
-                gen_len=cell.gen_len, seed=0, device=dev)
+    with FlashCensus() as census:
+        for _ in range(PREFILL_CALLS):
+            sync(dev)
+            t0 = time.perf_counter()
+            logits, _ = prefill(big, big_prefix)
+            sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak_prefill = (int(torch.cuda.max_memory_allocated())
+                        if dev.type == "cuda" else None)
+        check(tuple(logits.shape) == (cell.prefill_batch, cfg.padded_vocab)
+              and bool(torch.isfinite(logits).all()),
+              f"{cell.name}: prefill logits {tuple(logits.shape)} not finite")
+        del model, prefill, logits                 # serve builds its own
+        empty_cache(dev)
+        res = serve(cfg, batch=cell.serve_batch, prompt_len=cell.prompt_len,
+                    gen_len=cell.gen_len, seed=0, device=dev)
     counts = all_launches()                        # ... and ends here
-    expect = {c: n * PREFILL_CALLS
-              for c, n in zip(cell.counters, cell.per_prefill)}
+    expect, per_record = {}, {}
+    for rec, counter, n in zip(cell.kernels, cell.counters, cell.per_prefill):
+        expect[counter] = expect.get(counter, 0) + n * PREFILL_CALLS
+        per_record[rec] = n * PREFILL_CALLS
     for counter, n in expect.items():
         check(counts[counter] == n,
               f"{cell.name}: {counter} launched {counts[counter]} times, "
               f"expected {n} (per prefill call x prefill calls)")
     check(sum(counts.values()) == sum(expect.values()),
           f"{cell.name}: other kernels launched: {counts}")
+    want_census = {k: n for k, n in per_record.items()
+                   if k.startswith("flash_attention")}
+    check(census.calls == want_census,
+          f"{cell.name}: flash launches by record {census.calls}, expected "
+          f"{want_census}")
     toks = res["tokens"]
     check(tuple(toks.shape) == (cell.serve_batch, cell.gen_len)
           and bool(((toks >= 0) & (toks < cfg.padded_vocab)).all())
@@ -3365,13 +3599,16 @@ def serve_phase(dev, cell):
     empty_cache(dev)
     model = build_model(cfg, dev, seed=0)
     prefill = build_prefill_step(model, cfg, dev)
-    names = tuple(RECORDS[k].cuda_kernel for k in cell.kernels)
-    breakdown = prefill_breakdown(dev, prefill, big, names,
-                                  also=CUDA_CORE_KERNELS)
     # the profiled prefill launched each of the cell's kernels its count a
-    # prefill, and no CUDA-core route
-    want = dict(zip(names, cell.per_prefill),
-                **dict.fromkeys(CUDA_CORE_KERNELS, 0))
+    # prefill (summed over the records one kernel serves), and no CUDA-core
+    # route
+    want = dict.fromkeys(CUDA_CORE_KERNELS, 0)
+    for rec, n in zip(cell.kernels, cell.per_prefill):
+        name = RECORDS[rec].cuda_kernel
+        want[name] = want.get(name, 0) + n
+    names = tuple(k for k in want if k not in CUDA_CORE_KERNELS)
+    breakdown = prefill_breakdown(dev, lambda t: prefill(t, big_prefix), big,
+                                  names, also=CUDA_CORE_KERNELS)
     calls = breakdown.get("kernel_calls")
     check(calls is None or calls == want,
           f"{cell.name}: the profiled prefill launched {calls}, expected {want}")
@@ -3381,12 +3618,21 @@ def serve_phase(dev, cell):
     empty_cache(dev)
     prefill_ms = statistics.median(times[1:])     # the first is the warm-up
     published = get_config(cell.arch).num_layers
+    length = {"vision": f"prefill length {cell.prefill_len} ({cfg.num_prefix} "
+                        f"patches + {_text_len(cfg, cell.prefill_len)} "
+                        "tokens) of prefill_32k's 32768",
+              "audio": f"prefill length {cell.prefill_len} decoder tokens "
+                       f"(over the published {cfg.num_prefix} frames) of "
+                       "prefill_32k's 32768"}
     line = dict(
         cell=cell.name, arch=cell.arch, dtype=cfg.dtype,
         layers=cfg.num_layers, d_model=cfg.d_model,
-        reduced=[f"prefill length {cell.prefill_len} of prefill_32k's 32768",
+        reduced=[length.get(cfg.frontend, f"prefill length "
+                            f"{cell.prefill_len} of prefill_32k's 32768"),
                  f"prefill batch {cell.prefill_batch} of prefill_32k's 32",
                  "random weights (seeded torch.Generator)"]
+        + (["random patch / frame embeddings (0.02 normal, seeded), the "
+            "stubbed frontend's output"] if prefix is not None else [])
         + ([f"depth {cfg.num_layers} of the published {published}"]
            if cell.layers is not None else []),
         prefill_batch=cell.prefill_batch, prefill_len=cell.prefill_len,
@@ -3396,22 +3642,31 @@ def serve_phase(dev, cell):
         serve=served,
         peak_mem_bytes_prefill=peak_prefill, peak_mem_bytes=peak,
         launches=counts, expected_launches=expect,
-        float32_check=dict(f32, prompt=[CHECK_BATCH, CHECK_LEN],
+        flash_launches_by_record=census.calls,
+        float32_check=dict(f32, prompt=[CHECK_BATCH, check_len],
                            tolerance=dict(kernel_vs_plain=KERNEL_VS_PLAIN_TOL,
                                           decode_vs_prefill=DECODE_TOL)),
         bf16_check=bf16, prefill_breakdown=breakdown)
-    # the records' launches, and every counter by its own name (a record
-    # nests its other route's main-path count)
-    return line, dict(counts, **{k: counts[c] for k, c
+    if prefix is not None:
+        line["prefix"] = dict(
+            kind=cfg.frontend, prefill=list(big_prefix.shape),
+            float32_check=list(prefix.shape),
+            prefill_tokens=_text_len(cfg, cell.prefill_len))
+    # the records' launches (a flash record's by its census), and every
+    # counter by its own name (a record nests its other route's main-path
+    # count)
+    return line, dict(counts, **{k: census.calls.get(k, counts[c]) for k, c
                                  in zip(cell.kernels, cell.counters)})
 
 
 def reduced_archs_phase(dev):
-    """Every ported arch's reduced config (``reduced()``: 2 layers, d 256,
-    4 experts, head dim 64, the sliding window cut to 64) on the card in
-    float32 (``model_checks``: kernel vs plain prefill with the routing
-    replayed and its flips reported, decode vs prefill) at a 2 x 256 prompt,
-    longer than the window so that mixtral's window mask is live.  The
+    """Every arch's reduced config (``reduced()``: 2 layers, d 256, 4
+    experts, head dim 64, the sliding window cut to 64, 8 patches or frames
+    of width 64) on the card in float32 (``model_checks``: kernel vs plain
+    prefill with the routing replayed and its flips reported, decode vs
+    prefill) at a 2 x 256 prompt (behind or over the frontend archs' 8
+    prefix embeddings), longer than the window so that mixtral's window
+    mask is live.  The
     kernels' launches are checks here, not a main path: they are reported
     and not counted in the ``kernels`` line."""
     import torch
@@ -3422,8 +3677,10 @@ def reduced_archs_phase(dev):
         cfg = get_config(arch).reduced()
         tokens = torch.randint(0, cfg.vocab_size, (REDUCED_BATCH, REDUCED_LEN),
                                generator=gen, device=dev)
+        prefix = _prefix_emb(cfg, REDUCED_BATCH, gen, dev)
         reset_all_launches()
-        fields, _, _ = model_checks(dev, f"{arch} reduced", cfg, tokens)
+        fields, _, _ = model_checks(dev, f"{arch} reduced", cfg, tokens,
+                                    prefix=prefix)
         fields["launches"] = {k: v for k, v in all_launches().items() if v}
         check(sum(fields["launches"].values()) > 0,
               f"{arch} reduced: no kernel launched")
@@ -3963,6 +4220,16 @@ RECORDS = {
     "flash_attention_d96": Record(
         **_FLASH, route_of="flash_attention's tensor-core route at head dim "
                            "96 (phi3-mini): flash_wgmma_kernel<96>"),
+    "flash_attention_d64": Record(
+        **_FLASH, route_of="flash_attention's tensor-core route at head dim "
+                           "64 with Lk = Lq (seamless-m4t-medium's encoder "
+                           "and decoder self-attention): "
+                           "flash_wgmma_kernel<64>"),
+    "flash_attention_cross": Record(
+        **_FLASH, route_of="flash_attention's tensor-core route with Lk != "
+                           "Lq (seamless-m4t-medium's cross-attention, 8192 "
+                           "tokens over 1024 frames, d 64): "
+                           "flash_wgmma_kernel<64>"),
     "ssd_chunk_tiles": Record(**_TILE, tolerance=dict(tile=SSD_TILE_TOL),
                               cuda_kernel="ssd_chunk_wgmma_kernel"),
     "ssd_chunk_tiles_n16": Record(

@@ -10,8 +10,10 @@ machine without a GPU it raises unless the caller asks for the CPU
 explicitly (``device="cpu"``, as the tests do).  The kernels are
 hand-written CUDA (``repro_torch/kernels/csrc/``), built on first use by
 ``repro_torch.kernels.build``.  Entry points: the sweep engine
-(``experiments.sweep.run_sweep`` and the resumable runtime), serving
-(``python -m repro_torch.launch.serve``) and federated gain-gated training
+(``experiments.sweep.run_sweep`` and the resumable runtime), serving of
+every model family of ``repro`` (ssm, dense, MoE, hybrid, the
+encoder-decoder and the vision-prefix decoder: ``python -m
+repro_torch.launch.serve``) and federated gain-gated training
 of the LM substrate (``python -m repro_torch.launch.train``, or
 ``launch.train.train``), and the sweep service (``experiments.report``,
 ``experiments.serve_sweeps``), which never imports torch.

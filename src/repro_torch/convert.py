@@ -85,11 +85,13 @@ def _tensor(leaf) -> torch.Tensor:
 
 
 # The reference's stacked subtrees: a leading layer axis consumed by
-# ``lax.scan``, and inside each hybrid super-block a leading axis over its
-# mamba2 mixers, MoE MLPs and dense MLPs.  The port holds each stack as an
+# ``lax.scan`` (a decoder's ``blocks``, an encoder-decoder's ``enc_blocks``
+# and ``dec_blocks``), and inside each hybrid super-block a leading axis
+# over its mamba2 mixers, MoE MLPs and dense MLPs.  The port holds each stack as an
 # ``nn.ModuleList`` (``<name>.<i>.<...>``); an MoE's (E, d, ff) expert
 # stacks stay one tensor.
-_STACKS = {"blocks": (), "superblocks": ("mamba", "moe", "mlp")}
+_STACKS = {"blocks": (), "enc_blocks": (), "dec_blocks": (),
+           "superblocks": ("mamba", "moe", "mlp")}
 
 
 def _split(key: str, t: torch.Tensor, out: dict) -> None:
@@ -111,9 +113,11 @@ def _split(key: str, t: torch.Tensor, out: dict) -> None:
 def state_dict_from_jax(params: dict) -> dict:
     """The reference's LM parameter tree -> the port module's state_dict.
 
-    Nested dict keys join with "."; the stacked ``blocks`` leaves are split
-    along axis 0 into ``blocks.<i>.<...>`` of the ``nn.ModuleList``, and a
-    hybrid's ``superblocks`` into ``superblocks.<i>.<...>``, with their
+    Nested dict keys join with "." (a frontend's ``projector.w1``); the
+    stacked ``blocks`` leaves are split along axis 0 into
+    ``blocks.<i>.<...>`` of the ``nn.ModuleList``, an encoder-decoder's
+    ``enc_blocks`` and ``dec_blocks`` likewise, and a hybrid's
+    ``superblocks`` into ``superblocks.<i>.<...>``, with their
     ``mamba`` / ``moe`` / ``mlp`` stacks split once more into
     ``superblocks.<i>.mamba.<j>.<...>``.  Dtypes are kept.
     """
@@ -151,7 +155,8 @@ def _stack(sd: dict, pattern: str) -> dict:
 
 def tree_from_state_dict(sd: dict) -> dict:
     """The inverse of ``state_dict_from_jax``, in tensors: the inner stacks
-    of each super-block, then ``blocks.<i>`` / ``superblocks.<i>`` stack
+    of each super-block, then ``blocks.<i>`` / ``enc_blocks.<i>`` /
+    ``dec_blocks.<i>`` / ``superblocks.<i>`` stack
     along a new axis 0 (in index order), and "."-joined keys nest again
     into the reference's tree.  Dtypes are kept; this is the tree a
     checkpoint stores."""

@@ -16,8 +16,8 @@ The reference's categorical draw materialises a (B, L, V) Gumbel tensor;
 here it is drawn a slice of rows at a time (``_SLICE_ELEMS`` values a
 slice), which gives the same bits because threefry counters are
 positional.  The multimodal prefix embeddings of the reference's
-vision/audio configs wait for their model families (ROADMAP.md queue 1
-item 18).
+vision / audio configs are drawn where the reference draws them, in
+``launch/train.py::make_batch_fn``.
 """
 
 from __future__ import annotations

@@ -116,9 +116,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ssd_state_pass_wgmma_smem_bytes.argtypes = [i, i, i]
     lib.ssd_blocks_per_sm.argtypes = [i, i]
     lib.flash_attention_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, i,
-                                           p, p]
+                                           i, p, p]
     lib.flash_attention_wgmma_launch.argtypes = [p, p, p, i, i, i, i, i, i,
-                                                 i, p, p]
+                                                 i, i, p, p]
     lib.flash_attention_wgmma_smem_bytes.argtypes = [i]
     lib.flash_attention_wgmma_blocks_per_sm.argtypes = [i]
     for fn in (lib.gain_matvec_launch, lib.gain_family_stats_launch,

@@ -8,10 +8,14 @@
 //   kv head of query head h = h / (H / KVH),
 //   visible iff j < Lk, (causal) j <= i, (window w) j > i - w,
 //
-// masked scores take -1e30, the running max, normalizer and accumulator
-// are float32, and the output is in q's dtype.  Positions are arange(L) on
-// both sides, so the kernels take Lq == Lk (the wrapper checks).  The
-// wrapper routes bf16 inputs with head dim 64, 96 or 128 to
+// with query rows i < Lq and keys j < Lk both counted from 0, as in the
+// Pallas kernel, so Lk may differ from Lq (the encoder-decoder's
+// cross-attention: Lq decoder tokens over Lk = 1024 frames).  Masked
+// scores take -1e30, the running max, normalizer and accumulator are
+// float32, and the output is in q's dtype.  A row that sees no key (a
+// window with Lk < Lq) is outside the contract, as it is the Pallas
+// kernel's, whose output there differs from its reference's.
+// The wrapper routes bf16 inputs with head dim 64, 96 or 128 to
 // flash_wgmma_kernel and everything else (float32, and bf16 at d = 16 or
 // 32) to flash_kernel.
 //
@@ -19,7 +23,10 @@
 // query heads, 4 kv heads, d = 128) causal attention is about 5.5e11
 // operations against 151 MB of q, k, v and o, so the arithmetic bounds it:
 // 0.556 ms on bf16 tensor cores (989 TFLOP/s), 8.2 ms on float32 CUDA cores
-// (67 TFLOP/s).
+// (67 TFLOP/s).  seamless-m4t-medium's cross-attention (B = 4, Lq = 8192
+// tokens over Lk = 1024 frames, 16 heads, d = 64, no mask) is 1.4e11
+// operations against 151 MB: 0.139 ms on the tensor cores, 0.045 ms of
+// bytes, so the arithmetic bounds it too.
 //
 // flash_wgmma_kernel (bf16, d = 64, 96 or 128): both products on the tensor
 // cores, so it can run below the 8.2 ms CUDA-core floor, which flash_kernel
@@ -35,7 +42,8 @@
 // warpgroup with 128-key tiles, a 3- or 4-stage ring at one block per SM,
 // and releasing a stage per warpgroup instead of by one block barrier were
 // all slower on the H100.)  The tensor maps are 4-D over (d, heads, L,
-// B), so rows past L read as zeros within their own batch row.  S = Q K^T
+// B), L = Lq for Q and Lk for K and V, so rows past either length read as
+// zeros within their own batch row.  S = Q K^T
 // is wgmma m64n64k16 with both operands in shared memory (K-major: d
 // contiguous); d^-1/2 (times log2 e, for exp2) is applied to the float32
 // scores after the product, never to bf16 Q.
@@ -122,12 +130,12 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-// q, o (B, L, H, D); k, v (B, L, KVH, D); all contiguous.
+// q, o (B, Lq, H, D); k, v (B, Lk, KVH, D); all contiguous.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, int L, int H, int KVH, int causal,
-             int window, float scale, T* __restrict__ o) {
+             const T* __restrict__ v, int Lq, int Lk, int H, int KVH,
+             int causal, int window, float scale, T* __restrict__ o) {
   constexpr int DS = D + 1;               // padded row of Q and K
   constexpr int PS = kBlockK + 1;         // padded row of P
   constexpr int DC = D / kSide;           // output columns per thread
@@ -146,7 +154,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int e = tid; e < kBlockQ * D; e += kThreads) {
     const int r = e / D, d = e - r * D, i = q0 + r;
     Qs[r * DS + d] =
-        i < L ? to_f32(q[(((int64_t)b * L + i) * H + h) * D + d]) * scale : 0.f;
+        i < Lq ? to_f32(q[(((int64_t)b * Lq + i) * H + h) * D + d]) * scale : 0.f;
   }
 
   float m[kRows], l[kRows], acc[kRows][DC];
@@ -159,8 +167,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // kv tiles that some row of this q tile can see
-  const int q_last = min(q0 + kBlockQ, L) - 1;
-  const int k_end = causal ? q_last + 1 : L;
+  const int q_last = min(q0 + kBlockQ, Lq) - 1;
+  const int k_end = causal ? min(q_last + 1, Lk) : Lk;
   int k_begin = 0;
   if (window > 0) k_begin = max(0, q0 - window + 1) / kBlockK * kBlockK;
 
@@ -168,9 +176,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // the previous tile's K, V and P are consumed
     for (int e = tid; e < kBlockK * D; e += kThreads) {
       const int r = e / D, d = e - r * D, j = k0 + r;
-      const int64_t src = (((int64_t)b * L + j) * KVH + kvh) * D + d;
-      Ks[r * DS + d] = j < L ? to_f32(k[src]) : 0.f;
-      Vs[r * D + d] = j < L ? to_f32(v[src]) : 0.f;
+      const int64_t src = (((int64_t)b * Lk + j) * KVH + kvh) * D + d;
+      Ks[r * DS + d] = j < Lk ? to_f32(k[src]) : 0.f;
+      Vs[r * D + d] = j < Lk ? to_f32(v[src]) : 0.f;
     }
     __syncthreads();
 
@@ -199,7 +207,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
         const int j = k0 + tx + kSide * c;
-        bool vis = j < L;
+        bool vis = j < Lk;
         if (causal) vis = vis && j <= i;
         if (window > 0) vis = vis && j > i - window;
         if (!vis) s[r][c] = kNegInf;
@@ -238,17 +246,17 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int i = q0 + ty + kSide * r;
-    if (i >= L) continue;
+    if (i >= Lq) continue;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
-    T* dst = o + (((int64_t)b * L + i) * H + h) * D;
+    T* dst = o + (((int64_t)b * Lq + i) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < DC; ++c) store(dst + tx + kSide * c, acc[r][c] * inv);
   }
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, int B, int L,
-                   int H, int KVH, int causal, int window, void* o,
+cudaError_t launch(const void* q, const void* k, const void* v, int B, int Lq,
+                   int Lk, int H, int KVH, int causal, int window, void* o,
                    cudaStream_t s) {
   constexpr int DS = D + 1;
   const size_t bytes =
@@ -258,24 +266,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, int B, int L,
       flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((L + kBlockQ - 1) / kBlockQ, H, B);
+  dim3 grid((Lq + kBlockQ - 1) / kBlockQ, H, B);
   flash_kernel<T, D><<<grid, kThreads, bytes, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), L, H, KVH, causal, window,
+      static_cast<const T*>(v), Lq, Lk, H, KVH, causal, window,
       1.f / sqrtf((float)D), static_cast<T*>(o));
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, int B,
-                     int L, int H, int KVH, int D, int causal, int window,
-                     void* o, cudaStream_t s) {
+                     int Lq, int Lk, int H, int KVH, int D, int causal,
+                     int window, void* o, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, B, L, H, KVH, causal, window, o, s);
-    case 32: return launch<T, 32>(q, k, v, B, L, H, KVH, causal, window, o, s);
-    case 64: return launch<T, 64>(q, k, v, B, L, H, KVH, causal, window, o, s);
-    case 96: return launch<T, 96>(q, k, v, B, L, H, KVH, causal, window, o, s);
-    case 128: return launch<T, 128>(q, k, v, B, L, H, KVH, causal, window, o, s);
+    case 16: return launch<T, 16>(q, k, v, B, Lq, Lk, H, KVH, causal, window, o, s);
+    case 32: return launch<T, 32>(q, k, v, B, Lq, Lk, H, KVH, causal, window, o, s);
+    case 64: return launch<T, 64>(q, k, v, B, Lq, Lk, H, KVH, causal, window, o, s);
+    case 96: return launch<T, 96>(q, k, v, B, Lq, Lk, H, KVH, causal, window, o, s);
+    case 128: return launch<T, 128>(q, k, v, B, Lq, Lk, H, KVH, causal, window, o, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -315,14 +323,15 @@ struct Layout {
   static constexpr int kBytes = kBar + 8 * (1 + kStages) + 1024;  // + align
 };
 
-// q, o (B, L, H, D); k, v (B, L, KVH, D) bf16, all contiguous; the tensor
-// maps describe q, k and v.  Block (h, q tile, b), kWarpgroups warpgroups.
+// q, o (B, Lq, H, D); k, v (B, Lk, KVH, D) bf16, all contiguous; the
+// tensor maps describe q, k and v.  Block (h, q tile, b), kWarpgroups
+// warpgroups.
 template <int D>
 __global__ void __launch_bounds__(kThreadsWg)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
-                   const __grid_constant__ CUtensorMap vmap, int L, int H,
-                   int KVH, int causal, int window, float scale_log2,
+                   const __grid_constant__ CUtensorMap vmap, int Lq, int Lk,
+                   int H, int KVH, int causal, int window, float scale_log2,
                    __nv_bfloat16* __restrict__ o) {
   using Lay = Layout<D>;
   constexpr int DP = padded<D>();   // columns of a tile and of acc
@@ -342,8 +351,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int row_a = q0 + wgi * kRows + ((tid % 128) / 32) * 16 + quad;
 
   // kv tiles that some row of the block's q tile can see
-  const int q_last = min(q0 + kQRows, L) - 1;
-  const int k_end = causal ? q_last + 1 : L;
+  const int q_last = min(q0 + kQRows, Lq) - 1;
+  const int k_end = causal ? min(q_last + 1, Lk) : Lk;
   const int k_begin = window > 0 ? max(0, q0 - window + 1) / kBlockN * kBlockN : 0;
   const int n_tiles = (k_end - k_begin + kBlockN - 1) / kBlockN;
 
@@ -406,7 +415,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     fence_regs(s);
 
     // scale (log2 domain) and mask; only tiles a row cannot fully see
-    const bool full = k0 + kBlockN <= L &&
+    const bool full = k0 + kBlockN <= Lk &&
                       (!causal || k0 + kBlockN - 1 <= wg_first) &&
                       (window <= 0 || k0 > wg_last - window);
 #pragma unroll
@@ -415,7 +424,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       if (!full) {
         const int i = row_a + 8 * ((e % 4) / 2);
         const int j = k0 + 8 * (e / 4) + 2 * t4 + (e % 2);
-        bool vis = j < L;
+        bool vis = j < Lk;
         if (causal) vis = vis && j <= i;
         if (window > 0) vis = vis && j > i - window;
         if (!vis) x = kNegInf;
@@ -484,9 +493,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int i = row_a + 8 * r;
-    if (i >= L) continue;
+    if (i >= Lq) continue;
     const float l = fmaxf(l_run[r], 1e-30f);
-    __nv_bfloat16* dst = o + (((int64_t)b * L + i) * H + h) * D + 2 * t4;
+    __nv_bfloat16* dst = o + (((int64_t)b * Lq + i) * H + h) * D + 2 * t4;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
@@ -538,25 +547,25 @@ bool tensor_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int D,
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, int B, int L,
-                   int H, int KVH, int causal, int window, void* o,
+cudaError_t launch(const void* q, const void* k, const void* v, int B, int Lq,
+                   int Lk, int H, int KVH, int causal, int window, void* o,
                    cudaStream_t s) {
   using Lay = Layout<D>;
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
   CUtensorMap qm, km, vm;
-  if (!tensor_map(enc, &qm, q, D, H, L, B, kQRows) ||
-      !tensor_map(enc, &km, k, D, KVH, L, B, kBlockN) ||
-      !tensor_map(enc, &vm, v, D, KVH, L, B, kBlockN))
+  if (!tensor_map(enc, &qm, q, D, H, Lq, B, kQRows) ||
+      !tensor_map(enc, &km, k, D, KVH, Lk, B, kBlockN) ||
+      !tensor_map(enc, &vm, v, D, KVH, Lk, B, kBlockN))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       flash_wgmma_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::kBytes);
   if (err != cudaSuccess) return err;
   const float scale_log2 = (float)(kLog2e / sqrt((double)D));
-  dim3 grid(H, (L + kQRows - 1) / kQRows, B);
+  dim3 grid(H, (Lq + kQRows - 1) / kQRows, B);
   flash_wgmma_kernel<D><<<grid, kThreadsWg, Lay::kBytes, s>>>(
-      qm, km, vm, L, H, KVH, causal, window, scale_log2,
+      qm, km, vm, Lq, Lk, H, KVH, causal, window, scale_log2,
       static_cast<__nv_bfloat16*>(o));
   return cudaGetLastError();
 }
@@ -569,29 +578,31 @@ extern "C" {
 
 // dtype: 0 float32, 1 bfloat16 (q, k, v and o alike).
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           int dtype, int B, int L, int H, int KVH, int D,
-                           int causal, int window, void* o, void* stream) {
+                           int dtype, int B, int Lq, int Lk, int H, int KVH,
+                           int D, int causal, int window, void* o,
+                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (KVH < 1 || H % KVH) return (int)cudaErrorInvalidValue;
+  if (KVH < 1 || H % KVH || Lk < 1) return (int)cudaErrorInvalidValue;
   cudaError_t err =
       dtype == 0
-          ? dispatch<float>(q, k, v, B, L, H, KVH, D, causal, window, o, s)
-          : dispatch<__nv_bfloat16>(q, k, v, B, L, H, KVH, D, causal, window,
-                                    o, s);
+          ? dispatch<float>(q, k, v, B, Lq, Lk, H, KVH, D, causal, window, o,
+                            s)
+          : dispatch<__nv_bfloat16>(q, k, v, B, Lq, Lk, H, KVH, D, causal,
+                                    window, o, s);
   return (int)err;
 }
 
 // bf16 q, k, v and o with D 64, 96 or 128, on the tensor cores.
 int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
-                                 int B, int L, int H, int KVH, int D,
+                                 int B, int Lq, int Lk, int H, int KVH, int D,
                                  int causal, int window, void* o,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (KVH < 1 || H % KVH) return (int)cudaErrorInvalidValue;
+  if (KVH < 1 || H % KVH || Lk < 1) return (int)cudaErrorInvalidValue;
   switch (D) {
-    case 64: return (int)wg::launch<64>(q, k, v, B, L, H, KVH, causal, window, o, s);
-    case 96: return (int)wg::launch<96>(q, k, v, B, L, H, KVH, causal, window, o, s);
-    case 128: return (int)wg::launch<128>(q, k, v, B, L, H, KVH, causal, window, o, s);
+    case 64: return (int)wg::launch<64>(q, k, v, B, Lq, Lk, H, KVH, causal, window, o, s);
+    case 96: return (int)wg::launch<96>(q, k, v, B, Lq, Lk, H, KVH, causal, window, o, s);
+    case 128: return (int)wg::launch<128>(q, k, v, B, Lq, Lk, H, KVH, causal, window, o, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

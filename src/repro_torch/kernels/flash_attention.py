@@ -2,13 +2,18 @@
 ported from the Pallas kernel of ``repro/kernels/flash_attention.py``.
 
 Blockwise online-softmax attention with GQA (query head h reads kv head
-h // (H / KVH), never expanded), causal and sliding-window masks from the
-absolute positions arange(L), float32 running statistics and the output in
-q's dtype.  For CPU tensors ``flash_attention`` returns the plain version
-(``ref.flash_attention_ref``); for CUDA tensors it checks them, launches
-one of two kernels on the current stream and raises if the launch failed —
-it never falls back.  The kernels are forward-only (a CUDA input that
-requires grad raises) and take Lq == Lk.
+h // (H / KVH), never expanded), causal and sliding-window masks, float32
+running statistics and the output in q's dtype.  The masks are the Pallas
+kernel's: query row i and key j both count from 0, and key j is visible
+to row i iff j < Lk, (causal) j <= i and (window w) j > i - w, so Lk may
+differ from Lq (the encoder-decoder's cross-attention: Lq decoder tokens
+over Lk frames).  A row that sees no key (only possible with a window and
+Lk < Lq) is outside the contract: the Pallas kernel and
+``ref.flash_attention_ref`` already disagree there.  For CPU tensors
+``flash_attention`` returns the plain version (``ref.flash_attention_ref``);
+for CUDA tensors it checks them, launches one of two kernels on the current
+stream and raises if the launch failed — it never falls back.  The kernels
+are forward-only (a CUDA input that requires grad raises).
 
 Routing (``route``), by dtype and head dim:
 
@@ -70,15 +75,17 @@ def cuda_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Route:
     forward_only("flash_attention", q, k, v)
     if q.dim() != 4:
         raise ValueError(f"q must be (B, L, H, d), got {tuple(q.shape)}")
-    B, L, H, D = q.shape
-    KVH = k.shape[2] if k.dim() == 4 else 0
+    B, Lq, H, D = q.shape
+    Lk, KVH = (k.shape[1], k.shape[2]) if k.dim() == 4 else (0, 0)
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention takes head dims {HEAD_DIMS}, got {D}")
     if KVH < 1 or H % KVH:
         raise ValueError(f"kv heads {KVH} must divide query heads {H}")
-    need(q, "q", (B, L, H, D), tuple(_DTYPES))
-    need(k, "k", (B, L, KVH, D), (q.dtype,))    # Lk == Lq
-    need(v, "v", (B, L, KVH, D), (q.dtype,))
+    if Lk < 1:
+        raise ValueError(f"k must hold at least one key, got {tuple(k.shape)}")
+    need(q, "q", (B, Lq, H, D), tuple(_DTYPES))
+    need(k, "k", (B, Lk, KVH, D), (q.dtype,))
+    need(v, "v", (B, Lk, KVH, D), (q.dtype,))
     r = route(q.dtype, D)
     if r is WGMMA and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: bf16 q, k and v must start on "
@@ -92,18 +99,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not on_cuda(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     r = cuda_route(q, k, v)
-    B, L, H, D = q.shape
-    KVH = k.shape[2]
+    B, Lq, H, D = q.shape
+    Lk, KVH = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     if not out.numel():
         return out
     LAUNCHES[r.counter] += 1
     if r is WGMMA:
         check(_build.load().flash_attention_wgmma_launch(
-            ptr(q), ptr(k), ptr(v), B, L, H, KVH, D, int(causal), int(window),
-            ptr(out), stream(q)), "flash_attention (wgmma)")
+            ptr(q), ptr(k), ptr(v), B, Lq, Lk, H, KVH, D, int(causal),
+            int(window), ptr(out), stream(q)), "flash_attention (wgmma)")
     else:
         check(_build.load().flash_attention_launch(
-            ptr(q), ptr(k), ptr(v), _DTYPES[q.dtype], B, L, H, KVH, D,
+            ptr(q), ptr(k), ptr(v), _DTYPES[q.dtype], B, Lq, Lk, H, KVH, D,
             int(causal), int(window), ptr(out), stream(q)), "flash_attention")
     return out

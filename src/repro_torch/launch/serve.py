@@ -1,8 +1,15 @@
 """Serving entry point: batched prefill + token-by-token decode, ported from
-``repro/launch/serve.py`` for the families the port serves.
+``repro/launch/serve.py`` for every arch of the reference (ssm, dense,
+MoE, hybrid, the encoder-decoder seamless-m4t-medium and the vision-prefix
+internvl2-2b).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
       --prompt-len 64 --gen-len 32 --batch 4 --device cpu
+
+As in the reference's loop, serving takes tokens only: a vision model
+serves without its patches, and an encoder-decoder decodes over the zero
+memory ``init_cache`` leaves (bulk prefill with patches or frames is
+``launch.steps.build_prefill_step``).
 
 The flags are the reference's plus ``--device`` (default cuda).  As in the
 reference, ``--reduced`` is ``store_true`` with ``default=True``, so the

@@ -177,11 +177,14 @@ def build_train_step(model, cfg: ModelConfig, optimizer: Optimizer,
 
 def build_prefill_step(model, cfg: ModelConfig, device=None):
     """``prefill(tokens, prefix_emb=None) -> (last-position logits f32, aux)``
-    for a (B, L) token batch, on ``device`` (default cuda)."""
+    for a (B, L) token batch (behind the (B, P, frontend_dim) prefix
+    embeddings of a vision / audio config), on ``device`` (default cuda)."""
     dev = resolve_device(device)
     model.to(dev)
 
     def prefill(tokens: torch.Tensor, prefix_emb=None):
+        if prefix_emb is not None:
+            prefix_emb = prefix_emb.to(dev)
         with torch.inference_mode():
             return model.prefill(tokens.to(dev), prefix_emb)
 

@@ -21,7 +21,7 @@ import time
 
 from repro_torch import random, resolve_device
 from repro_torch.checkpoint import save as save_ckpt
-from repro_torch.configs import ARCH_NAMES, NOT_PORTED_ITEM, get_config
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import tree_from_state_dict
 from repro_torch.core.fed_sgd import FedConfig, FedStats
@@ -33,18 +33,27 @@ from repro_torch.optim import adamw, cosine_schedule
 
 def make_batch_fn(cfg: ModelConfig, seq_len: int, global_batch: int):
     """``fn(rng, step)`` -> the synthetic LM batch of ``step`` on ``rng``'s
-    device.  The vision / audio prefix embeddings of the reference's
-    frontend configs wait for those families (ROADMAP.md queue 1 item
-    18)."""
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"the {cfg.frontend} frontend's batches are not ported to "
-            f"repro_torch yet ({NOT_PORTED_ITEM})")
+    device, with the reference's stub frontend embeddings: a vision config's
+    num_prefix patches take the first positions of the ``seq_len`` budget
+    (its token, target and mask columns cut to ``[:, P:]``) and an audio
+    config's frames come beside the tokens, both ``0.02 * normal`` of a
+    key folded from ``rng`` (17 and 19), the same every step, bit for bit
+    the reference's draws."""
     lm = SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
                            global_batch=global_batch)
+    P = cfg.num_prefix
 
     def fn(rng, step):
-        return make_lm_batch(lm, rng, step)
+        batch = make_lm_batch(lm, rng, step)
+        if cfg.frontend == "vision":
+            batch = {k: v[:, P:] if v.shape[1] > P else v
+                     for k, v in batch.items()}
+            batch["prefix_emb"] = 0.02 * random.normal(
+                random.fold_in(rng, 17), (global_batch, P, cfg.frontend_dim))
+        elif cfg.frontend == "audio":
+            batch["prefix_emb"] = 0.02 * random.normal(
+                random.fold_in(rng, 19), (global_batch, P, cfg.frontend_dim))
+        return batch
 
     return fn
 

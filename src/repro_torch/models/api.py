@@ -6,8 +6,9 @@ Every model exposes the reference's surface as methods of an
   prefill(tokens, prefix_emb) -> (logits, aux)
   init_cache(batch, seq_len) / decode_step(cache, token, t)
   cache_len(seq_len)
-The port trains and serves the ssm, dense, MoE and hybrid families; the
-encoder-decoder and frontend (vision / audio prefix) families raise.
+The port trains and serves every family of the reference: ssm, dense,
+MoE, hybrid, the encoder-decoder (audio frames) and the decoder-only
+vision / audio prefix models.
 """
 
 from __future__ import annotations
@@ -15,8 +16,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import NOT_PORTED_ITEM
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.hybrid import HybridLM
 from repro_torch.models.ssm_model import MambaLM
 from repro_torch.models.transformer import Transformer
@@ -27,11 +28,9 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0):
     ``torch.Generator`` seeded with ``seed`` on ``device`` (default cuda;
     raises without a GPU unless ``device="cpu"``)."""
     dev = resolve_device(device)
-    if (cfg.is_encdec or cfg.frontend != "none"
-            or cfg.arch_type not in ("ssm", "dense", "moe", "hybrid")):
-        raise NotImplementedError(
-            f"the {cfg.arch_type!r} family ({cfg.name}) is not ported to "
-            f"repro_torch yet ({NOT_PORTED_ITEM})")
     gen = torch.Generator(device=dev).manual_seed(seed)
+    if cfg.is_encdec:
+        return EncDec(cfg, gen)
+    # dense / moe / vlm (decoder-only with optional prefix embeddings)
     cls = {"ssm": MambaLM, "hybrid": HybridLM}.get(cfg.arch_type, Transformer)
     return cls(cfg, gen)

@@ -9,7 +9,8 @@ Three inner implementations with identical semantics:
   (its plain version on the CPU), the port of the Pallas kernel the
   reference documents as the hardware version of ``chunked_attention``.
   ``attention_block`` runs it for self-attention over positions arange(L)
-  unless the caller asks for the plain path (``use_kernel=False``).
+  and for cross-attention over a memory at positions arange(Lk) unless the
+  caller asks for the plain path (``use_kernel=False``).
 
 All plain entry points take explicit query/key positions so prefill
 (q_pos = k_pos = arange) and decode (q at position ``t``, cache positions
@@ -137,11 +138,13 @@ def attention_block(params, x: torch.Tensor, positions: torch.Tensor,
                     use_kernel: bool = True) -> torch.Tensor:
     """Full projection -> RoPE -> attention -> output projection.
 
-    x (B, L, d); positions (L,).  Self-attention with ``use_kernel`` runs
-    the flash kernel on the unexpanded k and v; its masks use positions
-    arange(L), which is what every caller passes.  Otherwise (or with a
-    cross-attention ``kv_override = (memory, memory_positions)``) the plain
-    ``chunked_attention`` / ``reference_attention`` by ``use_chunked``.
+    x (B, L, d); positions (L,).  With ``use_kernel`` the flash kernel runs
+    on the unexpanded k and v: over x itself, or over the memory of a
+    cross-attention ``kv_override = (memory, memory_positions)`` (no RoPE,
+    Lk = the memory's length).  Its masks use query positions arange(L) and
+    key positions arange(Lk), which is what every caller passes.  Otherwise
+    the plain ``chunked_attention`` / ``reference_attention`` by
+    ``use_chunked``.
     """
     q = _project(x, params["wq"])
     if kv_override is None:
@@ -155,7 +158,7 @@ def attention_block(params, x: torch.Tensor, positions: torch.Tensor,
         k = _project(mem, params["wk"])
         v = _project(mem, params["wv"])
 
-    if use_kernel and kv_override is None:
+    if use_kernel:
         out = flash.flash_attention(q.contiguous(), k.contiguous(),
                                     v.contiguous(), causal=causal,
                                     window=window)

@@ -1,12 +1,13 @@
-"""Decoder-only transformer (dense and MoE: yi-6b, phi3-mini, nemotron-4,
-olmoe, mixtral, moonshot), ported from ``repro/models/transformer.py`` as
-an ``nn.Module``.
+"""Decoder-only transformer (dense, MoE and vision-prefix: yi-6b,
+phi3-mini, nemotron-4, olmoe, mixtral, moonshot, internvl2), ported from
+``repro/models/transformer.py`` as an ``nn.Module``.
 
 Supported: GQA + RoPE, sliding window, swiglu/relu2/gelu MLPs, MoE MLPs in
 every block when the config has experts (``models/moe.py``; their aux
-losses summed over the layers), tied embeddings.  The reference's
-vision/audio prefix embeddings and frontends are not ported yet: they
-raise ``NotImplementedError`` naming their ROADMAP item.  Layers are an
+losses summed over the layers), tied embeddings, and vision / audio
+prefix embeddings through the frontend projector (``models/frontends.py``:
+the projected prefix goes in front of the token embeddings, every position
+causal, and the loss skips it).  Layers are an
 ``nn.ModuleList`` (the reference stacks them on a leading axis for
 ``lax.scan``); prefill runs the flash-attention kernel per layer unless
 ``use_kernels`` is False, and decode threads a per-layer KV cache that is
@@ -22,16 +23,14 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.configs import NOT_PORTED_ITEM
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import frontends
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (apply_mlp, chunked_xent_loss,
                                        embed_tokens, init_embedding, init_mlp,
                                        model_dtype, param, param_dict,
                                        rms_norm, run_block, truncated_normal)
-
-NOT_PORTED = f"not ported to repro_torch yet ({NOT_PORTED_ITEM})"
 
 
 class Block(nn.Module):
@@ -55,8 +54,6 @@ class Block(nn.Module):
 class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, gen: torch.Generator):
         super().__init__()
-        if cfg.frontend != "none":
-            raise NotImplementedError(f"the {cfg.frontend} frontend is {NOT_PORTED}")
         self.cfg = cfg
         self.use_kernels = True
         dt = model_dtype(cfg)
@@ -66,6 +63,9 @@ class Transformer(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = param(truncated_normal(
                 gen, (cfg.d_model, cfg.padded_vocab), cfg.d_model**-0.5, dt))
+        if cfg.frontend != "none":
+            self.projector = param_dict(frontends.init_projector(
+                gen, cfg.frontend_dim, cfg.d_model, dt))
 
     def head(self) -> torch.Tensor:
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
@@ -96,14 +96,17 @@ class Transformer(nn.Module):
     def hidden_states(self, tokens: torch.Tensor,
                       prefix_emb: Optional[torch.Tensor] = None,
                       use_kernels=None):
-        """Embed and run all blocks.  Returns (final-normed hidden, aux: the
+        """Embed (the projected ``prefix_emb`` (B, P, frontend_dim) in front
+        of the tokens, when given) and run all blocks.  Returns
+        (final-normed hidden over every position, prefix included; aux: the
         MoE losses summed over the layers, 0 without MoE).  ``use_kernels``
         defaults to the module's switch."""
-        if prefix_emb is not None:
-            raise NotImplementedError(f"prefix embeddings are {NOT_PORTED}")
         cfg = self.cfg
         use_kernels = self.use_kernels if use_kernels is None else use_kernels
         h = embed_tokens(self.embed, tokens)
+        if prefix_emb is not None:
+            proj = frontends.apply_projector(self.projector, prefix_emb)
+            h = torch.cat([proj.to(h.dtype), h], dim=1)
         positions = torch.arange(h.shape[1], device=h.device)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for block in self.blocks:
@@ -115,14 +118,16 @@ class Transformer(nn.Module):
 
     def loss_fn(self, batch: dict):
         """Next-token cross-entropy (+ aux, 0 without MoE) of ``batch``
-        (tokens / targets / mask).  Returns (loss, {"xent", "aux"}).  Runs
-        the plain path whatever ``use_kernels`` says: the kernels are
-        forward-only and raise under autograd (``forward_only``).  The
-        reference's ``prefix_emb`` batches wait for the frontends
-        (ROADMAP.md queue 1 item 18)."""
-        if batch.get("prefix_emb") is not None:
-            raise NotImplementedError(f"prefix embeddings are {NOT_PORTED}")
-        hidden, aux = self.hidden_states(batch["tokens"], use_kernels=False)
+        (tokens / targets / mask, + ``prefix_emb`` for the vision / audio
+        decoders: the loss is on the text positions only).  Returns (loss,
+        {"xent", "aux"}).  Runs the plain path whatever ``use_kernels``
+        says: the kernels are forward-only and raise under autograd
+        (``forward_only``)."""
+        prefix = batch.get("prefix_emb")
+        hidden, aux = self.hidden_states(batch["tokens"], prefix,
+                                         use_kernels=False)
+        if prefix is not None:
+            hidden = hidden[:, prefix.shape[1]:]
         xent = chunked_xent_loss(hidden, self.head(), batch["targets"],
                                  batch["mask"], self.cfg.loss_chunk)
         return xent + aux, {"xent": xent, "aux": aux}
@@ -145,7 +150,8 @@ class Transformer(nn.Module):
 
     def decode_step(self, cache: dict, token: torch.Tensor, t: int):
         """One token for the whole batch.  token: (B,) int; t: position.
-        Returns (logits (B, V) f32, cache); the cache is updated in place."""
+        Returns (logits (B, V) f32, cache); the cache is updated in place.
+        Decode takes no prefix, as the reference's does."""
         cfg = self.cfg
         h = embed_tokens(self.embed, token)[:, None, :]          # (B, 1, d)
         for i, block in enumerate(self.blocks):
@@ -162,6 +168,7 @@ class Transformer(nn.Module):
 
     def prefill(self, tokens: torch.Tensor,
                 prefix_emb: Optional[torch.Tensor] = None):
-        """Process a full prompt; returns (last-position logits f32, aux)."""
+        """Process a full prompt (behind ``prefix_emb``, when given);
+        returns (last-position logits f32, aux)."""
         hidden, aux = self.hidden_states(tokens, prefix_emb)
         return (hidden[:, -1, :] @ self.head()).float(), aux

@@ -214,13 +214,16 @@ _ERFINV_W_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
 def erfinv(x: torch.Tensor) -> torch.Tensor:
     """float32 inverse error function by XLA's algorithm (Giles 2010).
 
-    The Horner steps run as fused multiply-adds (exact float64 product and
-    sum, one rounding to float32), which tracks XLA's CPU code to a few ulp;
+    ``log1p`` is XLA's (``xla_log1p``), the square root correctly rounded
+    (taken in float64: torch's float32 ``sqrt`` on the CPU is not always),
+    and the Horner steps run as fused multiply-adds (exact float64 product
+    and sum, one rounding to float32), as XLA's CPU code runs them: the
+    result is XLA's bit for bit (``tests/test_torch_random.py``), where
     ``torch.erfinv`` uses another approximation and differs by up to ~1e-5.
     """
-    w = -torch.log1p(-x * x)
+    w = -xla_log1p(-x * x)
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0).double()
+    w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0).double()
 
     def coef(i):
         return torch.where(lt, _ERFINV_W_LT5[i], _ERFINV_W_GE5[i]).float()
@@ -256,6 +259,40 @@ _SQRT_HALF = 0.707106781186547524
 def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
     """float32 a*b + c with one rounding (exact float64 product and sum)."""
     return (a.double() * b + c).float()
+
+
+# Cephes' log1p rational approximation (float64 coefficients, numerator
+# and denominator from the highest degree down), as XLA expands log1p
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+              6.5787325942061044846969e0, 2.9911919328553073277375e1,
+              6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+              2.2176239823732856465394e2, 3.0909872225312059774938e2,
+              2.1642788614495947685003e2, 6.0118660497603843919306e1)
+_LOG1P_SMALL = 0.41421356237309504880        # sqrt(2) - 1
+
+
+def xla_log1p(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``log1p`` rounded exactly as XLA's CPU code rounds it.
+
+    For |x| < sqrt(2) - 1, x - x^2/2 + x^3 P(x)/Q(x) with Cephes' rational
+    P/Q, each polynomial a chain of fused multiply-adds; otherwise
+    ``xla_log(1 + x)``.  ``jax.random.normal`` reaches it through
+    ``erf_inv``; torch's ``log1p`` differs from it in the last ulp for ~1
+    in 12 inputs there.
+    """
+    f32 = torch.float32
+    x = x.to(f32)
+    xd = x.double()
+    num = torch.zeros_like(x)
+    den = torch.zeros_like(x)
+    for cn, cd in zip(_LOG1P_NUM, _LOG1P_DEN):
+        num = _fma(num, xd, _f32(cn))
+        den = _fma(den, xd, _f32(cd))
+    x2 = x * x
+    small = x + (-0.5 * x2 + (x * x2) * (num / den))
+    return torch.where(x.abs() < _f32(_LOG1P_SMALL), small, xla_log(x + 1.0))
 
 
 def xla_log(x: torch.Tensor) -> torch.Tensor:

@@ -4,9 +4,12 @@
 (its plain version) is held against the Pallas kernel run as
 tests/test_kernels.py runs it (interpret mode) and against
 ``repro.kernels.ref.flash_attention_ref``, over the five cases of
-tests/test_kernels.py:175-181, plus two at head dim 96 (phi3-mini's), in
-float32 and bf16 at that test's tolerances (3e-4 / 3e-2, rtol = atol).  Both sides get the same numpy
-inputs.  The CUDA kernels run only on the card (chip_smoke.py); here the
+tests/test_kernels.py:175-181, plus two at head dim 96 (phi3-mini's) and
+seven with Lk != Lq (the encoder-decoder's cross-attention: causal and
+not, Lq below and above Lk, GQA, ragged Lk, a window under which every row
+sees a key, and Lq = 4, decode-vs-prefill's t = 3), in float32 and bf16 at
+that test's tolerances (3e-4 / 3e-2, rtol = atol).  Both sides get the
+same numpy inputs.  The CUDA kernels run only on the card (chip_smoke.py); here the
 wrapper must refuse, not fall back, on any non-CPU tensor.
 
 The tensor-core route (bf16, head dims 64, 96 and 128) is held on the CPU
@@ -48,6 +51,19 @@ CASES = [
     dict(B=1, Lq=128, Lk=128, H=4, KVH=2, D=96, causal=True, window=0),
     dict(B=2, Lq=100, Lk=100, H=2, KVH=2, D=96, causal=True, window=48),
 ]
+# Lk != Lq: query row i and key j both count from 0, key j visible iff
+# j < Lk, (causal) j <= i, (window w) j > i - w (the Pallas kernel's masks).
+# A row that sees no key is outside the contract, so no case has one.
+CROSS_CASES = [
+    dict(B=2, Lq=48, Lk=100, H=4, KVH=2, D=64, causal=False, window=0),
+    dict(B=1, Lq=130, Lk=72, H=4, KVH=4, D=128, causal=False, window=0),
+    dict(B=1, Lq=40, Lk=96, H=4, KVH=1, D=64, causal=True, window=0),
+    dict(B=2, Lq=100, Lk=60, H=2, KVH=2, D=128, causal=True, window=0),
+    dict(B=1, Lq=80, Lk=64, H=4, KVH=2, D=64, causal=True, window=32),
+    dict(B=2, Lq=4, Lk=130, H=4, KVH=4, D=64, causal=False, window=0),
+    dict(B=1, Lq=70, Lk=33, H=2, KVH=1, D=32, causal=False, window=0),
+]
+CASES += CROSS_CASES
 DTYPES = {"f32": (jnp.float32, torch.float32, 3e-4),
           "bf16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
 
@@ -116,26 +132,28 @@ WGMMA_CASES = [c for c in CASES if c["D"] in tflash.WGMMA_HEAD_DIMS]
 
 def _emulate_wgmma(q, k, v, *, causal, window, split=True, block_k=64):
     """float32 output of flash_wgmma_kernel's arithmetic before its final
-    rounding to bf16; q, k, v hold bf16 values (as any float dtype)."""
-    B, L, H, D = q.shape
+    rounding to bf16; q, k, v hold bf16 values (as any float dtype); q
+    (B, Lq, H, D), k and v (B, Lk, KVH, D)."""
+    B, Lq, H, D = q.shape
+    Lk = k.shape[1]
     rep = H // k.shape[2]
     k = k.repeat_interleave(rep, dim=2).bfloat16().float()
     v = v.repeat_interleave(rep, dim=2).bfloat16().float()
     q = q.bfloat16().float()
-    m = torch.full((B, H, L, 1), -1e30)
-    l = torch.zeros((B, H, L, 1))
-    acc = torch.zeros((B, H, L, D))
-    pos = torch.arange(L)
+    m = torch.full((B, H, Lq, 1), -1e30)
+    l = torch.zeros((B, H, Lq, 1))
+    acc = torch.zeros((B, H, Lq, D))
+    qpos = torch.arange(Lq)[:, None]
     scale_log2 = D**-0.5 * 1.4426950408889634
-    for k0 in range(0, L, block_k):
-        kv = slice(k0, min(k0 + block_k, L))
+    for k0 in range(0, Lk, block_k):
+        kv = slice(k0, min(k0 + block_k, Lk))
         s = torch.einsum("bqhd,bkhd->bhqk", q, k[:, kv]) * scale_log2
-        j = pos[kv][None, :]
-        vis = torch.ones((L, j.shape[1]), dtype=torch.bool)
+        j = torch.arange(kv.start, kv.stop)[None, :]
+        vis = torch.ones((Lq, j.shape[1]), dtype=torch.bool)
         if causal:
-            vis &= j <= pos[:, None]
+            vis &= j <= qpos
         if window > 0:
-            vis &= j > pos[:, None] - window
+            vis &= j > qpos - window
         s = torch.where(vis, s, torch.tensor(-1e30))
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         corr = torch.exp2(m - m_new)
@@ -152,8 +170,9 @@ def _emulate_wgmma(q, k, v, *, causal, window, split=True, block_k=64):
 
 def _bf16_case(rng, c):
     """q, k, v with bf16 values, as float32 (jax, torch) pairs."""
-    return [_pair(rng, (c["B"], c["Lq"], h, c["D"]), "bf16")
-            for h in (c["H"], c["KVH"], c["KVH"])]
+    return [_pair(rng, (c["B"], length, h, c["D"]), "bf16")
+            for length, h in ((c["Lq"], c["H"]), (c["Lk"], c["KVH"]),
+                              (c["Lk"], c["KVH"]))]
 
 
 def _jax_f32(pairs):
@@ -249,8 +268,25 @@ def test_cuda_route_refuses_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="must divide"):
         tflash.cuda_route(q, torch.zeros((1, 8, 3, 64), dtype=torch.bfloat16),
                           torch.zeros((1, 8, 3, 64), dtype=torch.bfloat16))
+    # Lk != Lq is taken, on either route; k and v of different lengths, a
+    # batch or head-dim mismatch, and no key at all are not
+    for lk in (4, 1, 1024):
+        other = torch.zeros((1, lk, 2, 64), dtype=torch.bfloat16)
+        assert tflash.cuda_route(q, other, other) == tflash.WGMMA
+        assert tflash.cuda_route(q.float(), other.float(),
+                                 other.float()) == tflash.SIMT
     with pytest.raises(ValueError, match="shape"):
-        tflash.cuda_route(q, kv[:, :4].contiguous(), kv[:, :4].contiguous())
+        tflash.cuda_route(q, kv, kv[:, :4].contiguous())
+    with pytest.raises(ValueError, match="shape"):
+        tflash.cuda_route(q, kv[:, :4].contiguous(), kv)
+    with pytest.raises(ValueError, match="shape"):
+        tflash.cuda_route(q, *(torch.zeros((2, 8, 2, 64),
+                                           dtype=torch.bfloat16),) * 2)
+    with pytest.raises(ValueError, match="shape"):
+        tflash.cuda_route(q, *(torch.zeros((1, 8, 2, 32),
+                                           dtype=torch.bfloat16),) * 2)
+    with pytest.raises(ValueError, match="at least one key"):
+        tflash.cuda_route(q, kv[:, :0], kv[:, :0])
     with pytest.raises(TypeError, match="dtype"):
         tflash.cuda_route(q, kv.float(), kv.float())
     with pytest.raises(TypeError, match="dtype"):

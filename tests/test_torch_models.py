@@ -3,10 +3,14 @@
 Reduced configs of every family the port serves — mamba2-370m (ssm, the
 SSD kernels' path), yi-6b, phi3-mini and nemotron-4 (dense, the flash
 kernel's path; yi-6b also with 2 kv heads of 4 so that GQA is covered,
-since ``reduced()`` keeps 4 of 4), olmoe, mixtral and moonshot (MoE) and
-jamba (hybrid: mamba2, attention and MoE in one super-block) — are built
-by the reference, and its parameters carried into the port with
-``convert.model_from_jax``.  On shared numpy tokens: prefill logits and
+since ``reduced()`` keeps 4 of 4), olmoe, mixtral and moonshot (MoE),
+jamba (hybrid: mamba2, attention and MoE in one super-block),
+seamless-m4t-medium (encoder-decoder over audio frames) and internvl2-2b
+(a decoder behind vision patches) — are built by the reference, and its
+parameters carried into the port with ``convert.model_from_jax``.  On
+shared numpy tokens (and, for the frontend archs, shared numpy prefix
+embeddings in prefill and the loss; decode takes tokens only, as the
+reference's does, over the zero memory of ``init_cache``): prefill logits and
 ten decode steps' logits match the reference at 1e-4, greedy tokens are
 equal, the port's ``generate`` (what ``serve`` runs) yields the reference
 serve loop's tokens, the port's decode reproduces its own prefill
@@ -44,7 +48,8 @@ B, T = 2, 10
 LOSS_TOL = 1e-5
 CONFIGS = {"mamba2-370m": {}, "yi-6b": {}, "yi-6b-gqa": {"num_kv_heads": 2},
            "olmoe-1b-7b": {}, "mixtral-8x7b": {}, "moonshot-v1-16b-a3b": {},
-           "jamba-v0.1-52b": {}, "phi3-mini-3.8b": {}, "nemotron-4-15b": {}}
+           "jamba-v0.1-52b": {}, "phi3-mini-3.8b": {}, "nemotron-4-15b": {},
+           "seamless-m4t-medium": {}, "internvl2-2b": {}}
 
 
 def _configs(name):
@@ -70,6 +75,23 @@ def _tt(tokens):
     return torch.from_numpy(tokens).long()
 
 
+def _prefix(cfg):
+    """The frontend archs' (B, num_prefix, frontend_dim) float32 patch or
+    frame embeddings (tests/test_models_smoke.py's 0.1 normal), else
+    None."""
+    if cfg.frontend == "none":
+        return None
+    return (0.1 * np.random.default_rng(9).normal(
+        size=(B, cfg.num_prefix, cfg.frontend_dim))).astype(np.float32)
+
+
+def _jt(prefix):
+    """A numpy prefix as (jax array, tensor), or (None, None)."""
+    if prefix is None:
+        return None, None
+    return jnp.asarray(prefix), torch.from_numpy(prefix)
+
+
 def _close(got, want, tol):
     np.testing.assert_allclose(np.asarray(got, np.float32),
                                np.asarray(want, np.float32), rtol=tol, atol=tol)
@@ -91,8 +113,9 @@ def test_published_configs_are_the_references():
 
 def test_prefill_logits_match_reference(pair):
     jc, jm, params, tc, model, tokens = pair
-    want, _ = jm.prefill(params, jnp.asarray(tokens))
-    got, aux = build_prefill_step(model, tc, device="cpu")(_tt(tokens))
+    jp, tp = _jt(_prefix(tc))
+    want, _ = jm.prefill(params, jnp.asarray(tokens), jp)
+    got, aux = build_prefill_step(model, tc, device="cpu")(_tt(tokens), tp)
     assert got.dtype == torch.float32 and got.shape == (B, tc.padded_vocab)
     _close(got, want, TOL)
 
@@ -139,8 +162,12 @@ def test_decode_matches_own_prefill(pair):
     """tests/test_models_smoke.py:67-103 on the port: decode logits at t ==
     prefill logits of the length-(t+1) prompt.  As there, MoE configs run
     at capacity factor 8: prefill routes t + 1 tokens a row and decode one,
-    so the two agree only where prefill drops nothing."""
+    so the two agree only where prefill drops nothing.  As there, the
+    encoder-decoder decodes over ``encode(frames)`` and prefills over the
+    same frames, and the vision decoder is held against a prefill with no
+    patches (decode takes none)."""
     _, _, params, tc, model, tokens = pair
+    _, frames = _jt(_prefix(tc) if tc.is_encdec else None)
     if tc.is_moe:
         tc = dataclasses.replace(tc, capacity_factor=8.0)
         model = model_from_jax(tc, jax.tree.map(np.asarray, params),
@@ -149,21 +176,26 @@ def test_decode_matches_own_prefill(pair):
     step, init_cache = build_serve_step(model, tc, ShapeConfig("t", T, B, "decode"),
                                         device="cpu")
     cache = init_cache()
+    if frames is not None:
+        with torch.inference_mode():
+            cache["memory"] = model.encode(frames)
     for t in range(T):
         logits, cache = step(cache, _tt(tokens[:, t]), t)
         if t in (3, T - 1):
-            _close(logits, prefill(_tt(tokens[:, :t + 1]))[0], DECODE_TOL)
+            _close(logits, prefill(_tt(tokens[:, :t + 1]), frames)[0],
+                   DECODE_TOL)
 
 
 def test_plain_and_kernel_paths_agree(pair):
     """``use_kernels=False`` runs the plain SSD / attention of the model
     modules instead of the kernel's module: the same logits."""
     _, _, _, tc, model, tokens = pair
+    _, tp = _jt(_prefix(tc))
     with torch.inference_mode():
-        kern = model.prefill(_tt(tokens))[0]
+        kern = model.prefill(_tt(tokens), tp)[0]
         model.use_kernels = False
         try:
-            plain = model.prefill(_tt(tokens))[0]
+            plain = model.prefill(_tt(tokens), tp)[0]
         finally:
             model.use_kernels = True
     _close(kern, plain, TOL)
@@ -171,23 +203,29 @@ def test_plain_and_kernel_paths_agree(pair):
 
 def test_loss_fn_matches_reference(pair):
     """Next-token cross-entropy plus the MoE aux losses (0 elsewhere) of one
-    batch, on the plain path, against the reference's ``loss_fn``."""
+    batch (behind the frontend archs' prefix embeddings), on the plain
+    path, against the reference's ``loss_fn``."""
     jc, jm, params, tc, model, tokens = pair
     targets = np.roll(tokens, -1, axis=1)
     mask = np.ones(tokens.shape, np.float32)
     mask[:, -1] = 0.0
-    want, wm = jm.loss_fn(params, {"tokens": jnp.asarray(tokens),
-                                   "targets": jnp.asarray(targets),
-                                   "mask": jnp.asarray(mask)})
-    got, gm = model.loss_fn({"tokens": _tt(tokens), "targets": _tt(targets),
-                             "mask": torch.from_numpy(mask)})
+    jbatch = {"tokens": jnp.asarray(tokens), "targets": jnp.asarray(targets),
+              "mask": jnp.asarray(mask)}
+    tbatch = {"tokens": _tt(tokens), "targets": _tt(targets),
+              "mask": torch.from_numpy(mask)}
+    jp, tp = _jt(_prefix(tc))
+    if jp is not None:
+        jbatch["prefix_emb"], tbatch["prefix_emb"] = jp, tp
+    want, wm = jm.loss_fn(params, jbatch)
+    got, gm = model.loss_fn(tbatch)
     _close(got.detach(), want, LOSS_TOL)
     _close(gm["aux"].detach(), wm["aux"], LOSS_TOL)
     assert (float(gm["aux"]) > 0) == tc.is_moe
 
 
 @pytest.mark.parametrize("arch", ["mamba2-370m", "yi-6b", "olmoe-1b-7b",
-                                  "jamba-v0.1-52b"])
+                                  "jamba-v0.1-52b", "seamless-m4t-medium",
+                                  "internvl2-2b"])
 def test_serve_runs_on_cpu(arch):
     cfg = get_config(arch).reduced()
     res = serve(cfg, batch=2, prompt_len=5, gen_len=3, seed=1, device="cpu")
@@ -213,22 +251,31 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_archs_and_families_raise():
-    """The encoder-decoder and frontend archs and families wait for ROADMAP
-    queue 1 item 18; every other arch of the reference is ported."""
-    for arch in ("seamless-m4t-medium", "internvl2-2b"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 18"):
-            get_config(arch)
-    base = get_config("yi-6b").reduced()
-    encdec = dataclasses.replace(base, arch_type="audio", encoder_layers=2)
-    vision = dataclasses.replace(base, arch_type="vlm", frontend="vision",
-                                 frontend_dim=64, num_prefix=8)
-    for cfg in (encdec, vision):
-        with pytest.raises(NotImplementedError, match="queue 1 item 18"):
-            build_model(cfg, device="cpu")
+    """No arch or family of the reference is left unported: the registry
+    holds the reference's ten archs in its order, only a name outside them
+    raises, and the encoder-decoder and frontend archs and families build
+    (an ``EncDec``, a ``Transformer`` with a projector)."""
     from repro.configs import ARCH_NAMES as JARCH_NAMES
     from repro_torch.configs import ARCH_NAMES
-    assert set(ARCH_NAMES) == set(JARCH_NAMES) - {"seamless-m4t-medium",
-                                                  "internvl2-2b"}
+    from repro_torch.models.encdec import EncDec
+    from repro_torch.models.transformer import Transformer
+    assert ARCH_NAMES == JARCH_NAMES
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-arch")
+    base = get_config("yi-6b").reduced()
+    encdec = dataclasses.replace(base, arch_type="audio", encoder_layers=2,
+                                 frontend="audio", frontend_dim=64,
+                                 num_prefix=8)
+    vision = dataclasses.replace(base, arch_type="vlm", frontend="vision",
+                                 frontend_dim=64, num_prefix=8)
+    for cfg, cls in ((get_config("seamless-m4t-medium").reduced(), EncDec),
+                     (encdec, EncDec),
+                     (get_config("internvl2-2b").reduced(), Transformer),
+                     (vision, Transformer)):
+        model = build_model(cfg, device="cpu")
+        assert type(model) is cls
+        assert model.state_dict()["projector.w1"].shape == (
+            cfg.frontend_dim, cfg.d_model)
 
 
 def test_model_from_jax_keeps_dtypes_and_splits_layers():

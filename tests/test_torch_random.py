@@ -3,7 +3,7 @@
 Bits, key, split, fold_in, uniform, bernoulli and randint are compared for
 exact equality; categorical exactly except at argmax near-ties (torch's and
 XLA's ``log`` may differ in the last ulp); gumbel and normal within a few
-ulp.
+ulp, and normal (through ``xla_log1p`` and ``erfinv``) bit for bit.
 """
 
 import numpy as np
@@ -86,6 +86,22 @@ def test_gumbel_and_normal_within_ulps(seed):
         got, want = got.numpy(), np.asarray(want)
         ulp = np.spacing(np.maximum(np.abs(want), floor).astype(np.float32))
         assert np.max(np.abs(got.astype(np.float64) - want) / ulp) <= 4
+
+
+@pytest.mark.parametrize("seed", SEEDS[:3])
+def test_normal_and_log1p_bitwise(seed):
+    """``normal`` = sqrt(2) erf_inv(u) as XLA's CPU code rounds it: its
+    log1p (``xla_log1p``, Cephes' rational below sqrt(2) - 1), the Giles
+    polynomial in fused multiply-adds and a correctly rounded sqrt."""
+    jk, tk = jax.random.fold_in(jax.random.key(seed), 17), R.fold_in(
+        R.key(seed), 17)
+    np.testing.assert_array_equal(R.normal(tk, (3, 40000)).numpy(),
+                                  np.asarray(jax.random.normal(jk, (3, 40000))))
+    x = np.random.default_rng(seed).uniform(-0.999, 4.0, 50000).astype(
+        np.float32)
+    x[:4] = (0.0, -0.41421354, 0.41421357, 1e-30)
+    np.testing.assert_array_equal(R.xla_log1p(torch.from_numpy(x)).numpy(),
+                                  np.asarray(jax.lax.log1p(jnp.asarray(x))))
 
 
 def _near_tie(key, logits, shape, idx_a, idx_b, tol=1e-5):

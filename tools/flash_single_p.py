@@ -55,7 +55,7 @@ def build_single_p(tmp):
     dll = ctypes.CDLL(lib)
     p, i = ctypes.c_void_p, ctypes.c_int
     dll.flash_attention_wgmma_launch.argtypes = [p, p, p, i, i, i, i, i, i,
-                                                 i, p, p]
+                                                 i, i, p, p]
     dll.flash_attention_wgmma_launch.restype = i
     return dll
 
@@ -85,8 +85,8 @@ def main():
             single = torch.empty_like(q)
             B, L, H, D = q.shape
             check(dll.flash_attention_wgmma_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), B, L, H, k.shape[2],
-                D, int(c["causal"]), int(c["window"]), single.data_ptr(),
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), B, L, L, H,
+                k.shape[2], D, int(c["causal"]), int(c["window"]), single.data_ptr(),
                 stream(q)), "flash_attention (single bf16 P)")
             row = {"case": c}
             for name, got in (("hi_lo_p", package), ("single_bf16_p", single)):
