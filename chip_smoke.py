@@ -127,6 +127,16 @@ Phases, in order; any failed check exits non-zero and prints no ok line:
    cut to 4 layers for 5 steps.  Each reports the step's stages by CUDA
    events, an ``hvp`` step against a ``gnorm`` step, tokens/s, peak
    memory and one profiled step.
+7. The paper's studies (``studies_phase``, last, after the training
+   cells' CUDA graphs): every suite of
+   ``benchmarks/torch_run.py`` but chaos (fig2, fig3, theorem1,
+   agents_scaling, heterogeneity, degraded_edge, td_speedup, comm_savings,
+   report_regen) at smoke scale on the card through ``run_suite``, rows
+   written to a temporary out-dir, each held to the reference's schema
+   (``gate``) and its headline numbers to JAX 0.9.0's at the module's
+   stated tolerance (``fidelity``); their toy-shape launches stand in the
+   phase's own line.  The full-scale studies run from
+   ``python -m benchmarks.torch_run``, not here.
 
 Every line before the last is one JSON object (device, build, kernels,
 sweeps, studies, serving cells, each phase's seconds) except the card's
@@ -147,6 +157,13 @@ from typing import NamedTuple, Optional
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(REPO, "src")
+
+# the studies' JAX 0.9.0 numbers and bounds have one home, the study
+# modules (numpy and the stdlib at import: no torch, no JAX)
+from benchmarks.torch_fig3_continuous import (  # noqa: E402
+    FIG3_COMMITTED, FIG3_JAX, FIG3_TOL, panel_gaps)
+from benchmarks.torch_td_speedup import (  # noqa: E402
+    MODES as TD_MODES, TD_COMMITTED_SPEEDUPS, TD_JAX, TD_STUDY, TD_TOL)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, the float32
 # rate outside the tensor cores (what the gain and SSD kernels' function
@@ -1163,89 +1180,15 @@ FIG3_ITERS, FIG3_SAMPLES = 1500, 1000
 FIG3_SWEEPS = ((2, (("left_infrequent", 1e-1), ("middle_frequent", 1e-4),
                     ("right_2agents", 1e-2))),
                (10, (("right_10agents", 1e-2),)))
-# the study's own numbers, fig3_continuous.run() with no store, under JAX
-# 0.9.0 on the CPU (the streams the port reproduces)
-FIG3_JAX = {
-    "left_infrequent": dict(
-        comm_rate=0.041999999433755875, first_tx_iter=0,
-        J_final=0.0019502639770507812,
-        w_err_quarterly=[1.413479208946228, 1.068789005279541,
-                         1.0277268886566162, 0.9594783782958984,
-                         0.7316417694091797]),
-    "middle_frequent": dict(
-        comm_rate=0.6053333282470703, first_tx_iter=0,
-        J_final=1.0728836059570312e-05,
-        w_err_quarterly=[1.413479208946228, 0.45173683762550354,
-                         0.26844385266304016, 0.14067628979682922,
-                         0.07037332653999329]),
-    "right_2agents": dict(
-        comm_rate=0.14766666293144226, first_tx_iter=0,
-        J_final=0.00041031837463378906,
-        w_err_quarterly=[1.413479208946228, 1.0019376277923584,
-                         0.8695611953735352, 0.6612618565559387,
-                         0.4010760486125946]),
-    "right_10agents": dict(
-        comm_rate=0.09593333303928375, first_tx_iter=0,
-        J_final=0.00018161535263061523,
-        w_err_quarterly=[1.413479208946228, 0.9969350695610046,
-                         0.8180505633354187, 0.47494298219680786,
-                         0.2701323628425598]),
-}
-# experiments/bench/fig3.json as committed: older threefry streams, shown
-# beside the others and held to nothing
-FIG3_COMMITTED = {"left_infrequent": dict(comm_rate=0.04266666620969772,
-                                          J_final=0.0019592642784118652),
-                  "middle_frequent": dict(comm_rate=0.6036666631698608,
-                                          J_final=1.1742115020751953e-05),
-                  "right_2agents": dict(comm_rate=0.1550000011920929,
-                                        J_final=0.00037091970443725586),
-                  "right_10agents": dict(comm_rate=0.09380000084638596,
-                                         J_final=0.00016576051712036133)}
-# The port derives eps and rho from its own float32 Phi, summed in another
-# order than XLA's: eps comes out equal, rho 0.99585203 against JAX's
-# 0.99585179 (the min-eigenvalue term of an ill-conditioned 6x6 moment
-# matrix).  The thresholds then differ in their last bits, practical-mode
-# decisions part near them and the trajectories diverge, so the panels
-# agree as two runs of one study, not bit for bit (the backends, which
-# share the port's rho, are held to plain torch bit for bit above).  On
-# the CPU the port read comm rates within 0.007, J_final within 12 % and
-# w_err within 0.048 of JAX's; the committed fig3.json (older streams)
-# sits within 0.0073, 10 % and 0.018.  Bounds: about 3x those.
-FIG3_TOL = dict(comm_rate=0.03, J_final_rel=0.3, w_err=0.1)
+# FIG3_JAX (the panels under JAX 0.9.0), FIG3_COMMITTED (the committed
+# fig3.json, shown only) and FIG3_TOL (the bounds and their reason) live
+# with the study, benchmarks/torch_fig3_continuous.py, imported above
 
-# benchmarks/td_speedup.py: _scale(smoke=False), GAMMA, EPS, NOISE_SCALE,
-# RHO, LAM, TAIL_FRAC; always and theoretical modes, a j_trajectory trace
-TD_STUDY = dict(envs=6, states=10, gamma=0.8, agents=(1, 4, 16, 64),
-                samples=8, iters=6000, seeds=(0, 1, 2), eps=0.1,
-                noise_scale=4.0, rho=0.999, lam=1e-3, tail_frac=0.25)
-TD_MODES = ("always", "theoretical")
-# the same study spec through repro.experiments.run_sweep under JAX 0.9.0
-# on the CPU: tail error (mean of J over the last quarter of the steps,
-# envs and seeds averaged) and comm rate per mode and m
-TD_JAX = {
-    1: dict(always=0.2955451254226544, theoretical=0.00039856965453536415,
-            comm_theoretical=0.02212962880730629),
-    4: dict(always=0.06860475618750961, theoretical=0.00017473269391942909,
-            comm_theoretical=0.010877314954996109),
-    16: dict(always=0.01881671436627706, theoretical=9.872929255167643e-05,
-             comm_theoretical=0.008459489792585373),
-    64: dict(always=0.0046690628881807675,
-             theoretical=5.724298512494122e-05,
-             comm_theoretical=0.008114149793982506),
-}
-# experiments/bench/td_speedup.json as committed (older streams; shown only)
-TD_COMMITTED_SPEEDUPS = dict(always=(1.0, 4.473652234580297,
-                                     16.403772908819157, 71.06726251456973),
-                             theoretical=(1.0, 1.9633240177862923,
-                                          3.840772994462512,
-                                          6.62078908456694))
-# Relative bounds on the tail errors.  always: no decision, so only the
-# float32 sums differ (the port on the CPU within 6e-6 of JAX).  theoretical:
-# J ~ 5e-5 is the difference of terms of size c0 ~ 50 in float32, each
-# evaluation off by ~ulp(c0) / J, so its tail mean carries that noise (the
-# port on the CPU within 0.35 %, with the same comm rates to 1e-9); a
-# decision that flips at a tie on the card moves one run's tail too.
-TD_TOL = dict(always=1e-4, theoretical=0.05)
+# TD_STUDY (benchmarks/td_speedup.py's full scale and settings), TD_JAX
+# (its tail errors and comm rates under JAX 0.9.0), TD_COMMITTED_SPEEDUPS
+# (shown only) and TD_TOL live with the study,
+# benchmarks/torch_td_speedup.py, imported above
+
 # the backend parity, runtime and channel runs: m = 64 with N cut to this
 TD_CUT_ITERS = 1000
 TD_TRACE_ITERS = 200      # the profiled fused sweep's steps
@@ -1375,10 +1318,7 @@ def fig3_phase(dev):
     worst = dict(comm_rate=0.0, J_final_rel=0.0, w_err=0.0)
     for name, got in panels.items():
         want = FIG3_JAX[name]
-        d = dict(comm_rate=abs(got["comm_rate"] - want["comm_rate"]),
-                 J_final_rel=abs(got["J_final"] / want["J_final"] - 1),
-                 w_err=max(abs(a - b) for a, b in zip(
-                     got["w_err_quarterly"], want["w_err_quarterly"])))
+        d = panel_gaps(got, want)
         for k, v in d.items():
             worst[k] = max(worst[k], v)
         check(got["first_tx_iter"] == want["first_tx_iter"]
@@ -1926,6 +1866,55 @@ def sweep_service_phase(dev, service_root, lines):
     return [dict(cell="sweep-service", report=report, report_s=report_s,
                  serving=serving, serving_s=serving_s, cli=cli, chaos=chaos,
                  chaos_s=chaos_s)], {}
+
+
+# benchmarks/torch_run.py's suites that this phase runs at smoke scale:
+# the paper's studies and the report regeneration (chaos runs two cells in
+# the sweep-service phase)
+STUDY_SUITES = ("fig2", "fig3", "theorem1", "agents_scaling",
+                "heterogeneity", "degraded_edge", "td_speedup",
+                "comm_savings", "report_regen")
+
+
+def studies_phase(dev):
+    """Every study of benchmarks/torch_run.py's suite table at smoke scale
+    on the card, its rows written to a temporary out-dir as ``torch_run
+    --smoke --out-dir`` writes them, each held to the reference's schema
+    (``gate``) and its headline numbers to JAX 0.9.0's (``fidelity``).
+    The studies run the gain kernels at toy shapes, so their launches
+    stand in this phase's line only, not in the kernels line."""
+    import shutil
+    import tempfile
+    from benchmarks import torch_run
+    from benchmarks.common import save_rows
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_studies_")
+    per_suite = {}
+    try:
+        sync(dev)
+        reset_all_launches()               # the studies start here
+        for name in STUDY_SUITES:
+            t0 = time.perf_counter()
+            rows, violations, misses, ties = torch_run.run_suite(
+                name, True, None, str(dev))
+            check(not violations and not misses,
+                  f"studies {name}: {violations + misses}")
+            save_rows(name, rows, out_dir=out_dir)
+            per_suite[name] = dict(seconds=time.perf_counter() - t0,
+                                   rows=len(rows),
+                                   ties=[list(map(str, t)) for t in ties])
+        sync(dev)
+        counts = all_launches()            # ... and end here
+        written = sorted(os.listdir(out_dir))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    check(written == sorted(f"{n}.json" for n in STUDY_SUITES),
+          f"studies: rows written {written}")
+    check(counts.get("megastep", 0) > 0
+          and counts.get("gain_family_stats", 0) > 0,
+          f"studies: the gain kernels did not run: {counts}")
+    return [dict(cell="studies", smoke=True, suites=per_suite,
+                 launches=counts)], {}
 
 
 def td_runtime_channel_phase(dev):
@@ -4400,6 +4389,9 @@ def main():
     seconds["reduced-archs"] = time.perf_counter() - t0
     for cell in TRAIN_CELLS:
         main_path(cell.name, train_phase, cell)
+    # last: comm_savings captures CUDA graphs, and the serving cells'
+    # profiled prefills keep the process they were held in before
+    main_path("studies", studies_phase)
     lines.append({"phase_seconds": seconds})
     kernels = kernel_lines(logs, timings, launches)
     for k in kernels:

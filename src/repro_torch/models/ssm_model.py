@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch import random as trandom
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (chunked_xent_loss, embed_tokens,
@@ -116,3 +117,32 @@ class MambaLM(nn.Module):
         """Process a full prompt; returns (last-position logits f32, aux)."""
         hidden, aux = self.hidden_states(tokens)
         return (hidden[:, -1, :] @ self.head()).float(), aux
+
+
+@torch.no_grad()
+def reference_weights(model: MambaLM, seed: int = 0) -> MambaLM:
+    """Overwrite ``model``'s random leaves with the draws of the
+    reference's ``MambaLM.init(jax.random.key(seed))``: the same key splits
+    (embed, one key a block split six ways, lm_head), each leaf ``scale *
+    truncated_normal`` on the port's threefry, bit for bit JAX's.  The
+    constant leaves stay the port's own: equal to the reference's but for
+    ``a_log``, within one ulp (``jnp.linspace`` rounds its interpolation
+    its own way).  Returns ``model``."""
+    cfg = model.cfg
+    dev = model.embed.device
+    keys = trandom.split(trandom.key(seed, dev), cfg.num_layers + 2)
+
+    def draw(leaf, key, scale):
+        leaf.copy_(scale * trandom.truncated_normal(
+            key, tuple(leaf.shape)).to(leaf.dtype))
+
+    d_inner = cfg.ssm_expand * cfg.d_model
+    draw(model.embed, keys[0], cfg.d_model**-0.5)
+    for key, block in zip(keys[1:-1], model.blocks):
+        ks = trandom.split(key, 6)
+        draw(block.mamba["w_in"], ks[0], cfg.d_model**-0.5)
+        draw(block.mamba["conv_w"], ks[1], cfg.ssm_conv_width**-0.5)
+        draw(block.mamba["w_out"], ks[2], d_inner**-0.5)
+    if not cfg.tie_embeddings:
+        draw(model.lm_head, keys[-1], cfg.d_model**-0.5)
+    return model

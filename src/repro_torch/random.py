@@ -14,7 +14,8 @@ Torch has no shifts for ``uint32`` on the CPU, so every word is an
 masked back to 32 bits.
 
 What matches ``jax.random`` exactly: the raw bits, ``key``, ``split``,
-``fold_in``, ``uniform``, ``bernoulli`` and ``randint``.  ``categorical``
+``fold_in``, ``uniform``, ``bernoulli``, ``randint`` and
+``truncated_normal``.  ``categorical``
 (Gumbel-argmax) and ``normal`` (inverse error function) follow JAX's own
 algorithms on the same bits, but their ``log`` / ``log1p`` are torch's,
 which may differ from XLA's in the last ulp: ``normal`` agrees within a
@@ -240,6 +241,28 @@ def normal(keys_: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     u = uniform(keys_, shape, _NORMAL_LO, 1.0)
     return erfinv(u) * torch.tensor(math.sqrt(2), dtype=torch.float32,
                                     device=u.device)
+
+
+def truncated_normal(keys_: torch.Tensor, shape: Sequence[int],
+                     lower: float = -2.0, upper: float = 2.0) -> torch.Tensor:
+    """``jax.random.truncated_normal`` (float32), bit for bit: ``sqrt(2) *
+    erfinv(u)`` with ``u`` uniform on ``[erf(lower / sqrt 2), erf(upper /
+    sqrt 2))``, clipped to the open interval (lower, upper).  XLA scales
+    the uniform draw onto that range with a fused multiply-add, so ``u``
+    is formed by ``_fma`` here (``uniform``'s ranges are exact either
+    way)."""
+    # the interval's constants on the CPU, so every device gets their bits
+    sqrt2 = torch.tensor(math.sqrt(2), dtype=torch.float32)
+    lo = torch.tensor(lower, dtype=torch.float32)
+    hi = torch.tensor(upper, dtype=torch.float32)
+    inf = torch.tensor(math.inf)
+    a, b, lo_open, hi_open, sqrt2 = (
+        t.to(keys_.device) for t in (
+            torch.erf(lo / sqrt2), torch.erf(hi / sqrt2),
+            torch.nextafter(lo, inf), torch.nextafter(hi, -inf), sqrt2))
+    floats = _bits_to_unit(random_bits(keys_, shape))
+    u = torch.maximum(a, _fma(floats, b - a, a))
+    return torch.clamp(erfinv(u) * sqrt2, lo_open, hi_open)
 
 
 def _f32(c: float) -> float:

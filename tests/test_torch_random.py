@@ -3,7 +3,8 @@
 Bits, key, split, fold_in, uniform, bernoulli and randint are compared for
 exact equality; categorical exactly except at argmax near-ties (torch's and
 XLA's ``log`` may differ in the last ulp); gumbel and normal within a few
-ulp, and normal (through ``xla_log1p`` and ``erfinv``) bit for bit.
+ulp, and normal and truncated_normal (through ``xla_log1p`` and
+``erfinv``) bit for bit.
 """
 
 import numpy as np
@@ -102,6 +103,19 @@ def test_normal_and_log1p_bitwise(seed):
     x[:4] = (0.0, -0.41421354, 0.41421357, 1e-30)
     np.testing.assert_array_equal(R.xla_log1p(torch.from_numpy(x)).numpy(),
                                   np.asarray(jax.lax.log1p(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("bounds", [(-2.0, 2.0), (-1.0, 3.0)])
+@pytest.mark.parametrize("seed", SEEDS[:3])
+def test_truncated_normal_bitwise(seed, bounds):
+    """``truncated_normal`` = sqrt(2) erf_inv(u), u on [erf(lo/sqrt 2),
+    erf(hi/sqrt 2)) scaled with XLA's fused multiply-add, clipped to the
+    open interval: the draw the reference's weight initialisers make."""
+    jk, tk = jax.random.key(seed), R.key(seed)
+    lo, hi = bounds
+    np.testing.assert_array_equal(
+        R.truncated_normal(tk, (7, 3000), lo, hi).numpy(),
+        np.asarray(jax.random.truncated_normal(jk, lo, hi, (7, 3000))))
 
 
 def _near_tie(key, logits, shape, idx_a, idx_b, tol=1e-5):
