@@ -21,6 +21,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import sys
 import tempfile
 
@@ -42,6 +43,23 @@ def sync(dev) -> None:
     import torch
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def median_wall_us(dev, fn, reps: int, trials: int) -> tuple:
+    """``(fn()'s last output, median over ``trials`` of the wall us per call
+    of ``reps`` calls)``, after one warm-up call, the device synchronized
+    before each clock read."""
+    import time
+    out = fn()
+    sync(dev)
+    ts = []
+    for _ in range(trials):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        sync(dev)
+        ts.append((time.perf_counter() - t0) / reps * 1e6)
+    return out, statistics.median(ts)
 
 
 def committed_rows(suite: str) -> list[dict]:

@@ -1,12 +1,17 @@
-"""The port's study harness: the paper's figure studies and the chaos
-matrix on ``repro_torch`` (``benchmarks/run.py``'s counterpart).
+"""The port's study harness: the paper's figure studies, the chaos
+matrix and the engine, kernel and service suites on ``repro_torch``
+(``benchmarks/run.py``'s counterpart; it has no ``roofline``, which
+works from TPU constants and dry-run artifacts, and ``sweep_scaling``
+runs only its ``env_family`` suite).
 
 Prints ``name,us_per_call,derived`` CSV per row and writes each suite's
 rows to ``experiments/bench/torch/<suite>.json``, after the suite's
 ``gate`` (``check_bench.check_suite`` against the reference's committed
-rows) passes; any violation fails the run.  Each figure study's headline
-numbers are also held to JAX 0.9.0's (its ``fidelity``): a miss is
-printed and fails the run, but the rows are still written.
+rows; for ``kernels``, which the reference commits none of, the rows'
+own error bounds) passes; any violation fails the run.  Each figure
+study's headline numbers, and those of ``sweep_scaling`` and
+``resume_query``, are also held to JAX 0.9.0's (its ``fidelity``): a
+miss is printed and fails the run, but the rows are still written.
 
   PYTHONPATH=src python -m benchmarks.torch_run                  # all, cuda
   PYTHONPATH=src python -m benchmarks.torch_run --only fig2,theorem1
@@ -33,8 +38,10 @@ import time
 from benchmarks import (torch_agents_scaling, torch_chaos, torch_comm_savings,
                         torch_degraded_edge, torch_fig2_grid_tradeoff,
                         torch_fig3_continuous, torch_heterogeneity,
-                        torch_report_regen, torch_td_speedup,
-                        torch_theorem1_bound)
+                        torch_kernels_bench, torch_report_regen,
+                        torch_resume_query, torch_serve_load,
+                        torch_sweep_scaling, torch_sweep_step,
+                        torch_td_speedup, torch_theorem1_bound)
 from benchmarks.common import save_rows
 from benchmarks.torch_common import OUT_DIR
 
@@ -43,17 +50,23 @@ SUITES = {
     "fig3": torch_fig3_continuous,
     "theorem1": torch_theorem1_bound,
     "agents_scaling": torch_agents_scaling,
+    "sweep_scaling": torch_sweep_scaling,
+    "sweep_step": torch_sweep_step,
+    "resume_query": torch_resume_query,
+    "serve_load": torch_serve_load,
     "heterogeneity": torch_heterogeneity,
     "degraded_edge": torch_degraded_edge,
     "td_speedup": torch_td_speedup,
     "comm_savings": torch_comm_savings,
     "report_regen": torch_report_regen,
+    "kernels": torch_kernels_bench,
     "chaos": torch_chaos,
 }
 
 # suites that accept store= (persist results / reuse cached sweeps)
 STORE_AWARE = {"fig2", "fig3", "theorem1", "comm_savings", "heterogeneity",
-               "degraded_edge", "td_speedup", "report_regen"}
+               "degraded_edge", "td_speedup", "report_regen", "resume_query",
+               "serve_load"}
 
 
 def resolve_suites(only):
@@ -79,9 +92,11 @@ def resolve_suites(only):
 
 def _derived(row: dict) -> str:
     for key in ("J_final", "rhs_bound", "tx_junk", "overhead_pct",
-                "savings_pct", "speedup", "speedup_vs_m1",
-                "run_agent_steps_per_s", "byte_deterministic",
-                "artifacts", "recovered_bitwise"):
+                "savings_pct", "speedup", "speedup_vs_reference",
+                "speedup_warm_vs_cold", "speedup_vs_m1",
+                "throughput_rps", "run_agent_steps_per_s",
+                "gflop_per_call", "byte_deterministic", "artifacts",
+                "recovered_bitwise"):
         if key in row:
             return f"{key}={row[key]}"
     return ""
@@ -91,7 +106,9 @@ def _label(name: str, row: dict) -> str:
     label = row.get("bench", name)
     sub = [str(row[k]) for k in ("regime", "fleet_class", "channel", "mode",
                                  "site", "kind", "query", "panel", "stage",
-                                 "lam", "agents", "m", "suite")
+                                 "component", "lam", "agents", "m", "suite",
+                                 "shape", "concurrency", "gain_backend",
+                                 "step_backend")
            if k in row]
     return label + ("[" + "/".join(sub) + "]" if sub else "")
 

@@ -107,7 +107,11 @@ Phases, in order; any failed check exits non-zero and prints no ok line:
    ``prefill_32k``'s 32768 x 32) three times and ``serve`` at batch 4, 64
    + 32 tokens, with each kernel's launch count held to the cell's
    per-prefill count x prefill calls; last, one prefill under
-   ``torch.profiler`` (and, for MoE, its stages by CUDA events).  Then
+   ``torch.profiler`` (and, for MoE, its stages by CUDA events), its
+   launches held to the cell's per-prefill counts by the wrappers' own
+   counters read around that call, its trace to name no CUDA-core kernel
+   (a trace without device time fails the cell) and to give the times.
+   Then
    every ported arch's reduced config in float32 (``reduced_archs_phase``:
    kernel vs plain and decode vs prefill at 2 x 256 tokens; checks, not a
    main path).
@@ -127,16 +131,23 @@ Phases, in order; any failed check exits non-zero and prints no ok line:
    cut to 4 layers for 5 steps.  Each reports the step's stages by CUDA
    events, an ``hvp`` step against a ``gnorm`` step, tokens/s, peak
    memory and one profiled step.
-7. The paper's studies (``studies_phase``, last, after the training
-   cells' CUDA graphs): every suite of
-   ``benchmarks/torch_run.py`` but chaos (fig2, fig3, theorem1,
-   agents_scaling, heterogeneity, degraded_edge, td_speedup, comm_savings,
-   report_regen) at smoke scale on the card through ``run_suite``, rows
-   written to a temporary out-dir, each held to the reference's schema
-   (``gate``) and its headline numbers to JAX 0.9.0's at the module's
-   stated tolerance (``fidelity``); their toy-shape launches stand in the
-   phase's own line.  The full-scale studies run from
+7. The paper's studies (``studies_phase``, after the training cells'
+   CUDA graphs): every suite of ``benchmarks/torch_run.py`` but chaos
+   (fig2, fig3, theorem1, agents_scaling, heterogeneity, degraded_edge,
+   td_speedup, comm_savings, report_regen, sweep_step, kernels,
+   sweep_scaling, resume_query, serve_load) at smoke scale on the card
+   through ``run_suite``, rows written to a temporary out-dir, each held
+   to its ``gate`` (the reference's schema; the kernels suite's own error
+   bounds) and its headline numbers to JAX 0.9.0's at the module's stated
+   tolerance (``fidelity``); their toy-shape launches stand in the
+   phase's own line.  The full-scale suites run from
    ``python -m benchmarks.torch_run``, not here.
+8. The examples (``examples_phase``, last): each of
+   ``examples/torch_*.py`` through its ``main`` at its own defaults on
+   the card (quickstart, serve_batched, sweep_queries,
+   heterogeneity_report, federated_lm_training, train_100m at 20 steps),
+   their printed lines on standard error, their launches in the phase's
+   own line.
 
 Every line before the last is one JSON object (device, build, kernels,
 sweeps, studies, serving cells, each phase's seconds) except the card's
@@ -1869,11 +1880,12 @@ def sweep_service_phase(dev, service_root, lines):
 
 
 # benchmarks/torch_run.py's suites that this phase runs at smoke scale:
-# the paper's studies and the report regeneration (chaos runs two cells in
-# the sweep-service phase)
+# the paper's studies, the report regeneration, and the engine, kernel and
+# service suites (chaos runs two cells in the sweep-service phase)
 STUDY_SUITES = ("fig2", "fig3", "theorem1", "agents_scaling",
                 "heterogeneity", "degraded_edge", "td_speedup",
-                "comm_savings", "report_regen")
+                "comm_savings", "report_regen", "sweep_step", "kernels",
+                "sweep_scaling", "resume_query", "serve_load")
 
 
 def studies_phase(dev):
@@ -1915,6 +1927,59 @@ def studies_phase(dev):
           f"studies: the gain kernels did not run: {counts}")
     return [dict(cell="studies", smoke=True, suites=per_suite,
                  launches=counts)], {}
+
+
+# examples/torch_*.py, each run through its main() at its own defaults;
+# the ones that write a store get a throwaway root
+EXAMPLES = ("torch_quickstart", "torch_serve_batched", "torch_sweep_queries",
+            "torch_heterogeneity_report", "torch_federated_lm_training",
+            "torch_train_100m")
+EXAMPLES_WITH_ROOT = ("torch_sweep_queries", "torch_heterogeneity_report")
+
+
+def examples_phase(dev):
+    """Each of the port's six examples through its ``main`` on the card,
+    in this process, at its own defaults (the store-writing ones under a
+    throwaway ``--root``), with the launch counts reset just before and
+    read after; each must return its headline numbers, finite.  Their
+    toy-shape launches stand in this phase's line only; what they print
+    goes to standard error."""
+    import contextlib
+    import importlib
+    import math
+    import shutil
+    import tempfile
+
+    sys.path.insert(0, os.path.join(REPO, "examples"))
+    root = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    per_example = {}
+    try:
+        sync(dev)
+        reset_all_launches()               # the examples start here
+        for name in EXAMPLES:
+            mod = importlib.import_module(name)
+            argv = ["--device", str(dev)]
+            if name in EXAMPLES_WITH_ROOT:
+                argv += ["--root", os.path.join(root, name)]
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr):   # their prints
+                out = mod.main(argv)
+            sync(dev)
+            per_example[name] = dict(seconds=time.perf_counter() - t0)
+            if name == "torch_train_100m":
+                per_example[name].update(params=out["params"],
+                                         history=out["history"])
+        sync(dev)
+        counts = all_launches()            # ... and end here
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        sys.path.remove(os.path.join(REPO, "examples"))
+    losses = [h["loss"] for h in per_example["torch_train_100m"]["history"]]
+    check(all(math.isfinite(x) for x in losses),
+          f"examples: torch_train_100m's losses {losses}")
+    check(counts.get("megastep", 0) > 0,
+          f"examples: quickstart's sweeps launched no megastep: {counts}")
+    return [dict(cell="examples", examples=per_example, launches=counts)], {}
 
 
 def td_runtime_channel_phase(dev):
@@ -3590,17 +3655,32 @@ def serve_phase(dev, cell):
     prefill = build_prefill_step(model, cfg, dev)
     # the profiled prefill launched each of the cell's kernels its count a
     # prefill (summed over the records one kernel serves), and no CUDA-core
-    # route
-    want = dict.fromkeys(CUDA_CORE_KERNELS, 0)
-    for rec, n in zip(cell.kernels, cell.per_prefill):
+    # route: held by the wrappers' own counters, read around this one call;
+    # the trace gives the times and must name no CUDA-core kernel
+    want = dict.fromkeys(all_launches(), 0)
+    by_name = dict.fromkeys(CUDA_CORE_KERNELS, 0)
+    for rec, counter, n in zip(cell.kernels, cell.counters, cell.per_prefill):
+        want[counter] += n
         name = RECORDS[rec].cuda_kernel
-        want[name] = want.get(name, 0) + n
-    names = tuple(k for k in want if k not in CUDA_CORE_KERNELS)
+        by_name[name] = by_name.get(name, 0) + n
+    names = tuple(k for k in by_name if k not in CUDA_CORE_KERNELS)
+    sync(dev)
+    reset_all_launches()
     breakdown = prefill_breakdown(dev, lambda t: prefill(t, big_prefix), big,
                                   names, also=CUDA_CORE_KERNELS)
+    profiled = all_launches()
+    check(profiled == want, f"{cell.name}: the profiled prefill launched "
+          f"{profiled}, expected {want}")
     calls = breakdown.get("kernel_calls")
-    check(calls is None or calls == want,
-          f"{cell.name}: the profiled prefill launched {calls}, expected {want}")
+    check(calls is not None or dev.type != "cuda",
+          f"{cell.name}: the profiled prefill's device time was not measured")
+    if calls is not None:
+        check(all(calls[k] == 0 for k in CUDA_CORE_KERNELS),
+              f"{cell.name}: the profiled prefill ran a CUDA-core route: "
+              f"{calls}")
+        # reported, not held: whether the trace saw every launch
+        breakdown["trace_calls_match_launches"] = calls == by_name
+    breakdown["launches"] = {k: n for k, n in profiled.items() if n}
     if cfg.is_moe and dev.type == "cuda":
         breakdown["moe_stages_ms"] = moe_stage_ms(dev, prefill, big)
     del model, prefill
@@ -4389,9 +4469,11 @@ def main():
     seconds["reduced-archs"] = time.perf_counter() - t0
     for cell in TRAIN_CELLS:
         main_path(cell.name, train_phase, cell)
-    # last: comm_savings captures CUDA graphs, and the serving cells'
-    # profiled prefills keep the process they were held in before
+    # after the serving cells: comm_savings and the LM examples capture
+    # CUDA graphs, and the serving cells' profiled prefills keep the
+    # process they were held in before
     main_path("studies", studies_phase)
+    main_path("examples", examples_phase)
     lines.append({"phase_seconds": seconds})
     kernels = kernel_lines(logs, timings, launches)
     for k in kernels:

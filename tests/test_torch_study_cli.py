@@ -126,10 +126,15 @@ def test_empty_only_raises_instead_of_running_everything():
 
 
 def test_suites_are_this_slice_and_chaos():
+    # the reference's suite table but roofline (TPU constants and dry-run
+    # artifacts: no one-card counterpart)
+    from benchmarks import run as jrun
     assert sorted(torch_run.SUITES) == sorted(
         ["fig2", "fig3", "theorem1", "agents_scaling", "heterogeneity",
          "degraded_edge", "td_speedup", "comm_savings", "report_regen",
-         "chaos"])
+         "chaos", "sweep_step", "kernels", "sweep_scaling", "resume_query",
+         "serve_load"])
+    assert sorted(torch_run.SUITES) == sorted(set(jrun.SUITES) - {"roofline"})
 
 
 @pytest.mark.parametrize("name", sorted(torch_run.SUITES))

@@ -4,15 +4,15 @@ headline numbers that the port's studies (``benchmarks/torch_*.py``) hold
 their own against.
 
 Runs ``benchmarks.<study>.run()`` of the JAX package for fig2, theorem1,
-agents_scaling, fig3, heterogeneity, degraded_edge, td_speedup and
-comm_savings, each with a fresh temporary store where the study takes one
-(the committed heterogeneity and degraded-edge stores predate JAX 0.9.0's
-streams and are refused by their inputs digest), and prints one JSON object
-a study with the quantities each port module keeps as its ``*_JAX`` table
-(``--smoke``: at ``run(smoke=True)``'s scale, the ``smoke`` half of each
-table).  Needs jax (CPU); takes about 5 minutes, most of it
-comm_savings.  Run from
-the repository root:
+agents_scaling, fig3, heterogeneity, degraded_edge, td_speedup,
+comm_savings and resume_query (and sweep_scaling's env_family suite's
+sweep, in this process), each with a fresh temporary store where the
+study takes one (the committed heterogeneity and degraded-edge stores
+predate JAX 0.9.0's streams and are refused by their inputs digest), and
+prints one JSON object a study with the quantities each port module keeps
+as its ``*_JAX`` table (``--smoke``: at ``run(smoke=True)``'s scale, the
+``smoke`` half of each table).  Needs jax (CPU); takes about 5 minutes,
+most of it comm_savings.  Run from the repository root:
 
     JAX_PLATFORMS=cpu PYTHONPATH=src python3 tools/jax_study_refs.py \
         [--smoke] [--only fig2,theorem1,...] [--out FILE]
@@ -103,6 +103,44 @@ def td_speedup(store, smoke):
             for r in S.run(smoke=smoke, store=store) if "tail_error" in r}
 
 
+def env_family(store, smoke):
+    """sweep_scaling's env_family suite: its subprocess's sweep, run here
+    without the device mesh.  The suite's own subprocess shards the run
+    axis with ``shard_map``, which JAX 0.9.0 refuses (a scan carry's
+    varying-manual-axes type); the mesh only places runs on devices, so
+    the sweep's numbers are the unsharded run's."""
+    import jax.numpy as jnp
+    import numpy as np
+    from repro.core.algorithm1 import ParamSampler
+    from repro.envs import family_sampler_fn, garnet_env_family
+    from repro.experiments import SweepSpec, run_sweep
+    cfg = (dict(env_instances=8, seeds=1, iters=20, agents=2) if smoke
+           else dict(env_instances=64, seeds=2, iters=150, agents=4))
+    envs, fam = garnet_env_family(cfg["env_instances"], num_states=20)
+    w0 = jnp.zeros(20)
+    spec = SweepSpec(
+        modes=("theoretical", "practical"), lambdas=(1e-3,),
+        seeds=tuple(range(cfg["seeds"])), rhos=(0.999,), eps=0.4,
+        num_iterations=cfg["iters"], num_agents=cfg["agents"],
+        trace="summary")
+    sampler = ParamSampler(fn=family_sampler_fn(10),
+                           params=envs[0].agent_params(w0, cfg["agents"]))
+    res = run_sweep(spec, sampler, w0, env_sets=fam)
+    jf = np.asarray(res.j_final, np.float64)
+    env_ax = res.axes.index("env_set")
+    non_env = tuple(i for i in range(jf.ndim) if i != env_ax)
+    return dict(J_final_mean=float(jf.mean()),
+                J_final_spread=float(np.std(jf.mean(axis=non_env))),
+                comm_rate_mean=float(np.mean(np.asarray(res.comm_rate,
+                                                        np.float64))))
+
+
+def resume_query(store, smoke):
+    from benchmarks import resume_query as S
+    (row,) = [r for r in S.run(smoke=smoke) if r["bench"] == "query_latency"]
+    return {k: row[k] for k in ("best_lam", "best_feasible", "pareto_points")}
+
+
 def comm_savings(store, smoke):
     from benchmarks import comm_savings as S
     rows = S.run(smoke=smoke)
@@ -114,7 +152,8 @@ def comm_savings(store, smoke):
 STUDIES = dict(fig2=fig2, theorem1=theorem1, agents_scaling=agents_scaling,
                fig3=fig3, heterogeneity=heterogeneity,
                degraded_edge=degraded_edge, td_speedup=td_speedup,
-               comm_savings=comm_savings)
+               comm_savings=comm_savings, env_family=env_family,
+               resume_query=resume_query)
 
 
 def main():
