@@ -9,7 +9,16 @@ Phases, in order; any failed check exits non-zero and prints no ok line:
    the main path's full shape (with and without a model, shared and
    per-run Phi, with and without the channel keep mask, all six modes),
    plus a bitwise repeat of every launch; time kernel, plain version and
-   (for gain_matvec) ``torch.matmul`` with CUDA events.
+   (for gain_matvec) ``torch.matmul`` with CUDA events.  The family kernel
+   (``family_phase``): gain_family_stats and megastep_call at
+   ``FAMILY_TIMED`` (wide-192, the kernel suite's m 64 x T 1024 x n 512
+   and every ``SLICE_SHAPES`` entry) timed beside their plain versions and
+   bounds (``time_ms`` and a CUDA graph's replay);
+   runs launched alone equal to their slices of a batched launch, and a
+   CUDA graph's replays (after a larger eager call on its capture stream)
+   equal to an eager call, bitwise (``FAMILY_ALONE``); ``block_m`` alone changing no bit; all of it again
+   under ``REPRO_TORCH_KERNEL_BLOCKS`` (``FAMILY_ENV_BLOCKS``) and
+   per-call overrides (``FAMILY_CALL_BLOCKS``).
 3. Run Algorithm 1's batched sweep in three cells (``CELLS``) under each
    kernel step backend and once on plain torch, and compare them; each
    kernel's launch counter must equal its expected count in its sweep:
@@ -548,6 +557,7 @@ def full_shape_phase(dev, logs):
                                                   pm, eps=8.0)),
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
     slice_shapes_phase(dev, logs, gen)
+    family_phase(dev, logs)
     return out
 
 
@@ -565,27 +575,76 @@ SLICE_SHAPES = (("fig3-2agents", (3, 2, 1000, 6), False),
                 ("q-learning", (1, 2, 60, 100), True))
 
 
+def family_inputs(dev, gen, shape, onehot):
+    """Inputs of gain_family_stats and megastep_call at (R, m, T, n): phi
+    one-hot (the tabular envs) or uniform (Fig. 3's dense features), g, w,
+    a per-run grad J and Phi, random-mode draws, and per-run controls
+    (modes 0-5 in turn, thresholds near the middle |gain| at eps 0.5)."""
+    import torch
+    from repro_torch.kernels import ref
+    R, m, T, n = shape
+    if onehot:
+        x = torch.randint(0, n, (R, m, T), device=dev, generator=gen)
+        phi = torch.nn.functional.one_hot(x, n).float()
+    else:
+        phi = torch.rand(R, m, T, n, device=dev, generator=gen)
+    g = torch.randn(R, m, n, device=dev, generator=gen)
+    w = torch.randn(R, n, device=dev, generator=gen)
+    gj = torch.randn(R, n, device=dev, generator=gen)
+    pm = torch.randn(R, n, n, device=dev, generator=gen) / n
+    arand = (torch.rand(R, m, device=dev, generator=gen) < 0.5).float()
+    stats = ref.gain_family_stats_ref(phi, g, gj, pm)
+    modes = torch.arange(R, device=dev) % 6
+    gains0 = ref.gains_from_stats_ref(stats, modes.unsqueeze(-1), 0.5, T)
+    thresh = gains0.abs().median(dim=-1).values * 0.9 + 1e-3
+    ctl = torch.stack([thresh, modes.float()], -1).contiguous()
+    return dict(phi=phi, g=g, w=w, gj=gj, pm=pm, arand=arand, ctl=ctl,
+                stats=stats)
+
+
+def family_check(logs, label, inp, **blocks):
+    """gain_family_stats and megastep_call (with ``blocks``) against their
+    plain versions at WEIGHT_TOL, decisions exact but for reported ties,
+    and each repeated bitwise.  Returns the two kernels' outputs."""
+    from repro_torch.kernels import gain as K
+    from repro_torch.kernels import ref
+    lf, lm = logs["gain_family_stats"], logs["megastep"]
+    phi, g, w, gj, pm = (inp[k] for k in ("phi", "g", "w", "gj", "pm"))
+    ctl, arand, stats = inp["ctl"], inp["arand"], inp["stats"]
+    T = phi.shape[-2]
+    fam = K.gain_family_stats(phi, g, gj, pm, **blocks)
+    lf.close(f"family {label}", fam, stats, WEIGHT_TOL)
+    lf.repeat(f"family {label}",
+              lambda: K.gain_family_stats(phi, g, gj, pm, **blocks))
+    lf.cases += 1
+    got = K.megastep_call(phi, g, w, ctl, arand, gj, pm, eps=0.5, **blocks)
+    want = ref.megastep_ref(phi, g, w, ctl, arand, gj, pm, eps=0.5)
+    scale = gain_scale(stats, 0.5, T)
+    thresh = ctl[:, :1]
+    lm.decisions(f"megastep {label}", got[1], want[1], want[2], thresh,
+                 WEIGHT_TOL, scale)
+    same = (got[1] == want[1]).all(dim=-1)
+    lm.close(f"megastep {label} w_next", got[0][same], want[0][same],
+             WEIGHT_TOL)
+    lm.close(f"megastep {label} gains", got[2], want[2], WEIGHT_TOL, scale)
+    lm.repeat(f"megastep {label}", lambda: K.megastep_call(
+        phi, g, w, ctl, arand, gj, pm, eps=0.5, **blocks))
+    lm.cases += 1
+    return fam, got
+
+
 def slice_shapes_phase(dev, logs, gen):
     """Each gain kernel at SLICE_SHAPES against its plain version, with the
     pass ``gain_matvec`` takes there (vector only for n = 100)."""
-    import torch
     from repro_torch.kernels import gain as K
     from repro_torch.kernels import ref
 
-    lg, lf, lm = (logs[k] for k in ("gain_matvec", "gain_family_stats",
-                                    "megastep"))
+    lg = logs["gain_matvec"]
     passes = lg.extra.setdefault("slice_shape_passes", {})
-    for label, (R, m, T, n), onehot in SLICE_SHAPES:
-        if onehot:
-            x = torch.randint(0, n, (R, m, T), device=dev, generator=gen)
-            phi = torch.nn.functional.one_hot(x, n).float()
-        else:
-            phi = torch.rand(R, m, T, n, device=dev, generator=gen)
-        g = torch.randn(R, m, n, device=dev, generator=gen)
-        w = torch.randn(R, n, device=dev, generator=gen)
-        gj = torch.randn(R, n, device=dev, generator=gen)
-        pm = torch.randn(R, n, n, device=dev, generator=gen) / n
-        arand = (torch.rand(R, m, device=dev, generator=gen) < 0.5).float()
+    for label, shape, onehot in SLICE_SHAPES:
+        inp = family_inputs(dev, gen, shape, onehot)
+        phi, g = inp["phi"], inp["g"]
+        n = shape[-1]
         vec = K.matvec_vector_pass(n, phi.dtype, phi.data_ptr(), g.data_ptr())
         check(vec == (n % 4 == 0), f"gain_matvec {label}: vector pass {vec}")
         passes[label] = "vector" if vec else "scalar"
@@ -594,25 +653,262 @@ def slice_shapes_phase(dev, logs, gen):
         lg.close(f"practical_gain {label}", K.practical_gain(phi, g, 0.5),
                  ref.practical_gain_ref(phi, g, 0.5), WEIGHT_TOL)
         lg.cases += 1
-        stats = ref.gain_family_stats_ref(phi, g, gj, pm)
-        lf.close(f"family {label}", K.gain_family_stats(phi, g, gj, pm),
-                 stats, WEIGHT_TOL)
-        lf.cases += 1
-        modes = torch.arange(R, device=dev) % 6
-        gains0 = ref.gains_from_stats_ref(stats, modes.unsqueeze(-1), 0.5, T)
-        thresh = gains0.abs().median(dim=-1).values * 0.9 + 1e-3
-        ctl = torch.stack([thresh, modes.float()], -1).contiguous()
-        got = K.megastep_call(phi, g, w, ctl, arand, gj, pm, eps=0.5)
-        want = ref.megastep_ref(phi, g, w, ctl, arand, gj, pm, eps=0.5)
-        scale = gain_scale(stats, 0.5, T)
-        lm.decisions(f"megastep {label}", got[1], want[1], want[2],
-                     thresh.unsqueeze(-1), WEIGHT_TOL, scale)
-        same = (got[1] == want[1]).all(dim=-1)
-        lm.close(f"megastep {label} w_next", got[0][same], want[0][same],
-                 WEIGHT_TOL)
-        lm.close(f"megastep {label} gains", got[2], want[2], WEIGHT_TOL,
-                 scale)
-        lm.cases += 1
+        family_check(logs, label, inp)
+
+
+# family_stats_kernel's shapes (label, (R, m, T, n), one-hot phi), each
+# timed with both of its wrappers beside their plain versions and bounds:
+# the main path's (wide-192), the kernel suite's gain_family_stats with a
+# model (benchmarks/torch_kernels_bench.py: m 64 x T 1024 x n 512, as one
+# run) and every SLICE_SHAPES entry
+FAMILY_SUITE = ("kernel-suite", (1, 64, 1024, 512), False)
+FAMILY_TIMED = (("wide-192", (WIDE.runs, WIDE.agents, WIDE.samples,
+                              WIDE.states), True), FAMILY_SUITE) + SLICE_SHAPES
+# shapes of the alone-versus-batched check: the main path's, and two of
+# several T-tiles (the vector pass with a ragged agent block, and Fig. 3's
+# lane-group pass); runs of each batch launched alone: first, middle, last
+FAMILY_ALONE = (FAMILY_TIMED[0], ("multi-tile", (8, 6, 1000, 64), False),
+                SLICE_SHAPES[0])
+# one non-default tiling through REPRO_TORCH_KERNEL_BLOCKS, and per-call
+# overrides (agents per block and rows per T-tile)
+FAMILY_ENV_BLOCKS = "block_m=3,family_block_t=48,megastep_block_m=5"
+# (R, m, T, n): 4,096 agent blocks of two T-tiles at the default tiling
+FAMILY_GROW = (256, 64, 128, 8)
+FAMILY_CALL_BLOCKS = dict(block_m=1, block_t=200)
+GRAPH_CALLS = 20
+LOOP_CALLS = 200
+
+
+def _graph(fn, calls, stream=None):
+    """A CUDA graph of ``calls`` calls of ``fn()`` (warmed up on a side
+    stream first, as torch.cuda.graph asks; captured on ``stream``, else
+    torch's capture stream) and the last call's output."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(calls):
+            out = fn()
+    return graph, out
+
+
+def time_graph_ms(fn, calls=GRAPH_CALLS, reps=5):
+    """Median over ``reps`` replays of a CUDA graph of ``calls`` calls of
+    ``fn()``, per call: the device's time with no host work between
+    launches."""
+    import torch
+    graph, _ = _graph(fn, calls)
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def loop_ms(fn, calls=LOOP_CALLS):
+    """Wall time per call of ``calls`` back-to-back calls of ``fn()`` and
+    one synchronize: what a step loop pays for the call, the host's work
+    included (the larger of the host's and the device's time a call)."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / calls
+
+
+def graph_replays_bitwise(fn, larger, replays=3):
+    """Whether ``fn()`` captured in a CUDA graph gives an eager call's
+    outputs bitwise on every replay, after ``larger()`` (a launch of more
+    agent blocks) and ``fn()`` ran eagerly on the capture stream (the family
+    kernel's arrival counters are the call's own scratch, zeroed with it,
+    so nothing a graph holds can go stale)."""
+    import torch
+    tup = lambda x: x if isinstance(x, tuple) else (x,)
+    want = tup(fn())
+    stream = torch.cuda.Stream()
+    graph, out = _graph(fn, 1, stream)
+    out = tup(out)
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        larger()
+        eager = tup(fn())
+    torch.cuda.synchronize()
+    ok = all(torch.equal(x, y) for x, y in zip(eager, want))
+    for _ in range(replays):
+        for o in out:
+            o.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        ok &= all(torch.equal(x, y) for x, y in zip(out, want))
+    return ok
+
+
+def family_timing(K, ref, inp, **blocks):
+    """gain_family_stats and megastep_call (``K``, with ``blocks``) and their
+    plain versions (``ref``) timed on ``inp`` (``time_ms``, ``loop_ms`` and
+    a CUDA graph's replay), with their bounds: bytes read once and written
+    once (Phi once per run), operations 2 R m (T n + T + 2 n + n^2) (+ 2 R
+    m n for megastep's update)."""
+    phi, g, w, gj, pm = (inp[k] for k in ("phi", "g", "w", "gj", "pm"))
+    ctl, arand = inp["ctl"], inp["arand"]
+    R, m, T, n = phi.shape
+    fam_flops = 2 * R * m * (T * n + T + 2 * n + n * n)
+    fb, fby = bound(nbytes(phi, g, gj, pm) + R * m * 4 * 4, fam_flops)
+    mb, mby = bound(nbytes(phi, g, w, ctl, arand, gj, pm)
+                    + (R * n + 2 * R * m) * 4, fam_flops + 2 * R * m * n)
+    fam = lambda: K.gain_family_stats(phi, g, gj, pm, **blocks)
+    mega = lambda: K.megastep_call(phi, g, w, ctl, arand, gj, pm, eps=0.5,
+                                   **blocks)
+    fam_plain = lambda: ref.gain_family_stats_ref(phi, g, gj, pm)
+    mega_plain = lambda: ref.megastep_ref(phi, g, w, ctl, arand, gj, pm,
+                                          eps=0.5)
+    return {
+        "gain_family_stats": dict(
+            ms=time_ms(fam), ms_loop=loop_ms(fam),
+            ms_graph=time_graph_ms(fam), plain_ms=time_ms(fam_plain),
+            plain_ms_loop=loop_ms(fam_plain),
+            plain_ms_graph=time_graph_ms(fam_plain),
+            bound_ms=fb, bound_by=fby),
+        "megastep": dict(
+            ms=time_ms(mega), ms_loop=loop_ms(mega),
+            ms_graph=time_graph_ms(mega), plain_ms=time_ms(mega_plain),
+            plain_ms_loop=loop_ms(mega_plain),
+            plain_ms_graph=time_graph_ms(mega_plain),
+            bound_ms=mb, bound_by=mby)}
+
+
+def _run_slice(inp, r):
+    """Run r of a batch's family inputs as a batch of one, copied apart."""
+    return {k: v[r:r + 1].clone() for k, v in inp.items()}
+
+
+def family_alone_check(logs, label, inp, **blocks):
+    """Each of three runs launched alone equals its slice of the batched
+    launch bitwise: the statistics and megastep's three outputs."""
+    import torch
+    from repro_torch.kernels import gain as K
+    R = inp["phi"].shape[0]
+    args = lambda d: (d["phi"], d["g"], d["gj"], d["pm"])
+    mega = lambda d: K.megastep_call(d["phi"], d["g"], d["w"], d["ctl"],
+                                     d["arand"], d["gj"], d["pm"], eps=0.5,
+                                     **blocks)
+    fam_all = K.gain_family_stats(*args(inp), **blocks)
+    mega_all = mega(inp)
+    runs = sorted({0, R // 2, R - 1})
+    for r in runs:
+        one = _run_slice(inp, r)
+        check(torch.equal(K.gain_family_stats(*args(one), **blocks),
+                          fam_all[r:r + 1]),
+              f"family {label}: run {r} alone differs from the batch")
+        for name, x, y in zip(("w_next", "alphas", "gains"), mega(one),
+                              mega_all):
+            check(torch.equal(x, y[r:r + 1]),
+                  f"megastep {label}: run {r} alone differs in {name}")
+    return runs
+
+
+def family_phase(dev, logs):
+    """family_stats_kernel's layout on the card.  At FAMILY_TIMED: both
+    wrappers against their plain versions, timed beside them and their
+    bounds, with block_m alone changed the same bits; at FAMILY_ALONE, runs
+    launched alone equal to their slices of the batch, bitwise, and each
+    wrapper's CUDA graph replayed equal to an eager call; and all of it
+    again under FAMILY_ENV_BLOCKS and under FAMILY_CALL_BLOCKS."""
+    import torch
+    from repro_torch.kernels import gain as K
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(2)
+    # more agent blocks than any FAMILY_ALONE shape, launched eagerly on a
+    # graph's capture stream between its capture and its replays
+    grow = family_inputs(dev, torch.Generator(device=dev).manual_seed(3),
+                         FAMILY_GROW, False)
+    lf, lm = logs["gain_family_stats"], logs["megastep"]
+    timed = {"gain_family_stats": [], "megastep": []}
+    alone, replay = {}, {}
+    settings = (("default", None, {}),
+                ("env " + FAMILY_ENV_BLOCKS, FAMILY_ENV_BLOCKS, {}),
+                ("per call " + json.dumps(FAMILY_CALL_BLOCKS), None,
+                 FAMILY_CALL_BLOCKS))
+    for label, shape, onehot in FAMILY_TIMED + FAMILY_ALONE[1:2]:
+        inp = family_inputs(dev, gen, shape, onehot)
+        for name, env, blocks in settings:
+            with blocks_env(env):
+                tag = f"{label} [{name}]"
+                fam, mega = family_check(logs, tag, inp, **blocks)
+                if not blocks:
+                    # bm only regroups agents: the bits stay
+                    bm = dict(block_m=1)
+                    check(torch.equal(K.gain_family_stats(
+                        inp["phi"], inp["g"], inp["gj"], inp["pm"], **bm),
+                        fam), f"family {tag}: block_m=1 changed the bits")
+                    got = K.megastep_call(
+                        inp["phi"], inp["g"], inp["w"], inp["ctl"],
+                        inp["arand"], inp["gj"], inp["pm"], eps=0.5, **bm)
+                    check(all(torch.equal(x, y) for x, y in zip(got, mega)),
+                          f"megastep {tag}: block_m=1 changed the bits")
+                if any(label == a[0] for a in FAMILY_ALONE):
+                    alone[tag] = family_alone_check(logs, tag, inp, **blocks)
+                    if dev.type == "cuda":
+                        replay[tag] = [graph_replays_bitwise(
+                            fn, lambda: fn(grow)) for fn in (
+                            lambda d=inp: K.gain_family_stats(
+                                d["phi"], d["g"], d["gj"], d["pm"], **blocks),
+                            lambda d=inp: K.megastep_call(
+                                d["phi"], d["g"], d["w"], d["ctl"], d["arand"],
+                                d["gj"], d["pm"], eps=0.5, **blocks))]
+                        check(all(replay[tag]), f"family {tag}: a CUDA "
+                              "graph's replays differ from an eager call")
+                if env is None and not blocks and any(
+                        label == t[0] for t in FAMILY_TIMED):
+                    for k, v in family_timing(K, ref, inp).items():
+                        timed[k].append(dict(shape=label,
+                                             R_m_T_n=list(shape), **v))
+        del inp
+        empty_cache(dev)
+    lf.extra["shapes"] = timed["gain_family_stats"]
+    lm.extra["shapes"] = timed["megastep"]
+    lf.extra["alone_vs_batched_bitwise"] = alone
+    lf.extra["graph_replays_bitwise"] = replay
+    lf.extra["block_settings"] = [s[0] for s in settings]
+
+
+class blocks_env:
+    """Set REPRO_TORCH_KERNEL_BLOCKS to ``value`` inside the block (None:
+    leave it), and restore it on leaving."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def __enter__(self):
+        if self.value is not None:
+            from repro_torch.kernels import gain as K
+            self.old = os.environ.get(K.BLOCKS_ENV)
+            os.environ[K.BLOCKS_ENV] = self.value
+
+    def __exit__(self, *exc):
+        if self.value is None:
+            return
+        from repro_torch.kernels import gain as K
+        if self.old is None:
+            os.environ.pop(K.BLOCKS_ENV, None)
+        else:
+            os.environ[K.BLOCKS_ENV] = self.old
 
 
 # ---------------------------------------------------------------------------

@@ -98,10 +98,11 @@ def build(force: bool = False) -> Build:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, ll, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
     lib.gain_matvec_launch.argtypes = [p, p, i, i, i, i, d, i, p, p, p]
-    lib.gain_family_stats_launch.argtypes = [p, p, i, p, ll, p, ll, i, i, i,
-                                             i, i, p, p]
-    lib.megastep_launch.argtypes = [p, p, i, p, p, p, p, p, ll, p, ll, i, i,
-                                    i, i, i, d, p, p, p, p, p]
+    lib.gain_family_stats_launch.argtypes = [p, p, i, i, p, ll, p, ll, i, i,
+                                             i, i, i, i, i, i, i, p, p, p]
+    lib.megastep_launch.argtypes = [p, p, i, i, p, p, p, p, p, ll, p, ll, i,
+                                    i, i, i, i, i, i, i, i, p, d, p, p, p, p,
+                                    p]
     lib.ssd_chunk_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p, p]
     lib.ssd_chunk_wgmma_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, p,
                                            p, p]

@@ -8,9 +8,10 @@
 //       for every agent of every run in one launch (the leading batch axis
 //       replaces the per-agent vmap of gain_dispatch.mode_gains).  Its phi
 //       pass has a design of its own (below).
-//   family_stats_kernel  <- gain_family_stats (_family_kernel).
-//       Per agent [||g||^2, sum_t proj_t^2, g.gradJ, g^T Phi g], or the
-//       2-column prefix, which never reads Phi or grad J.
+//   family_stats_kernel  <- gain_family_stats (_family_kernel), and
+//       megastep_call's first half.  Per agent [||g||^2, sum_t proj_t^2,
+//       g.gradJ, g^T Phi g], or the 2-column prefix, which never reads Phi
+//       or grad J.
 //   gate_update_kernel   <- megastep_call (_megastep_kernel), second half.
 //       Per run: mode-selected gains, the eq. 9 gate with the random /
 //       always / never baselines, the optional channel keep mask, and
@@ -20,38 +21,37 @@
 // path's shape (192 runs x 64 agents x T=128 x n=256, float32) that is
 // 1.61 GB per step against ~2.4 GFLOP, so device memory (3.35 TB/s) bounds
 // them by two orders of magnitude over the float32 rate.  phi is read
-// exactly once, coalesced (a warp walks one row of n contiguous elements).
-// The one other large operand is a run's n x n Phi (256 KB at n = 256) in
-// the quadratic form g^T Phi g.  Read once per agent it costs 3.2 GB of L2
-// traffic per launch, and a kernel laid out that way ran at half the speed
-// of the plain torch version on an H100 SXM, whose matmul reads Phi once
-// per run.  So family_stats_kernel takes kAgents = 4 agents of one run per
-// block and reads Phi once for all of them (a column per thread, each load
-// used for every agent of the group): 4x less Phi traffic, and
-// 192 x 64 / 4 = 3,072 blocks, so the last wave of blocks is short.  On
-// the H100 the kernel ran faster at 4 agents per block than at 8 or 16:
-// the phi pass, not Phi, sets its time once Phi is shared at all.
+// exactly once, coalesced.  The one other large operand is a run's n x n
+// Phi (256 KB at n = 256) in the quadratic form g^T Phi g.  Read once per
+// agent it costs 3.2 GB of L2 traffic per launch, and a kernel laid out
+// that way ran at half the speed of the plain torch version on an H100
+// SXM, whose matmul reads Phi once per run.  So family_stats_kernel reads
+// each piece of Phi once for up to kQuadAgents = 4 agents of one run.
 //
 // The TPU kernels lean on the grid running in order: the n-tile axis
-// accumulates into VMEM scratch and megastep carries the gated sum across
-// agent blocks.  A CUDA grid has no order, so here a sequential axis is a
-// loop inside one block, and nothing crosses blocks inside a kernel.
-// megastep is two launches from one C entry: family_stats_kernel over
-// agent groups writes the statistics, then gate_update_kernel runs one
-// block per run.  Two launches were chosen over one block per run because
-// the statistics pass is the part that moves phi: a block per run would
-// stream 8 MB per block through 192 blocks on 132 SMs (a 1.45-wave tail,
-// one block per SM), while agent groups fill the card; the statistics
-// round trip through device memory is 4 floats per agent.
+// accumulates into VMEM scratch, the family kernel's T axis adds each
+// tile's sum into its output block, and megastep carries the gated sum
+// across agent blocks.  A CUDA grid has no order.  matvec_gain_kernel and
+// gate_update_kernel keep a sequential axis as a loop inside one block;
+// family_stats_kernel spreads an agent's T-tiles over blocks and combines
+// their partial sums in a fixed order (below).  megastep is two launches
+// from one C entry: family_stats_kernel writes the statistics, then
+// gate_update_kernel runs one block per run.  Two launches were chosen
+// over one block per run because the statistics pass is the part that
+// moves phi: a block per run would stream 8 MB per block through 192
+// blocks on 132 SMs (a 1.45-wave tail, one block per SM), while the
+// family kernel's units fill the card; the statistics round trip through
+// device memory is 4 floats per agent.
 //
-// matvec_gain_kernel's phi pass.  The generic pass (projection_sq, kept by
-// family_stats_kernel and the ragged shapes) makes 4-byte loads, reloads
-// g[j] for every row and has one row per warp in flight, and sq_norm reads
-// g a second time; at the main path's shape it ran at 76 % of the HBM
-// bound.  The vector pass (projection_sq_vec) takes n % (16 / sizeof(T))
-// == 0 and 16-byte-aligned phi and g; the wrapper's Python predicate
-// (kernels/gain.py::matvec_vector_pass) picks the pass and the launcher
-// refuses the vector pass where its loads would not be whole and aligned.
+// The row passes.  The generic pass (projection_sq, matvec_gain_kernel's
+// pass for ragged shapes) makes 4-byte loads, reloads g[j] for every row
+// and has one row per warp in flight, and sq_norm reads g a second time;
+// at the main path's shape it ran at 76 % of the HBM bound.  The vector
+// pass (projection_sq_vec; the family kernel's vec_step below) takes
+// n % (16 / sizeof(T)) == 0 and 16-byte-aligned phi and g; the wrappers'
+// Python predicate (kernels/gain.py::matvec_vector_pass) picks the pass
+// and the launchers refuse the vector pass where its loads would not be
+// whole and aligned.
 // A lane loads its slice of g once into registers (kHeldVecs = 2 16-byte
 // vectors: 256 columns float32, 512 bf16 a warp; at n = 256 float32 that is
 // 8 floats a lane), takes ||g||^2 from those same registers, and then
@@ -67,12 +67,68 @@
 // the held ones loop in chunks of 32 16-byte vectors whose g is read again
 // with each row, from L1.  One instantiation per dtype.
 //
-// Determinism: no atomics.  Each lane sums its strided elements in index
-// order with fmaf, warps reduce by a fixed xor butterfly (every lane ends
-// with the same value), and a block combines its warps in warp order.  So
-// two launches on the same inputs give bitwise-equal outputs, and every
-// trigger decision is reproducible.  All arithmetic is float32 on CUDA
-// cores (no tensor cores, so no TF32); bf16 inputs are widened on load.
+// family_stats_kernel's passes go in steps of a warp.  Its vector step
+// (vec_step) is the vector pass's loads and order with the columns in
+// blocks of kHeldVecs vectors a lane: g's vectors for the block, then every
+// row's, so kFamilyRows x kHeldVecs 16-byte loads stay in flight however
+// wide the row (the vector pass's column loop keeps one row's in flight
+// past 256 float32 columns).  Its lane-group step (group_step) is for rows
+// the vector pass does not take: a row gets L = 8, 16 or 32 lanes (the
+// least that covers n, up to 32), so a warp takes 32 / L rows side by
+// side (at Fig. 3's n = 6 and TD's n = 10 four and two rows instead of one
+// with 6 or 10 of 32 lanes busy), kGroupRowsInFlight such rows a lane,
+// each lane loading g[j] once per column for all of them.
+//
+// family_stats_kernel's layout.  A unit of work is (run, block of bm
+// agents, T-tile of bt rows): bm and bt are run-time parameters
+// (kernels/gain.py: block_m / megastep_block_m and family_block_t, the
+// Pallas kernel's names).  The units of one agent block are consecutive
+// blocks of the grid, so they run together and share the run's Phi in L2.
+// A unit's steps over its agents' tile rows are spread over its warps with
+// the agents rotated (item (a, s) to warp (s + a) % 8), so at T = 8 (TD)
+// four agents run on four warps at once; each warp keeps a sum per agent
+// in shared memory, and a thread an agent adds them in a fixed order.
+// The quadratic form is cut by rows of Phi into chunks of kQuadRows = 64
+// rows (g^T Phi g = sum_c sum_{i in c} g_i (Phi_i . g)); chunk c goes to
+// T-tile c mod tiles, so at n = 512 and T = 1024 each unit of an agent
+// block reads at most one eighth of Phi.  Inside a chunk thread j owns
+// columns j and j + 256: it walks the chunk's rows in order, 8 rows of
+// both in flight, one coalesced load of Phi_ij per row used for every
+// agent of a group of kQuadAgents (their g_i in shared memory).  A warp
+// beside the agent's first step sums ||g||^2 and g . grad J on tile 0.
+// The last unit of an agent block to finish folds the partials, a thread
+// an agent: an integer arrival counter per agent block (atomicAdd after a
+// __threadfence).  The counters sit at the end of the call's scratch, which
+// the wrapper takes from torch's allocator, and the launcher zeroes them
+// with cudaMemsetAsync on the launch's stream before each launch: no state
+// outlives a call, and a CUDA graph replays the memset with the kernel.
+// With one tile the unit writes its sums straight out and takes no
+// scratch.
+//
+// Registers set the layout's speed at the main path's shape, where 3,072
+// or more units queue for the SMs: the vector variant takes 128 registers
+// (kVecBlocks = 2 blocks an SM) and runs 8 rows in flight; 64 registers
+// with 4 rows (4 blocks an SM) or 85 with 8 (3) were slower there, and a
+// row-wise quadratic form (Phi's rows streamed like phi's, 16-byte loads)
+// was no faster than the column walk.  bm = 4 and bt = 64 by default: at
+// wide-192 two tiles an agent split the quadratic form over two units
+// (0.676 ms against 0.721 at bt = 128, on a par with the one-block-per-
+// agent-group layout before it), and
+// 8 or 16 agents a unit were slower at the kernel suite's shape
+// (tools/gain_family_timing.py; PERF.md).
+//
+// Determinism: no float atomics.  Each lane sums its strided elements in
+// index order with fmaf, warps (or lane groups) reduce by a fixed xor
+// butterfly (every lane ends with the same value), lane groups and then
+// warps combine in their order, and family_stats_kernel folds an agent's
+// tile partials in tile order and its quadratic-form chunks in chunk
+// order with __fadd_rn, whichever unit folds them.  The order depends on
+// T, n, bt, dtype and the pass only, never on R, m, bm or the count of
+// SMs: an agent's statistics are the same bits launched alone or in any
+// batch, and under any block_m.  So two launches on the same inputs give
+// bitwise-equal outputs, and every trigger decision is reproducible.  All
+// arithmetic is float32 on CUDA cores (no tensor cores, so no TF32); bf16
+// inputs are widened on load.
 // The gain formulas use __fmul_rn / __fadd_rn / __fdiv_rn so that nvcc
 // cannot contract them into FMAs: they round like the plain torch version.
 
@@ -84,7 +140,15 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kAgents = 4;  // agents of one run per family_stats block
+constexpr int kQuadAgents = 4;  // agents that share one read of Phi
+constexpr int kQuadRows = 64;   // rows of Phi in a quadratic-form chunk
+// family_stats_kernel's blocks an SM, for nvcc's register budget: the
+// vector pass and the lane-group pass
+constexpr int kVecBlocks = 2;
+constexpr int kGroupBlocks = 4;
+constexpr int kFamilyRows = 8;          // vector pass: rows a warp streams
+constexpr int kGroupRowsInFlight = 8;   // lane-group pass: steps in flight
+constexpr int kPassAgents = 32;         // agents a unit passes over at once
 
 // Mode ids of repro_torch.kernels.ref.MODES (pinned by a test).
 constexpr float kModeTheoretical = 0.f;
@@ -327,94 +391,356 @@ cudaError_t launch_matvec(const void* phi, const void* g, int agents,
 }
 
 // ---------------------------------------------------------------------------
-// gain_family_stats (and megastep's first half): one block per group of
-// kAgents agents of one run.  grad_j and Phi are read at the run's offset
-// (stride 0 when every run shares them).
-//
-// The phi pass takes the group's agents one after another.  The quadratic
-// form g^T Phi g = sum_j g_j (sum_i g_i Phi_ij) gives thread j column j of
-// Phi: it walks the rows in order, one coalesced load of Phi_ij per row,
-// used for every agent of the group (their g_i broadcast from shared
-// memory), so a block reads the run's Phi once for kAgents agents.
+// gain_family_stats (and megastep's first half): one block per unit (run,
+// agent block, T-tile), the units of an agent block consecutive.  grad_j
+// and Phi are read at the run's offset (stride 0 when every run shares
+// them).  part holds, per agent, its tiles' partial sums of squared
+// projections, its quadratic-form chunks, ||g||^2 and g . grad J (width
+// tiles + chunks + 2); tickets, past the agents' rows of part, holds one
+// arrival counter per agent block, zeroed by launch_family.
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-family_stats_kernel(const T* __restrict__ phi, const T* __restrict__ g,
-                    const float* __restrict__ grad_j, long long gj_stride,
-                    const float* __restrict__ pm, long long pm_stride,
-                    int m, int rows, int n, int cols,
-                    float* __restrict__ out) {
-  __shared__ float red[kWarps + 1];
-  __shared__ float gs[kAgents][kThreads];
-  const int groups = (m + kAgents - 1) / kAgents;
-  const size_t run = blockIdx.x / groups;
-  const int a0 = (blockIdx.x % groups) * kAgents;
-  const int na = min(kAgents, m - a0);
-  const size_t b0 = run * m + a0;
-  const float* gj = grad_j + run * gj_stride;
-  for (int a = 0; a < na; ++a) {
-    const size_t b = b0 + a;
-    const T* gb = g + b * n;
-    const float sp = projection_sq(phi + b * rows * n, gb, rows, n, nullptr,
-                                   red);
-    const float gg = sq_norm(gb, n, red);
-    float gdotj = 0.f;
-    if (cols == 4) {
-      float s = 0.f;
-      for (int j = threadIdx.x; j < n; j += kThreads)
-        s = fmaf(to_f32(gb[j]), gj[j], s);
-      gdotj = block_sum(s, red);
-    }
-    if (threadIdx.x == 0) {
-      float* o = out + b * cols;
-      o[0] = gg;
-      o[1] = sp;
-      if (cols == 4) o[2] = gdotj;
-    }
+
+// K block sums at once, each in block_sum's order (red: K * (kWarps + 1)).
+template <int K>
+__device__ void block_sums(float (&v)[K], float* red) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = warp_sum(v[k]);
+  __syncthreads();  // red may still be read by a previous call
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) red[k * (kWarps + 1) + warp] = v[k];
   }
-  if (cols != 4) return;
-  // A ragged last group repeats its last agent in the spare slots, so the
-  // inner loop has no branch; only the group's real agents are written.
-  const T* ga[kAgents];
+  __syncthreads();
+  if (threadIdx.x < K) {
+    float* r = red + threadIdx.x * (kWarps + 1);
+    float s = r[0];
+    for (int i = 1; i < kWarps; ++i) s = __fadd_rn(s, r[i]);
+    r[kWarps] = s;
+  }
+  __syncthreads();
 #pragma unroll
-  for (int a = 0; a < kAgents; ++a) ga[a] = g + (b0 + min(a, na - 1)) * n;
-  const float* mat = pm + run * pm_stride;
-  float part[kAgents];
+  for (int k = 0; k < K; ++k) v[k] = red[k * (kWarps + 1) + kWarps];
+}
+
+// The family kernel's row passes take a tile's rows in steps of a warp: a
+// step adds its rows' squared projections to sq in row order.
+//
+// Vector step: rows t0 .. t0 + kFamilyRows - 1.  Columns go in chunks of
+// 32 V kHeldVecs (256 float32, 512 bf16): lane l loads g's vectors
+// l + 32 c of the chunk into registers, then every row's vectors of the
+// chunk, so a chunk keeps kFamilyRows kHeldVecs 16-byte loads in flight
+// however wide the row.  A row's sum runs over the columns in
+// projection_sq_vec's order, then one butterfly.
+template <typename T>
+__device__ __forceinline__ float vec_step(const T* __restrict__ phi,
+                                          const T* __restrict__ g, int rows,
+                                          int n, int t0, float sq) {
+  constexpr int V = Vec16<T>::kN;
+  constexpr int kChunk = 32 * V * kHeldVecs;
+  const int lane = threadIdx.x & 31;
+  float acc[kFamilyRows];
 #pragma unroll
-  for (int a = 0; a < kAgents; ++a) part[a] = 0.f;
-  for (int j0 = 0; j0 < n; j0 += kThreads) {
-    const int j = j0 + threadIdx.x;
-    float acc[kAgents];
+  for (int r = 0; r < kFamilyRows; ++r) acc[r] = 0.f;
+  for (int c0 = 0; c0 < n; c0 += kChunk) {
+    float gr[kHeldVecs][V];
 #pragma unroll
-    for (int a = 0; a < kAgents; ++a) acc[a] = 0.f;
-    for (int i0 = 0; i0 < n; i0 += kThreads) {
-      __syncthreads();  // gs may still be read by the previous tile
-      const int i = i0 + threadIdx.x;
+    for (int c = 0; c < kHeldVecs; ++c) {
+      const int col = c0 + (lane + 32 * c) * V;
+      if (col < n) {
+        Vec16<T>::widen(load_cached(g + col), gr[c]);
+      } else {
 #pragma unroll
-      for (int a = 0; a < kAgents; ++a)
-        gs[a][threadIdx.x] = i < n ? to_f32(ga[a][i]) : 0.f;
-      __syncthreads();
-      if (j < n) {
-        const int tile = min(kThreads, n - i0);
-        const float* col = mat + (size_t)i0 * n + j;
-#pragma unroll 4
-        for (int ii = 0; ii < tile; ++ii) {
-          const float p = col[(size_t)ii * n];
+        for (int i = 0; i < V; ++i) gr[c][i] = 0.f;
+      }
+    }
 #pragma unroll
-          for (int a = 0; a < kAgents; ++a) acc[a] = fmaf(gs[a][ii], p, acc[a]);
+    for (int r = 0; r < kFamilyRows; ++r) {
+      // a row past the end repeats the last row; its sum is dropped below
+      const T* row = phi + (size_t)min(t0 + r, rows - 1) * n;
+#pragma unroll
+      for (int c = 0; c < kHeldVecs; ++c) {
+        const int col = c0 + (lane + 32 * c) * V;
+        if (col < n) {
+          float x[V];
+          Vec16<T>::widen(load_stream(row + col), x);
+#pragma unroll
+          for (int i = 0; i < V; ++i) acc[r] = fmaf(x[i], gr[c][i], acc[r]);
         }
       }
     }
-    if (j < n) {
+  }
 #pragma unroll
-      for (int a = 0; a < kAgents; ++a)
-        part[a] = fmaf(to_f32(ga[a][j]), acc[a], part[a]);
+  for (int r = 0; r < kFamilyRows; ++r) {
+    const float p = warp_sum(acc[r]);
+    if (t0 + r < rows) sq = fmaf(p, p, sq);
+  }
+  return sq;
+}
+
+// Xor butterfly over aligned groups of L lanes: every lane of a group ends
+// with the group's sum, in a fixed order.
+template <int L>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1)
+    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// Lane-group step: a row takes L lanes, so a warp takes G = 32 / L
+// neighbouring rows side by side, rows t0 + r G + group for r <
+// kRowsInFlight, each lane loading g[j] once per column for all of them.
+// A row's sum runs over a lane's columns in index order, then the group's
+// butterfly; sq stays per group (group_rows combines the groups).
+template <typename T, int L>
+__device__ __forceinline__ float group_step(const T* __restrict__ phi,
+                                            const T* __restrict__ g,
+                                            int rows, int n, int t0,
+                                            float sq) {
+  constexpr int G = 32 / L;
+  const int lane = threadIdx.x & 31;
+  const int grp = lane / L, sub = lane % L;
+  float acc[kGroupRowsInFlight];
+#pragma unroll
+  for (int r = 0; r < kGroupRowsInFlight; ++r) acc[r] = 0.f;
+  for (int j = sub; j < n; j += L) {
+    const float gj = to_f32(g[j]);
+#pragma unroll
+    for (int r = 0; r < kGroupRowsInFlight; ++r) {
+      // a row past the end repeats the last row; its sum is dropped below
+      const int t = min(t0 + r * G + grp, rows - 1);
+      acc[r] = fmaf(to_f32(phi[(size_t)t * n + j]), gj, acc[r]);
     }
   }
 #pragma unroll
-  for (int a = 0; a < kAgents; ++a) {
-    const float quad = block_sum(part[a], red);
-    if (a < na && threadIdx.x == 0) out[(b0 + a) * cols + 3] = quad;
+  for (int r = 0; r < kGroupRowsInFlight; ++r) {
+    const float p = group_sum<L>(acc[r]);
+    if (t0 + r * G + grp < rows) sq = fmaf(p, p, sq);
+  }
+  return sq;
+}
+
+// A warp's lane groups in group order (each group's sq is uniform in it).
+template <int L>
+__device__ __forceinline__ float group_rows(float sq) {
+  float s = __shfl_sync(0xffffffffu, sq, 0);
+#pragma unroll
+  for (int k = 1; k < 32 / L; ++k)
+    s = __fadd_rn(s, __shfl_sync(0xffffffffu, sq, k * L));
+  return s;
+}
+
+// One quadratic-form chunk, Phi's rows [i0, i1), for the kQuadAgents
+// agents at ga (a ragged group repeats its last agent): q[a] = sum_j
+// g_a[j] sum_{i0 <= i < i1} g_a[i] Phi_ij, returned to every thread.
+// Thread j walks column j's rows in order, with column j + kThreads beside
+// it (8 rows of both in flight); each load of Phi_ij serves every agent.
+// A thread's columns enter q in index order, then block_sum's order.
+template <typename T>
+__device__ void quad_chunk(const float* __restrict__ mat,
+                           const T* (&ga)[kQuadAgents], int i0, int i1,
+                           int n, float (&gs)[kQuadAgents][kQuadRows],
+                           float* red, float (&q)[kQuadAgents]) {
+  static_assert(kQuadAgents * kQuadRows <= kThreads, "one gs load a thread");
+  __syncthreads();  // gs may still be read by the previous chunk
+  if (threadIdx.x < kQuadAgents * kQuadRows) {
+    const int i = threadIdx.x % kQuadRows;
+    const T* gp = ga[0];
+#pragma unroll
+    for (int a = 1; a < kQuadAgents; ++a)
+      if (threadIdx.x / kQuadRows == a) gp = ga[a];
+    gs[threadIdx.x / kQuadRows][i] = i0 + i < i1 ? to_f32(gp[i0 + i]) : 0.f;
+  }
+  __syncthreads();
+  const int rows = i1 - i0;
+#pragma unroll
+  for (int a = 0; a < kQuadAgents; ++a) q[a] = 0.f;
+  for (int j = threadIdx.x; j < n; j += 2 * kThreads) {
+    const int j2 = j + kThreads;
+    const bool two = j2 < n;
+    float acc[2][kQuadAgents];
+#pragma unroll
+    for (int a = 0; a < kQuadAgents; ++a) acc[0][a] = acc[1][a] = 0.f;
+    const float* col = mat + (size_t)i0 * n + j;
+#pragma unroll 8
+    for (int ii = 0; ii < rows; ++ii) {
+      const float p = col[(size_t)ii * n];
+      const float p2 = two ? col[(size_t)ii * n + kThreads] : 0.f;
+#pragma unroll
+      for (int a = 0; a < kQuadAgents; ++a) {
+        acc[0][a] = fmaf(gs[a][ii], p, acc[0][a]);
+        acc[1][a] = fmaf(gs[a][ii], p2, acc[1][a]);
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < kQuadAgents; ++a) {
+      q[a] = fmaf(to_f32(ga[a][j]), acc[0][a], q[a]);
+      if (two) q[a] = fmaf(to_f32(ga[a][j2]), acc[1][a], q[a]);
+    }
+  }
+  block_sums(q, red);
+}
+
+// kPass: 0 for the vector pass, else the lane-group pass's L.
+//
+// A unit takes its agents kPassAgents at a time.  The tile's steps of
+// those agents are items (a, s) spread over the warps, item (a, s) to warp
+// (s + a) % kWarps, each warp taking its items in order with no barrier
+// between agents: with one step an agent (T <= 32 rows on the vector
+// pass) eight agents run on eight warps at once.  Warp w then holds, for
+// agent a, the steps s = w - a (mod kWarps), and a thread an agent adds
+// those classes in class order, s = 0, 1, ... (mod kWarps): the same
+// order for an agent at any place in its block.  On tile 0, warp (a +
+// kWarps / 2) % kWarps also sums ||g_a||^2 and g_a . grad J (lane-strided,
+// one butterfly), beside the warp that takes the agent's first step.  The tile's chunks of the quadratic form follow,
+// kQuadAgents agents at a time.  part's row for an agent: [tile partials |
+// chunk partials | ||g||^2, g.gradJ].
+template <typename T, int kPass>
+__global__ void __launch_bounds__(kThreads, kPass == 0 ? kVecBlocks
+                                                       : kGroupBlocks)
+family_stats_kernel(const T* __restrict__ phi, const T* __restrict__ g,
+                    const float* __restrict__ grad_j, long long gj_stride,
+                    const float* __restrict__ pm, long long pm_stride,
+                    int m, int rows, int n, int cols, int bm, int bt,
+                    int tiles, int chunks, float* __restrict__ part,
+                    unsigned* __restrict__ tickets,
+                    float* __restrict__ out) {
+  constexpr int kSpan = kPass == 0 ? kFamilyRows
+                                   : (32 / (kPass == 0 ? 32 : kPass)) *
+                                         kGroupRowsInFlight;   // rows a step
+  __shared__ float red[kQuadAgents * (kWarps + 1)];
+  __shared__ float wsum[kPassAgents][kWarps + 1];   // +1: no bank conflicts
+  __shared__ float wstat[kPassAgents][2];
+  __shared__ float gs[kQuadAgents][kQuadRows];
+  __shared__ int last;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int groups = (m + bm - 1) / bm;
+  const size_t unit = blockIdx.x / tiles;   // (run, agent block)
+  const int tile = blockIdx.x % tiles;
+  const size_t run = unit / groups;
+  const int a0 = (unit % groups) * bm;
+  const int na = min(bm, m - a0);
+  const size_t b0 = run * m + a0;
+  const int width = tiles + chunks + 2;
+  const int t0 = tile * bt, trows = max(0, min(bt, rows - t0));
+  const int steps = (trows + kSpan - 1) / kSpan;
+  const float* gj = grad_j + run * gj_stride;
+  const float* mat = pm + run * pm_stride;
+
+  for (int p0 = 0; p0 < na; p0 += kPassAgents) {
+    const int np = min(kPassAgents, na - p0);
+    for (int a = 0; a < np; ++a) {
+      const size_t b = b0 + p0 + a;
+      const T* gb = g + b * n;
+      const T* tp = phi + (b * rows + t0) * n;
+      float sq = 0.f;
+      for (int s = (warp - a % kWarps + kWarps) % kWarps; s < steps;
+           s += kWarps) {
+        if constexpr (kPass == 0)
+          sq = vec_step<T>(tp, gb, trows, n, s * kSpan, sq);
+        else
+          sq = group_step<T, kPass>(tp, gb, trows, n, s * kSpan, sq);
+      }
+      if constexpr (kPass != 0) sq = group_rows<kPass>(sq);
+      if (lane == 0) wsum[a][warp] = sq;
+      if (tile == 0 && warp == (a + kWarps / 2) % kWarps) {
+        float x2 = 0.f, xj = 0.f;
+        for (int j = lane; j < n; j += 32) {
+          const float x = to_f32(gb[j]);
+          x2 = fmaf(x, x, x2);
+          if (cols == 4) xj = fmaf(x, gj[j], xj);
+        }
+        x2 = warp_sum(x2);
+        xj = warp_sum(xj);
+        if (lane == 0) {
+          wstat[a][0] = x2;
+          wstat[a][1] = xj;
+        }
+      }
+    }
+    __syncthreads();
+    for (int a = threadIdx.x; a < np; a += kThreads) {
+      const float* w = wsum[a];
+      float s = w[a % kWarps];
+      for (int c = 1; c < kWarps; ++c) s = __fadd_rn(s, w[(c + a) % kWarps]);
+      const size_t b = b0 + p0 + a;
+      // with one tile the sums are final and go straight to out
+      if (tiles == 1) {
+        float* o = out + b * cols;
+        o[0] = wstat[a][0];
+        o[1] = s;
+        if (cols == 4) o[2] = wstat[a][1];
+      } else {
+        float* pb = part + b * width;
+        pb[tile] = s;
+        if (tile == 0) {
+          pb[tiles + chunks] = wstat[a][0];
+          pb[tiles + chunks + 1] = wstat[a][1];
+        }
+      }
+    }
+    __syncthreads();  // wsum and wstat are read before the next agents'
+  }
+
+  // the tile's chunks of the quadratic form (with one tile, folded here in
+  // chunk order)
+  if (cols == 4 && tile < chunks) {
+    for (int q0 = 0; q0 < na; q0 += kQuadAgents) {
+      const int nq = min(kQuadAgents, na - q0);
+      const T* ga[kQuadAgents];
+#pragma unroll
+      for (int a = 0; a < kQuadAgents; ++a)
+        ga[a] = g + (b0 + q0 + min(a, nq - 1)) * n;
+      float quad[kQuadAgents];
+      for (int c = tile; c < chunks; c += tiles) {
+        float q[kQuadAgents];
+        quad_chunk<T>(mat, ga, c * kQuadRows, min(n, (c + 1) * kQuadRows), n,
+                      gs, red, q);
+#pragma unroll
+        for (int a = 0; a < kQuadAgents; ++a)
+          quad[a] = c == tile ? q[a] : __fadd_rn(quad[a], q[a]);
+        if (tiles > 1 && threadIdx.x == 0) {
+#pragma unroll
+          for (int a = 0; a < kQuadAgents; ++a)
+            if (a < nq) part[(b0 + q0 + a) * width + tiles + c] = q[a];
+        }
+      }
+      if (tiles == 1 && threadIdx.x == 0) {
+#pragma unroll
+        for (int a = 0; a < kQuadAgents; ++a)
+          if (a < nq) out[(b0 + q0 + a) * cols + 3] = quad[a];
+      }
+    }
+  } else if (cols == 4 && tiles == 1) {
+    for (int a = threadIdx.x; a < na; a += kThreads)   // n = 0: no chunk
+      out[(b0 + a) * cols + 3] = 0.f;
+  }
+  if (tiles == 1) return;
+
+  // the agent block's last unit folds every unit's partials, a thread an
+  // agent: tiles in tile order, chunks in chunk order
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(tickets + unit, 1u) == (unsigned)(tiles - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int a = threadIdx.x; a < na; a += kThreads) {
+    const float* pb = part + (b0 + a) * width;
+    float sp = __ldcg(pb);
+    for (int k = 1; k < tiles; ++k) sp = __fadd_rn(sp, __ldcg(pb + k));
+    float* o = out + (b0 + a) * cols;
+    o[0] = __ldcg(pb + tiles + chunks);
+    o[1] = sp;
+    if (cols == 4) {
+      float quad = chunks > 0 ? __ldcg(pb + tiles) : 0.f;
+      for (int c = 1; c < chunks; ++c)
+        quad = __fadd_rn(quad, __ldcg(pb + tiles + c));
+      o[2] = __ldcg(pb + tiles + chunks + 1);
+      o[3] = quad;
+    }
   }
 }
 
@@ -475,15 +801,52 @@ gate_update_kernel(const float* __restrict__ stats, int cols,
   }
 }
 
+// The geometry comes from the wrapper (kernels/gain.py::family_geometry)
+// and is refused unless it is this kernel's: tiles = ceil(rows / bt) (1
+// for rows = 0), chunks = ceil(n / kQuadRows) with a model, else 0.  With
+// several tiles, part is agents * (tiles + chunks + 2) floats followed by
+// one 4-byte counter per agent block (kernels/gain.py::_family_scratch).
 template <typename T>
-void launch_family(const void* phi, const void* g, const float* grad_j,
-                   long long gj_stride, const float* pm, long long pm_stride,
-                   int agents, int m, int rows, int n, int cols, float* out,
-                   cudaStream_t stream) {
-  const int blocks = agents / m * ((m + kAgents - 1) / kAgents);
-  family_stats_kernel<T><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(phi), static_cast<const T*>(g), grad_j, gj_stride,
-      pm, pm_stride, m, rows, n, cols, out);
+cudaError_t launch_family(const void* phi, const void* g, int vector,
+                          const float* grad_j, long long gj_stride,
+                          const float* pm, long long pm_stride, int agents,
+                          int m, int rows, int n, int cols, int bm, int bt,
+                          int tiles, int chunks, float* part, float* out,
+                          cudaStream_t s) {
+  if (bm < 1 || bt < 1 || tiles != (rows > 0 ? (rows + bt - 1) / bt : 1) ||
+      chunks != (cols == 4 ? (n + kQuadRows - 1) / kQuadRows : 0) ||
+      (tiles > 1 && part == nullptr))
+    return cudaErrorInvalidValue;
+  if (vector && (n % Vec16<T>::kN != 0 ||
+                 reinterpret_cast<uintptr_t>(phi) % 16 != 0 ||
+                 reinterpret_cast<uintptr_t>(g) % 16 != 0))
+    return cudaErrorInvalidValue;
+  const long long groups = (long long)(agents / m) * ((m + bm - 1) / bm);
+  const long long units = groups * tiles;
+  if (units > 0x7fffffffLL) return cudaErrorInvalidValue;
+  unsigned* tickets = nullptr;
+  if (tiles > 1) {
+    tickets = reinterpret_cast<unsigned*>(
+        part + (size_t)agents * (tiles + chunks + 2));
+    const cudaError_t err =
+        cudaMemsetAsync(tickets, 0, (size_t)groups * sizeof(unsigned), s);
+    if (err != cudaSuccess) return err;
+  }
+  const T* ph = static_cast<const T*>(phi);
+  const T* gg = static_cast<const T*>(g);
+#define FAMILY_ARGS                                                          \
+  ph, gg, grad_j, gj_stride, pm, pm_stride, m, rows, n, cols, bm, bt, tiles, \
+      chunks, part, tickets, out
+  if (vector)
+    family_stats_kernel<T, 0><<<(unsigned)units, kThreads, 0, s>>>(FAMILY_ARGS);
+  else if (n <= 8)
+    family_stats_kernel<T, 8><<<(unsigned)units, kThreads, 0, s>>>(FAMILY_ARGS);
+  else if (n <= 16)
+    family_stats_kernel<T, 16><<<(unsigned)units, kThreads, 0, s>>>(FAMILY_ARGS);
+  else
+    family_stats_kernel<T, 32><<<(unsigned)units, kThreads, 0, s>>>(FAMILY_ARGS);
+#undef FAMILY_ARGS
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -508,40 +871,53 @@ int gain_matvec_launch(const void* phi, const void* g, int dtype, int agents,
   return (int)err;
 }
 
+// vector: 1 for the vector pass, 0 for the lane-group pass; bm, bt: agents
+// per block and rows per T-tile; tiles, chunks: the geometry they give;
+// part: agents * (tiles + chunks + 2) floats of scratch and a counter per
+// agent block (read only when tiles > 1; launch_family).
 int gain_family_stats_launch(const void* phi, const void* g, int dtype,
-                             const void* grad_j, long long gj_stride,
-                             const void* pm, long long pm_stride, int agents,
-                             int m, int rows, int n, int cols, void* out,
-                             void* stream) {
+                             int vector, const void* grad_j,
+                             long long gj_stride, const void* pm,
+                             long long pm_stride, int agents, int m, int rows,
+                             int n, int cols, int bm, int bt, int tiles,
+                             int chunks, void* part, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* gj = static_cast<const float*>(grad_j);
   const float* mat = static_cast<const float*>(pm);
+  float* pt = static_cast<float*>(part);
   float* o = static_cast<float*>(out);
-  if (dtype == 0)
-    launch_family<float>(phi, g, gj, gj_stride, mat, pm_stride, agents, m,
-                         rows, n, cols, o, s);
-  else
-    launch_family<__nv_bfloat16>(phi, g, gj, gj_stride, mat, pm_stride, agents,
-                                 m, rows, n, cols, o, s);
-  return (int)cudaGetLastError();
+  const cudaError_t err =
+      dtype == 0
+          ? launch_family<float>(phi, g, vector, gj, gj_stride, mat,
+                                 pm_stride, agents, m, rows, n, cols, bm, bt,
+                                 tiles, chunks, pt, o, s)
+          : launch_family<__nv_bfloat16>(phi, g, vector, gj, gj_stride, mat,
+                                         pm_stride, agents, m, rows, n, cols,
+                                         bm, bt, tiles, chunks, pt, o, s);
+  return (int)err;
 }
 
-int megastep_launch(const void* phi, const void* g, int dtype, const void* w,
-                    const void* ctl, const void* arand, const void* deliver,
-                    const void* grad_j, long long gj_stride, const void* pm,
-                    long long pm_stride, int runs, int m, int rows, int n,
-                    int cols, double eps, void* stats, void* w_next,
-                    void* alphas, void* gains, void* stream) {
+int megastep_launch(const void* phi, const void* g, int dtype, int vector,
+                    const void* w, const void* ctl, const void* arand,
+                    const void* deliver, const void* grad_j,
+                    long long gj_stride, const void* pm, long long pm_stride,
+                    int runs, int m, int rows, int n, int cols, int bm, int bt,
+                    int tiles, int chunks, void* part, double eps, void* stats, void* w_next, void* alphas,
+                    void* gains, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* gj = static_cast<const float*>(grad_j);
   const float* mat = static_cast<const float*>(pm);
+  float* pt = static_cast<float*>(part);
   float* st = static_cast<float*>(stats);
   const size_t smem = (size_t)(m + 1) * sizeof(float);
   const float eps_f = (float)eps, neg_eps = (float)(-eps),
               eps2 = (float)(eps * eps);
+  cudaError_t err;
   if (dtype == 0) {
-    launch_family<float>(phi, g, gj, gj_stride, mat, pm_stride, runs * m, m,
-                         rows, n, cols, st, s);
+    err = launch_family<float>(phi, g, vector, gj, gj_stride, mat, pm_stride,
+                               runs * m, m, rows, n, cols, bm, bt, tiles,
+                               chunks, pt, st, s);
+    if (err != cudaSuccess) return (int)err;
     gate_update_kernel<float><<<runs, kThreads, smem, s>>>(
         st, cols, static_cast<const float*>(g), static_cast<const float*>(w),
         static_cast<const float*>(ctl), static_cast<const float*>(arand),
@@ -549,8 +925,10 @@ int megastep_launch(const void* phi, const void* g, int dtype, const void* w,
         static_cast<float*>(w_next), static_cast<float*>(alphas),
         static_cast<float*>(gains));
   } else {
-    launch_family<__nv_bfloat16>(phi, g, gj, gj_stride, mat, pm_stride,
-                                 runs * m, m, rows, n, cols, st, s);
+    err = launch_family<__nv_bfloat16>(phi, g, vector, gj, gj_stride, mat,
+                                       pm_stride, runs * m, m, rows, n, cols,
+                                       bm, bt, tiles, chunks, pt, st, s);
+    if (err != cudaSuccess) return (int)err;
     gate_update_kernel<__nv_bfloat16><<<runs, kThreads, smem, s>>>(
         st, cols, static_cast<const __nv_bfloat16*>(g),
         static_cast<const float*>(w), static_cast<const float*>(ctl),

@@ -12,11 +12,27 @@ went through the kernels.
 Unlike the Pallas entries there is no ``custom_vmap`` rule: the wrappers
 take the leading batch (run) axis directly, and one call is one launch over
 every agent of every run.
+
+``gain_family_stats`` and ``megastep_call`` take the family kernel's
+run-time tiling as the Pallas entries take theirs: a per-call ``block_m`` /
+``block_t`` beats ``REPRO_TORCH_KERNEL_BLOCKS`` (``name=int,...``; the
+port's own variable, so the two packages' tunings never cross), which
+beats the default.  The names are the reference's where the meaning is the
+same: ``block_m`` (agents per block of ``gain_family_stats``),
+``megastep_block_m`` (of ``megastep_call``) and ``family_block_t`` (rows
+per T-tile, both).  The reference's ``block_t``, ``block_n`` and
+``family_block_n`` have no run-time counterpart here and are refused like
+any unknown name; the kernels' other launch shapes are compiled in.  The
+blocks are resolved and checked before the CPU branch, so the plain path
+holds the same contract.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+import operator
+import os
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -33,6 +49,23 @@ STAT_GNORM2, STAT_SUMPROJ2, STAT_GDOTJ, STAT_QUAD = range(4)
 
 LAUNCHES = {"gain_matvec": 0, "gain_family_stats": 0, "megastep": 0}
 
+# The family kernel's run-time tiling (csrc/gain.cu family_stats_kernel):
+# agents per block and rows per T-tile.  On the H100, 4 agents and 64 rows
+# beat 8 or 16 agents and 128 rows at the main path's shape and the kernel
+# suite's (PERF.md §6; the Pallas kernel's FAMILY_BLOCK_T is 128).
+BLOCK_M = 4
+MEGASTEP_BLOCK_M = 4
+FAMILY_BLOCK_T = 64
+# rows of Phi in one quadratic-form chunk: csrc/gain.cu kQuadRows (compiled
+# in; the launcher refuses another chunk count)
+QUAD_ROWS = 64
+
+BLOCKS_ENV = "REPRO_TORCH_KERNEL_BLOCKS"
+
+# every block parameter _block() can resolve; an env override naming
+# anything else is a typo that would otherwise silently do nothing
+KNOWN_BLOCKS = ("block_m", "family_block_t", "megastep_block_m")
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # gate_update_kernel keeps m + 1 floats in (default-size) shared memory
 _MAX_AGENTS = 48 * 1024 // 4 - 1
@@ -41,6 +74,107 @@ _MAX_AGENTS = 48 * 1024 // 4 - 1
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def env_blocks() -> dict[str, int]:
+    """Parse ``REPRO_TORCH_KERNEL_BLOCKS`` into a name->int override map
+    (the format, checks and messages of ``repro.kernels.gain.env_blocks``)."""
+    raw = os.environ.get(BLOCKS_ENV, "")
+    out: dict[str, int] = {}
+    for item in raw.split(","):
+        item = item.strip()
+        if not item:
+            continue
+        if "=" not in item:
+            raise ValueError(
+                f"{BLOCKS_ENV} entries must be name=int, got {item!r}")
+        name, _, val = item.partition("=")
+        name = name.strip()
+        if name not in KNOWN_BLOCKS:
+            raise ValueError(
+                f"{BLOCKS_ENV}: unknown block name {name!r} "
+                f"(valid names: {', '.join(KNOWN_BLOCKS)})")
+        try:
+            out[name] = int(val)
+        except ValueError:
+            raise ValueError(
+                f"{BLOCKS_ENV}: {name}={val.strip()!r} is not an "
+                "integer") from None
+    return out
+
+
+def _block(name: str, override: Optional[int], default: int,
+           env: Optional[dict] = None) -> int:
+    """Per-call override > env override (``env``: ``env_blocks()`` already
+    parsed) > module default, checked to be a positive integer."""
+    if override is None:
+        override = (env_blocks() if env is None else env).get(name, default)
+    value = override
+    try:
+        value = operator.index(value)
+    except TypeError:
+        raise ValueError(f"{name} must be an integer, got {value!r}") from None
+    if value < 1:
+        raise ValueError(f"{name} must be at least 1, got {value}")
+    return value
+
+
+class FamilyGeometry(NamedTuple):
+    """One launch of the family kernel: agents per block, rows per T-tile,
+    T-tiles per agent block and Phi chunks (0 without a model)."""
+    block_m: int
+    block_t: int
+    tiles: int
+    chunks: int
+
+    @property
+    def width(self) -> int:
+        """Floats an agent leaves in the kernel's scratch: a partial sum
+        per T-tile and per Phi chunk, ||g||^2 and g . grad J."""
+        return self.tiles + self.chunks + 2
+
+
+def family_geometry(T: int, n: int, with_model: bool, *,
+                    megastep: bool = False, block_m: Optional[int] = None,
+                    block_t: Optional[int] = None) -> FamilyGeometry:
+    """Resolve the family kernel's tiling for rows of T x n: ``block_m``
+    (``megastep_block_m`` when ``megastep``) and ``family_block_t``, per
+    call, else from the env, else the defaults."""
+    if block_m is None and block_t is None:
+        return _env_geometry(T, n, with_model, megastep,
+                             os.environ.get(BLOCKS_ENV, ""))
+    return _geometry(T, n, with_model, megastep, block_m, block_t)
+
+
+@functools.lru_cache(maxsize=256)
+def _env_geometry(T, n, with_model, megastep, raw):
+    """``family_geometry`` with no per-call override, once per shape and
+    value ``raw`` of the variable (a value that raises is not kept): the
+    wrappers resolve one a call."""
+    return _geometry(T, n, with_model, megastep, None, None)
+
+
+def _geometry(T, n, with_model, megastep, block_m, block_t):
+    env = env_blocks() if block_m is None or block_t is None else {}
+    bm = (_block("megastep_block_m", block_m, MEGASTEP_BLOCK_M, env)
+          if megastep else _block("block_m", block_m, BLOCK_M, env))
+    bt = _block("family_block_t", block_t, FAMILY_BLOCK_T, env)
+    tiles = max(1, -(-T // bt))
+    chunks = -(-n // QUAD_ROWS) if with_model else 0
+    return FamilyGeometry(bm, bt, tiles, chunks)
+
+
+def _family_scratch(phi, agents, m, geo):
+    """The family kernel's scratch for one call: ``geo.width`` partial sums
+    an agent, then one 4-byte arrival counter per agent block, which the
+    launcher zeroes on the call's stream (csrc/gain.cu launch_family).
+    With one T-tile the kernel writes its sums straight out and needs
+    none."""
+    if geo.tiles == 1:
+        return None
+    groups = agents // m * -(-m // geo.block_m)
+    return torch.empty(agents * geo.width + groups, dtype=torch.float32,
+                       device=phi.device)
 
 
 def _terms(grad_j, phi_matrix, batch, n):
@@ -65,11 +199,11 @@ def _terms(grad_j, phi_matrix, batch, n):
 
 
 def matvec_vector_pass(n: int, dtype: torch.dtype, *addresses: int) -> bool:
-    """Whether ``gain_matvec`` / ``practical_gain`` launch the kernel's
-    vector pass for rows of ``n`` elements of ``dtype`` at these data
-    addresses (else its generic pass): it needs whole 16-byte vectors in
-    every row (n a multiple of 4 float32 or 8 bf16) and 16-byte-aligned
-    phi and g."""
+    """Whether the gain kernels launch their vector pass for rows of ``n``
+    elements of ``dtype`` at these data addresses (else ``gain_matvec`` /
+    ``practical_gain`` take the generic pass and the family kernel its
+    lane-group pass): it needs whole 16-byte vectors in every row (n a
+    multiple of 4 float32 or 8 bf16) and 16-byte-aligned phi and g."""
     return (n > 0 and n % (16 // dtype.itemsize) == 0
             and all(a % 16 == 0 for a in addresses))
 
@@ -117,16 +251,21 @@ def practical_gain(phi: torch.Tensor, g: torch.Tensor,
 
 def gain_family_stats(phi: torch.Tensor, g: torch.Tensor,
                       grad_j: Optional[torch.Tensor] = None,
-                      phi_matrix: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
+                      phi_matrix: Optional[torch.Tensor] = None, *,
+                      block_m: Optional[int] = None,
+                      block_t: Optional[int] = None) -> torch.Tensor:
     """Per-agent gain-family statistics in one pass.
 
     phi (*B, m, T, n) and g (*B, m, n), float32 or bf16; grad_j (n,) or
     (*B, n) and phi_matrix (n, n) or (*B, n, n), float32.  Returns
     (*B, m, 4) ``[||g||^2, sum_t (phi_t.g)^2, g.grad_J, g^T Phi g]`` with a
     model, else the (*B, m, 2) prefix from a variant that never reads Phi.
+    ``block_m`` / ``block_t``: agents per block and rows per T-tile of this
+    launch (module docstring).
     """
     with_model = grad_j is not None and phi_matrix is not None
+    geo = family_geometry(phi.shape[-2], phi.shape[-1], with_model,
+                          block_m=block_m, block_t=block_t)
     if not _on_cuda(phi, g, grad_j if with_model else None,
                     phi_matrix if with_model else None):
         return ref.gain_family_stats_ref(phi, g, grad_j if with_model else None,
@@ -142,11 +281,14 @@ def gain_family_stats(phi: torch.Tensor, g: torch.Tensor,
                       device=phi.device)
     agents = out.numel() // cols
     if agents:
+        part = _family_scratch(phi, agents, m, geo)
+        vec = matvec_vector_pass(n, phi.dtype, phi.data_ptr(), g.data_ptr())
         LAUNCHES["gain_family_stats"] += 1
         _check(_build.load().gain_family_stats_launch(
-            _ptr(phi), _ptr(g), _DTYPES[phi.dtype], _ptr(gj), gj_stride,
-            _ptr(pm), pm_stride, agents, m, T, n, cols, _ptr(out),
-            _stream(phi)), "gain_family_stats")
+            _ptr(phi), _ptr(g), _DTYPES[phi.dtype], int(vec), _ptr(gj),
+            gj_stride, _ptr(pm), pm_stride, agents, m, T, n, cols,
+            geo.block_m, geo.block_t, geo.tiles, geo.chunks, _ptr(part),
+            _ptr(out), _stream(phi)), "gain_family_stats")
     return out
 
 
@@ -160,7 +302,8 @@ def megastep_call(phi: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
                   grad_j: Optional[torch.Tensor] = None,
                   phi_matrix: Optional[torch.Tensor] = None,
                   deliver: Optional[torch.Tensor] = None, *,
-                  eps: float):
+                  eps: float, block_m: Optional[int] = None,
+                  block_t: Optional[int] = None):
     """One whole gated-SGD inner step for R runs.
 
     Args (leading axis R = runs):
@@ -173,10 +316,15 @@ def megastep_call(phi: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
       phi_matrix: (n, n) shared or (R, n, n) per-run Phi, or None.
       deliver:    optional (R, m) 0/1 channel keep mask: the update
                   aggregates ``alphas * deliver``; alphas stay the attempts.
+      block_m, block_t: agents per block and rows per T-tile of the
+                  statistics launch (module docstring; the env name of
+                  block_m is ``megastep_block_m``).
 
     Returns ``(w_next (R, n), alphas (R, m), gains (R, m))``.
     """
     with_model = grad_j is not None and phi_matrix is not None
+    geo = family_geometry(phi.shape[-2], phi.shape[-1], with_model,
+                          megastep=True, block_m=block_m, block_t=block_t)
     if not _on_cuda(phi, g, w, ctl, alpha_rand, deliver,
                     grad_j if with_model else None,
                     phi_matrix if with_model else None):
@@ -209,12 +357,15 @@ def megastep_call(phi: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
     alphas = torch.empty((R, m), dtype=torch.float32, device=dev)
     gains = torch.empty((R, m), dtype=torch.float32, device=dev)
     if R * m:
+        part = _family_scratch(phi, R * m, m, geo)
+        vec = matvec_vector_pass(n, phi.dtype, phi.data_ptr(), g.data_ptr())
         # one C entry, two kernels: family statistics, then gate and update
         LAUNCHES["megastep"] += 2
         _check(_build.load().megastep_launch(
-            _ptr(phi), _ptr(g), _DTYPES[phi.dtype], _ptr(w), _ptr(ctl),
-            _ptr(alpha_rand), _ptr(deliver), _ptr(gj), gj_stride, _ptr(pm),
-            pm_stride, R, m, T, n, cols, float(eps), _ptr(stats),
+            _ptr(phi), _ptr(g), _DTYPES[phi.dtype], int(vec), _ptr(w),
+            _ptr(ctl), _ptr(alpha_rand), _ptr(deliver), _ptr(gj), gj_stride,
+            _ptr(pm), pm_stride, R, m, T, n, cols, geo.block_m, geo.block_t,
+            geo.tiles, geo.chunks, _ptr(part), float(eps), _ptr(stats),
             _ptr(w_next), _ptr(alphas), _ptr(gains), _stream(phi)),
             "megastep")
     return w_next, alphas, gains
@@ -224,9 +375,11 @@ def megastep(phi: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
              ctl: torch.Tensor, alpha_rand: torch.Tensor,
              grad_j: Optional[torch.Tensor] = None,
              phi_matrix: Optional[torch.Tensor] = None,
-             deliver: Optional[torch.Tensor] = None, *, eps: float):
+             deliver: Optional[torch.Tensor] = None, *, eps: float,
+             block_m: Optional[int] = None, block_t: Optional[int] = None):
     """Per-run (no leading R axis) whole step: ``megastep_call`` at R = 1."""
     one = lambda x: None if x is None else x.unsqueeze(0)
     out = megastep_call(one(phi), one(g), one(w), one(ctl), one(alpha_rand),
-                        one(grad_j), phi_matrix, one(deliver), eps=eps)
+                        one(grad_j), phi_matrix, one(deliver), eps=eps,
+                        block_m=block_m, block_t=block_t)
     return tuple(x[0] for x in out)
