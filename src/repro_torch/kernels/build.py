@@ -23,11 +23,13 @@ from pathlib import Path
 from typing import NamedTuple, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("gain.cu", "ssd_scan.cu", "flash_attention.cu")
+SOURCES = ("gain.cu", "ssd_scan.cu", "ssd_generic.cu", "flash_attention.cu",
+           "flash_contract.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIB = None
+_LIBS: dict = {}   # bound libraries by path
 
 
 class Build(NamedTuple):
@@ -95,51 +97,62 @@ def build(force: bool = False) -> Build:
     return Build(out, time.perf_counter() - t0, "".join(logs))
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+def _signatures() -> dict:
+    """Every C entry's argument types; each returns an int (a cudaError_t
+    or a count)."""
     p, i, ll, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
-    lib.gain_matvec_launch.argtypes = [p, p, i, i, i, i, d, i, p, p, p]
-    lib.gain_family_stats_launch.argtypes = [p, p, i, i, p, ll, p, ll, i, i,
-                                             i, i, i, i, i, i, i, p, p, p]
-    lib.megastep_launch.argtypes = [p, p, i, i, p, p, p, p, p, ll, p, ll, i,
-                                    i, i, i, i, i, i, i, i, p, d, p, p, p, p,
-                                    p]
-    lib.ssd_chunk_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p, p]
-    lib.ssd_chunk_wgmma_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, p,
-                                           p, p]
-    lib.ssd_chunk_wgmma_xdt_launch.argtypes = [p, p, p, p, p, i, i, i, i, i,
-                                               i, p, p, p]
-    lib.ssd_chunk_wgmma_smem_bytes.argtypes = [i, i, i, i]
-    lib.ssd_state_pass_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
-                                          i, p, p, p]
-    lib.ssd_state_pass_smem_bytes.argtypes = [i, i, i]
-    lib.ssd_state_pass_wgmma_launch.argtypes = [p, p, p, p, i, i, i, i, i, i,
-                                                i, i, i, p, p, p]
-    lib.ssd_state_pass_wgmma_smem_bytes.argtypes = [i, i, i]
-    lib.ssd_blocks_per_sm.argtypes = [i, i]
-    lib.flash_attention_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, i,
-                                           i, p, p]
-    lib.flash_attention_wgmma_launch.argtypes = [p, p, p, i, i, i, i, i, i,
-                                                 i, i, p, p]
-    lib.flash_attention_wgmma_smem_bytes.argtypes = [i]
-    lib.flash_attention_wgmma_blocks_per_sm.argtypes = [i]
-    for fn in (lib.gain_matvec_launch, lib.gain_family_stats_launch,
-               lib.megastep_launch, lib.ssd_chunk_launch,
-               lib.ssd_chunk_wgmma_launch, lib.ssd_chunk_wgmma_xdt_launch,
-               lib.ssd_chunk_wgmma_smem_bytes,
-               lib.ssd_state_pass_launch, lib.ssd_state_pass_smem_bytes,
-               lib.ssd_state_pass_wgmma_launch,
-               lib.ssd_state_pass_wgmma_smem_bytes,
-               lib.ssd_blocks_per_sm,
-               lib.flash_attention_launch, lib.flash_attention_wgmma_launch,
-               lib.flash_attention_wgmma_smem_bytes,
-               lib.flash_attention_wgmma_blocks_per_sm):
-        fn.restype = ctypes.c_int
+    return {
+        "gain_matvec_launch": [p, p, i, i, i, i, d, i, p, p, p],
+        "gain_family_stats_launch": [p, p, i, i, p, ll, p, ll, i, i, i, i, i,
+                                     i, i, i, i, p, p, p],
+        "megastep_launch": [p, p, i, i, p, p, p, p, p, ll, p, ll, i, i, i, i,
+                            i, i, i, i, i, p, d, p, p, p, p, p],
+        "ssd_chunk_launch": [p, p, p, p, i, i, i, i, i, i, p, p, p],
+        "ssd_chunk_wgmma_launch": [p, p, p, p, i, i, i, i, i, i, p, p, p],
+        "ssd_chunk_wgmma_xdt_launch": [p, p, p, p, p, i, i, i, i, i, i, p, p,
+                                       p],
+        "ssd_chunk_generic_launch": [p, p, p, p, i, i, i, i, i, i, p, p, p],
+        "ssd_chunk_wgmma_smem_bytes": [i, i, i, i],
+        "ssd_state_pass_launch": [p, p, p, p, i, i, i, i, i, i, i, i, i, p, p,
+                                  p],
+        "ssd_state_pass_smem_bytes": [i, i, i],
+        "ssd_state_pass_wgmma_launch": [p, p, p, p, i, i, i, i, i, i, i, i, i,
+                                        p, p, p],
+        "ssd_state_pass_wgmma_smem_bytes": [i, i, i],
+        "ssd_state_pass_generic_launch": [p, p, p, p, i, i, i, i, i, i, i, i,
+                                          i, p, p, p],
+        "ssd_blocks_per_sm": [i, i],
+        "flash_attention_launch": [p, p, p, i, i, i, i, i, i, i, i, i, p, p],
+        "flash_attention_wgmma_launch": [p, p, p, i, i, i, i, i, i, i, i, p,
+                                         p],
+        "flash_attention_wgmma_smem_bytes": [i],
+        "flash_attention_wgmma_blocks_per_sm": [i],
+    }
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Type every C entry ``lib`` has.  A library built from an older tree
+    may lack the newer entries: a wrapper that calls one raises
+    AttributeError there."""
+    for name, argtypes in _signatures().items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return lib
 
 
-def load() -> ctypes.CDLL:
-    """The bound kernel library, built on first use."""
+def load(path: Optional[Path] = None) -> ctypes.CDLL:
+    """The bound kernel library that every wrapper launches: this package's,
+    built on first use.  With ``path``, the library at ``path`` (one built
+    from another tree's sources whose C entries take the same arguments)
+    is bound and launched from then on, until ``load`` is given another
+    path; ``load(build().path)`` goes back to this package's."""
     global _LIB
-    if _LIB is None:
-        _LIB = _bind(ctypes.CDLL(str(build().path)))
+    if path is not None:
+        key = str(Path(path).resolve())
+        if key not in _LIBS:
+            _LIBS[key] = _bind(ctypes.CDLL(key))
+        _LIB = _LIBS[key]
+    elif _LIB is None:
+        _LIB = load(build().path)
     return _LIB

@@ -128,11 +128,14 @@
 // batch, and under any block_m.  So two launches on the same inputs give
 // bitwise-equal outputs, and every trigger decision is reproducible.  All
 // arithmetic is float32 on CUDA cores (no tensor cores, so no TF32); bf16
-// inputs are widened on load.
+// and float16 inputs are widened on load (each kernel is instantiated for
+// float32, bf16 and float16; phi and g of different dtypes reach the
+// float32 kernels cast, exactly, by the wrapper).
 // The gain formulas use __fmul_rn / __fadd_rn / __fdiv_rn so that nvcc
 // cannot contract them into FMAs: they round like the plain torch version.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -149,6 +152,7 @@ constexpr int kGroupBlocks = 4;
 constexpr int kFamilyRows = 8;          // vector pass: rows a warp streams
 constexpr int kGroupRowsInFlight = 8;   // lane-group pass: steps in flight
 constexpr int kPassAgents = 32;         // agents a unit passes over at once
+constexpr int kGateAgents = 4096;       // agents gate_update_kernel holds at once
 
 // Mode ids of repro_torch.kernels.ref.MODES (pinned by a test).
 constexpr float kModeTheoretical = 0.f;
@@ -161,6 +165,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 // Fixed xor butterfly: every lane ends with the same, order-fixed sum.
 __device__ __forceinline__ float warp_sum(float v) {
@@ -253,6 +258,19 @@ struct Vec16<__nv_bfloat16> {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float2 f = __bfloat1622float2(h[i]);
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
+  }
+};
+template <>
+struct Vec16<__half> {
+  static constexpr int kN = 8;
+  __device__ static void widen(uint4 v, float (&x)[8]) {
+    const __half2* h = reinterpret_cast<const __half2*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __half22float2(h[i]);
       x[2 * i] = f.x;
       x[2 * i + 1] = f.y;
     }
@@ -747,7 +765,11 @@ family_stats_kernel(const T* __restrict__ phi, const T* __restrict__ g,
 // ---------------------------------------------------------------------------
 // megastep's second half: one block per run.  Every block covers exactly
 // the run's m agents, so no padded agent exists to mask (the Pallas kernel
-// pads m to its agent block and masks by iota).
+// pads m to its agent block and masks by iota).  The agents go through
+// shared memory kGateAgents at a time, in order: thread 0 carries the
+// transmitter count and the thread of column j its sum u_j from one chunk
+// to the next (u_j in w_next until the last chunk), so every sum is the
+// one fixed-order chain over i = 0 .. m - 1 whatever m.
 // ---------------------------------------------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -759,45 +781,52 @@ gate_update_kernel(const float* __restrict__ stats, int cols,
                    float eps, float neg_eps, float eps2,
                    float* __restrict__ w_next, float* __restrict__ alphas,
                    float* __restrict__ gains) {
-  extern __shared__ float eff[];  // m floats, then the transmitter count
+  __shared__ float eff[kGateAgents];
+  __shared__ float total;   // max(transmitters, 1)
   const size_t r = blockIdx.x;
   const float thresh = ctl[2 * r];
   const float mode = ctl[2 * r + 1];
-  for (int i = threadIdx.x; i < m; i += kThreads) {
-    const size_t a = r * m + i;
-    const float* s = stats + a * cols;
-    const float norm = __fmul_rn(neg_eps, s[0]);
-    const float prac =
-        __fadd_rn(norm, __fdiv_rn(__fmul_rn(eps2, s[1]), (float)rows));
-    const float theo = cols == 4
-        ? __fadd_rn(__fmul_rn(neg_eps, s[2]), __fmul_rn(eps2, s[3]))
-        : prac;
-    const float gain = mode == kModeTheoretical ? theo
-                       : mode == kModeNorm      ? norm
-                                                : prac;
-    const float gate = gain <= -thresh ? 1.f : 0.f;
-    const float alpha = mode == kModeAlways   ? 1.f
-                        : mode == kModeNever  ? 0.f
-                        : mode == kModeRandom ? arand[a]
-                                              : gate;
-    gains[a] = gain;
-    alphas[a] = alpha;
-    eff[i] = deliver == nullptr ? alpha : alpha * deliver[a];
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float c = 0.f;
-    for (int i = 0; i < m; ++i) c = __fadd_rn(c, eff[i]);
-    eff[m] = fmaxf(c, 1.f);
-  }
-  __syncthreads();
-  const float cnt = eff[m];
   const T* gr = g + r * m * n;
-  for (int j = threadIdx.x; j < n; j += kThreads) {
-    float u = 0.f;
-    for (int i = 0; i < m; ++i) u = fmaf(eff[i], to_f32(gr[(size_t)i * n + j]), u);
-    w_next[r * n + j] =
-        __fsub_rn(w[r * n + j], __fmul_rn(eps, __fdiv_rn(u, cnt)));
+  float count = 0.f;        // thread 0's running transmitter count
+  for (int a0 = 0; a0 < m; a0 += kGateAgents) {
+    const int na = min(kGateAgents, m - a0);
+    const bool last = a0 + na == m;
+    __syncthreads();  // the previous chunk's eff is consumed
+    for (int i = threadIdx.x; i < na; i += kThreads) {
+      const size_t a = r * m + a0 + i;
+      const float* s = stats + a * cols;
+      const float norm = __fmul_rn(neg_eps, s[0]);
+      const float prac =
+          __fadd_rn(norm, __fdiv_rn(__fmul_rn(eps2, s[1]), (float)rows));
+      const float theo = cols == 4
+          ? __fadd_rn(__fmul_rn(neg_eps, s[2]), __fmul_rn(eps2, s[3]))
+          : prac;
+      const float gain = mode == kModeTheoretical ? theo
+                         : mode == kModeNorm      ? norm
+                                                  : prac;
+      const float gate = gain <= -thresh ? 1.f : 0.f;
+      const float alpha = mode == kModeAlways   ? 1.f
+                          : mode == kModeNever  ? 0.f
+                          : mode == kModeRandom ? arand[a]
+                                                : gate;
+      gains[a] = gain;
+      alphas[a] = alpha;
+      eff[i] = deliver == nullptr ? alpha : alpha * deliver[a];
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < na; ++i) count = __fadd_rn(count, eff[i]);
+      if (last) total = fmaxf(count, 1.f);
+    }
+    if (last) __syncthreads();
+    for (int j = threadIdx.x; j < n; j += kThreads) {
+      float u = a0 == 0 ? 0.f : w_next[r * n + j];
+      for (int i = 0; i < na; ++i)
+        u = fmaf(eff[i], to_f32(gr[(size_t)(a0 + i) * n + j]), u);
+      w_next[r * n + j] =
+          last ? __fsub_rn(w[r * n + j], __fmul_rn(eps, __fdiv_rn(u, total)))
+               : u;
+    }
   }
 }
 
@@ -849,10 +878,33 @@ cudaError_t launch_family(const void* phi, const void* g, int vector,
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t megastep_t(const void* phi, const void* g, int vector,
+                       const void* w, const void* ctl, const void* arand,
+                       const void* deliver, const float* gj,
+                       long long gj_stride, const float* mat,
+                       long long pm_stride, int runs, int m, int rows, int n,
+                       int cols, int bm, int bt, int tiles, int chunks,
+                       float* part, double eps, float* stats, void* w_next,
+                       void* alphas, void* gains, cudaStream_t s) {
+  const cudaError_t err =
+      launch_family<T>(phi, g, vector, gj, gj_stride, mat, pm_stride,
+                       runs * m, m, rows, n, cols, bm, bt, tiles, chunks,
+                       part, stats, s);
+  if (err != cudaSuccess) return err;
+  gate_update_kernel<T><<<runs, kThreads, 0, s>>>(
+      stats, cols, static_cast<const T*>(g), static_cast<const float*>(w),
+      static_cast<const float*>(ctl), static_cast<const float*>(arand),
+      static_cast<const float*>(deliver), m, rows, n, (float)eps,
+      (float)(-eps), (float)(eps * eps), static_cast<float*>(w_next),
+      static_cast<float*>(alphas), static_cast<float*>(gains));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (phi and g share it).  Every entry
-// returns cudaGetLastError() after its launches (0 on success).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (phi and g share it).
+// Every entry returns cudaGetLastError() after its launches (0 on success).
 extern "C" {
 
 // vector: 1 for the vector pass, 0 for the generic pass
@@ -862,13 +914,14 @@ int gain_matvec_launch(const void* phi, const void* g, int dtype, int agents,
                        void* gain, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float neg_eps = (float)(-eps), eps2 = (float)(eps * eps);
-  const cudaError_t err =
-      dtype == 0 ? launch_matvec<float>(phi, g, agents, rows, n, vector,
-                                        neg_eps, eps2, proj, gain, s)
-                 : launch_matvec<__nv_bfloat16>(phi, g, agents, rows, n,
-                                                vector, neg_eps, eps2,
-                                                proj, gain, s);
-  return (int)err;
+#define MATVEC_ARGS phi, g, agents, rows, n, vector, neg_eps, eps2, proj, gain, s
+  switch (dtype) {
+    case 0: return (int)launch_matvec<float>(MATVEC_ARGS);
+    case 1: return (int)launch_matvec<__nv_bfloat16>(MATVEC_ARGS);
+    case 2: return (int)launch_matvec<__half>(MATVEC_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef MATVEC_ARGS
 }
 
 // vector: 1 for the vector pass, 0 for the lane-group pass; bm, bt: agents
@@ -882,61 +935,40 @@ int gain_family_stats_launch(const void* phi, const void* g, int dtype,
                              int n, int cols, int bm, int bt, int tiles,
                              int chunks, void* part, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* gj = static_cast<const float*>(grad_j);
-  const float* mat = static_cast<const float*>(pm);
-  float* pt = static_cast<float*>(part);
-  float* o = static_cast<float*>(out);
-  const cudaError_t err =
-      dtype == 0
-          ? launch_family<float>(phi, g, vector, gj, gj_stride, mat,
-                                 pm_stride, agents, m, rows, n, cols, bm, bt,
-                                 tiles, chunks, pt, o, s)
-          : launch_family<__nv_bfloat16>(phi, g, vector, gj, gj_stride, mat,
-                                         pm_stride, agents, m, rows, n, cols,
-                                         bm, bt, tiles, chunks, pt, o, s);
-  return (int)err;
+#define FAMILY_ENTRY_ARGS                                                     \
+  phi, g, vector, static_cast<const float*>(grad_j), gj_stride,               \
+      static_cast<const float*>(pm), pm_stride, agents, m, rows, n, cols, bm, \
+      bt, tiles, chunks, static_cast<float*>(part), static_cast<float*>(out), s
+  switch (dtype) {
+    case 0: return (int)launch_family<float>(FAMILY_ENTRY_ARGS);
+    case 1: return (int)launch_family<__nv_bfloat16>(FAMILY_ENTRY_ARGS);
+    case 2: return (int)launch_family<__half>(FAMILY_ENTRY_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef FAMILY_ENTRY_ARGS
 }
 
+// Any number of agents m (gate_update_kernel walks them in chunks).
 int megastep_launch(const void* phi, const void* g, int dtype, int vector,
                     const void* w, const void* ctl, const void* arand,
                     const void* deliver, const void* grad_j,
                     long long gj_stride, const void* pm, long long pm_stride,
                     int runs, int m, int rows, int n, int cols, int bm, int bt,
-                    int tiles, int chunks, void* part, double eps, void* stats, void* w_next, void* alphas,
-                    void* gains, void* stream) {
+                    int tiles, int chunks, void* part, double eps, void* stats,
+                    void* w_next, void* alphas, void* gains, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* gj = static_cast<const float*>(grad_j);
-  const float* mat = static_cast<const float*>(pm);
-  float* pt = static_cast<float*>(part);
-  float* st = static_cast<float*>(stats);
-  const size_t smem = (size_t)(m + 1) * sizeof(float);
-  const float eps_f = (float)eps, neg_eps = (float)(-eps),
-              eps2 = (float)(eps * eps);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = launch_family<float>(phi, g, vector, gj, gj_stride, mat, pm_stride,
-                               runs * m, m, rows, n, cols, bm, bt, tiles,
-                               chunks, pt, st, s);
-    if (err != cudaSuccess) return (int)err;
-    gate_update_kernel<float><<<runs, kThreads, smem, s>>>(
-        st, cols, static_cast<const float*>(g), static_cast<const float*>(w),
-        static_cast<const float*>(ctl), static_cast<const float*>(arand),
-        static_cast<const float*>(deliver), m, rows, n, eps_f, neg_eps, eps2,
-        static_cast<float*>(w_next), static_cast<float*>(alphas),
-        static_cast<float*>(gains));
-  } else {
-    err = launch_family<__nv_bfloat16>(phi, g, vector, gj, gj_stride, mat,
-                                       pm_stride, runs * m, m, rows, n, cols,
-                                       bm, bt, tiles, chunks, pt, st, s);
-    if (err != cudaSuccess) return (int)err;
-    gate_update_kernel<__nv_bfloat16><<<runs, kThreads, smem, s>>>(
-        st, cols, static_cast<const __nv_bfloat16*>(g),
-        static_cast<const float*>(w), static_cast<const float*>(ctl),
-        static_cast<const float*>(arand), static_cast<const float*>(deliver),
-        m, rows, n, eps_f, neg_eps, eps2, static_cast<float*>(w_next),
-        static_cast<float*>(alphas), static_cast<float*>(gains));
+#define MEGASTEP_ARGS                                                         \
+  phi, g, vector, w, ctl, arand, deliver, static_cast<const float*>(grad_j),  \
+      gj_stride, static_cast<const float*>(pm), pm_stride, runs, m, rows, n,  \
+      cols, bm, bt, tiles, chunks, static_cast<float*>(part), eps,            \
+      static_cast<float*>(stats), w_next, alphas, gains, s
+  switch (dtype) {
+    case 0: return (int)megastep_t<float>(MEGASTEP_ARGS);
+    case 1: return (int)megastep_t<__nv_bfloat16>(MEGASTEP_ARGS);
+    case 2: return (int)megastep_t<__half>(MEGASTEP_ARGS);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+#undef MEGASTEP_ARGS
 }
 
 }  // extern "C"

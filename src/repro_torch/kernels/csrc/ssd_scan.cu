@@ -11,9 +11,10 @@
 // and C arrive in the model's dtype).  The wrapper routes Q in {64, 128}
 // and N, P in {64, 128} to ssd_chunk_wgmma_kernel (tensor cores), the same
 // Q and P at N = 16 (jamba's state width) to ssd_chunk_wgmma_n16_kernel
-// (tensor cores), and every other shape up to 128 to ssd_chunk_kernel
-// (float32 CUDA cores).  The other two replace the XLA code around the
-// Pallas tile in
+// (tensor cores), every other shape up to 128 (and inputs off a 16-byte
+// boundary) to ssd_chunk_kernel (float32 CUDA cores), and wider tiles or
+// float16 B and C to ssd_chunk_generic_kernel.  The other three replace
+// the XLA code around the Pallas tile in
 // ssd_chunked_pallas (the inter-chunk lax.scan and the inter-chunk output
 // term, src/repro/kernels/ssd_scan.py:133-145):
 //
@@ -23,18 +24,20 @@
 // written straight into the (B, L, H, P) output in its dtype, pad rows
 // dropped, and the final state h.  The wrapper routes Q in {64, 128}, N a
 // multiple of 16 and P a multiple of 32 to ssd_state_pass_wgmma_kernel
-// (tensor cores) and every other shape (the reference's small cases: Q 32,
-// N 8, P 16) to ssd_state_pass_kernel (float32 CUDA cores).
+// (tensor cores), other shapes with Q, N <= 128, P a multiple of 4 and
+// 16-byte rows of C (the reference's small cases: Q 32, N 8, P 16) to
+// ssd_state_pass_kernel (float32 CUDA cores), and everything else (wider,
+// ragged, float16, unaligned) to ssd_state_pass_generic_kernel.
 //
 // What bounds them on an H100.  At mamba2-370m's prefill (B = 4, L = 8192:
 // 256 chunks x 32 heads, Q = 128, N = 128, P = 64, bf16 B and C) the tile
 // moves about 0.82 GB (dtx, y and the states at 268 MB each): 0.245 ms at
 // 3.35 TB/s (0.62 GB when the tile reads the model's bf16 x and dt in
-// place of dtx).  Its 3.5e10 float32 operations take 0.53 ms on CUDA cores
-// (67 TFLOP/s), which bounds ssd_chunk_kernel; as the bf16 pieces below,
-// on the pairs the decay lets through, they are 1.0e11 tensor-core
-// operations (989 TFLOP/s): 0.11 ms, so the tensor-core tile is bound by
-// memory.  The state pass moves 0.69 GB (y_intra and the states read at
+// place of dtx).  On the pairs the decay lets through (j <= i) its
+// function is 2.6e10 float32 operations, 0.39 ms on CUDA cores (67
+// TFLOP/s), which bounds ssd_chunk_kernel; as the bf16 pieces below they
+// are 1.0e11 tensor-core operations (989 TFLOP/s): 0.11 ms, so the
+// tensor-core tile is bound by memory.  The state pass moves 0.69 GB (y_intra and the states read at
 // 268 MB each, y written in bf16, 134 MB; 0.205 ms).  C . h is 1.7e10
 // float32 operations, 0.26 ms on CUDA cores, which bounds
 // ssd_state_pass_kernel; as the two products of bf16 C and h's hi/lo pair
@@ -181,6 +184,7 @@
 // words.  Rows of B, C and G * decay are padded by one float so that a
 // column walk does not hit one bank.  Each output is a fixed-order fmaf
 // chain, so two launches give bitwise-equal results.
+
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1345,6 +1349,7 @@ cudaError_t dispatch(const float* y_intra, const float* states,
 }
 
 }  // namespace pass_tc
+
 
 }  // namespace
 

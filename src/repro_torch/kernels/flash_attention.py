@@ -11,20 +11,34 @@ over Lk frames).  A row that sees no key (only possible with a window and
 Lk < Lq) is outside the contract: the Pallas kernel and
 ``ref.flash_attention_ref`` already disagree there.  For CPU tensors
 ``flash_attention`` returns the plain version (``ref.flash_attention_ref``);
-for CUDA tensors it checks them, launches one of two kernels on the current
+for CUDA tensors it checks them, launches one of its kernels on the current
 stream and raises if the launch failed — it never falls back.  The kernels
 are forward-only (a CUDA input that requires grad raises).
 
-Routing (``route``), by dtype and head dim:
+Routing (``route``), by dtype, head dim and alignment:
 
-- bf16 with head dim 64, 96 or 128 -> ``flash_wgmma_kernel``: both
-  products on the tensor cores (wgmma), K/V tiles by TMA, P entering P V
-  as a hi/lo pair of bf16 (head dim 96 in tiles padded to 128 columns, the
-  kernel's notes say how).  Counted in ``LAUNCHES["flash_attention_wgmma"]``.
-  Its inputs must start on 16-byte boundaries (TMA).
-- everything else it takes (float32 at head dims 16, 32, 64, 96, 128;
-  bf16 at 16 and 32) -> ``flash_kernel``: float32 on CUDA cores, never TF32, the
-  checked float32 route.  Counted in ``LAUNCHES["flash_attention_simt"]``.
+- bf16 with head dim 64, 96 or 128, q, k and v on 16-byte boundaries ->
+  ``flash_wgmma_kernel``: both products on the tensor cores (wgmma), K/V
+  tiles by TMA, P entering P V as a hi/lo pair of bf16 (head dim 96 in
+  tiles padded to 128 columns, the kernel's notes say how).  Counted in
+  ``LAUNCHES["flash_attention_wgmma"]``.
+- float32 or bf16 at head dims 16, 32, 64, 96, 128 otherwise (bf16 off
+  16-byte boundaries included) -> ``flash_kernel``: float32 on CUDA cores,
+  never TF32, the checked float32 route.  Counted in
+  ``LAUNCHES["flash_attention_simt"]``.
+- float16 at those head dims -> ``flash_kernel`` on ``__half`` loads and
+  stores, ``LAUNCHES["flash_attention_f16"]``.
+- any other head dim up to 256, in any of the three dtypes ->
+  ``flash_kernel`` at the next of those widths or 256, the true head dim
+  a run-time argument (loads past it zero-filled, stores skipped),
+  ``LAUNCHES["flash_attention_padded"]``.
+- head dims above 256 -> ``flash_wide_kernel``: the output columns split
+  over blocks of 128, each recomputing the scores over d in chunks,
+  ``LAUNCHES["flash_attention_wide"]``.
+
+q, k and v of different dtypes (the Pallas kernel casts each to float32)
+are cast to float32 here, exactly, and take the float32 route of their
+head dim; the output is cast once to q's dtype.
 
 The reference's ``block_q`` / ``block_k`` are TPU tile sizes; the CUDA
 kernels' tiles are fixed and the results do not depend on them, so the
@@ -49,11 +63,16 @@ class Route(NamedTuple):
 
 WGMMA = Route("flash_wgmma_kernel", "flash_attention_wgmma")
 SIMT = Route("flash_kernel", "flash_attention_simt")
-LAUNCHES = {WGMMA.counter: 0, SIMT.counter: 0}
+F16 = Route("flash_kernel", "flash_attention_f16")
+PADDED = Route("flash_kernel", "flash_attention_padded")
+WIDE = Route("flash_wide_kernel", "flash_attention_wide")
+ROUTES = (WGMMA, SIMT, F16, PADDED, WIDE)
+LAUNCHES = {r.counter: 0 for r in ROUTES}
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 96, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+HEAD_DIMS = (16, 32, 64, 96, 128)   # flash_kernel's own widths
 WGMMA_HEAD_DIMS = (64, 96, 128)
+MAX_PADDED = 256                    # widest flash_kernel (kMaxWidth)
 
 
 def reset_launches() -> None:
@@ -61,11 +80,25 @@ def reset_launches() -> None:
         LAUNCHES[key] = 0
 
 
-def route(dtype: torch.dtype, head_dim: int) -> Route:
-    """The kernel a CUDA call with this dtype and head dim launches."""
-    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+def route(dtype: torch.dtype, head_dim: int, aligned: bool = True) -> Route:
+    """The kernel a CUDA call with q, k and v of this dtype and head dim
+    launches (``aligned``: all three start on 16-byte boundaries)."""
+    if head_dim > MAX_PADDED:
+        return WIDE
+    if head_dim not in HEAD_DIMS:
+        return PADDED
+    if dtype == torch.float16:
+        return F16
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS and aligned:
         return WGMMA
     return SIMT
+
+
+def compute_dtype(q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor) -> torch.dtype:
+    """The dtype a CUDA call runs in: q's when k and v share it, else
+    float32 (the wrapper casts all three, exactly)."""
+    return q.dtype if q.dtype == k.dtype == v.dtype else torch.float32
 
 
 def cuda_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Route:
@@ -77,20 +110,18 @@ def cuda_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Route:
         raise ValueError(f"q must be (B, L, H, d), got {tuple(q.shape)}")
     B, Lq, H, D = q.shape
     Lk, KVH = (k.shape[1], k.shape[2]) if k.dim() == 4 else (0, 0)
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention takes head dims {HEAD_DIMS}, got {D}")
+    if D < 1:
+        raise ValueError(f"flash_attention takes head dims >= 1, got {D}")
     if KVH < 1 or H % KVH:
         raise ValueError(f"kv heads {KVH} must divide query heads {H}")
     if Lk < 1:
         raise ValueError(f"k must hold at least one key, got {tuple(k.shape)}")
     need(q, "q", (B, Lq, H, D), tuple(_DTYPES))
-    need(k, "k", (B, Lk, KVH, D), (q.dtype,))
-    need(v, "v", (B, Lk, KVH, D), (q.dtype,))
-    r = route(q.dtype, D)
-    if r is WGMMA and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: bf16 q, k and v must start on "
-                         "16-byte boundaries (TMA)")
-    return r
+    need(k, "k", (B, Lk, KVH, D), tuple(_DTYPES))
+    need(v, "v", (B, Lk, KVH, D), tuple(_DTYPES))
+    dt = compute_dtype(q, k, v)
+    aligned = dt == q.dtype and all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    return route(dt, D, aligned)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -99,6 +130,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not on_cuda(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     r = cuda_route(q, k, v)
+    dt = compute_dtype(q, k, v)
+    if dt != q.dtype:
+        out = flash_attention(q.float(), k.float(), v.float(), causal=causal,
+                              window=window)
+        return out.to(q.dtype)
     B, Lq, H, D = q.shape
     Lk, KVH = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -112,5 +148,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         check(_build.load().flash_attention_launch(
             ptr(q), ptr(k), ptr(v), _DTYPES[q.dtype], B, Lq, Lk, H, KVH, D,
-            int(causal), int(window), ptr(out), stream(q)), "flash_attention")
+            int(causal), int(window), ptr(out), stream(q)),
+            f"flash_attention ({r.kernel})")
     return out

@@ -9,6 +9,13 @@ the current stream and raises if the launch failed — it never falls back.
 launched; ``megastep`` launches two per call), so a run can show that it
 went through the kernels.
 
+Dtypes: phi and g in float32, bf16 or float16, each kernel instantiated
+for all three (float16 counted apart, ``LAUNCHES["<wrapper>_f16"]``).
+Where phi and g differ in dtype both are cast to float32, exactly, as the
+Pallas kernels' ``astype(float32)`` reads them, and the float32 kernels run;
+grad_j and Phi are read in float32 the same way (``route`` says which).
+``megastep_call`` takes any number of agents.
+
 Unlike the Pallas entries there is no ``custom_vmap`` rule: the wrappers
 take the leading batch (run) axis directly, and one call is one launch over
 every agent of every run.
@@ -47,7 +54,18 @@ from repro_torch.kernels.common import stream as _stream
 # Column order of the (..., m, 4) stats array gain_family_stats emits.
 STAT_GNORM2, STAT_SUMPROJ2, STAT_GDOTJ, STAT_QUAD = range(4)
 
-LAUNCHES = {"gain_matvec": 0, "gain_family_stats": 0, "megastep": 0}
+
+class Route(NamedTuple):
+    kernel: str           # the CUDA kernel(s), as a profiler trace names them
+    counter: str          # its key in LAUNCHES
+    dtype: torch.dtype    # the dtype the kernel reads phi and g in
+
+
+# each wrapper's kernels ("practical_gain" launches gain_matvec's)
+KERNELS = {"gain_matvec": "matvec_gain_kernel",
+           "gain_family_stats": "family_stats_kernel",
+           "megastep": "family_stats_kernel + gate_update_kernel"}
+LAUNCHES = {name + suffix: 0 for suffix in ("", "_f16") for name in KERNELS}
 
 # The family kernel's run-time tiling (csrc/gain.cu family_stats_kernel):
 # agents per block and rows per T-tile.  On the H100, 4 agents and 64 rows
@@ -66,14 +84,29 @@ BLOCKS_ENV = "REPRO_TORCH_KERNEL_BLOCKS"
 # anything else is a typo that would otherwise silently do nothing
 KNOWN_BLOCKS = ("block_m", "family_block_t", "megastep_block_m")
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# gate_update_kernel keeps m + 1 floats in (default-size) shared memory
-_MAX_AGENTS = 48 * 1024 // 4 - 1
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def route(wrapper: str, phi_dtype: torch.dtype, g_dtype: torch.dtype) -> Route:
+    """The kernel, launch counter and dtype of a CUDA call of ``wrapper``
+    (a key of ``KERNELS``) on phi and g of these dtypes: theirs when they
+    share it, else float32 (both cast, exactly)."""
+    for name, dt in (("phi", phi_dtype), ("g", g_dtype)):
+        if dt not in _DTYPES:
+            raise TypeError(f"{name}: dtype {dt} not in {tuple(_DTYPES)}")
+    dt = phi_dtype if phi_dtype == g_dtype else torch.float32
+    return Route(KERNELS[wrapper],
+                 wrapper + ("_f16" if dt == torch.float16 else ""), dt)
+
+
+def _cast(r: Route, phi: torch.Tensor, g: torch.Tensor):
+    """phi and g in the route's dtype (the same tensors when they are)."""
+    return phi.to(r.dtype), g.to(r.dtype)
 
 
 def env_blocks() -> dict[str, int]:
@@ -178,17 +211,19 @@ def _family_scratch(phi, agents, m, geo):
 
 
 def _terms(grad_j, phi_matrix, batch, n):
-    """Validate per-run or shared model terms; returns their strides per
+    """Validate per-run or shared model terms (any dtype the kernels
+    take; the wrappers read them in float32); returns their strides per
     run (0 for a term every run shares)."""
     batch = tuple(batch)
+    dts = tuple(_DTYPES)
     if grad_j.dim() == 1:
-        _need(grad_j, "grad_j", (n,))
+        _need(grad_j, "grad_j", (n,), dts)
     else:
-        _need(grad_j, "grad_j", batch + (n,))
+        _need(grad_j, "grad_j", batch + (n,), dts)
     if phi_matrix.dim() == 2:
-        _need(phi_matrix, "phi_matrix", (n, n))
+        _need(phi_matrix, "phi_matrix", (n, n), dts)
     else:
-        _need(phi_matrix, "phi_matrix", batch + (n, n))
+        _need(phi_matrix, "phi_matrix", batch + (n, n), dts)
     return (0 if grad_j.dim() == 1 else n,
             0 if phi_matrix.dim() == 2 else n * n)
 
@@ -210,8 +245,10 @@ def matvec_vector_pass(n: int, dtype: torch.dtype, *addresses: int) -> bool:
 
 def _matvec_launch(phi, g, eps, want_proj):
     *batch, T, n = phi.shape
+    r = route("gain_matvec", phi.dtype, g.dtype)
     _need(phi, "phi", phi.shape, tuple(_DTYPES))
-    _need(g, "g", tuple(batch) + (n,), (phi.dtype,))
+    _need(g, "g", tuple(batch) + (n,), tuple(_DTYPES))
+    phi, g = _cast(r, phi, g)
     agents = phi.numel() // max(T * n, 1)
     # the kernel writes only the output asked for
     proj = gain = None
@@ -221,7 +258,7 @@ def _matvec_launch(phi, g, eps, want_proj):
     else:
         gain = torch.empty(tuple(batch), dtype=torch.float32, device=phi.device)
     if agents:
-        LAUNCHES["gain_matvec"] += 1
+        LAUNCHES[r.counter] += 1
         vec = matvec_vector_pass(n, phi.dtype, phi.data_ptr(), g.data_ptr())
         _check(_build.load().gain_matvec_launch(
             _ptr(phi), _ptr(g), _DTYPES[phi.dtype], agents, T, n, float(eps),
@@ -256,8 +293,9 @@ def gain_family_stats(phi: torch.Tensor, g: torch.Tensor,
                       block_t: Optional[int] = None) -> torch.Tensor:
     """Per-agent gain-family statistics in one pass.
 
-    phi (*B, m, T, n) and g (*B, m, n), float32 or bf16; grad_j (n,) or
-    (*B, n) and phi_matrix (n, n) or (*B, n, n), float32.  Returns
+    phi (*B, m, T, n) and g (*B, m, n), float32, bf16 or float16 (of
+    different dtypes: both read in float32); grad_j (n,) or (*B, n) and
+    phi_matrix (n, n) or (*B, n, n), read in float32.  Returns
     (*B, m, 4) ``[||g||^2, sum_t (phi_t.g)^2, g.grad_J, g^T Phi g]`` with a
     model, else the (*B, m, 2) prefix from a variant that never reads Phi.
     ``block_m`` / ``block_t``: agents per block and rows per T-tile of this
@@ -271,19 +309,23 @@ def gain_family_stats(phi: torch.Tensor, g: torch.Tensor,
         return ref.gain_family_stats_ref(phi, g, grad_j if with_model else None,
                                          phi_matrix if with_model else None)
     *batch, m, T, n = phi.shape
+    r = route("gain_family_stats", phi.dtype, g.dtype)
     _need(phi, "phi", phi.shape, tuple(_DTYPES))
-    _need(g, "g", tuple(batch) + (m, n), (phi.dtype,))
+    _need(g, "g", tuple(batch) + (m, n), tuple(_DTYPES))
+    phi, g = _cast(r, phi, g)
     cols = 4 if with_model else 2
     gj, pm = (grad_j, phi_matrix) if with_model else (None, None)
     gj_stride, pm_stride = (_terms(gj, pm, batch, n) if with_model
                             else (0, 0))
+    if with_model:
+        gj, pm = gj.float(), pm.float()
     out = torch.empty(tuple(batch) + (m, cols), dtype=torch.float32,
                       device=phi.device)
     agents = out.numel() // cols
     if agents:
         part = _family_scratch(phi, agents, m, geo)
         vec = matvec_vector_pass(n, phi.dtype, phi.data_ptr(), g.data_ptr())
-        LAUNCHES["gain_family_stats"] += 1
+        LAUNCHES[r.counter] += 1
         _check(_build.load().gain_family_stats_launch(
             _ptr(phi), _ptr(g), _DTYPES[phi.dtype], int(vec), _ptr(gj),
             gj_stride, _ptr(pm), pm_stride, agents, m, T, n, cols,
@@ -307,8 +349,9 @@ def megastep_call(phi: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
     """One whole gated-SGD inner step for R runs.
 
     Args (leading axis R = runs):
-      phi:        (R, m, T, n) float32 or bf16 feature batches.
-      g:          (R, m, n) stochastic gradients, phi's dtype.
+      phi:        (R, m, T, n) float32, bf16 or float16 feature batches.
+      g:          (R, m, n) stochastic gradients (phi's dtype, or any of
+                  the three: both are then read in float32).
       w:          (R, n) float32 server weights.
       ctl:        (R, 2) float32 ``[threshold, mode_id]``.
       alpha_rand: (R, m) float32 pre-drawn bernoulli decisions.
@@ -335,10 +378,10 @@ def megastep_call(phi: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
     if phi.dim() != 4:
         raise ValueError(f"phi must be (R, m, T, n), got {tuple(phi.shape)}")
     R, m, T, n = phi.shape
-    if m > _MAX_AGENTS:
-        raise ValueError(f"megastep takes at most {_MAX_AGENTS} agents, got {m}")
+    r = route("megastep", phi.dtype, g.dtype)
     _need(phi, "phi", phi.shape, tuple(_DTYPES))
-    _need(g, "g", (R, m, n), (phi.dtype,))
+    _need(g, "g", (R, m, n), tuple(_DTYPES))
+    phi, g = _cast(r, phi, g)
     _need(w, "w", (R, n))
     _need(ctl, "ctl", (R, 2))
     _need(alpha_rand, "alpha_rand", (R, m))
@@ -351,6 +394,7 @@ def megastep_call(phi: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
         if grad_j.dim() != 2:
             raise ValueError("megastep takes a per-run grad_j (R, n)")
         gj_stride, pm_stride = _terms(gj, pm, (R,), n)
+        gj, pm = gj.float(), pm.float()
     dev = phi.device
     stats = torch.empty((R, m, cols), dtype=torch.float32, device=dev)
     w_next = torch.empty((R, n), dtype=torch.float32, device=dev)
@@ -360,7 +404,7 @@ def megastep_call(phi: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
         part = _family_scratch(phi, R * m, m, geo)
         vec = matvec_vector_pass(n, phi.dtype, phi.data_ptr(), g.data_ptr())
         # one C entry, two kernels: family statistics, then gate and update
-        LAUNCHES["megastep"] += 2
+        LAUNCHES[r.counter] += 2
         _check(_build.load().megastep_launch(
             _ptr(phi), _ptr(g), _DTYPES[phi.dtype], int(vec), _ptr(w),
             _ptr(ctl), _ptr(alpha_rand), _ptr(deliver), _ptr(gj), gj_stride,

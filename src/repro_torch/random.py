@@ -77,21 +77,22 @@ def threefry2x32(k0: torch.Tensor, k1: torch.Tensor,
     return x0, x1
 
 
-def _hash_at(keys_: torch.Tensor, lo: torch.Tensor):
-    """Hash counters ``(0, lo)`` (shape ``c``) under keys ``(*B, 2)``:
-    returns two (*B, *c) word tensors."""
+def _hash_at(keys_: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor):
+    """Hash the 64-bit counters ``(hi, lo)`` (two word tensors of shape
+    ``c``) under keys ``(*B, 2)``: returns two (*B, *c) word tensors."""
     nb = keys_.dim() - 1
     view = keys_.shape[:-1] + (1,) * lo.dim()
     k0 = keys_[..., 0].reshape(view)
     k1 = keys_[..., 1].reshape(view)
+    hi = hi.reshape((1,) * nb + hi.shape)
     lo = lo.reshape((1,) * nb + lo.shape)
-    return threefry2x32(k0, k1, torch.zeros_like(lo), lo)
+    return threefry2x32(k0, k1, hi, lo)
 
 
 def split(keys_: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split`` of every key: (*B, 2) -> (*B, num, 2)."""
     ctr = torch.arange(num, dtype=torch.int64, device=keys_.device)
-    b0, b1 = _hash_at(keys_, ctr)
+    b0, b1 = _hash_at(keys_, torch.zeros_like(ctr), ctr)
     return torch.stack([b0, b1], dim=-1)
 
 
@@ -99,7 +100,7 @@ def fold_in(keys_: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in(key, data)`` of every key: (*B, 2) -> (*B, 2)."""
     ctr = torch.tensor([int(data) & MASK32], dtype=torch.int64,
                        device=keys_.device)
-    b0, b1 = _hash_at(keys_, ctr)
+    b0, b1 = _hash_at(keys_, torch.zeros_like(ctr), ctr)
     return torch.stack([b0[..., 0], b1[..., 0]], dim=-1)
 
 
@@ -110,14 +111,25 @@ def random_bits(keys_: torch.Tensor, shape: Sequence[int],
     With ``start`` the draw is the slice of a larger one that begins at
     flat element ``start``: counters are positional, so a draw of shape
     (n, *rest) at ``start = i * prod(rest)`` equals rows i..i+n of the
-    whole draw, bit for bit.
+    whole draw, bit for bit.  Element i hashes the 64-bit counter
+    ``start + i`` as its (hi, lo) words, as JAX's partitionable threefry
+    does (``iota_2x32_shape``); like JAX, a draw of more than 2**64
+    elements (the larger draw's, with ``start``) is refused.
     """
     shape = tuple(shape)
-    if start + math.prod(shape) >= 2**32:
-        raise NotImplementedError("draws of 2**32 or more values per key")
-    idx = torch.arange(start, start + math.prod(shape), dtype=torch.int64,
-                       device=keys_.device)
-    b0, b1 = _hash_at(keys_, idx)
+    count = math.prod(shape)
+    if start < 0 or start + count > 2**64:
+        raise NotImplementedError("random bits array of size exceeding 2 ** 64")
+    # start's low word plus i stays far inside int64; its carry goes high
+    base = start & MASK32
+    lo = torch.arange(base, base + count, dtype=torch.int64,
+                      device=keys_.device)
+    if base + count <= 2**32:
+        hi = torch.full_like(lo, start >> 32)
+    else:
+        hi = ((lo >> 32) + (start >> 32)) & MASK32
+        lo.bitwise_and_(MASK32)
+    b0, b1 = _hash_at(keys_, hi, lo)
     return b0.bitwise_xor_(b1).reshape(keys_.shape[:-1] + shape)
 
 

@@ -116,7 +116,10 @@ def test_cpu_tensors_never_count_launches(rng):
     _, q = _pair(rng, (1, 8, 2, 16), "f32")
     tflash.flash_attention(q, q, q)
     assert tflash.LAUNCHES == {"flash_attention_wgmma": 0,
-                               "flash_attention_simt": 0}
+                               "flash_attention_simt": 0,
+                               "flash_attention_f16": 0,
+                               "flash_attention_padded": 0,
+                               "flash_attention_wide": 0}
 
 
 def test_non_cpu_tensors_raise_instead_of_falling_back():
@@ -255,16 +258,19 @@ def test_routing_table(dtype, dim, route):
                              q[:, :, :2].contiguous()) == want
     assert tflash.WGMMA == ("flash_wgmma_kernel", "flash_attention_wgmma")
     assert tflash.SIMT == ("flash_kernel", "flash_attention_simt")
-    assert set(tflash.LAUNCHES) == {tflash.WGMMA.counter, tflash.SIMT.counter}
+    assert set(tflash.LAUNCHES) == {r.counter for r in tflash.ROUTES}
 
 
 def test_cuda_route_refuses_what_the_kernels_do_not_take():
     """The checks a CUDA call runs before it launches (shapes, dtypes,
-    layout and, for TMA, 16-byte-aligned bf16 inputs)."""
+    layout); what the reference takes (any head dim, float16, mixed
+    dtypes, bf16 off 16-byte boundaries) takes a route instead."""
     q = torch.zeros((1, 8, 4, 64), dtype=torch.bfloat16)
     kv = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
+    assert tflash.cuda_route(*(torch.zeros((1, 8, 2, 48)),) * 3) == \
+        tflash.PADDED
     with pytest.raises(ValueError, match="head dims"):
-        tflash.cuda_route(*(torch.zeros((1, 8, 2, 48)),) * 3)
+        tflash.cuda_route(*(torch.zeros((1, 8, 2, 0)),) * 3)
     with pytest.raises(ValueError, match="must divide"):
         tflash.cuda_route(q, torch.zeros((1, 8, 3, 64), dtype=torch.bfloat16),
                           torch.zeros((1, 8, 3, 64), dtype=torch.bfloat16))
@@ -287,18 +293,19 @@ def test_cuda_route_refuses_what_the_kernels_do_not_take():
                                            dtype=torch.bfloat16),) * 2)
     with pytest.raises(ValueError, match="at least one key"):
         tflash.cuda_route(q, kv[:, :0], kv[:, :0])
+    # mixed dtypes run the float32 route; float16 its own; float64 none
+    assert tflash.cuda_route(q, kv.float(), kv.float()) == tflash.SIMT
+    assert tflash.cuda_route(q.half(), kv.half(), kv.half()) == tflash.F16
     with pytest.raises(TypeError, match="dtype"):
-        tflash.cuda_route(q, kv.float(), kv.float())
-    with pytest.raises(TypeError, match="dtype"):
-        tflash.cuda_route(q.half(), kv.half(), kv.half())
+        tflash.cuda_route(q.double(), kv.double(), kv.double())
     with pytest.raises(ValueError, match="contiguous"):
         tflash.cuda_route(q, kv, torch.zeros((1, 2, 8, 64),
                                              dtype=torch.bfloat16).transpose(1, 2))
     flat = torch.zeros(q.numel() + 8, dtype=torch.bfloat16)
     odd = flat[1:1 + q.numel()].view(q.shape)   # 2 bytes past an aligned start
     assert flat.data_ptr() % 16 == 0
-    with pytest.raises(ValueError, match="16-byte"):
-        tflash.cuda_route(odd, kv, kv)
+    # TMA needs 16-byte boundaries: unaligned bf16 takes flash_kernel
+    assert tflash.cuda_route(odd, kv, kv) == tflash.SIMT
     # float32 takes flash_kernel, which has no alignment rule
     flat32 = torch.zeros(q.numel() + 1)
     odd32 = flat32[1:].view(q.shape)           # 4 bytes past an aligned start
@@ -311,9 +318,13 @@ def test_cuda_route_refuses_what_the_kernels_do_not_take():
 def test_cuda_kernel_refuses_what_it_does_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernel runs in chip_smoke.py")
-    q = torch.zeros((1, 8, 2, 48), device="cuda")
+    q = torch.zeros((1, 8, 2, 0), device="cuda")
     with pytest.raises(ValueError, match="head dims"):
         tflash.flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 2, 48), device="cuda")
+    tflash.reset_launches()
+    assert tflash.flash_attention(q, q, q).shape == q.shape   # any head dim
+    assert tflash.LAUNCHES[tflash.PADDED.counter] == 1
     q = torch.zeros((1, 8, 2, 16), device="cuda", requires_grad=True)
     with pytest.raises(RuntimeError, match="forward-only"):
         tflash.flash_attention(q, q, q)

@@ -201,7 +201,8 @@ def test_cpu_tensors_never_count_launches(rng):
     tk.practical_gain(phi, g, 0.1)
     tk.gain_family_stats(phi, g)
     assert tk.LAUNCHES == {"gain_matvec": 0, "gain_family_stats": 0,
-                           "megastep": 0}
+                           "megastep": 0, "gain_matvec_f16": 0,
+                           "gain_family_stats_f16": 0, "megastep_f16": 0}
 
 
 def test_non_cpu_tensors_raise_instead_of_falling_back():

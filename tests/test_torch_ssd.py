@@ -121,8 +121,10 @@ def test_cpu_tensors_never_count_launches(rng):
     assert tss.LAUNCHES == {"ssd_chunk_tiles_wgmma": 0,
                             "ssd_chunk_tiles_wgmma_n16": 0,
                             "ssd_chunk_tiles_simt": 0,
+                            "ssd_chunk_tiles_generic": 0,
                             "ssd_state_pass_wgmma": 0,
-                            "ssd_state_pass_simt": 0}
+                            "ssd_state_pass_simt": 0,
+                            "ssd_state_pass_generic": 0}
 
 
 def test_non_cpu_tensors_raise_instead_of_falling_back():
@@ -459,31 +461,34 @@ def test_routing_table(Q, N, P, dtype, route):
     assert tss.STATE_PASS_SIMT == ("ssd_state_pass_kernel",
                                    "ssd_state_pass_simt")
     assert set(tss.LAUNCHES) == {tss.WGMMA.counter, tss.WGMMA_N16.counter,
-                                 tss.SIMT.counter,
+                                 tss.SIMT.counter, tss.GENERIC.counter,
                                  tss.STATE_PASS_WGMMA.counter,
-                                 tss.STATE_PASS_SIMT.counter}
+                                 tss.STATE_PASS_SIMT.counter,
+                                 tss.STATE_PASS_GENERIC.counter}
 
 
 def test_cuda_route_refuses_what_the_tiles_do_not_take():
-    """The checks a CUDA tile call runs before it launches: sizes, dtypes,
-    layout and, for the tensor-core route, 16-byte-aligned inputs."""
+    """The checks a CUDA tile call runs before it launches: sizes, dtypes
+    and layout; what the reference takes (wider tiles, float16 or mixed
+    B/C, inputs off 16-byte boundaries) takes a route instead."""
     dtx = torch.zeros((1, 1, 64, 2, 64))
     cum = torch.zeros((1, 1, 64, 2))
     b = torch.zeros((1, 1, 64, 64), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="<= 128"):
-        tss.cuda_route(torch.zeros((1, 1, 64, 2, 256)), cum, b, b)
+    assert tss.cuda_route(torch.zeros((1, 1, 64, 2, 256)), cum, b, b) == \
+        tss.GENERIC
+    with pytest.raises(ValueError, match=">= 1"):
+        tss.cuda_route(torch.zeros((1, 1, 64, 2, 0)), cum, b, b)
+    assert tss.cuda_route(dtx, cum, b.half(), b.half()) == tss.GENERIC
+    assert tss.cuda_route(dtx, cum, b, b.float()) == tss.WGMMA   # float32 B/C
     with pytest.raises(TypeError, match="dtype"):
-        tss.cuda_route(dtx, cum, b.half(), b.half())
-    with pytest.raises(TypeError, match="dtype"):
-        tss.cuda_route(dtx, cum, b, b.float())
+        tss.cuda_route(dtx, cum, b.double(), b.double())
     with pytest.raises(ValueError, match="contiguous"):
         tss.cuda_route(dtx.transpose(2, 3).contiguous().transpose(2, 3),
                        cum, b, b)
     flat = torch.zeros(b.numel() + 8, dtype=torch.bfloat16)
     odd = flat[1:1 + b.numel()].view(b.shape)   # 2 bytes past an aligned start
     assert flat.data_ptr() % 16 == 0
-    with pytest.raises(ValueError, match="16-byte"):
-        tss.cuda_route(dtx, cum, odd, b)
+    assert tss.cuda_route(dtx, cum, odd, b) == tss.SIMT   # no TMA-side rule
     with pytest.raises(RuntimeError, match="forward-only"):
         tss.cuda_route(dtx.requires_grad_(), cum, b, b)
 
@@ -504,7 +509,9 @@ def test_cuda_route_takes_a_forced_cuda_core_route(N, tc):
 
 
 def test_state_pass_checks_refuse_what_it_does_not_take():
-    """The checks a CUDA state-pass call runs before it launches."""
+    """The checks a CUDA state-pass call runs before it launches; what the
+    reference takes (P not a multiple of 4, rows of C not 16-byte
+    multiples, float16 output) takes the generic route instead."""
     y = torch.zeros((1, 2, 32, 2, 16))
     s = torch.zeros((1, 2, 2, 8, 16))
     cum = torch.zeros((1, 2, 32, 2))
@@ -514,17 +521,18 @@ def test_state_pass_checks_refuse_what_it_does_not_take():
     with pytest.raises(ValueError, match="does not take"):
         tss.check_state_pass(y, s, cum, c, 60, torch.float32,
                              route=tss.STATE_PASS_WGMMA)
-    with pytest.raises(ValueError, match="multiple of 4"):
-        tss.check_state_pass(torch.zeros((1, 2, 32, 2, 6)),
-                             torch.zeros((1, 2, 2, 8, 6)), cum, c, 60,
-                             torch.float32)
-    with pytest.raises(ValueError, match="16 bytes"):
-        tss.check_state_pass(y, torch.zeros((1, 2, 2, 6, 16)), cum,
-                             torch.zeros((1, 2, 32, 6)), 60, torch.float32)
+    assert tss.check_state_pass(torch.zeros((1, 2, 32, 2, 6)),
+                                torch.zeros((1, 2, 2, 8, 6)), cum, c, 60,
+                                torch.float32) == tss.STATE_PASS_GENERIC
+    assert tss.check_state_pass(y, torch.zeros((1, 2, 2, 6, 16)), cum,
+                                torch.zeros((1, 2, 32, 6)), 60,
+                                torch.float32) == tss.STATE_PASS_GENERIC
     with pytest.raises(ValueError, match="length"):
         tss.check_state_pass(y, s, cum, c, 65, torch.float32)
+    assert tss.check_state_pass(y, s, cum, c, 60, torch.float16) == \
+        tss.STATE_PASS_GENERIC
     with pytest.raises(TypeError, match="output dtype"):
-        tss.check_state_pass(y, s, cum, c, 60, torch.float16)
+        tss.check_state_pass(y, s, cum, c, 60, torch.float64)
     with pytest.raises(ValueError, match="shape"):
         tss.check_state_pass(y, s[:, :1].contiguous(), cum, c, 60,
                              torch.float32)
@@ -568,8 +576,12 @@ def test_state_pass_routing_table(Q, N, P, dtype, route):
 @pytest.mark.parametrize("Q,N,P", [(128, 256, 64), (256, 128, 64),
                                    (128, 128, 30)])
 def test_state_pass_route_refuses_what_neither_kernel_takes(Q, N, P):
-    with pytest.raises(ValueError, match="<= 128 and P a multiple of 4"):
-        tss.state_pass_route(Q, N, P, torch.bfloat16)
+    """Shapes neither fixed-shape pass takes go to the generic pass, and
+    only a dtype no kernel reads is refused."""
+    assert tss.state_pass_route(Q, N, P, torch.bfloat16) == \
+        tss.STATE_PASS_GENERIC
+    with pytest.raises(TypeError, match="c_mat dtype"):
+        tss.state_pass_route(Q, N, P, torch.float64)
 
 
 @pytest.mark.cuda
@@ -580,8 +592,11 @@ def test_cuda_state_pass_refuses_what_it_does_not_take():
     s = torch.zeros((1, 2, 2, 8, 6), device="cuda")
     cum = torch.zeros((1, 2, 32, 2), device="cuda")
     c = torch.zeros((1, 2, 32, 8), device="cuda")
-    with pytest.raises(ValueError, match="multiple of 4"):
-        tss.ssd_state_pass(y, s, cum, c, 60, torch.float32)
+    tss.reset_launches()
+    tss.ssd_state_pass(y, s, cum, c, 60, torch.float32)   # P 6: generic
+    assert tss.LAUNCHES[tss.STATE_PASS_GENERIC.counter] == 1
+    with pytest.raises(ValueError, match="length"):
+        tss.ssd_state_pass(y, s, cum, c, 65, torch.float32)
     with pytest.raises(ValueError, match="does not take"):
         tss.ssd_state_pass(y[..., :4].contiguous(), s[..., :4].contiguous(),
                            cum, c, 60, torch.float32,

@@ -1,0 +1,166 @@
+#!/usr/bin/env python3
+"""Hold this tree's kernels bitwise against another tree's on the routes
+both have.
+
+``--src`` names the ``src`` directory of another tree (an unpacked older
+commit).  Its ``repro_torch/kernels/build.py`` builds that tree's CUDA
+sources into that tree's ``_build`` directory; this tree's wrappers then
+run every case twice, once on each library (switched by ``build.load``;
+the C entries of the routes compared take the same arguments in both
+trees), and the outputs must be equal bit for bit.  The cases are the main paths' routes
+at ``chip_smoke``'s shapes: flash attention on both routes (the
+reference's cases, Lk != Lq, head dim 96, the yi-6b slice), the SSD tile
+on its three fixed-shape routes (dtx formed on load too), the state pass
+on both, ``ssd_chunked``, and the gain kernels at wide-192's and
+``chip_smoke.FAMILY_TIMED``'s shapes in float32 and bf16.
+
+Needs one GPU with sm_90a and nvcc.  Run from the repository root:
+
+    python3 tools/kernel_bits_vs_tree.py --src DIR [--out FILE]
+
+Prints the card's name and power limit, one JSON line per case
+(``equal``: bitwise) and a summary line; exits 1 if any case differs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def other_library(src):
+    """The other tree's kernel library, built by its own ``build.py``
+    (loaded under another module name)."""
+    path = os.path.join(src, "repro_torch", "kernels", "build.py")
+    spec = importlib.util.spec_from_file_location("other_kernel_build", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.build()
+
+
+def cases(dev):
+    """(label, fn) pairs; fn() runs this tree's wrapper on fixed inputs."""
+    import torch
+
+    import chip_smoke as S
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import gain as K
+    from repro_torch.kernels import ssd_scan as SS
+
+    gen = torch.Generator().manual_seed(11)
+    out = []
+    flash = (S.FLASH_CASES + S.FLASH_D96_CASES + S.FLASH_CROSS_CASES
+             + (S.FLASH_SLICE,))
+    for c in flash:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = S._flash_inputs(gen, dev, c, dt)
+            kw = dict(causal=c["causal"], window=c["window"])
+            out.append((f"flash {c} {dt} {FA.cuda_route(q, k, v).kernel}",
+                        lambda q=q, k=k, v=v, kw=kw:
+                        FA.flash_attention(q, k, v, **kw)))
+    tiles = ((S.SSD_TILE_CASE, S.SSD_SLICE, S.JAMBA_SSD_SMALL)
+             + S.SSD_TILE_SHAPES)
+    for c in tiles:
+        for dt in (torch.float32, torch.bfloat16):
+            dtx, cum, bm, cm = S._ssd_inputs(gen, dev, c, dt)
+            r = SS.cuda_route(dtx, cum, bm, cm)
+            out.append((f"ssd tile {c} {dt} {r.kernel}",
+                        lambda a=(dtx, cum, bm, cm): SS.ssd_chunk_tiles(*a)))
+            if r != SS.SIMT:
+                out.append((f"ssd tile {c} {dt} forced ssd_chunk_kernel",
+                            lambda a=(dtx, cum, bm, cm):
+                            SS.ssd_chunk_tiles(*a, force=SS.SIMT)))
+                xh, dts = dtx.to(dt), dtx[..., 0].abs() * 0.1
+                out.append((f"ssd tile {c} {dt} dtx on load",
+                            lambda a=(xh, dts, cum, bm, cm):
+                            SS.ssd_chunk_tiles_xdt(*a)))
+    for c in (S.SSD_TILE_CASE, S.SSD_SLICE, S.JAMBA_SSD_SMALL):
+        y_intra, states, cum, c32 = S._pass_inputs(gen, dev, c)
+        L = c["nc"] * c["Q"] - 5
+        for dt in (torch.float32, torch.bfloat16):
+            a = (y_intra, states, cum, c32.to(dt), L, dt)
+            r = SS.check_state_pass(*a)
+            out.append((f"ssd pass {c} {dt} {r.kernel}",
+                        lambda a=a: SS.ssd_state_pass(*a)))
+            if r != SS.STATE_PASS_SIMT:
+                out.append((f"ssd pass {c} {dt} forced ssd_state_pass_kernel",
+                            lambda a=a: SS.ssd_state_pass(
+                                *a, route=SS.STATE_PASS_SIMT)))
+    for c in S.SSD_CHUNKED_WIDE[:1] + S.JAMBA_SSD_CHUNKED[:1]:
+        for dt in (torch.float32, torch.bfloat16):
+            a = S._chunked_inputs(gen, dev, c, dt)
+            out.append((f"ssd_chunked {c} {dt}",
+                        lambda a=a: SS.ssd_chunked(*a, chunk=128)))
+    dgen = torch.Generator(device=dev).manual_seed(3)
+    for label, shape, onehot in S.FAMILY_TIMED:
+        inp = S.family_inputs(dev, dgen, shape, onehot)
+        for dt in (torch.float32, torch.bfloat16):
+            x = dict(inp, phi=inp["phi"].to(dt), g=inp["g"].to(dt))
+            out.append((f"gain_matvec {label} {dt}",
+                        lambda x=x: K.gain_matvec(x["phi"], x["g"])))
+            out.append((f"practical_gain {label} {dt}",
+                        lambda x=x: K.practical_gain(x["phi"], x["g"], 0.5)))
+            out.append((f"gain_family_stats {label} {dt}",
+                        lambda x=x: K.gain_family_stats(
+                            x["phi"], x["g"], x["gj"], x["pm"])))
+            out.append((f"gain_family_stats 2-col {label} {dt}",
+                        lambda x=x: K.gain_family_stats(x["phi"], x["g"])))
+            out.append((f"megastep {label} {dt}",
+                        lambda x=x: K.megastep_call(
+                            x["phi"], x["g"], x["w"], x["ctl"], x["arand"],
+                            x["gj"], x["pm"], eps=0.5)))
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", required=True)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    sys.path[:0] = [os.path.join(REPO, "src"), REPO]
+    import torch
+
+    from repro_torch.kernels import build
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a GPU")
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(card, flush=True)
+    this = build.build().path
+    other = other_library(os.path.abspath(args.src)).path
+    print(json.dumps({"other_src": os.path.abspath(args.src),
+                      "other_library": str(other),
+                      "this_library": str(this)}), flush=True)
+    rows, differ = [], 0
+    for label, fn in cases(dev):
+        build.load(this)
+        a = fn()
+        build.load(other)
+        b = fn()
+        build.load(this)
+        a = a if isinstance(a, tuple) else (a,)
+        b = b if isinstance(b, tuple) else (b,)
+        equal = all(torch.equal(x, y) for x, y in zip(a, b))
+        differ += not equal
+        row = {"case": label, "equal": equal}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    summary = {"cases": len(rows), "differ": differ, "card": card}
+    print(json.dumps(summary), flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"summary": summary, "rows": rows}, f, indent=1)
+    return 1 if differ else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
