@@ -215,6 +215,12 @@ KERNEL_TOL = 2e-4
 # gain_matvec and torch.matmul at the main path's shape: alternating trials,
 # enough pairs to read a win rate and the trials' spread
 MATVEC_TRIALS = 10
+# (T, n) of one agent: the kernel suite's (benchmarks/torch_kernels_bench.py)
+# and a ragged long-T one on the generic pass; gain_matvec's tiling checks
+# run at these in every dtype, at the default block_t and at
+# MATVEC_BLOCK_TS (the last, None, is T itself: one tile)
+MATVEC_LONG = ((4096, 2048), (4097, 1030))
+MATVEC_BLOCK_TS = (16, 200, None)
 
 MODES = ("theoretical", "practical", "norm", "random", "always", "never")
 # eps as a fraction of the max stable step 1/lambda_max(Phi), for a cell
@@ -402,7 +408,7 @@ def kernel_phase(dev):
     lg = logs["gain_matvec"]
     passes = lg.extra["passes"] = {"vector": 0, "scalar": 0}
     for T, n in [(10, 6), (100, 25), (257, 130), (128, 256), (1024, 512),
-                 (33, 1040)]:
+                 (33, 1040)] + list(MATVEC_LONG):
         for dt in (torch.float32, torch.bfloat16):
             for batch in ((), (3, 2)):
                 phi, g = randn(*batch, T, n, dtype=dt), randn(*batch, n, dtype=dt)
@@ -415,6 +421,8 @@ def kernel_phase(dev):
                          ref.practical_gain_ref(phi, g, 0.5), KERNEL_TOL)
                 lg.repeat("gain_matvec", lambda: K.gain_matvec(phi, g))
                 lg.cases += 1
+
+    lg.extra["tiling"] = matvec_tiling_checks(dev, gen)
 
     # -- gain_family_stats: ragged agent blocks, both variants, per-run Phi
     lf = logs["gain_family_stats"]
@@ -474,6 +482,51 @@ def kernel_phase(dev):
     return logs
 
 
+def matvec_tiling_checks(dev, gen):
+    """gain_matvec and practical_gain at MATVEC_LONG in float32, bf16 and
+    float16: proj and the gain bitwise equal at the default block_t and at
+    each of MATVEC_BLOCK_TS (one tile: the in-place sum the fold must
+    repeat), launched alone and as the middle agent of a batch of three,
+    and (on the card) in a CUDA graph's replays after a larger eager call.
+    Returns each case's tile counts."""
+    import torch
+    from repro_torch.kernels import gain as K
+
+    out = {}
+    for T, n in MATVEC_LONG:
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            batch = torch.randn(3, T, n, generator=gen).to(dt).to(dev)
+            gb = torch.randn(3, n, generator=gen).to(dt).to(dev)
+            phi, g = batch[1].clone(), gb[1].clone()
+            label = f"gain_matvec {T}x{n} {dt}"
+            base = (K.gain_matvec(phi, g), K.practical_gain(phi, g, 0.5))
+            tiles = {"default": K.matvec_geometry(T, n, dt).tiles}
+            for bt in MATVEC_BLOCK_TS:
+                bt = T if bt is None else bt
+                tiles[bt] = K.matvec_geometry(T, n, dt, bt).tiles
+                got = (K.gain_matvec(phi, g, block_t=bt),
+                       K.practical_gain(phi, g, 0.5, block_t=bt))
+                check(all(torch.equal(x, y) for x, y in zip(got, base)),
+                      f"{label}: block_t={bt} changed the bits")
+            if dev.type == "cuda":   # (the plain versions' BLAS may differ)
+                got = (K.gain_matvec(batch, gb)[1],
+                       K.practical_gain(batch, gb, 0.5)[1])
+                check(all(torch.equal(x, y) for x, y in zip(got, base)),
+                      f"{label}: alone differs from inside a batch")
+                for fn, larger in (
+                        (lambda: K.gain_matvec(phi, g),
+                         lambda: K.gain_matvec(batch, gb)),
+                        (lambda: K.practical_gain(phi, g, 0.5),
+                         lambda: K.practical_gain(batch, gb, 0.5))):
+                    check(graph_replays_bitwise(fn, larger),
+                          f"{label}: a CUDA graph's replays differ from an "
+                          "eager call")
+            out[label] = tiles
+            del batch, gb, phi, g, base
+    empty_cache(dev)
+    return out
+
+
 def full_shape_phase(dev, logs):
     """Each kernel at the main path's shape: agreement, bitwise repeat and
     timings of kernel, plain version and (gain_matvec) torch.matmul."""
@@ -515,6 +568,7 @@ def full_shape_phase(dev, logs):
         trials["library_ms"].append(
             time_ms(lambda: torch.matmul(phi, g.unsqueeze(-1))))
     lg.extra["trials"] = trials
+    lg.extra["kernel_suite"] = matvec_suite_timing(dev)
     out["gain_matvec"] = dict(
         ms=statistics.median(trials["ms"]),
         plain_ms=time_ms(lambda: ref.gain_matvec_ref(phi, g)),
@@ -572,6 +626,35 @@ def full_shape_phase(dev, logs):
     slice_shapes_phase(dev, logs, gen)
     family_phase(dev, logs)
     return out
+
+
+def matvec_suite_timing(dev):
+    """gain_matvec at the kernel suite's one agent (MATVEC_LONG[0], float32)
+    in alternating trials beside ``phi @ g`` (torch.matmul, the plain
+    version's one call), practical_gain (the fold over its tiles) and the
+    one-tile layout (block_t = T, one block for the agent), with the bound:
+    phi and g read once, proj written once."""
+    import torch
+    from repro_torch.kernels import gain as K
+    T, n = MATVEC_LONG[0]
+    gen = torch.Generator(device=dev).manual_seed(4)
+    phi = torch.randn(T, n, device=dev, generator=gen)
+    g = torch.randn(n, device=dev, generator=gen)
+    b_ms, b_by = bound(nbytes(phi, g) + T * 4, 2 * T * n)
+    trials = {"ms": [], "library_ms": []}
+    for _ in range(MATVEC_TRIALS):
+        trials["ms"].append(time_ms(lambda: K.gain_matvec(phi, g)))
+        trials["library_ms"].append(time_ms(lambda: phi @ g))
+    return dict(
+        T_n=[T, n], dtype="float32", geometry=K.matvec_geometry(
+            T, n, phi.dtype)._asdict(),
+        ms=statistics.median(trials["ms"]),
+        library_ms=statistics.median(trials["library_ms"]),
+        practical_gain_ms=time_ms(lambda: K.practical_gain(phi, g)),
+        one_tile_ms=time_ms(lambda: K.gain_matvec(phi, g, block_t=T)),
+        ms_graph=time_graph_ms(lambda: K.gain_matvec(phi, g)),
+        library_ms_graph=time_graph_ms(lambda: phi @ g),
+        bound_ms=b_ms, bound_by=b_by, trials=trials)
 
 
 # (label, (R, m, T, n), one-hot phi): the kernels' shapes on this slice's
@@ -2538,6 +2621,9 @@ FLASH_CASES = (
     dict(B=1, L=160, H=2, KVH=1, D=64, causal=True, window=64),
 )
 FLASH_TOL = {"float32": 3e-4, "bfloat16": 3e-2}
+# the port's kernel suite's flash row (benchmarks/torch_kernels_bench.py):
+# float32, the flash_kernel route, timed beside SDPA in float32
+FLASH_SUITE = dict(B=1, L=512, H=4, KVH=2, D=64, causal=True, window=0)
 # The tensor-core route's bf16 output against the reference computed in
 # float32 on the same (bf16-valued) inputs, in bf16 ulps (``bf16_ulps``):
 # rounding the float32 result to bf16 costs at most half an ulp, so a
@@ -2649,16 +2735,24 @@ def _chunked_inputs(gen, dev, c, dt):
     return xh, dt_, a, bm, cm
 
 
-def bf16_ulps(got, want):
+def bf16_ulps(got, want, mantissa=7, min_exp=-126):
     """max |got - want| in bf16 ulps of |want| (``want`` in float32).  |want|
     is floored at 1/16 of its row's rms over the head dim, so an element
-    that cancels to near zero is measured on its row's scale."""
+    that cancels to near zero is measured on its row's scale.  With
+    ``mantissa`` and ``min_exp`` another format's ulps (``f16_ulps``)."""
     import torch
     want = want.float()
     rms = want.pow(2).mean(-1, keepdim=True).sqrt()
     scale = torch.maximum(want.abs(), rms / 16).clamp_min(1e-30)
-    ulp = torch.exp2(torch.floor(torch.log2(scale)) - 7)
+    exp = torch.floor(torch.log2(scale)).clamp_min(min_exp)
+    ulp = torch.exp2(exp - mantissa)
     return float(((got.float() - want).abs() / ulp).max())
+
+
+def f16_ulps(got, want):
+    """``bf16_ulps`` in float16 ulps: 10 mantissa bits, subnormal below
+    2^-14 (ulp 2^-24)."""
+    return bf16_ulps(got, want, mantissa=10, min_exp=-14)
 
 
 def flash_work(c, itemsize):
@@ -2773,9 +2867,13 @@ def lm_kernel_phase(dev):
             kw = dict(causal=c["causal"], window=c["window"])
             tol = FLASH_TOL[str(dt).split(".")[-1]]
             label = f"flash {c} {dt}"
-            route = (FA.WGMMA if dt == torch.bfloat16 and c["D"] in (64, 128)
-                     else FA.SIMT)
-            log = lf if route is FA.WGMMA else simt
+            # bf16 at d 64 and 128 on the main paths' tensor-core route, at
+            # d 16 and 32 on its padded one; float32 on flash_kernel
+            route = (FA.SIMT if dt == torch.float32 else
+                     FA.WGMMA if c["D"] in (64, 128) else FA.WGMMA_PADDED)
+            check(route is FA.route(dt, c["D"]),
+                  f"{label}: route {FA.route(dt, c['D'])}, expected {route}")
+            log = lf if route in FA.TENSOR_CORE_ROUTES else simt
             FA.reset_launches()
             got = FA.flash_attention(q, k, v, **kw)
             check(FA.LAUNCHES[route.counter] == 1
@@ -2793,7 +2891,8 @@ def lm_kernel_phase(dev):
     lf.extra["float32_route"] = dict(
         kernel=FA.SIMT.kernel, cases=simt.cases, max_abs_err=simt.max_abs,
         max_rel_err=simt.max_rel, repeat_bitwise=simt.repeat_bitwise,
-        tolerance=dict(FLASH_TOL), slice_dtype="float32", **simt_time)
+        tolerance=dict(FLASH_TOL), slice_dtype="float32", **simt_time,
+        kernel_suite=flash_suite_timing(dev))
     # timed at the slice shape in the serving cells' dtype (bf16, last above)
     sdpa = lambda: F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -2833,6 +2932,34 @@ def lm_kernel_phase(dev):
     ssd_chunked_phase(dev, gen, logs)
     jamba_ssd_phase(dev, gen, logs, timings)
     return logs, timings
+
+
+def flash_suite_timing(dev):
+    """flash_kernel (the float32 route) at the kernel suite's shape,
+    FLASH_SUITE, against its plain version at FLASH_TOL, and timed beside
+    it and scaled_dot_product_attention in float32, with the float32
+    CUDA-core bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    c = FLASH_SUITE
+    q, k, v = _flash_inputs(torch.Generator().manual_seed(8), dev, c,
+                            torch.float32)
+    r = FA.cuda_route(q, k, v)
+    check(r is FA.SIMT, f"flash kernel suite: route {r}")
+    got = _launched(FA, "flash kernel suite", {r.counter: 1},
+                    lambda: FA.flash_attention(q, k, v))
+    err = rel_err(got, ref.flash_attention_ref(q, k, v))[0]
+    check(err <= FLASH_TOL["float32"], f"flash kernel suite: error {err:.3g}")
+    sdpa = lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, enable_gqa=True)
+    b_ms, b_by = bound(*flash_work(c, 4))
+    return dict(shape=c, dtype="float32", kernel=r.kernel, max_rel_err=err,
+                ms=time_ms(lambda: FA.flash_attention(q, k, v)),
+                plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v)),
+                library_ms=time_ms(sdpa), bound_ms=b_ms, bound_by=b_by)
 
 
 def flash_d96_phase(dev, gen, logs, timings):
@@ -2915,8 +3042,9 @@ def _flash_check(log, label, got, q, k, v, kw, tol, rows=False):
     """A flash kernel's output ``got`` against the plain version on the
     same inputs at ``tol`` (with ``rows``, against the float32 reference
     computed one batch row at a time and rounded to q's dtype) and, where
-    ``log`` keeps a ``bf16_ulp_check`` (the tensor-core route's), within
-    ``FLASH_ULP_LIMIT`` bf16 ulps of the float32 reference."""
+    ``log`` keeps a ``bf16_ulp_check`` (bf16 outputs of a tensor-core
+    route) or an ``f16_ulp_check`` (float16 outputs), within
+    ``FLASH_ULP_LIMIT`` ulps of that format from the float32 reference."""
     import torch
     from repro_torch.kernels import ref
 
@@ -2926,15 +3054,19 @@ def _flash_check(log, label, got, q, k, v, kw, tol, rows=False):
         return torch.cat([ref.flash_attention_ref(*(x[b:b + 1] for x in xs),
                                                   **kw)
                           for b in range(xs[0].shape[0])])
-    ulp_check = log.extra.get("bf16_ulp_check")
+    f16 = q.dtype == torch.float16
+    ulp_check = log.extra.get("f16_ulp_check" if f16 else "bf16_ulp_check")
+    if q.dtype == torch.float32:
+        ulp_check = None
     want32 = None
     if rows or ulp_check is not None:
         want32 = plain(q.float(), k.float(), v.float())
     log.close(label, got, want32.to(q.dtype) if rows else plain(q, k, v), tol)
     if ulp_check is not None:
-        ulps = bf16_ulps(got, want32)
-        check(ulps <= FLASH_ULP_LIMIT, f"{label}: {ulps:.3f} bf16 ulps from "
-              f"the float32 reference, limit {FLASH_ULP_LIMIT}")
+        ulps = (f16_ulps if f16 else bf16_ulps)(got, want32)
+        check(ulps <= FLASH_ULP_LIMIT, f"{label}: {ulps:.3f} "
+              f"{'float16' if f16 else 'bf16'} ulps from the float32 "
+              f"reference, limit {FLASH_ULP_LIMIT}")
         ulp_check["max_ulps"] = max(ulp_check["max_ulps"], ulps)
         ulp_check["cases"] += 1
 
@@ -3432,25 +3564,38 @@ FLASH_CONTRACT_DIMS = (1, 8, 40, 80, 200, 256, 320)
 FLASH_CONTRACT_MASKS = (dict(L=70, causal=True, window=0),
                         dict(L=70, causal=True, window=16),
                         dict(L=70, Lk=40, causal=False, window=0))
-# published attention shapes on the new routes: yi-6b's in float16 (32
-# heads over 4, d 128), phi-2's d 80 (32 heads), gemma-7b's d 256 (16
-# heads), and d 40 / 320 / 512 at 1 x 512 with 4 heads over 2
+# published attention shapes on the routes no main path runs: yi-6b's in
+# float16 (32 heads over 4, d 128), phi-2's d 80 (32 heads), gemma-7b's d
+# 256 (16 heads), and d 40 / 320 / 512 at 1 x 512 with 4 heads over 2; the
+# tensor cores take the first four, so yi-6b's float16 and gemma-7b's
+# shape also run off 16-byte boundaries, on flash_kernel (its float16 and
+# padded routes).  (label, shape, dtype, element offset from a 16-byte
+# boundary)
 FLASH_CONTRACT_SLICES = (
-    ("yi-6b float16", dict(FLASH_SLICE), "float16"),
+    ("yi-6b float16", dict(FLASH_SLICE), "float16", 0),
     ("phi-2 d80", dict(B=1, L=2048, H=32, KVH=32, D=80, causal=True,
-                       window=0), "bfloat16"),
+                       window=0), "bfloat16", 0),
     ("gemma-7b d256", dict(B=1, L=8192, H=16, KVH=16, D=256, causal=True,
-                           window=0), "bfloat16"),
+                           window=0), "bfloat16", 0),
     ("d40 windowed", dict(B=1, L=512, H=4, KVH=2, D=40, causal=True,
-                          window=128), "float16"),
+                          window=128), "float16", 0),
     ("d320", dict(B=1, L=512, H=4, KVH=2, D=320, causal=True, window=0),
-     "float32"),
+     "float32", 0),
     ("d512", dict(B=1, L=512, H=4, KVH=2, D=512, causal=True, window=0),
-     "bfloat16"))
-# the slice each new flash route's record is timed at
-FLASH_CONTRACT_TIMED = {"flash_attention_f16": "yi-6b float16",
-                        "flash_attention_padded": "gemma-7b d256",
+     "bfloat16", 0),
+    ("yi-6b float16 unaligned", dict(FLASH_SLICE), "float16", 1),
+    ("gemma-7b d256 unaligned", dict(B=1, L=8192, H=16, KVH=16, D=256,
+                                     causal=True, window=0), "bfloat16", 1))
+# the slice each route's record is timed at
+FLASH_CONTRACT_TIMED = {"flash_attention_wgmma_f16": "yi-6b float16",
+                        "flash_attention_wgmma_padded": "gemma-7b d256",
+                        "flash_attention_f16": "yi-6b float16 unaligned",
+                        "flash_attention_padded": "gemma-7b d256 unaligned",
                         "flash_attention_wide": "d512"}
+# off 16-byte boundaries, the 16-bit grid cases that take flash_kernel
+FLASH_CONTRACT_UNALIGNED = ((16, "float16"), (64, "float16"),
+                            (128, "float16"), (72, "bfloat16"),
+                            (200, "float16"))
 # the SSD tile at widths past 128, ragged P and N, in each dtype of B/C
 SSD_CONTRACT_TILES = ((256, 192, 6), (256, 128, 64), (96, 256, 130),
                       (32, 6, 3))
@@ -3495,13 +3640,29 @@ def _dtype(name):
     return getattr(torch, name)
 
 
+def _offset_copy(x, offset):
+    """``x`` copied to a contiguous tensor ``offset`` elements past a
+    16-byte boundary (offset 0: ``x`` itself)."""
+    if not offset:
+        return x
+    import torch
+    flat = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    out = flat[offset:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
 def flash_contract_phase(dev, gen, logs, timings):
-    """The flash routes no main path runs (``flash_kernel`` on float16,
-    ``flash_kernel`` at a padded width, ``flash_wide_kernel`` past 256) at
-    ``FLASH_CONTRACT_DIMS`` x dtypes x masks and q, k, v of mixed dtypes,
+    """The flash routes no main path runs (``flash_wgmma_kernel`` on float16
+    and on bf16 at other head dims, ``flash_kernel`` on float16 and at a
+    padded width, ``flash_wide_kernel`` past 256) at
+    ``FLASH_CONTRACT_DIMS`` x dtypes x masks, 16-bit inputs off 16-byte
+    boundaries (``FLASH_CONTRACT_UNALIGNED``) and q, k, v of mixed dtypes,
     then ``FLASH_CONTRACT_SLICES``: each against its plain version (float32
-    3e-4, bf16 3e-2, float16 ``CONTRACT_F16_TOL``), repeated bitwise, its
-    route's one launch checked, and timed beside the plain version and
+    3e-4, bf16 3e-2, float16 ``CONTRACT_F16_TOL``; float16 outputs, and
+    bf16 ones of the tensor cores, within ``FLASH_ULP_LIMIT`` ulps of the
+    float32 reference), repeated bitwise, its route's one launch checked,
+    and timed beside the plain version and
     ``scaled_dot_product_attention`` (median of 5)."""
     import torch
     import torch.nn.functional as F
@@ -3509,44 +3670,55 @@ def flash_contract_phase(dev, gen, logs, timings):
     from repro_torch.kernels import ref
 
     tol = dict(FLASH_TOL, float16=CONTRACT_F16_TOL)
-    names = {FA.F16: "flash_attention_f16", FA.PADDED: "flash_attention_padded",
+    names = {FA.WGMMA_F16: "flash_attention_wgmma_f16",
+             FA.WGMMA_PADDED: "flash_attention_wgmma_padded",
+             FA.F16: "flash_attention_f16", FA.PADDED: "flash_attention_padded",
              FA.WIDE: "flash_attention_wide"}
     flogs = {n: KernelLog() for n in names.values()}
+    for name, log in flogs.items():
+        # float16 outputs on every route that takes float16, bf16 ones on
+        # the tensor cores' padded route
+        check_name = ("bf16_ulp_check" if name == names[FA.WGMMA_PADDED]
+                      else "f16_ulp_check")
+        log.extra[check_name] = dict(max_ulps=0.0, cases=0,
+                                     limit=FLASH_ULP_LIMIT)
     mixed = KernelLog()
 
-    def run(label, c, dts, log):
+    def run(label, c, dts, log, offset=0):
         q, k, v = _flash_inputs(gen, dev, c, torch.float32)
-        q, k, v = (x.to(_dtype(d)) for x, d in zip((q, k, v), dts))
+        q, k, v = (_offset_copy(x.to(_dtype(d)), offset)
+                   for x, d in zip((q, k, v), dts))
         kw = dict(causal=c["causal"], window=c["window"])
         r = FA.cuda_route(q, k, v)
         label = f"{label} {dts} ({r.kernel}, {r.counter})"
         fn = lambda: FA.flash_attention(q, k, v, **kw)
         got = _launched(FA, label, {r.counter: 1}, fn)
         check(got.dtype == q.dtype, f"{label}: output dtype {got.dtype}")
-        log.close(label, got, ref.flash_attention_ref(q, k, v, **kw),
-                  tol[dts[0]])
+        _flash_check(log, label, got, q, k, v, kw, tol[dts[0]])
         log.repeat(label, fn)
         log.cases += 1
         return r, (q, k, v, kw)
 
-    grid = [(D, d) for D in FLASH_CONTRACT_DIMS
+    grid = [(D, d, 0) for D in FLASH_CONTRACT_DIMS
             for d in ("float32", "bfloat16", "float16")]
-    grid += [(D, "float16") for D in FA.HEAD_DIMS]
-    for D, d in grid:
+    grid += [(D, "float16", 0) for D in FA.HEAD_DIMS]
+    grid += [(D, d, 1) for D, d in FLASH_CONTRACT_UNALIGNED]
+    for D, d, offset in grid:
         for m in FLASH_CONTRACT_MASKS:
             c = dict(B=1, H=4, KVH=2, D=D, **m)
-            r = FA.route(_dtype(d), D)
-            run(f"flash contract {c}", c, (d,) * 3, flogs[names[r]])
+            r = FA.route(_dtype(d), D, aligned=not offset)
+            run(f"flash contract {c} offset {offset}", c, (d,) * 3,
+                flogs[names[r]], offset)
     for D in (40, 128):                     # q bf16 / float16, k and v float32
         c = dict(B=1, H=4, KVH=2, D=D, **FLASH_CONTRACT_MASKS[1])
         for d in ("bfloat16", "float16"):
             run(f"flash mixed {c}", c, (d, "float32", "float32"), mixed)
     slices = {}
-    for label, c, d in FLASH_CONTRACT_SLICES:
-        r = FA.route(_dtype(d), c["D"])
-        check(r in names, f"{label}: route {r} is not a new route")
+    for label, c, d, offset in FLASH_CONTRACT_SLICES:
+        r = FA.route(_dtype(d), c["D"], aligned=not offset)
+        check(r in names, f"{label}: route {r} is not a contract route")
         _, (q, k, v, kw) = run(f"flash slice {label}", c, (d,) * 3,
-                               flogs[names[r]])
+                               flogs[names[r]], offset)
         itemsize = q.element_size()
         peak = PEAK_F32_FLOPS if itemsize == 4 else PEAK_BF16_FLOPS
         b_ms, b_by = bound(*flash_work(c, itemsize), peak)
@@ -3561,8 +3733,8 @@ def flash_contract_phase(dev, gen, logs, timings):
                  library_ms=(time_ms(sdpa, reps=5, warmup=1)
                              if not kw["window"] else None),
                  bound_ms=b_ms, bound_by=b_by)
-        slices[label] = dict(t, shape=c, dtype=d, kernel=r.kernel,
-                             route=r.counter)
+        slices[label] = dict(t, shape=c, dtype=d, offset=offset,
+                             kernel=r.kernel, route=r.counter)
         for name, want in FLASH_CONTRACT_TIMED.items():
             if want == label:
                 timings[name] = {k: t[k] for k in ("ms", "plain_ms",
@@ -5026,7 +5198,7 @@ class Record(NamedTuple):
 CSRC = "src/repro_torch/kernels/csrc/"
 _GAIN = dict(source=CSRC + "gain.cu",
              tolerance=dict(ragged=KERNEL_TOL, main_path=WEIGHT_TOL))
-_FLASH = dict(source=CSRC + "flash_attention.cu",
+_FLASH = dict(source=CSRC + "flash_wgmma.cuh",
               replaces="src/repro/kernels/flash_attention.py:75",
               tolerance=dict(FLASH_TOL), cuda_kernel="flash_wgmma_kernel")
 _TILE = dict(source=CSRC + "ssd_scan.cu",
@@ -5047,17 +5219,18 @@ RECORDS = {
     "flash_attention": Record(**_FLASH),
     "flash_attention_d96": Record(
         **_FLASH, route_of="flash_attention's tensor-core route at head dim "
-                           "96 (phi3-mini): flash_wgmma_kernel<96>"),
+                           "96 (phi3-mini): flash_wgmma_kernel<__nv_bfloat16, "
+                           "128> at d 96"),
     "flash_attention_d64": Record(
         **_FLASH, route_of="flash_attention's tensor-core route at head dim "
                            "64 with Lk = Lq (seamless-m4t-medium's encoder "
                            "and decoder self-attention): "
-                           "flash_wgmma_kernel<64>"),
+                           "flash_wgmma_kernel<__nv_bfloat16, 64>"),
     "flash_attention_cross": Record(
         **_FLASH, route_of="flash_attention's tensor-core route with Lk != "
                            "Lq (seamless-m4t-medium's cross-attention, 8192 "
                            "tokens over 1024 frames, d 64): "
-                           "flash_wgmma_kernel<64>"),
+                           "flash_wgmma_kernel<__nv_bfloat16, 64>"),
     "ssd_chunk_tiles": Record(**_TILE, tolerance=dict(tile=SSD_TILE_TOL),
                               cuda_kernel="ssd_chunk_wgmma_kernel"),
     "ssd_chunk_tiles_n16": Record(
@@ -5072,17 +5245,36 @@ RECORDS = {
                           "(jamba): ssd_state_pass_wgmma_kernel"),
     # the reference kernels' contracts past the main paths (contract_phase):
     # each record's name is its route's launch counter
+    "flash_attention_wgmma_f16": Record(
+        **dict(_FLASH, tolerance=dict(float16=CONTRACT_F16_TOL,
+                                      f16_ulps=FLASH_ULP_LIMIT),
+               source=CSRC + "flash_wgmma.cuh"), main_path=False,
+        route_of="flash_attention's tensor-core route on float16: "
+                 "flash_wgmma_kernel<__half, W> at any head dim that is a "
+                 "multiple of 8 up to 256, 16-byte-aligned inputs"),
+    "flash_attention_wgmma_padded": Record(
+        **dict(_FLASH, tolerance=dict(bfloat16=FLASH_TOL["bfloat16"],
+                                      bf16_ulps=FLASH_ULP_LIMIT),
+               source=CSRC + "flash_wgmma.cuh"), main_path=False,
+        route_of="flash_attention's tensor-core route on bf16 at head dims "
+                 "other than 64, 96 and 128 (multiples of 8 up to 256): "
+                 "flash_wgmma_kernel<__nv_bfloat16, W> at the next width of "
+                 "64, 128, 256, the head dim a run-time argument"),
     "flash_attention_f16": Record(
-        **dict(_FLASH, tolerance=dict(float16=CONTRACT_F16_TOL),
+        **dict(_FLASH, tolerance=dict(float16=CONTRACT_F16_TOL,
+                                      f16_ulps=FLASH_ULP_LIMIT),
                cuda_kernel="flash_kernel", source=CSRC + "flash_simt.cuh"),
         main_path=False,
-        route_of="flash_attention's float16 route: flash_kernel<__half, D> "
-                 "at head dims 16-128"),
+        route_of="flash_attention's float16 CUDA-core route: "
+                 "flash_kernel<__half, D> at head dims 16-128 off 16-byte "
+                 "boundaries"),
     "flash_attention_padded": Record(
         **dict(_FLASH, tolerance=dict(FLASH_TOL, float16=CONTRACT_F16_TOL),
                cuda_kernel="flash_kernel", source=CSRC + "flash_simt.cuh"),
         main_path=False,
-        route_of="flash_attention at any other head dim up to 256: "
+        route_of="flash_attention at any other head dim up to 256 that the "
+                 "tensor cores do not take (float32, 16-bit off 16-byte "
+                 "boundaries or at a head dim that is not a multiple of 8): "
                  "flash_kernel at the next width of 16, 32, 64, 96, 128, "
                  "256, the head dim a run-time argument"),
     "flash_attention_wide": Record(
@@ -5201,10 +5393,13 @@ def main():
                     "ptxas": regs,
                     "flash_wgmma_dynamic_smem_bytes": {
                         d: lib.flash_attention_wgmma_smem_bytes(d)
-                        for d in (64, 96, 128)},
+                        for d in (64, 96, 128, 256)},
                     "flash_wgmma_blocks_per_sm": {
                         d: lib.flash_attention_wgmma_blocks_per_sm(d)
-                        for d in (64, 96, 128)},
+                        for d in (64, 96, 128, 256)},
+                    "flash_wgmma_f16_blocks_per_sm": {
+                        d: lib.flash_wgmma_contract_blocks_per_sm(2, d)
+                        for d in (64, 128, 256)},
                     "ssd_chunk_wgmma_dynamic_smem_bytes":
                         lib.ssd_chunk_wgmma_smem_bytes(128, 128, 64, 1),
                     "ssd_chunk_wgmma_n16_dynamic_smem_bytes": {

@@ -102,7 +102,8 @@ def _signatures() -> dict:
     or a count)."""
     p, i, ll, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
     return {
-        "gain_matvec_launch": [p, p, i, i, i, i, d, i, p, p, p],
+        "gain_matvec_tiles_launch": [p, p, i, i, i, i, d, i, i, i, p, p, p,
+                                     p],
         "gain_family_stats_launch": [p, p, i, i, p, ll, p, ll, i, i, i, i, i,
                                      i, i, i, i, p, p, p],
         "megastep_launch": [p, p, i, i, p, p, p, p, p, ll, p, ll, i, i, i, i,
@@ -125,8 +126,11 @@ def _signatures() -> dict:
         "flash_attention_launch": [p, p, p, i, i, i, i, i, i, i, i, i, p, p],
         "flash_attention_wgmma_launch": [p, p, p, i, i, i, i, i, i, i, i, p,
                                          p],
+        "flash_attention_wgmma_f16_launch": [p, p, p, i, i, i, i, i, i, i,
+                                             i, p, p],
         "flash_attention_wgmma_smem_bytes": [i],
         "flash_attention_wgmma_blocks_per_sm": [i],
+        "flash_wgmma_contract_blocks_per_sm": [i, i],
     }
 
 

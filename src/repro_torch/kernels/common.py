@@ -46,7 +46,15 @@ def ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+# the current stream's handle without building a torch.cuda.Stream (a few
+# microseconds of host time a launch); CPU builds of torch have neither
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream(t: torch.Tensor) -> int:
+    """The handle of the current CUDA stream of ``t``'s device."""
+    if _raw_stream is not None:
+        return _raw_stream(t.get_device())
     return torch.cuda.current_stream(t.device).cuda_stream
 
 

@@ -15,11 +15,11 @@
 // float32, and the output is in q's dtype.  A row that sees no key (a
 // window with Lk < Lq) is outside the contract, as it is the Pallas
 // kernel's, whose output there differs from its reference's.
-// The wrapper routes 16-byte-aligned bf16 inputs with head dim 64, 96 or
-// 128 to flash_wgmma_kernel, head dims above 256 to flash_wide_kernel and
-// everything else (float32, float16, bf16 at other head dims or off a
-// 16-byte boundary) to flash_kernel; q, k and v of mixed dtypes arrive cast
-// to float32.
+// The wrapper routes 16-byte-aligned bf16 and float16 inputs with a head
+// dim that is a multiple of 8 up to 256 to flash_wgmma_kernel, head dims
+// above 256 to flash_wide_kernel and everything else (float32, 16-bit
+// inputs off a 16-byte boundary or at a head dim that is not a multiple of
+// 8) to flash_kernel; q, k and v of mixed dtypes arrive cast to float32.
 //
 // What bounds them on an H100.  At yi-6b's prefill (B = 1, L = 8192, 32
 // query heads, 4 kv heads, d = 128) causal attention is about 5.5e11
@@ -30,10 +30,12 @@
 // operations against 151 MB: 0.139 ms on the tensor cores, 0.045 ms of
 // bytes, so the arithmetic bounds it too.
 //
-// flash_wgmma_kernel (bf16, d = 64, 96 or 128): both products on the tensor
-// cores, so it can run below the 8.2 ms CUDA-core floor, which flash_kernel
-// cannot.  One block per (query head, q tile of 128 rows, batch row), two
-// warpgroups of 64 rows each.  Q (once) and every 64-key K and V tile
+// flash_wgmma_kernel (flash_wgmma.cuh; bf16 or float16, d a multiple of 8
+// up to 256): both products on the tensor cores, so it can run below the
+// 8.2 ms CUDA-core floor, which flash_kernel cannot.  The element type is a
+// template argument: float16 runs wgmma's f16 kind at the same m64nNk16
+// shapes, its tensor maps TMA's FLOAT16 type.  One block per (query head,
+// q tile of 128 rows, batch row), two warpgroups of 64 rows each.  Q (once) and every 64-key K and V tile
 // arrive by TMA into 128-byte-swizzled shared memory, tracked by
 // mbarriers; the K/V tiles go through a ring of kStages = 2 stages that
 // both warpgroups read, and one thread issues the loads of tile t + 2 as
@@ -48,13 +50,14 @@
 // zeros within their own batch row.  S = Q K^T
 // is wgmma m64n64k16 with both operands in shared memory (K-major: d
 // contiguous); d^-1/2 (times log2 e, for exp2) is applied to the float32
-// scores after the product, never to bf16 Q.
+// scores after the product, never to 16-bit Q.
 // The online softmax runs in the accumulator registers: a thread holds two
 // rows, each row spread over the 4 threads of a quad, reduced by a fixed
 // xor order.  P V is wgmma m64n{d}k16 with P from registers (the S
 // accumulator layout is the A-fragment layout) and V from shared memory
 // (MN-major: the transpose bit).  P enters as a hi/lo pair of bf16,
-// P_hi = bf16(P), P_lo = bf16(P - P_hi), O += P_hi V + P_lo V: the
+// P_hi = bf16(P), P_lo = bf16(P - P_hi), O += P_hi V + P_lo V (float16's
+// pair for float16 inputs): the
 // reference multiplies a float32 P by V, and a single bf16 P would add a
 // rounding that neither the reference nor the plain path has.  The split
 // costs 1.5x the tensor-core products of a single bf16 P (8.3e11 instead
@@ -64,16 +67,34 @@
 // and q tiles run longest first (the q tile is the slower grid axis, so
 // every head of a tile is dispatched before the next shorter tile).  No
 // atomics: two launches give bitwise-equal outputs.
-// Head dim 96 (phi3-mini) is 1.5 of the 64-column atoms: the kernel runs as
-// at d = 128 with every tile 128 columns wide in shared memory.  The tensor
-// maps keep d = 96, so the second atom's TMA box reads columns 64-127 and
-// TMA fills 96-127 with zeros.  S = Q K^T takes only the six k16 steps of
-// the real columns; P V runs at n128 (wgmma's MN-major V needs whole
-// 64-column atoms) and the last 32 output columns, zero, are never stored:
-// 4/3 of the P V products.  The scale stays 96^-1/2.  Shared memory and
-// blocks per SM are d = 128's.
 //
-// flash_kernel (float32, float16, and bf16 off the tensor cores' shapes):
+// Head dims.  The kernel runs at a width W of 64, 128 or 256 columns, the
+// head dim d a run-time argument: d up to 64 at W 64, up to 128 at W 128
+// (d 96, phi3-mini, as 1.5 of the 64-column atoms), up to 256 at W 256.
+// The tensor maps keep the true d, so a box past it reads zeros (TMA's fill):
+// the atoms that hold a column below d are loaded, the rest never.  S = Q
+// K^T takes only the k16 steps that cover d (six at d 96); P V runs at nW
+// (wgmma's MN-major V needs whole 64-column atoms) and output columns past
+// d are never stored.  The scale stays d^-1/2.  d must be a multiple of 8:
+// a TMA row stride is a multiple of 16 bytes.  At W 256 a block takes 64 KB
+// of Q and 2 x 32 KB each of K and V (193 KB), so one block an SM, and a
+// warpgroup's 64 x 256 float32 O is 128 registers a thread; this was
+// chosen over two blocks of 128 output columns each that recompute S over
+// all 256 (as flash_wide_kernel splits its columns), which would do 4/3 of
+// the products (S twice beside P_hi V and P_lo V) for a second block an SM.
+// float16's P: P_hi = f16(P), P_lo = f16(P - P_hi) as bf16's pair; P in [0,
+// 1] fits, and below P ~ 2^-3 P_lo is subnormal, its absolute error near
+// 2^-25, which the smoke's float16-ulp check reads.  float16's ulp is 8x
+// finer than bf16's, and that check is where a long O accumulation on the
+// tensor cores shows: with O accumulated over every tile in wgmma's float32
+// accumulator (as bf16 does), yi-6b's float16 slice read 1.67 float16 ulps
+// from the float32 reference on the H100 (0.59 bf16 ulps in bf16, whose
+// rounding hides it), an error that grows with the number of keys (0.5 at
+// a few hundred).  So for float16 each tile's P V goes, one 64-column atom
+// at a time, into a fresh accumulator that is added to O in float32 with
+// round to nearest: 32 more registers a thread.
+//
+// flash_kernel (float32, and bf16 or float16 off the tensor cores' inputs):
 // every product in float32 on CUDA cores (bf16 and float16 inputs are
 // widened on load; float32 inputs get true float32, never TF32), so it
 // cannot beat the 8.2 ms floor; it is the checked float32 route.  It is
@@ -113,9 +134,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "hopper.cuh"
-
 #include "flash_simt.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -134,290 +154,6 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, int B,
   return launch<T, 128>(FLASH_ARGS);
 #undef FLASH_ARGS
 }
-
-// ---------------------------------------------------------------------------
-// flash_wgmma_kernel: bf16 on the tensor cores (wgmma), K/V through TMA.
-// ---------------------------------------------------------------------------
-namespace wg {
-
-using namespace hopper;   // kAtom, kAtomBytes, mbarriers, TMA, wgmma
-
-constexpr int kRows = 64;        // q rows of one warpgroup (wgmma's M)
-constexpr int kWarpgroups = 2;   // consumer warpgroups of a block
-constexpr int kQRows = kWarpgroups * kRows;   // q rows of a block
-constexpr int kBlockN = 64;      // keys of a K/V tile (S = m64n64)
-constexpr int kThreadsWg = 128 * kWarpgroups;
-constexpr int kStages = 2;       // K/V ring
-constexpr float kLog2e = 1.4426950408889634f;
-
-// Head dim D held as whole 64-column atoms (96 -> 128).
-template <int D>
-__host__ __device__ constexpr int padded() {
-  return (D + kAtom - 1) / kAtom * kAtom;
-}
-
-// Shared memory, every region 1024-byte aligned (a 128-byte swizzle repeats
-// every 8 rows).  A (rows x d) bf16 tile is padded<D>() / 64 column blocks
-// ("atoms") of rows x 128 bytes, one TMA box each, as wgmma's
-// 128-byte-swizzled layouts want them.
-template <int D>
-struct Layout {
-  static constexpr int kQBytes = kQRows * padded<D>() * 2;
-  static constexpr int kTileBytes = kBlockN * padded<D>() * 2;
-  static constexpr int kK = kQBytes;
-  static constexpr int kV = kK + kStages * kTileBytes;
-  static constexpr int kBar = kV + kStages * kTileBytes;   // q, full[kStages]
-  static constexpr int kBytes = kBar + 8 * (1 + kStages) + 1024;  // + align
-};
-
-// q, o (B, Lq, H, D); k, v (B, Lk, KVH, D) bf16, all contiguous; the
-// tensor maps describe q, k and v.  Block (h, q tile, b), kWarpgroups
-// warpgroups.
-template <int D>
-__global__ void __launch_bounds__(kThreadsWg)
-flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
-                   const __grid_constant__ CUtensorMap kmap,
-                   const __grid_constant__ CUtensorMap vmap, int Lq, int Lk,
-                   int H, int KVH, int causal, int window, float scale_log2,
-                   __nv_bfloat16* __restrict__ o) {
-  using Lay = Layout<D>;
-  constexpr int DP = padded<D>();   // columns of a tile and of acc
-  constexpr int kAtoms = DP / kAtom;
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sq = base, sk = base + Lay::kK, sv = base + Lay::kV;
-  const uint32_t bar_q = base + Lay::kBar;
-  auto bar_full = [&](int st) { return bar_q + 8u * (1 + st); };
-
-  const int h = blockIdx.x, b = blockIdx.z;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kQRows;   // longest first
-  const int kvh = h / (H / KVH);
-  const int tid = threadIdx.x, wgi = tid / 128;
-  const int lane = tid % 32, quad = lane / 4, t4 = lane % 4;
-  // this thread's two rows of the block's q tile
-  const int row_a = q0 + wgi * kRows + ((tid % 128) / 32) * 16 + quad;
-
-  // kv tiles that some row of the block's q tile can see
-  const int q_last = min(q0 + kQRows, Lq) - 1;
-  const int k_end = causal ? min(q_last + 1, Lk) : Lk;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) / kBlockN * kBlockN : 0;
-  const int n_tiles = (k_end - k_begin + kBlockN - 1) / kBlockN;
-
-  auto load_kv = [&](int st, int k0) {
-    mbar_expect_tx(bar_full(st), 2 * Lay::kTileBytes);
-#pragma unroll
-    for (int a = 0; a < kAtoms; ++a) {
-      const uint32_t off = st * Lay::kTileBytes + a * kBlockN * kAtomBytes;
-      tma_load(sk + off, &kmap, bar_full(st), a * kAtom, kvh, k0, b);
-      tma_load(sv + off, &vmap, bar_full(st), a * kAtom, kvh, k0, b);
-    }
-  };
-
-  if (tid == 0) {
-    mbar_init(bar_q, 1);
-    for (int st = 0; st < kStages; ++st) mbar_init(bar_full(st), 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  if (tid == 0) {
-    mbar_expect_tx(bar_q, Lay::kQBytes);
-#pragma unroll
-    for (int a = 0; a < kAtoms; ++a)
-      tma_load(sq + a * kQRows * kAtomBytes, &qmap, bar_q, a * kAtom, h, q0, b);
-    for (int st = 0; st < kStages && st < n_tiles; ++st)
-      load_kv(st, k_begin + st * kBlockN);
-  }
-
-  float acc[DP / 2];
-#pragma unroll
-  for (int e = 0; e < DP / 2; ++e) acc[e] = 0.f;
-  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
-  // rows of this warpgroup, for the test of a fully visible tile
-  const int wg_first = q0 + wgi * kRows, wg_last = wg_first + kRows - 1;
-  const uint32_t q_wg = sq + wgi * kRows * kAtomBytes;
-
-  mbar_wait(bar_q, 0);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int st = t % kStages;
-    const int k0 = k_begin + t * kBlockN;
-    mbar_wait(bar_full(st), (t / kStages) & 1);
-    const uint32_t k_st = sk + st * Lay::kTileBytes;
-    const uint32_t v_st = sv + st * Lay::kTileBytes;
-
-    // S = Q K^T over the real d in steps of 16 (32 bytes inside a 128-byte
-    // atom)
-    float s[kBlockN / 2];
-#pragma unroll
-    for (int e = 0; e < kBlockN / 2; ++e) s[e] = 0.f;
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk % 4) * 32;
-      mma_ss(s, desc(q_wg + (kk / 4) * kQRows * kAtomBytes + off, 16, 1024),
-             desc(k_st + (kk / 4) * kBlockN * kAtomBytes + off, 16, 1024),
-             kk > 0);
-    }
-    wg_commit();
-    wg_wait0();
-    fence_regs(s);
-
-    // scale (log2 domain) and mask; only tiles a row cannot fully see
-    const bool full = k0 + kBlockN <= Lk &&
-                      (!causal || k0 + kBlockN - 1 <= wg_first) &&
-                      (window <= 0 || k0 > wg_last - window);
-#pragma unroll
-    for (int e = 0; e < kBlockN / 2; ++e) {
-      float x = s[e] * scale_log2;
-      if (!full) {
-        const int i = row_a + 8 * ((e % 4) / 2);
-        const int j = k0 + 8 * (e / 4) + 2 * t4 + (e % 2);
-        bool vis = j < Lk;
-        if (causal) vis = vis && j <= i;
-        if (window > 0) vis = vis && j > i - window;
-        if (!vis) x = kNegInf;
-      }
-      s[e] = x;
-    }
-
-    // online softmax over the quad of each row, fixed xor order
-    float mx[2] = {m_run[0], m_run[1]};
-#pragma unroll
-    for (int e = 0; e < kBlockN / 2; ++e)
-      mx[(e % 4) / 2] = fmaxf(mx[(e % 4) / 2], s[e]);
-    float corr[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      corr[r] = exp2f(m_run[r] - mx[r]);
-      m_run[r] = mx[r];
-    }
-#pragma unroll
-    for (int e = 0; e < kBlockN / 2; ++e) {
-      const float p = exp2f(s[e] - mx[(e % 4) / 2]);
-      s[e] = p;
-      sum[(e % 4) / 2] += p;
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-      l_run[r] = l_run[r] * corr[r] + sum[r];
-    }
-#pragma unroll
-    for (int e = 0; e < DP / 2; ++e) acc[e] *= corr[(e % 4) / 2];
-
-    // P as hi/lo bf16 A fragments: k-step kk takes s[8 kk .. 8 kk + 7]
-    uint32_t p_hi[kBlockN / 16][4], p_lo[kBlockN / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        uint32_t pieces[2];
-        split_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], pieces);
-        p_hi[kk][r] = pieces[0];
-        p_lo[kk][r] = pieces[1];
-      }
-
-    // O += P_hi V + P_lo V over the tile's keys in steps of 16 (2 KB of V)
-    fence_regs(acc);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      const uint64_t bv =
-          desc(v_st + kk * 16 * kAtomBytes, kBlockN * kAtomBytes, 1024);
-      mma_rs<DP>(acc, p_hi[kk], bv, 1);
-      mma_rs<DP>(acc, p_lo[kk], bv, 1);
-    }
-    wg_commit();
-    wg_wait0();
-    fence_regs(acc);
-
-    __syncthreads();   // every warpgroup is done with stage st
-    if (tid == 0 && t + kStages < n_tiles) load_kv(st, k0 + kStages * kBlockN);
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = row_a + 8 * r;
-    if (i >= Lq) continue;
-    const float l = fmaxf(l_run[r], 1e-30f);
-    __nv_bfloat16* dst = o + (((int64_t)b * Lq + i) * H + h) * D + 2 * t4;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
-          acc[4 * j + 2 * r] / l, acc[4 * j + 2 * r + 1] / l);
-  }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime, so the link needs no -lcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 4-D (d, heads, L, B) map of a contiguous (B, L, heads, d) bf16 tensor,
-// read in boxes of 64 columns of d x rows positions of one head and batch
-// row; positions past L, and columns past d, read as zeros.
-bool tensor_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int D,
-                int heads, int L, int B, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)L,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)L * heads * D * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)kAtom, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, int B, int Lq,
-                   int Lk, int H, int KVH, int causal, int window, void* o,
-                   cudaStream_t s) {
-  using Lay = Layout<D>;
-  EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return cudaErrorNotSupported;
-  CUtensorMap qm, km, vm;
-  if (!tensor_map(enc, &qm, q, D, H, Lq, B, kQRows) ||
-      !tensor_map(enc, &km, k, D, KVH, Lk, B, kBlockN) ||
-      !tensor_map(enc, &vm, v, D, KVH, Lk, B, kBlockN))
-    return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_wgmma_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::kBytes);
-  if (err != cudaSuccess) return err;
-  const float scale_log2 = (float)(kLog2e / sqrt((double)D));
-  dim3 grid(H, (Lq + kQRows - 1) / kQRows, B);
-  flash_wgmma_kernel<D><<<grid, kThreadsWg, Lay::kBytes, s>>>(
-      qm, km, vm, Lq, Lk, H, KVH, causal, window, scale_log2,
-      static_cast<__nv_bfloat16*>(o));
-  return cudaGetLastError();
-}
-
-}  // namespace wg
 
 }  // namespace
 
@@ -445,48 +181,46 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                                window, o, stream);
 }
 
-// bf16 q, k, v and o with D 64, 96 or 128, on the tensor cores.
+int flash_wgmma_contract_launch(int dtype, const void* q, const void* k,
+                                const void* v, int B, int Lq, int Lk, int H,
+                                int KVH, int D, int causal, int window,
+                                void* o, void* stream);
+int flash_wgmma_contract_blocks_per_sm(int dtype, int D);
+
+// bf16 q, k, v and o (16-byte aligned) with D a multiple of 8 up to 256, on
+// the tensor cores: widths 64 and 128 here, 256 through flash_contract.cu.
 int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
                                  int B, int Lq, int Lk, int H, int KVH, int D,
                                  int causal, int window, void* o,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (KVH < 1 || H % KVH || Lk < 1) return (int)cudaErrorInvalidValue;
-  switch (D) {
-    case 64: return (int)wg::launch<64>(q, k, v, B, Lq, Lk, H, KVH, causal, window, o, s);
-    case 96: return (int)wg::launch<96>(q, k, v, B, Lq, Lk, H, KVH, causal, window, o, s);
-    case 128: return (int)wg::launch<128>(q, k, v, B, Lq, Lk, H, KVH, causal, window, o, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define WG_ARGS q, k, v, B, Lq, Lk, H, KVH, D, causal, window, o, s
+  if (D >= 1 && D <= 64) return (int)wg::launch<__nv_bfloat16, 64>(WG_ARGS);
+  if (D > 64 && D <= 128) return (int)wg::launch<__nv_bfloat16, 128>(WG_ARGS);
+#undef WG_ARGS
+  return flash_wgmma_contract_launch(1, q, k, v, B, Lq, Lk, H, KVH, D, causal,
+                                     window, o, stream);
 }
 
-// Dynamic shared memory of one flash_wgmma_kernel block at head dim D.
+// Dynamic shared memory of one flash_wgmma_kernel block at head dim D (any
+// 16-bit type), -1 past 256.
 int flash_attention_wgmma_smem_bytes(int D) {
-  switch (D) {
+  if (D < 1 || D > 4 * wg::kAtom) return -1;
+  switch (wg::width_of(D)) {
     case 64: return wg::Layout<64>::kBytes;
-    case 96: return wg::Layout<96>::kBytes;
     case 128: return wg::Layout<128>::kBytes;
-    default: return -1;
+    default: return wg::Layout<256>::kBytes;
   }
 }
 
-// Blocks of flash_wgmma_kernel an SM holds at once at head dim D; -1 if the
-// query failed.
+// Blocks of the bf16 flash_wgmma_kernel an SM holds at once at head dim D;
+// -1 if the query failed.
 int flash_attention_wgmma_blocks_per_sm(int D) {
-  auto query = [](auto kernel, int bytes) {
-    int n = -1;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel,
-                                                          wg::kThreadsWg, bytes);
-    return err == cudaSuccess ? n : -1;
-  };
-  switch (D) {
-    case 64: return query(wg::flash_wgmma_kernel<64>, wg::Layout<64>::kBytes);
-    case 96: return query(wg::flash_wgmma_kernel<96>, wg::Layout<96>::kBytes);
-    case 128: return query(wg::flash_wgmma_kernel<128>, wg::Layout<128>::kBytes);
-    default: return -1;
+  if (D < 1 || D > 4 * wg::kAtom) return -1;
+  switch (wg::width_of(D)) {
+    case 64: return wg::blocks_per_sm<__nv_bfloat16, 64>();
+    case 128: return wg::blocks_per_sm<__nv_bfloat16, 128>();
+    default: return flash_wgmma_contract_blocks_per_sm(1, D);
   }
 }
 

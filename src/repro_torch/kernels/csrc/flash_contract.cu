@@ -1,14 +1,17 @@
 // The flash-attention launches flash_attention.cu leaves (flash_simt.cuh
-// has the kernels, flash_attention.cu their notes): flash_kernel on float16
-// at every head dim up to 256 (the next of the widths 16, 32, 64, 96, 128
-// and 256, the true head dim a run-time argument), flash_kernel at width
-// 256 for float32 and bf16 head dims 129-256, and flash_wide_kernel past
-// 256.  They replace the Pallas TPU kernel
-// src/repro/kernels/flash_attention.py::flash_attention on the inputs it
-// takes that no config of this repository gives it.  A source of its own,
-// so that nvcc builds it beside flash_attention.cu.
+// and flash_wgmma.cuh have the kernels, flash_attention.cu their notes):
+// flash_wgmma_kernel on float16 at widths 64, 128 and 256 and on bf16 at
+// width 256 (head dims 136-256), and the CUDA-core routes for what the
+// tensor cores do not take: flash_kernel on float16 at every head dim up to
+// 256 (the next of the widths 16, 32, 64, 96, 128 and 256, the true head
+// dim a run-time argument), flash_kernel at width 256 for float32 and bf16
+// head dims 129-256, and flash_wide_kernel past 256.  They replace the
+// Pallas TPU kernel src/repro/kernels/flash_attention.py::flash_attention
+// on the inputs it takes that no config of this repository gives it.  A
+// source of its own, so that nvcc builds it beside flash_attention.cu.
 
 #include "flash_simt.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -62,6 +65,50 @@ int flash_contract_launch(const void* q, const void* k, const void* v,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FLASH_ARGS
+}
+
+// The tensor-core kernel on what flash_attention.cu does not instantiate:
+// dtype 1 (bf16) at width 256, dtype 2 (float16) at every width.  D a
+// multiple of 8 up to 256, q, k, v and o 16-byte aligned (wg::launch).
+int flash_wgmma_contract_launch(int dtype, const void* q, const void* k,
+                                const void* v, int B, int Lq, int Lk, int H,
+                                int KVH, int D, int causal, int window,
+                                void* o, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D < 1 || D > 4 * wg::kAtom) return (int)cudaErrorInvalidValue;
+  const int w = wg::width_of(D);
+#define WG_ARGS q, k, v, B, Lq, Lk, H, KVH, D, causal, window, o, s
+  if (dtype == 1 && w == 256)
+    return (int)wg::launch<__nv_bfloat16, 256>(WG_ARGS);
+  if (dtype == 2) {
+    if (w == 64) return (int)wg::launch<__half, 64>(WG_ARGS);
+    if (w == 128) return (int)wg::launch<__half, 128>(WG_ARGS);
+    return (int)wg::launch<__half, 256>(WG_ARGS);
+  }
+#undef WG_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
+// float16 q, k, v and o (16-byte aligned) with D a multiple of 8 up to 256,
+// on the tensor cores.
+int flash_attention_wgmma_f16_launch(const void* q, const void* k,
+                                     const void* v, int B, int Lq, int Lk,
+                                     int H, int KVH, int D, int causal,
+                                     int window, void* o, void* stream) {
+  return flash_wgmma_contract_launch(2, q, k, v, B, Lq, Lk, H, KVH, D, causal,
+                                     window, o, stream);
+}
+
+// Blocks of flash_wgmma_contract_launch's kernel an SM holds at once at
+// head dim D; -1 if the query failed or no such kernel is here.
+int flash_wgmma_contract_blocks_per_sm(int dtype, int D) {
+  if (D < 1 || D > 4 * wg::kAtom) return -1;
+  const int w = wg::width_of(D);
+  if (dtype == 1) return w == 256 ? wg::blocks_per_sm<__nv_bfloat16, 256>() : -1;
+  if (dtype != 2) return -1;
+  if (w == 64) return wg::blocks_per_sm<__half, 64>();
+  if (w == 128) return wg::blocks_per_sm<__half, 128>();
+  return wg::blocks_per_sm<__half, 256>();
 }
 
 }  // extern "C"

@@ -6,8 +6,8 @@
 //   matvec_gain_kernel   <- gain_matvec (_matvec_kernel) + practical_gain.
 //       proj_t = phi_t . g and eq. 15, -eps ||g||^2 + eps^2 sum_t proj_t^2 / T,
 //       for every agent of every run in one launch (the leading batch axis
-//       replaces the per-agent vmap of gain_dispatch.mode_gains).  Its phi
-//       pass has a design of its own (below).
+//       replaces the per-agent vmap of gain_dispatch.mode_gains), each
+//       agent's T rows cut into tiles spread over the card (below).
 //   family_stats_kernel  <- gain_family_stats (_family_kernel), and
 //       megastep_call's first half.  Per agent [||g||^2, sum_t proj_t^2,
 //       g.gradJ, g^T Phi g], or the 2-column prefix, which never reads Phi
@@ -31,10 +31,10 @@
 // The TPU kernels lean on the grid running in order: the n-tile axis
 // accumulates into VMEM scratch, the family kernel's T axis adds each
 // tile's sum into its output block, and megastep carries the gated sum
-// across agent blocks.  A CUDA grid has no order.  matvec_gain_kernel and
-// gate_update_kernel keep a sequential axis as a loop inside one block;
-// family_stats_kernel spreads an agent's T-tiles over blocks and combines
-// their partial sums in a fixed order (below).  megastep is two launches
+// across agent blocks.  A CUDA grid has no order.  gate_update_kernel keeps
+// a sequential axis as a loop inside one block; matvec_gain_kernel and
+// family_stats_kernel spread an agent's T-tiles over blocks and combine
+// their results in a fixed order (below).  megastep is two launches
 // from one C entry: family_stats_kernel writes the statistics, then
 // gate_update_kernel runs one block per run.  Two launches were chosen
 // over one block per run because the statistics pass is the part that
@@ -43,36 +43,53 @@
 // family kernel's units fill the card; the statistics round trip through
 // device memory is 4 floats per agent.
 //
-// The row passes.  The generic pass (projection_sq, matvec_gain_kernel's
-// pass for ragged shapes) makes 4-byte loads, reloads g[j] for every row
-// and has one row per warp in flight, and sq_norm reads g a second time;
-// at the main path's shape it ran at 76 % of the HBM bound.  The vector
-// pass (projection_sq_vec; the family kernel's vec_step below) takes
+// matvec_gain_kernel's layout.  A unit of work is (agent, T-tile of bt
+// rows), bt a run-time parameter (kernels/gain.py: block_t, the Pallas
+// kernel's name); an agent's units are consecutive blocks.  One block per
+// agent put the kernel suite's one agent (T 4096 x n 2048, 33.5 MB) on one
+// SM of 132; the wrapper's default bt gives a tile about MATVEC_TILE_BYTES
+// of phi, so long-T agents spread over the card while every sweep (T <=
+// 128) keeps one tile an agent, whose unit writes its gain directly with
+// no scratch and no counter.  Over several tiles the last unit of an agent
+// redoes the one-tile sum from the agent's projections (below), so no bit
+// depends on bt, nor on how a tile's rows meet its warps: rows wider than
+// one vec_rows chunk (the kernel suite's n 2048) take vec_tile_rows there,
+// two rows a warp step with a chunk of eight 16-byte vectors a lane, all
+// its loads issued before its sums (one block an agent ran such rows at
+// 2.1 ms against torch.matmul's 0.024 on the H100).  The fold is the one
+// serial part: eight fmaf chains of T / 8 rows, staged through shared
+// memory, beside ||g||^2 on another warp.
+//
+// The row passes.  The generic pass (scalar_rows, for ragged shapes) makes
+// 4-byte loads with kRowsInFlight rows of a warp in flight, each lane
+// loading g[j] once for all of them, and sq_norm reads g a second time.
+// The vector pass (vec_rows; the family kernel's vec_step below) takes
 // n % (16 / sizeof(T)) == 0 and 16-byte-aligned phi and g; the wrappers'
 // Python predicate (kernels/gain.py::matvec_vector_pass) picks the pass
 // and the launchers refuse the vector pass where its loads would not be
 // whole and aligned.
-// A lane loads its slice of g once into registers (kHeldVecs = 2 16-byte
-// vectors: 256 columns float32, 512 bf16 a warp; at n = 256 float32 that is
-// 8 floats a lane), takes ||g||^2 from those same registers, and then
-// streams kRowsInFlight = 8 consecutive rows per warp with every 16-byte
-// load of the group issued before the group's sums (64 KB of phi in flight
-// per 256-thread block at n = 256), then one fixed xor butterfly per row;
-// lanes 0-7 store the group's eight projections together (32 contiguous
-// bytes).  phi's loads skip L1 and ask L2 for 256-byte prefetches: it is
-// read once (g, reused by every row, stays cached).  Timed on the H100 at
-// the main path's shape, this beat 4 rows in flight, cached phi loads, an
-// L2 prefetch that still fills L1, a persistent grid, 128 or 512 threads,
-// and per-warp row tiles with one store each.  Columns past
-// the held ones loop in chunks of 32 16-byte vectors whose g is read again
-// with each row, from L1.  One instantiation per dtype.
+// A lane loads its slice of g's first chunk once into registers (kHeldVecs
+// = 2 16-byte vectors: 256 columns float32, 512 bf16 a warp; at n = 256
+// float32 that is 8 floats a lane) and then streams kRowsInFlight = 8
+// consecutive rows per warp with every 16-byte load of the group issued
+// before the group's sums (64 KB of phi in flight per 256-thread block at
+// n = 256), then one fixed xor butterfly per row; lanes 0-7 store the
+// group's eight projections together (32 contiguous bytes).  phi's loads
+// skip L1 and ask L2 for 256-byte prefetches: it is read once (g, reused
+// by every row, stays cached).  Timed on the H100 at the main path's
+// shape, this beat 4 rows in flight, cached phi loads, an L2 prefetch that
+// still fills L1, a persistent grid, 128 or 512 threads, and per-warp row
+// tiles with one store each.  Columns past the held ones go in chunks of
+// the same width, g's vectors of a chunk read again with each group (from
+// L1) and every row's loads of the chunk issued together, so a group keeps
+// kRowsInFlight x kHeldVecs loads in flight however wide the row.  One
+// instantiation per dtype.
 //
 // family_stats_kernel's passes go in steps of a warp.  Its vector step
 // (vec_step) is the vector pass's loads and order with the columns in
 // blocks of kHeldVecs vectors a lane: g's vectors for the block, then every
 // row's, so kFamilyRows x kHeldVecs 16-byte loads stay in flight however
-// wide the row (the vector pass's column loop keeps one row's in flight
-// past 256 float32 columns).  Its lane-group step (group_step) is for rows
+// wide the row, as in vec_rows.  Its lane-group step (group_step) is for rows
 // the vector pass does not take: a row gets L = 8, 16 or 32 lanes (the
 // least that covers n, up to 32), so a warp takes 32 / L rows side by
 // side (at Fig. 3's n = 6 and TD's n = 10 four and two rows instead of one
@@ -125,7 +142,9 @@
 // order with __fadd_rn, whichever unit folds them.  The order depends on
 // T, n, bt, dtype and the pass only, never on R, m, bm or the count of
 // SMs: an agent's statistics are the same bits launched alone or in any
-// batch, and under any block_m.  So two launches on the same inputs give
+// batch, and under any block_m.  matvec_gain_kernel's bits depend on T, n,
+// dtype and the pass only, not on its bt either: its fold redoes the
+// one-tile order.  So two launches on the same inputs give
 // bitwise-equal outputs, and every trigger decision is reproducible.  All
 // arithmetic is float32 on CUDA cores (no tensor cores, so no TF32); bf16
 // and float16 inputs are widened on load (each kernel is instantiated for
@@ -196,26 +215,6 @@ __device__ float block_sum(float v, float* red) {
   return block_sum_of_warps(warp_sum(v), red);
 }
 
-// Row dot products of one agent's (T, n) batch with its g: writes proj when
-// asked and returns sum_t proj_t^2 (in row order per warp, then warp order).
-template <typename T>
-__device__ float projection_sq(const T* __restrict__ phi,
-                               const T* __restrict__ g, int rows, int n,
-                               float* __restrict__ proj, float* red) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float sq = 0.f;
-  for (int t = warp; t < rows; t += kWarps) {
-    const T* row = phi + (size_t)t * n;
-    float acc = 0.f;
-    for (int j = lane; j < n; j += 32)
-      acc = fmaf(to_f32(row[j]), to_f32(g[j]), acc);
-    acc = warp_sum(acc);
-    if (proj != nullptr && lane == 0) proj[t] = acc;
-    sq = fmaf(acc, acc, sq);
-  }
-  return block_sum_of_warps(sq, red);
-}
-
 template <typename T>
 __device__ float sq_norm(const T* __restrict__ g, int n, float* red) {
   float s = 0.f;
@@ -250,16 +249,18 @@ struct Vec16<float> {
     x[2] = __uint_as_float(v.z); x[3] = __uint_as_float(v.w);
   }
 };
+// The 16-bit widenings read the vector's 32-bit words by value (no
+// address of a register taken, so nothing goes through local memory); the
+// element at the lower address is a word's low half.  Both are exact.
 template <>
 struct Vec16<__nv_bfloat16> {
   static constexpr int kN = 8;
   __device__ static void widen(uint4 v, float (&x)[8]) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      x[2 * i] = f.x;
-      x[2 * i + 1] = f.y;
+      x[2 * i] = __uint_as_float(w[i] << 16);
+      x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
     }
   }
 };
@@ -267,33 +268,79 @@ template <>
 struct Vec16<__half> {
   static constexpr int kN = 8;
   __device__ static void widen(uint4 v, float (&x)[8]) {
-    const __half2* h = reinterpret_cast<const __half2*>(&v);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float2 f = __half22float2(h[i]);
-      x[2 * i] = f.x;
-      x[2 * i + 1] = f.y;
+      x[2 * i] = __half2float(__ushort_as_half((unsigned short)(w[i] & 0xffffu)));
+      x[2 * i + 1] = __half2float(__ushort_as_half((unsigned short)(w[i] >> 16)));
     }
   }
 };
 
-constexpr int kRowsInFlight = 8;   // consecutive rows a warp streams at once
+constexpr int kRowsInFlight = 8;   // rows a warp streams at once
 constexpr int kHeldVecs = 2;       // 16-byte vectors of g a lane holds
+// the tiled vector pass on rows wider than kHeldVecs vectors a lane: rows
+// a warp step, 16-byte vectors a lane a chunk
+constexpr int kTileRows = 2;
+constexpr int kTileVecs = 8;
+constexpr int kFoldRows = 4096;    // projections a fold stages at a time
 
-// The vector pass of one agent: returns {sum_t proj_t^2 (rows in order
-// per warp, then warp order), ||g||^2} and writes proj when asked.  Lane
-// l holds g's columns (l + 32 c) V .. + V - 1, c < kHeldVecs, in
-// registers; columns past those, in chunks of 32 V, are read again with
-// each row (from L1).
+// ---------------------------------------------------------------------------
+// gain_matvec / practical_gain: one block per unit (agent, T-tile of bt
+// rows), an agent's units consecutive blocks of the grid.  A unit's rows go
+// in steps of kRowsInFlight rows (vector pass: consecutive rows; generic
+// pass: rows kWarps apart), step s to warp s % kWarps; a row's dot product
+// stays whole in one warp.  Each unit writes its rows' projections (to proj,
+// or, for a gain alone over several tiles, to the call's scratch).
+//
+// The gain's bits do not depend on the tiling.  With one tile (every
+// sweep) the unit is the whole agent: warp w's rows are those of class w of
+// the one-block-per-agent pass (vector: the steps t / kRowsInFlight = w mod
+// kWarps; generic: t = w mod kWarps), so its fmaf chain of squared
+// projections, the warps' sum in warp order and ||g||^2 are computed in
+// place and the unit writes the gain.  With several tiles the last unit of
+// an agent to finish (an arrival counter after a __threadfence, as in
+// family_stats_kernel) reads the agent's T projections back and redoes
+// the same chains: one thread a class, rows in order, then the classes in
+// warp order.  Either way proj_t, sum_t proj_t^2, ||g||^2 and the gain are
+// the bits of the one-block-per-agent pass at any bt, alone or in any
+// batch.
+// ---------------------------------------------------------------------------
+
+// ||g||^2 in the vector pass's order: lane l's columns (l + 32 c) V ..
+// + V - 1 ascending, then the warp's butterfly (every lane gets it).
 template <typename T>
-__device__ float2 projection_sq_vec(const T* __restrict__ phi,
-                                    const T* __restrict__ g, int rows, int n,
-                                    float* __restrict__ proj, float* red) {
+__device__ float vec_sq_norm(const T* __restrict__ g, int n) {
   constexpr int V = Vec16<T>::kN;
-  constexpr int kHeld = 32 * V * kHeldVecs;   // columns of g in registers
+  const int lane = threadIdx.x & 31;
+  float g2 = 0.f;
+#pragma unroll 8
+  for (int col = lane * V; col < n; col += 32 * V) {
+    float x[V];
+    Vec16<T>::widen(load_cached(g + col), x);
+#pragma unroll
+    for (int i = 0; i < V; ++i) g2 = fmaf(x[i], x[i], g2);
+  }
+  return warp_sum(g2);
+}
+
+// The vector pass over a unit's rows: step t0 .. t0 + kRowsInFlight - 1
+// goes to warp (t0 / kRowsInFlight) % kWarps.  Columns go in chunks of
+// kHeld = 32 V kHeldVecs: lane l's vectors l + 32 c of the first chunk of g
+// stay in registers for every step; a later chunk's are loaded again with
+// each step (from L1).  Inside a chunk every row's loads of the step are
+// issued together, so kRowsInFlight kHeldVecs 16-byte loads stay in flight
+// however wide the row.  A row's sum runs over the lane's columns in
+// ascending order, then one butterfly; lanes 0..7 store a step's
+// projections (32 contiguous bytes).  Returns the warp's fmaf chain of
+// squared projections in row order.
+template <typename T>
+__device__ float vec_rows(const T* __restrict__ phi, const T* __restrict__ g,
+                          int rows, int n, float* __restrict__ proj) {
+  constexpr int V = Vec16<T>::kN;
+  constexpr int kHeld = 32 * V * kHeldVecs;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float gr[kHeldVecs][V];
-  float g2 = 0.f;
 #pragma unroll
   for (int c = 0; c < kHeldVecs; ++c) {
     const int col = (lane + 32 * c) * V;
@@ -303,16 +350,7 @@ __device__ float2 projection_sq_vec(const T* __restrict__ phi,
 #pragma unroll
       for (int i = 0; i < V; ++i) gr[c][i] = 0.f;
     }
-#pragma unroll
-    for (int i = 0; i < V; ++i) g2 = fmaf(gr[c][i], gr[c][i], g2);
   }
-  for (int col = kHeld + lane * V; col < n; col += 32 * V) {
-    float x[V];
-    Vec16<T>::widen(load_cached(g + col), x);
-#pragma unroll
-    for (int i = 0; i < V; ++i) g2 = fmaf(x[i], x[i], g2);
-  }
-
   float sq = 0.f;
   for (int t0 = warp * kRowsInFlight; t0 < rows;
        t0 += kWarps * kRowsInFlight) {
@@ -332,17 +370,36 @@ __device__ float2 projection_sq_vec(const T* __restrict__ phi,
           for (int i = 0; i < V; ++i) acc[r] = fmaf(x[i], gr[c][i], acc[r]);
         }
       }
-      for (int col = kHeld + lane * V; col < n; col += 32 * V) {
-        float x[V], y[V];
-        Vec16<T>::widen(load_stream(row + col), x);
-        Vec16<T>::widen(load_cached(g + col), y);
+    }
+    for (int c0 = kHeld; c0 < n; c0 += kHeld) {
+      float gc[kHeldVecs][V];
 #pragma unroll
-        for (int i = 0; i < V; ++i) acc[r] = fmaf(x[i], y[i], acc[r]);
+      for (int c = 0; c < kHeldVecs; ++c) {
+        const int col = c0 + (lane + 32 * c) * V;
+        if (col < n) {
+          Vec16<T>::widen(load_cached(g + col), gc[c]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < V; ++i) gc[c][i] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kRowsInFlight; ++r) {
+        const T* row = phi + (size_t)min(t0 + r, rows - 1) * n;
+#pragma unroll
+        for (int c = 0; c < kHeldVecs; ++c) {
+          const int col = c0 + (lane + 32 * c) * V;
+          if (col < n) {
+            float x[V];
+            Vec16<T>::widen(load_stream(row + col), x);
+#pragma unroll
+            for (int i = 0; i < V; ++i) acc[r] = fmaf(x[i], gc[c][i], acc[r]);
+          }
+        }
       }
     }
 #pragma unroll
     for (int r = 0; r < kRowsInFlight; ++r) acc[r] = warp_sum(acc[r]);
-    // lanes 0..7 store the group's consecutive rows (32 contiguous bytes)
     float mine = acc[0];
 #pragma unroll
     for (int r = 1; r < kRowsInFlight; ++r)
@@ -353,58 +410,260 @@ __device__ float2 projection_sq_vec(const T* __restrict__ phi,
     for (int r = 0; r < kRowsInFlight; ++r)
       if (t0 + r < rows) sq = fmaf(acc[r], acc[r], sq);
   }
-  return make_float2(block_sum_of_warps(sq, red), warp_sum(g2));
+  return sq;
 }
 
-// ---------------------------------------------------------------------------
-// gain_matvec / practical_gain: one block per agent, through the generic
-// pass (ragged n) or the vector pass.
-// ---------------------------------------------------------------------------
-template <typename T, bool kVector>
+// The vector pass over a tile of rows wider than one chunk of vec_rows
+// (n > 32 V kHeldVecs), for units of several tiles, whose order does not
+// depend on how a unit's rows meet its warps (the fold redoes the one-tile
+// sum): steps of kTileRows consecutive rows, step s to warp s % kWarps,
+// columns in chunks of 32 V kTileVecs, a chunk's loads of g and of every
+// row issued before its sums, so twice vec_rows' steps a tile run at once
+// with as many loads in flight each.  A row's sum runs over the lane's
+// columns in ascending order, as in vec_rows, then one butterfly.
+template <typename T>
+__device__ void vec_tile_rows(const T* __restrict__ phi,
+                              const T* __restrict__ g, int rows, int n,
+                              float* __restrict__ proj) {
+  constexpr int V = Vec16<T>::kN;
+  constexpr int kChunk = 32 * V * kTileVecs;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int t0 = warp * kTileRows; t0 < rows; t0 += kWarps * kTileRows) {
+    float acc[kTileRows];
+#pragma unroll
+    for (int r = 0; r < kTileRows; ++r) acc[r] = 0.f;
+    for (int c0 = 0; c0 < n; c0 += kChunk) {
+      uint4 gv[kTileVecs], xv[kTileRows][kTileVecs];
+#pragma unroll
+      for (int c = 0; c < kTileVecs; ++c) {
+        const int col = c0 + (lane + 32 * c) * V;
+        gv[c] = col < n ? load_cached(g + col) : zero;
+      }
+#pragma unroll
+      for (int r = 0; r < kTileRows; ++r) {
+        // a row past the end repeats the last row; its sum is not stored
+        const T* row = phi + (size_t)min(t0 + r, rows - 1) * n;
+#pragma unroll
+        for (int c = 0; c < kTileVecs; ++c) {
+          const int col = c0 + (lane + 32 * c) * V;
+          xv[r][c] = col < n ? load_stream(row + col) : zero;
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < kTileVecs; ++c) {
+        if (c0 + (lane + 32 * c) * V < n) {
+          float y[V];
+          Vec16<T>::widen(gv[c], y);
+#pragma unroll
+          for (int r = 0; r < kTileRows; ++r) {
+            float x[V];
+            Vec16<T>::widen(xv[r][c], x);
+#pragma unroll
+            for (int i = 0; i < V; ++i) acc[r] = fmaf(x[i], y[i], acc[r]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kTileRows; ++r) acc[r] = warp_sum(acc[r]);
+    float mine = acc[0];
+#pragma unroll
+    for (int r = 1; r < kTileRows; ++r)
+      if (lane == r) mine = acc[r];
+    if (proj != nullptr && lane < kTileRows && t0 + lane < rows)
+      proj[t0 + lane] = mine;
+  }
+}
+
+// The generic pass (any n, any alignment) over a unit's rows: warp w takes
+// rows w, w + kWarps, ..., kRowsInFlight of them at a time, each lane
+// loading g[j] once for all of them.  A row's sum runs over j = lane,
+// lane + 32, ... in order, then one butterfly.  Returns the warp's fmaf
+// chain of squared projections in row order.
+template <typename T>
+__device__ float scalar_rows(const T* __restrict__ phi,
+                             const T* __restrict__ g, int rows, int n,
+                             float* __restrict__ proj) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float sq = 0.f;
+  for (int s0 = warp; s0 < rows; s0 += kWarps * kRowsInFlight) {
+    float acc[kRowsInFlight];
+#pragma unroll
+    for (int r = 0; r < kRowsInFlight; ++r) acc[r] = 0.f;
+    for (int j = lane; j < n; j += 32) {
+      const float gj = to_f32(g[j]);
+#pragma unroll
+      for (int r = 0; r < kRowsInFlight; ++r) {
+        // a row past the end repeats the last row; its sum is dropped below
+        const int t = min(s0 + kWarps * r, rows - 1);
+        acc[r] = fmaf(to_f32(phi[(size_t)t * n + j]), gj, acc[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRowsInFlight; ++r) {
+      const float p = warp_sum(acc[r]);
+      const int t = s0 + kWarps * r;
+      if (t < rows) {
+        if (proj != nullptr && lane == 0) proj[t] = p;
+        sq = fmaf(p, p, sq);
+      }
+    }
+  }
+  return sq;
+}
+
+// The fold of an agent's several tiles, by its last unit: {sum_t proj_t^2,
+// ||g||^2} in the one-tile order.  Thread w < kWarps chains class w's rows
+// in order (steps of S rows, step s of class s % kWarps), then thread 0
+// adds the classes in warp order.  The projections are staged kFoldRows
+// at a time (stage: dynamic shared memory), a multiple of the classes'
+// period, so every stage starts at class 0.  ||g||^2 is the vector pass's
+// (warp 1, beside the chains of warp 0) or the generic pass's sq_norm.
+template <typename T, int S, bool kVector>
+__device__ float2 fold(const float* __restrict__ src,
+                       const T* __restrict__ g, int rows, int n,
+                       float* stage, float* red) {
+  static_assert(kFoldRows % (kWarps * S) == 0, "a stage starts a period");
+  const int warp = threadIdx.x >> 5;
+  float sq = 0.f, gg = 0.f;
+  for (int c0 = 0; c0 < rows; c0 += kFoldRows) {
+    const int nr = min(kFoldRows, rows - c0);
+    __syncthreads();   // the previous stage is consumed
+#pragma unroll (kFoldRows / kThreads)
+    for (int i = threadIdx.x; i < nr; i += kThreads)
+      stage[i] = __ldcg(src + c0 + i);
+    __syncthreads();
+    if (threadIdx.x < kWarps) {
+#pragma unroll (32 / S)
+      for (int t0 = threadIdx.x * S; t0 < nr; t0 += kWarps * S) {
+#pragma unroll
+        for (int r = 0; r < S; ++r)
+          if (t0 + r < nr) sq = fmaf(stage[t0 + r], stage[t0 + r], sq);
+      }
+    }
+    if constexpr (kVector) {
+      if (warp == 1 && c0 == 0) gg = vec_sq_norm<T>(g, n);
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < kWarps) red[threadIdx.x] = sq;
+  if (kVector && threadIdx.x == 32) red[kWarps + 1] = gg;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = red[0];
+    for (int i = 1; i < kWarps; ++i) s = __fadd_rn(s, red[i]);
+    red[kWarps] = s;
+  }
+  __syncthreads();
+  const float sp = red[kWarps];
+  if constexpr (kVector)
+    gg = red[kWarps + 1];
+  else
+    gg = sq_norm<T>(g, n, red);
+  return make_float2(sp, gg);
+}
+
+// kPass: 0 the generic pass, 1 the vector pass (vec_rows), 2 the vector
+// pass over rows wider than a vec_rows chunk in several tiles
+// (vec_tile_rows).  proj and gain may each be null (not asked for).
+// scratch: with several tiles and a gain, agents * rows floats of
+// projections when proj is null, then one arrival counter per agent
+// (zeroed by launch_matvec); with several tiles and a gain the launch
+// takes kFoldRows floats of dynamic shared memory (fewer for fewer rows).
+template <typename T, int kPass>
 __global__ void __launch_bounds__(kThreads)
 matvec_gain_kernel(const T* __restrict__ phi, const T* __restrict__ g,
-                   int rows, int n, float neg_eps, float eps2,
-                   float* __restrict__ proj, float* __restrict__ gain) {
-  __shared__ float red[kWarps + 1];
-  const size_t b = blockIdx.x;
+                   int rows, int n, int bt, int tiles, float neg_eps,
+                   float eps2, float* __restrict__ proj,
+                   float* __restrict__ gain, float* __restrict__ scratch,
+                   unsigned* __restrict__ tickets) {
+  __shared__ float red[kWarps + 2];
+  __shared__ int last;
+  extern __shared__ float fold_stage[];
+  const size_t b = blockIdx.x / tiles;
+  const int tile = blockIdx.x % tiles;
+  const int t0 = tile * bt, trows = max(0, min(bt, rows - t0));
   const T* gb = g + b * n;
-  const T* phib = phi + b * rows * n;
-  float* pb = proj == nullptr ? nullptr : proj + b * rows;
-  float sp, gg;
-  if constexpr (!kVector) {
-    sp = projection_sq(phib, gb, rows, n, pb, red);
-    gg = sq_norm(gb, n, red);
+  float* pb = proj != nullptr ? proj + b * rows
+              : (gain != nullptr && tiles > 1 ? scratch + b * rows : nullptr);
+  const T* tp = phi + (b * rows + t0) * n;
+  float* tproj = pb == nullptr ? nullptr : pb + t0;
+  float sq = 0.f;
+  if constexpr (kPass == 0)
+    sq = scalar_rows<T>(tp, gb, trows, n, tproj);
+  else if constexpr (kPass == 1)
+    sq = vec_rows<T>(tp, gb, trows, n, tproj);
+  else
+    vec_tile_rows<T>(tp, gb, trows, n, tproj);
+  if (gain == nullptr) return;
+  float2 r;
+  if (tiles == 1) {
+    r.x = block_sum_of_warps(sq, red);
+    if constexpr (kPass == 0)
+      r.y = sq_norm<T>(gb, n, red);
+    else
+      r.y = vec_sq_norm<T>(gb, n);
   } else {
-    const float2 r = projection_sq_vec<T>(phib, gb, rows, n, pb, red);
-    sp = r.x;
-    gg = r.y;
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0)
+      last = atomicAdd(tickets + b, 1u) == (unsigned)(tiles - 1);
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    r = fold<T, kPass == 0 ? 1 : kRowsInFlight, kPass != 0>(pb, gb, rows, n,
+                                                           fold_stage, red);
   }
-  if (gain != nullptr && threadIdx.x == 0)
-    gain[b] = __fadd_rn(__fmul_rn(neg_eps, gg),
-                        __fdiv_rn(__fmul_rn(eps2, sp), (float)rows));
+  if (threadIdx.x == 0)
+    gain[b] = __fadd_rn(__fmul_rn(neg_eps, r.y),
+                        __fdiv_rn(__fmul_rn(eps2, r.x), (float)rows));
 }
 
-// The vector pass needs whole 16-byte vectors in every row (n % V == 0)
-// and 16-byte-aligned phi and g; it is refused otherwise.
+// The tiling comes from the wrapper (kernels/gain.py::matvec_geometry) and
+// is refused unless tiles = ceil(rows / bt) (1 for rows = 0).  The vector
+// pass needs whole 16-byte vectors in every row (n % V == 0) and
+// 16-byte-aligned phi and g; it is refused otherwise.
 template <typename T>
 cudaError_t launch_matvec(const void* phi, const void* g, int agents,
-                          int rows, int n, int vector, float neg_eps,
-                          float eps2, void* proj, void* gain,
-                          cudaStream_t s) {
-  const T* ph = static_cast<const T*>(phi);
-  const T* gg = static_cast<const T*>(g);
-  float* pj = static_cast<float*>(proj);
-  float* gn = static_cast<float*>(gain);
-  if (!vector) {
-    matvec_gain_kernel<T, false><<<agents, kThreads, 0, s>>>(
-        ph, gg, rows, n, neg_eps, eps2, pj, gn);
-  } else {
-    if (n % Vec16<T>::kN != 0 || reinterpret_cast<uintptr_t>(phi) % 16 != 0 ||
-        reinterpret_cast<uintptr_t>(g) % 16 != 0)
-      return cudaErrorInvalidValue;
-    matvec_gain_kernel<T, true><<<agents, kThreads, 0, s>>>(
-        ph, gg, rows, n, neg_eps, eps2, pj, gn);
+                          int rows, int n, int vector, int bt, int tiles,
+                          float neg_eps, float eps2, void* proj, void* gain,
+                          void* scratch, cudaStream_t s) {
+  if (bt < 1 || tiles != (rows > 0 ? (rows + bt - 1) / bt : 1))
+    return cudaErrorInvalidValue;
+  if (vector && (n % Vec16<T>::kN != 0 ||
+                 reinterpret_cast<uintptr_t>(phi) % 16 != 0 ||
+                 reinterpret_cast<uintptr_t>(g) % 16 != 0))
+    return cudaErrorInvalidValue;
+  const long long units = (long long)agents * tiles;
+  if (units > 0x7fffffffLL) return cudaErrorInvalidValue;
+  float* sc = static_cast<float*>(scratch);
+  unsigned* tickets = nullptr;
+  if (gain != nullptr && tiles > 1) {
+    if (sc == nullptr) return cudaErrorInvalidValue;
+    tickets = reinterpret_cast<unsigned*>(
+        proj != nullptr ? sc : sc + (size_t)agents * rows);
+    const cudaError_t err =
+        cudaMemsetAsync(tickets, 0, (size_t)agents * sizeof(unsigned), s);
+    if (err != cudaSuccess) return err;
   }
+  const size_t smem =
+      tickets == nullptr ? 0
+                         : (size_t)(rows < kFoldRows ? rows : kFoldRows) * 4;
+#define MATVEC_KERNEL_ARGS                                                  \
+  static_cast<const T*>(phi), static_cast<const T*>(g), rows, n, bt, tiles, \
+      neg_eps, eps2, static_cast<float*>(proj), static_cast<float*>(gain),  \
+      sc, tickets
+  if (!vector)
+    matvec_gain_kernel<T, 0><<<(unsigned)units, kThreads, smem, s>>>(
+        MATVEC_KERNEL_ARGS);
+  else if (tiles > 1 && n > 32 * Vec16<T>::kN * kHeldVecs)
+    matvec_gain_kernel<T, 2><<<(unsigned)units, kThreads, smem, s>>>(
+        MATVEC_KERNEL_ARGS);
+  else
+    matvec_gain_kernel<T, 1><<<(unsigned)units, kThreads, smem, s>>>(
+        MATVEC_KERNEL_ARGS);
+#undef MATVEC_KERNEL_ARGS
   return cudaGetLastError();
 }
 
@@ -908,13 +1167,18 @@ cudaError_t megastep_t(const void* phi, const void* g, int vector,
 extern "C" {
 
 // vector: 1 for the vector pass, 0 for the generic pass
-// (kernels/gain.py::matvec_vector_pass decides).
-int gain_matvec_launch(const void* phi, const void* g, int dtype, int agents,
-                       int rows, int n, double eps, int vector, void* proj,
-                       void* gain, void* stream) {
+// (kernels/gain.py::matvec_vector_pass decides); bt, tiles: rows per T-tile
+// and T-tiles per agent (kernels/gain.py::matvec_geometry); proj, gain:
+// either may be null; scratch: read only for a gain over several tiles
+// (launch_matvec).
+int gain_matvec_tiles_launch(const void* phi, const void* g, int dtype,
+                             int agents, int rows, int n, double eps,
+                             int vector, int bt, int tiles, void* proj,
+                             void* gain, void* scratch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float neg_eps = (float)(-eps), eps2 = (float)(eps * eps);
-#define MATVEC_ARGS phi, g, agents, rows, n, vector, neg_eps, eps2, proj, gain, s
+#define MATVEC_ARGS \
+  phi, g, agents, rows, n, vector, bt, tiles, neg_eps, eps2, proj, gain, scratch, s
   switch (dtype) {
     case 0: return (int)launch_matvec<float>(MATVEC_ARGS);
     case 1: return (int)launch_matvec<__nv_bfloat16>(MATVEC_ARGS);

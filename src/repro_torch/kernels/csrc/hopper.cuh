@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (flash_attention.cu, ssd_scan.cu): mbarriers, TMA loads, cp.async,
+// (flash_wgmma.cuh, ssd_scan.cu): mbarriers, TMA loads, cp.async,
 // wgmma shared-memory descriptors and the wgmma instructions themselves,
 // the fences between them, the 128-byte swizzle that ties the descriptors
-// to the bytes in shared memory, and the split of float32 into bf16 pieces.
+// to the bytes in shared memory, and the split of float32 into bf16 (or
+// float16) pieces.  Every 16-bit element type has bf16's layout: 64
+// columns to a 128-byte atom.
 //
 // Operand layout.  A bf16 operand tile of rows x cols is cols / 64 column
 // blocks ("atoms") of rows x 128 bytes, each atom 1024-byte aligned; inside
@@ -17,8 +19,11 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace hopper {
 
@@ -146,6 +151,18 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "   \
   "%60, %61, %62, %63"
 
+#define WG_D128                                                    \
+  WG_D64, WG_D8(64), WG_D8(72), WG_D8(80), WG_D8(88), WG_D8(96),   \
+      WG_D8(104), WG_D8(112), WG_D8(120)
+#define WG_R128 \
+  WG_R64 \
+  ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, " \
+  "%76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, " \
+  "%88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, " \
+  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, " \
+  "%124, %125, %126, %127"
+
 // d (+)= A B for a 64 x 64 tile, A and B from shared memory, both K-major.
 __device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b,
                                        int accumulate) {
@@ -221,6 +238,72 @@ __device__ __forceinline__ void mma_rs<128>(float (&d)[64], const uint32_t (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// The 16-bit kinds flash attention's tensor-core kernel runs in, bf16 and
+// float16 (flash_wgmma.cuh): the same shapes and operand layouts, the
+// element type a template argument.  mma_ss_t: a 64 x 64 tile, A and B
+// from shared memory, both K-major; mma_rs_t<E, N>: a 64 x N tile (N 64,
+// 128 or 256), A from registers (the m64 accumulator's slice layout) and B
+// from shared memory, MN-major.
+#define HOPPER_MMA_SS64(NAME, TY)                                          \
+  __device__ __forceinline__ void NAME(float(&d)[32], uint64_t a,          \
+                                       uint64_t b, int accumulate) {       \
+    asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"            \
+                 " wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY  \
+                 " {" WG_R32 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"            \
+                 : WG_D32                                                  \
+                 : "l"(a), "l"(b), "r"(accumulate));                       \
+  }
+#define HOPPER_MMA_RS(NAME, TY, N, DN, RN, A0, A1, A2, A3, B, P)          \
+  __device__ __forceinline__ void NAME(float(&d)[N / 2],                  \
+                                       const uint32_t(&a)[4], uint64_t b,  \
+                                       int accumulate) {                   \
+    asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %" P ", 0;\n"        \
+                 " wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." \
+                 TY " {" RN "}, {%" A0 ", %" A1 ", %" A2 ", %" A3 "}, %" B  \
+                 ", p, 1, 1, 1;\n}\n"                                      \
+                 : DN                                                      \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),     \
+                   "r"(accumulate));                                       \
+  }
+HOPPER_MMA_SS64(mma_ss_f16, "f16")
+HOPPER_MMA_RS(mma_rs_f16_64, "f16", 64, WG_D32, WG_R32, "32", "33", "34",
+              "35", "36", "37")
+HOPPER_MMA_RS(mma_rs_f16_128, "f16", 128, WG_D64, WG_R64, "64", "65", "66",
+              "67", "68", "69")
+HOPPER_MMA_RS(mma_rs_f16_256, "f16", 256, WG_D128, WG_R128, "128", "129",
+              "130", "131", "132", "133")
+HOPPER_MMA_RS(mma_rs_bf16_256, "bf16", 256, WG_D128, WG_R128, "128", "129",
+              "130", "131", "132", "133")
+#undef HOPPER_MMA_SS64
+#undef HOPPER_MMA_RS
+
+template <typename E>
+__device__ __forceinline__ void mma_ss_t(float (&d)[32], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  if constexpr (std::is_same<E, __half>::value)
+    mma_ss_f16(d, a, b, accumulate);
+  else
+    mma_ss(d, a, b, accumulate);
+}
+
+template <typename E, int N>
+__device__ __forceinline__ void mma_rs_t(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate) {
+  constexpr bool kF16 = std::is_same<E, __half>::value;
+  if constexpr (N == 64) {
+    if constexpr (kF16) mma_rs_f16_64(d, a, b, accumulate);
+    else mma_rs<64>(d, a, b, accumulate);
+  } else if constexpr (N == 128) {
+    if constexpr (kF16) mma_rs_f16_128(d, a, b, accumulate);
+    else mma_rs<128>(d, a, b, accumulate);
+  } else {
+    static_assert(N == 256, "wgmma widths 64, 128 and 256");
+    if constexpr (kF16) mma_rs_f16_256(d, a, b, accumulate);
+    else mma_rs_bf16_256(d, a, b, accumulate);
+  }
+}
+
 // x0, x1 as K pieces of bf16x2: p[0] = bf16(x), p[k] = bf16(x - p[0] - ...
 // - p[k-1]).  Each remainder is exact in float32, so two pieces carry x to
 // about 16 bits and three to about 24 (float32's own 24).
@@ -234,6 +317,25 @@ __device__ __forceinline__ void split_bf16(float x0, float x1,
     p[k] = *reinterpret_cast<const uint32_t*>(&h);
     x0 -= hf.x;
     x1 -= hf.y;
+  }
+}
+
+// x0, x1 as a hi/lo pair of E x2 (bf16 or float16): p[0] = E(x), p[1] =
+// E(x - p[0]), the remainder exact in float32.
+template <typename E>
+__device__ __forceinline__ void split_pair(float x0, float x1,
+                                           uint32_t (&p)[2]) {
+  if constexpr (std::is_same<E, __half>::value) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const __half2 h = __floats2half2_rn(x0, x1);
+      const float2 hf = __half22float2(h);
+      p[k] = *reinterpret_cast<const uint32_t*>(&h);
+      x0 -= hf.x;
+      x1 -= hf.y;
+    }
+  } else {
+    split_bf16(x0, x1, p);
   }
 }
 

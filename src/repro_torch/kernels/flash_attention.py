@@ -15,23 +15,29 @@ for CUDA tensors it checks them, launches one of its kernels on the current
 stream and raises if the launch failed — it never falls back.  The kernels
 are forward-only (a CUDA input that requires grad raises).
 
-Routing (``route``), by dtype, head dim and alignment:
+Routing (``route``), by dtype, head dim and alignment, never by a failed
+build or launch:
 
-- bf16 with head dim 64, 96 or 128, q, k and v on 16-byte boundaries ->
-  ``flash_wgmma_kernel``: both products on the tensor cores (wgmma), K/V
-  tiles by TMA, P entering P V as a hi/lo pair of bf16 (head dim 96 in
-  tiles padded to 128 columns, the kernel's notes say how).  Counted in
-  ``LAUNCHES["flash_attention_wgmma"]``.
-- float32 or bf16 at head dims 16, 32, 64, 96, 128 otherwise (bf16 off
-  16-byte boundaries included) -> ``flash_kernel``: float32 on CUDA cores,
-  never TF32, the checked float32 route.  Counted in
-  ``LAUNCHES["flash_attention_simt"]``.
-- float16 at those head dims -> ``flash_kernel`` on ``__half`` loads and
-  stores, ``LAUNCHES["flash_attention_f16"]``.
-- any other head dim up to 256, in any of the three dtypes ->
-  ``flash_kernel`` at the next of those widths or 256, the true head dim
-  a run-time argument (loads past it zero-filled, stores skipped),
-  ``LAUNCHES["flash_attention_padded"]``.
+- bf16 or float16 with a head dim that is a multiple of 8 up to 256, q,
+  k and v on 16-byte boundaries -> ``flash_wgmma_kernel``: both products
+  on the tensor cores (wgmma's bf16 or f16 kind), K/V tiles by TMA, P
+  entering P V as a hi/lo pair of the input's type, at a tile width of 64,
+  128 or 256 columns (a head dim between runs the next width, the tensor
+  maps' true d zero-filling the columns past it; the kernel's notes say
+  how).  Counted in ``LAUNCHES["flash_attention_wgmma"]`` for bf16 at head
+  dims 64, 96 and 128 (the main paths'), ``["flash_attention_wgmma_f16"]``
+  for float16 and ``["flash_attention_wgmma_padded"]`` for bf16 at any
+  other head dim.
+- float32 at head dims 16, 32, 64, 96, 128, and bf16 there off 16-byte
+  boundaries -> ``flash_kernel``: float32 on CUDA cores, never TF32, the
+  checked float32 route.  Counted in ``LAUNCHES["flash_attention_simt"]``.
+- float16 at those head dims off 16-byte boundaries -> ``flash_kernel`` on
+  ``__half`` loads and stores, ``LAUNCHES["flash_attention_f16"]``.
+- any other head dim up to 256 that the tensor cores do not take (float32,
+  16-bit off 16-byte boundaries, 16-bit at a head dim that is not a
+  multiple of 8) -> ``flash_kernel`` at the next of those widths or 256,
+  the true head dim a run-time argument (loads past it zero-filled, stores
+  skipped), ``LAUNCHES["flash_attention_padded"]``.
 - head dims above 256 -> ``flash_wide_kernel``: the output columns split
   over blocks of 128, each recomputing the scores over d in chunks,
   ``LAUNCHES["flash_attention_wide"]``.
@@ -62,17 +68,21 @@ class Route(NamedTuple):
 
 
 WGMMA = Route("flash_wgmma_kernel", "flash_attention_wgmma")
+WGMMA_F16 = Route("flash_wgmma_kernel", "flash_attention_wgmma_f16")
+WGMMA_PADDED = Route("flash_wgmma_kernel", "flash_attention_wgmma_padded")
 SIMT = Route("flash_kernel", "flash_attention_simt")
 F16 = Route("flash_kernel", "flash_attention_f16")
 PADDED = Route("flash_kernel", "flash_attention_padded")
 WIDE = Route("flash_wide_kernel", "flash_attention_wide")
-ROUTES = (WGMMA, SIMT, F16, PADDED, WIDE)
+ROUTES = (WGMMA, WGMMA_F16, WGMMA_PADDED, SIMT, F16, PADDED, WIDE)
+TENSOR_CORE_ROUTES = (WGMMA, WGMMA_F16, WGMMA_PADDED)
 LAUNCHES = {r.counter: 0 for r in ROUTES}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (16, 32, 64, 96, 128)   # flash_kernel's own widths
-WGMMA_HEAD_DIMS = (64, 96, 128)
-MAX_PADDED = 256                    # widest flash_kernel (kMaxWidth)
+WGMMA_HEAD_DIMS = (64, 96, 128)     # the main paths' tensor-core head dims
+MAX_PADDED = 256                    # widest flash_kernel and flash_wgmma_kernel
+WGMMA_DIM_STEP = 8                  # a TMA row stride: 16 bytes of 16-bit
 
 
 def reset_launches() -> None:
@@ -85,13 +95,14 @@ def route(dtype: torch.dtype, head_dim: int, aligned: bool = True) -> Route:
     launches (``aligned``: all three start on 16-byte boundaries)."""
     if head_dim > MAX_PADDED:
         return WIDE
+    if (dtype in (torch.bfloat16, torch.float16) and aligned
+            and head_dim % WGMMA_DIM_STEP == 0):
+        if dtype == torch.float16:
+            return WGMMA_F16
+        return WGMMA if head_dim in WGMMA_HEAD_DIMS else WGMMA_PADDED
     if head_dim not in HEAD_DIMS:
         return PADDED
-    if dtype == torch.float16:
-        return F16
-    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS and aligned:
-        return WGMMA
-    return SIMT
+    return F16 if dtype == torch.float16 else SIMT
 
 
 def compute_dtype(q: torch.Tensor, k: torch.Tensor,
@@ -141,10 +152,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not out.numel():
         return out
     LAUNCHES[r.counter] += 1
-    if r is WGMMA:
-        check(_build.load().flash_attention_wgmma_launch(
-            ptr(q), ptr(k), ptr(v), B, Lq, Lk, H, KVH, D, int(causal),
-            int(window), ptr(out), stream(q)), "flash_attention (wgmma)")
+    if r in TENSOR_CORE_ROUTES:
+        lib = _build.load()
+        launch = (lib.flash_attention_wgmma_f16_launch if r is WGMMA_F16
+                  else lib.flash_attention_wgmma_launch)
+        check(launch(ptr(q), ptr(k), ptr(v), B, Lq, Lk, H, KVH, D,
+                     int(causal), int(window), ptr(out), stream(q)),
+              f"flash_attention (wgmma, {r.counter})")
     else:
         check(_build.load().flash_attention_launch(
             ptr(q), ptr(k), ptr(v), _DTYPES[q.dtype], B, Lq, Lk, H, KVH, D,

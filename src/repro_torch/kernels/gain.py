@@ -21,17 +21,20 @@ take the leading batch (run) axis directly, and one call is one launch over
 every agent of every run.
 
 ``gain_family_stats`` and ``megastep_call`` take the family kernel's
-run-time tiling as the Pallas entries take theirs: a per-call ``block_m`` /
-``block_t`` beats ``REPRO_TORCH_KERNEL_BLOCKS`` (``name=int,...``; the
-port's own variable, so the two packages' tunings never cross), which
-beats the default.  The names are the reference's where the meaning is the
-same: ``block_m`` (agents per block of ``gain_family_stats``),
-``megastep_block_m`` (of ``megastep_call``) and ``family_block_t`` (rows
-per T-tile, both).  The reference's ``block_t``, ``block_n`` and
-``family_block_n`` have no run-time counterpart here and are refused like
-any unknown name; the kernels' other launch shapes are compiled in.  The
-blocks are resolved and checked before the CPU branch, so the plain path
-holds the same contract.
+run-time tiling as the Pallas entries take theirs, and ``gain_matvec`` /
+``practical_gain`` their T-tile: a per-call ``block_m`` / ``block_t``
+beats ``REPRO_TORCH_KERNEL_BLOCKS`` (``name=int,...``; the port's own
+variable, so the two packages' tunings never cross), which beats the
+default.  The names are the reference's where the meaning is the same:
+``block_t`` (rows per T-tile of ``gain_matvec``; default: a tile of about
+``MATVEC_TILE_BYTES`` of phi, ``matvec_geometry``), ``block_m`` (agents
+per block of ``gain_family_stats``), ``megastep_block_m`` (of
+``megastep_call``) and ``family_block_t`` (rows per T-tile, both).  The
+reference's ``block_n`` and ``family_block_n`` have no counterpart here (a
+row's dot product is never split) and are refused like any unknown name;
+the kernels' other launch shapes are compiled in.  No tiling moves a bit
+of any output.  The blocks are resolved and checked before the CPU
+branch, so the plain path holds the same contract.
 """
 
 from __future__ import annotations
@@ -78,11 +81,21 @@ FAMILY_BLOCK_T = 64
 # in; the launcher refuses another chunk count)
 QUAD_ROWS = 64
 
+# gain_matvec's default T-tile: rows of about this many bytes of phi, in
+# steps of MATVEC_ROW_STEP rows (csrc/gain.cu kRowsInFlight), at least one
+# step.  On the H100 128 KiB was within the spread of the fastest block_t
+# at each of tools/matvec_block_t.py's shapes (the kernel suite's one
+# agent: 256 tiles of 16 rows), 256 KiB slower at 64 x 1024 x 512 float16,
+# and it keeps wide-192's agents (128 x 256 float32) at one tile (PERF.md
+# section 6).
+MATVEC_TILE_BYTES = 128 * 1024
+MATVEC_ROW_STEP = 8
+
 BLOCKS_ENV = "REPRO_TORCH_KERNEL_BLOCKS"
 
 # every block parameter _block() can resolve; an env override naming
 # anything else is a typo that would otherwise silently do nothing
-KNOWN_BLOCKS = ("block_m", "family_block_t", "megastep_block_m")
+KNOWN_BLOCKS = ("block_m", "block_t", "family_block_t", "megastep_block_m")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -92,6 +105,7 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+@functools.lru_cache(maxsize=64)
 def route(wrapper: str, phi_dtype: torch.dtype, g_dtype: torch.dtype) -> Route:
     """The kernel, launch counter and dtype of a CUDA call of ``wrapper``
     (a key of ``KERNELS``) on phi and g of these dtypes: theirs when they
@@ -106,6 +120,8 @@ def route(wrapper: str, phi_dtype: torch.dtype, g_dtype: torch.dtype) -> Route:
 
 def _cast(r: Route, phi: torch.Tensor, g: torch.Tensor):
     """phi and g in the route's dtype (the same tensors when they are)."""
+    if phi.dtype == g.dtype == r.dtype:
+        return phi, g
     return phi.to(r.dtype), g.to(r.dtype)
 
 
@@ -243,7 +259,49 @@ def matvec_vector_pass(n: int, dtype: torch.dtype, *addresses: int) -> bool:
             and all(a % 16 == 0 for a in addresses))
 
 
-def _matvec_launch(phi, g, eps, want_proj):
+class MatvecGeometry(NamedTuple):
+    """One launch of gain_matvec's kernel: rows per T-tile and T-tiles per
+    agent."""
+    block_t: int
+    tiles: int
+
+
+def matvec_default_block_t(n: int, dtype: torch.dtype) -> int:
+    """Rows of about ``MATVEC_TILE_BYTES`` of phi at row width ``n`` in
+    ``dtype``, in whole steps of ``MATVEC_ROW_STEP`` rows."""
+    rows = MATVEC_TILE_BYTES // max(n * dtype.itemsize, 1)
+    return max(MATVEC_ROW_STEP, rows // MATVEC_ROW_STEP * MATVEC_ROW_STEP)
+
+
+def matvec_geometry(T: int, n: int, dtype: torch.dtype,
+                    block_t: Optional[int] = None) -> MatvecGeometry:
+    """gain_matvec's tiling of rows of T x n in ``dtype`` (the dtype its
+    kernel reads phi in): ``block_t`` per call, else from the env, else
+    ``matvec_default_block_t``.  The outputs' bits do not depend on it."""
+    if block_t is None:
+        return _env_matvec_geometry(T, n, dtype,
+                                    os.environ.get(BLOCKS_ENV, ""))
+    return _matvec_geometry(T, n, dtype, block_t)
+
+
+@functools.lru_cache(maxsize=256)
+def _env_matvec_geometry(T, n, dtype, raw):
+    """``matvec_geometry`` with no per-call override, once per shape and
+    value ``raw`` of the variable (a value that raises is not kept)."""
+    return _matvec_geometry(T, n, dtype, None)
+
+
+def _matvec_geometry(T, n, dtype, block_t):
+    bt = _block("block_t", block_t, matvec_default_block_t(n, dtype))
+    return MatvecGeometry(bt, max(1, -(-T // bt)))
+
+
+def _matvec_dtype(phi: torch.Tensor, g: torch.Tensor) -> torch.dtype:
+    """The dtype gain_matvec's kernel reads phi and g in (``route``'s)."""
+    return phi.dtype if phi.dtype == g.dtype else torch.float32
+
+
+def _matvec_launch(phi, g, eps, want_proj, geo):
     *batch, T, n = phi.shape
     r = route("gain_matvec", phi.dtype, g.dtype)
     _need(phi, "phi", phi.shape, tuple(_DTYPES))
@@ -251,34 +309,45 @@ def _matvec_launch(phi, g, eps, want_proj):
     phi, g = _cast(r, phi, g)
     agents = phi.numel() // max(T * n, 1)
     # the kernel writes only the output asked for
-    proj = gain = None
+    proj = gain = scratch = None
     if want_proj:
-        proj = torch.empty(tuple(batch) + (T,), dtype=torch.float32,
-                           device=phi.device)
+        proj = phi.new_empty(tuple(batch) + (T,), dtype=torch.float32)
     else:
-        gain = torch.empty(tuple(batch), dtype=torch.float32, device=phi.device)
+        gain = phi.new_empty(tuple(batch), dtype=torch.float32)
+        if geo.tiles > 1:
+            # the agents' projections, then a 4-byte arrival counter an
+            # agent, zeroed by the launcher (csrc/gain.cu launch_matvec)
+            scratch = phi.new_empty((agents * (T + 1),), dtype=torch.float32)
     if agents:
         LAUNCHES[r.counter] += 1
         vec = matvec_vector_pass(n, phi.dtype, phi.data_ptr(), g.data_ptr())
-        _check(_build.load().gain_matvec_launch(
+        _check(_build.load().gain_matvec_tiles_launch(
             _ptr(phi), _ptr(g), _DTYPES[phi.dtype], agents, T, n, float(eps),
-            int(vec), _ptr(proj), _ptr(gain), _stream(phi)), "gain_matvec")
+            int(vec), geo.block_t, geo.tiles, _ptr(proj), _ptr(gain),
+            _ptr(scratch), _stream(phi)), "gain_matvec")
     return proj, gain
 
 
-def gain_matvec(phi: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """proj = phi @ g per leading index: phi (..., T, n), g (..., n) -> (..., T)."""
+def gain_matvec(phi: torch.Tensor, g: torch.Tensor, *,
+                block_t: Optional[int] = None) -> torch.Tensor:
+    """proj = phi @ g per leading index: phi (..., T, n), g (..., n) -> (..., T).
+    ``block_t``: rows per T-tile of this launch (module docstring)."""
+    geo = matvec_geometry(phi.shape[-2], phi.shape[-1],
+                          _matvec_dtype(phi, g), block_t)
     if not _on_cuda(phi, g):
         return ref.gain_matvec_ref(phi, g)
-    return _matvec_launch(phi, g, 1.0, True)[0]
+    return _matvec_launch(phi, g, 1.0, True, geo)[0]
 
 
-def practical_gain(phi: torch.Tensor, g: torch.Tensor,
-                   eps: float = 1.0) -> torch.Tensor:
-    """Eq. 15 per leading index: -eps ||g||^2 + eps^2 (1/T) sum_t (phi_t.g)^2."""
+def practical_gain(phi: torch.Tensor, g: torch.Tensor, eps: float = 1.0, *,
+                   block_t: Optional[int] = None) -> torch.Tensor:
+    """Eq. 15 per leading index: -eps ||g||^2 + eps^2 (1/T) sum_t (phi_t.g)^2.
+    ``block_t``: rows per T-tile of this launch (module docstring)."""
+    geo = matvec_geometry(phi.shape[-2], phi.shape[-1],
+                          _matvec_dtype(phi, g), block_t)
     if not _on_cuda(phi, g):
         return ref.practical_gain_ref(phi, g, eps)
-    return _matvec_launch(phi, g, eps, False)[1]
+    return _matvec_launch(phi, g, eps, False, geo)[1]
 
 
 # ---------------------------------------------------------------------------

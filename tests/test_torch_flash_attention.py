@@ -116,6 +116,8 @@ def test_cpu_tensors_never_count_launches(rng):
     _, q = _pair(rng, (1, 8, 2, 16), "f32")
     tflash.flash_attention(q, q, q)
     assert tflash.LAUNCHES == {"flash_attention_wgmma": 0,
+                               "flash_attention_wgmma_f16": 0,
+                               "flash_attention_wgmma_padded": 0,
                                "flash_attention_simt": 0,
                                "flash_attention_f16": 0,
                                "flash_attention_padded": 0,
@@ -133,16 +135,19 @@ def test_non_cpu_tensors_raise_instead_of_falling_back():
 WGMMA_CASES = [c for c in CASES if c["D"] in tflash.WGMMA_HEAD_DIMS]
 
 
-def _emulate_wgmma(q, k, v, *, causal, window, split=True, block_k=64):
+def _emulate_wgmma(q, k, v, *, causal, window, split=True, block_k=64,
+                   elem=torch.bfloat16):
     """float32 output of flash_wgmma_kernel's arithmetic before its final
-    rounding to bf16; q, k, v hold bf16 values (as any float dtype); q
-    (B, Lq, H, D), k and v (B, Lk, KVH, D)."""
+    rounding to ``elem`` (bf16, or float16 for its f16 kind); q, k, v hold
+    ``elem`` values (as any float dtype); q (B, Lq, H, D), k and v (B, Lk,
+    KVH, D).  Any head dim: the kernel's columns past D are zeros, which
+    add exact zeros to the scores and are never stored."""
     B, Lq, H, D = q.shape
     Lk = k.shape[1]
     rep = H // k.shape[2]
-    k = k.repeat_interleave(rep, dim=2).bfloat16().float()
-    v = v.repeat_interleave(rep, dim=2).bfloat16().float()
-    q = q.bfloat16().float()
+    k = k.repeat_interleave(rep, dim=2).to(elem).float()
+    v = v.repeat_interleave(rep, dim=2).to(elem).float()
+    q = q.to(elem).float()
     m = torch.full((B, H, Lq, 1), -1e30)
     l = torch.zeros((B, H, Lq, 1))
     acc = torch.zeros((B, H, Lq, D))
@@ -162,8 +167,8 @@ def _emulate_wgmma(q, k, v, *, causal, window, split=True, block_k=64):
         corr = torch.exp2(m - m_new)
         p = torch.exp2(s - m_new)
         l = l * corr + p.sum(-1, keepdim=True)
-        hi = p.bfloat16().float()
-        parts = (hi, (p - hi).bfloat16().float()) if split else (hi,)
+        hi = p.to(elem).float()
+        parts = (hi, (p - hi).to(elem).float()) if split else (hi,)
         acc = acc * corr
         for part in parts:
             acc = acc + torch.einsum("bhqk,bkhd->bhqd", part, v[:, kv])
@@ -243,12 +248,78 @@ def test_bf16_ulp_check_sees_a_single_bf16_p(rng, case):
     assert ulps[True] <= smoke.FLASH_ULP_LIMIT < ulps[False]
 
 
+# head dims the tensor-core route takes at a padded width (64, 128, 256)
+PADDED_CASES = [dict(B=1, Lq=70, Lk=70, H=4, KVH=2, D=D, causal=True,
+                     window=16 if D == 80 else 0) for D in (8, 48, 80, 200, 256)]
+PADDED_CASES.append(dict(B=1, Lq=40, Lk=90, H=2, KVH=1, D=136, causal=False,
+                         window=0))
+ELEMS = {"bf16": (jnp.bfloat16, torch.bfloat16),
+         "f16": (jnp.float16, torch.float16)}
+
+
+def _elem_case(rng, c, elem):
+    """q, k, v holding ``elem`` values, as float32 (jax, torch) pairs."""
+    out = []
+    for length, h in ((c["Lq"], c["H"]), (c["Lk"], c["KVH"]),
+                      (c["Lk"], c["KVH"])):
+        a = rng.normal(size=(c["B"], length, h, c["D"])).astype(np.float32)
+        j = jnp.asarray(a).astype(ELEMS[elem][0]).astype(jnp.float32)
+        out.append((j, torch.from_numpy(np.array(j))))
+    return out
+
+
+@pytest.mark.parametrize("elem,case", [("bf16", c) for c in PADDED_CASES]
+                         + [("f16", c) for c in WGMMA_CASES + PADDED_CASES],
+                         ids=lambda x: x if isinstance(x, str) else "-".join(
+                             f"{k}{v}" for k, v in x.items()))
+def test_tensor_core_arithmetic_at_every_width_and_kind(rng, elem, case):
+    """The tensor-core route's float16 kind (hi/lo float16 P) and its padded
+    head dims (columns past d zero, scale d^-1/2): the float32 output is
+    within the reference's float32 tolerance on the same inputs, and
+    rounded to the input's type within chip_smoke's ulp limit of it
+    (``f16_ulps`` for float16, ``bf16_ulps`` for bf16)."""
+    smoke = _chip_smoke()
+    c = case
+    pairs = _elem_case(rng, c, elem)
+    kw = dict(causal=c["causal"], window=c["window"])
+    got = _emulate_wgmma(*(t for _, t in pairs), elem=ELEMS[elem][1], **kw)
+    qj, kj, vj = _jax_f32(pairs)
+    want = jref.flash_attention_ref(qj, kj, vj, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-4,
+                               atol=3e-4)
+    ulps = (smoke.f16_ulps if elem == "f16" else smoke.bf16_ulps)(
+        got.to(ELEMS[elem][1]), torch.from_numpy(np.array(want)))
+    assert ulps <= smoke.FLASH_ULP_LIMIT
+
+
+def test_f16_ulps_counts_float16_ulps():
+    """chip_smoke.f16_ulps: one float16 ulp is 2^-10 of the value's binade,
+    2^-24 below 2^-14 (subnormals); bf16_ulps keeps its 2^-7."""
+    smoke = _chip_smoke()
+    want = torch.tensor([[1.0, 1.5, 3.0, 0.75]])
+    one = torch.tensor([[2.0**-10, 2.0**-10, 2.0**-9, 2.0**-11]])
+    assert smoke.f16_ulps(want + one, want) == pytest.approx(1.0)
+    assert smoke.bf16_ulps(want + 2**3 * one, want) == pytest.approx(1.0)
+    tiny = torch.full((1, 4), 2.0**-20)
+    assert smoke.f16_ulps(tiny + 2.0**-24, tiny) == pytest.approx(1.0)
+
+
 @pytest.mark.parametrize("dtype,dim,route", [
     (torch.bfloat16, 64, "WGMMA"), (torch.bfloat16, 96, "WGMMA"),
     (torch.bfloat16, 128, "WGMMA"), (torch.float32, 96, "SIMT"),
-    (torch.bfloat16, 16, "SIMT"), (torch.bfloat16, 32, "SIMT"),
+    (torch.bfloat16, 16, "WGMMA_PADDED"), (torch.bfloat16, 32, "WGMMA_PADDED"),
     (torch.float32, 16, "SIMT"), (torch.float32, 32, "SIMT"),
-    (torch.float32, 64, "SIMT"), (torch.float32, 128, "SIMT")])
+    (torch.float32, 64, "SIMT"), (torch.float32, 128, "SIMT"),
+    (torch.float16, 128, "WGMMA_F16"), (torch.float16, 64, "WGMMA_F16"),
+    (torch.bfloat16, 48, "WGMMA_PADDED"), (torch.float16, 48, "WGMMA_F16"),
+    (torch.bfloat16, 80, "WGMMA_PADDED"), (torch.float16, 80, "WGMMA_F16"),
+    (torch.bfloat16, 200, "WGMMA_PADDED"), (torch.float16, 200, "WGMMA_F16"),
+    (torch.bfloat16, 256, "WGMMA_PADDED"), (torch.float16, 256, "WGMMA_F16"),
+    (torch.bfloat16, 20, "PADDED"), (torch.float16, 20, "PADDED"),
+    (torch.float32, 48, "PADDED"), (torch.float32, 80, "PADDED"),
+    (torch.float32, 200, "PADDED"), (torch.float32, 256, "PADDED"),
+    (torch.bfloat16, 320, "WIDE"), (torch.float16, 320, "WIDE"),
+    (torch.float32, 320, "WIDE")])
 def test_routing_table(dtype, dim, route):
     want = getattr(tflash, route)
     assert tflash.route(dtype, dim) == want
@@ -257,8 +328,33 @@ def test_routing_table(dtype, dim, route):
     assert tflash.cuda_route(q, q[:, :, :2].contiguous(),
                              q[:, :, :2].contiguous()) == want
     assert tflash.WGMMA == ("flash_wgmma_kernel", "flash_attention_wgmma")
+    assert tflash.WGMMA_F16 == ("flash_wgmma_kernel",
+                                "flash_attention_wgmma_f16")
+    assert tflash.WGMMA_PADDED == ("flash_wgmma_kernel",
+                                   "flash_attention_wgmma_padded")
     assert tflash.SIMT == ("flash_kernel", "flash_attention_simt")
     assert set(tflash.LAUNCHES) == {r.counter for r in tflash.ROUTES}
+
+
+@pytest.mark.parametrize("dtype,dim,route", [
+    (torch.bfloat16, 72, "PADDED"), (torch.float16, 72, "PADDED"),
+    (torch.bfloat16, 64, "SIMT"), (torch.float16, 128, "F16"),
+    (torch.float16, 16, "F16"), (torch.bfloat16, 256, "PADDED"),
+    (torch.float32, 72, "PADDED"), (torch.float32, 64, "SIMT")])
+def test_routing_off_16_byte_boundaries(dtype, dim, route):
+    """TMA takes 16-byte-aligned tensors only: 16-bit inputs off a
+    16-byte boundary take flash_kernel at any head dim, float32 its own
+    route there."""
+    want = getattr(tflash, route)
+    assert tflash.route(dtype, dim, aligned=False) == want
+    n = 8 * 4 * dim
+    flat = torch.zeros(n + 1, dtype=dtype)
+    assert flat.data_ptr() % 16 == 0
+    q = flat[1:].view(1, 8, 4, dim)    # one element past the boundary
+    kv = torch.zeros((1, 8, 2, dim), dtype=dtype)
+    assert tflash.cuda_route(q, kv, kv) == want
+    assert tflash.cuda_route(kv, q[:, :, :2].contiguous(), kv) == \
+        tflash.route(dtype, dim)   # a contiguous copy is aligned again
 
 
 def test_cuda_route_refuses_what_the_kernels_do_not_take():
@@ -293,9 +389,11 @@ def test_cuda_route_refuses_what_the_kernels_do_not_take():
                                            dtype=torch.bfloat16),) * 2)
     with pytest.raises(ValueError, match="at least one key"):
         tflash.cuda_route(q, kv[:, :0], kv[:, :0])
-    # mixed dtypes run the float32 route; float16 its own; float64 none
+    # mixed dtypes run the float32 route; float16 the tensor cores' f16
+    # kind; float64 none
     assert tflash.cuda_route(q, kv.float(), kv.float()) == tflash.SIMT
-    assert tflash.cuda_route(q.half(), kv.half(), kv.half()) == tflash.F16
+    assert tflash.cuda_route(q.half(), kv.half(), kv.half()) == \
+        tflash.WGMMA_F16
     with pytest.raises(TypeError, match="dtype"):
         tflash.cuda_route(q.double(), kv.double(), kv.double())
     with pytest.raises(ValueError, match="contiguous"):

@@ -8,11 +8,15 @@ tests/test_kernels.py::test_kernel_blocks_env_override): the same
 the same malformed values raise, and a per-call value beats the env value,
 which beats the default.  Each package reads only its own variable.  The
 port's names are the run-time parameters of its family kernel
-(``block_m``, ``megastep_block_m``, ``family_block_t``); the reference's
-other names are refused.  On CPU tensors the wrappers run their plain
-versions, so a retiled call still equals the Pallas kernel in interpret
-mode at the reference's own tiling, within the 2e-4 scale-normalized
-tolerance of tests/test_torch_kernels.py (decisions exact).
+(``block_m``, ``megastep_block_m``, ``family_block_t``) and of its matvec
+(``block_t``, rows per T-tile: a pure function of T, n, dtype and
+``block_t``, ``matvec_geometry``); the reference's other names
+(``block_n``, ``family_block_n``: a row's dot product is never split) are
+refused.  On CPU tensors the wrappers run their plain versions, so a
+retiled call still equals the Pallas kernel in interpret mode at the
+reference's own tiling, within the 2e-4 scale-normalized tolerance of
+tests/test_torch_kernels.py (decisions exact), and the matvec within
+tests/parity.py's 1e-5.
 """
 
 import zlib
@@ -25,12 +29,13 @@ jax = pytest.importorskip("jax")
 jnp = jax.numpy
 
 from repro.kernels import gain as jk  # noqa: E402
+from parity import WEIGHT_TOL  # noqa: E402
 
 from repro_torch.kernels import gain as tk  # noqa: E402
 
 TOL = 2e-4
-SHARED = ("block_m", "family_block_t", "megastep_block_m")
-REFERENCE_ONLY = ("block_t", "block_n", "family_block_n")
+SHARED = ("block_m", "block_t", "family_block_t", "megastep_block_m")
+REFERENCE_ONLY = ("block_n", "family_block_n")
 
 
 @pytest.fixture(autouse=True)
@@ -53,6 +58,7 @@ def test_names_are_the_shared_run_time_parameters():
 @pytest.mark.parametrize("spec", [
     "", "block_m=2", " family_block_t=16 , megastep_block_m=8",
     "block_m=3,block_m=5", "family_block_t=-4,", ",,block_m= 7 ",
+    "block_t=64", "block_t = 8, family_block_t=32", "block_t=0",
 ])
 def test_same_spec_parses_to_the_same_map(monkeypatch, spec):
     monkeypatch.setenv(jk._BLOCKS_ENV, spec)
@@ -66,6 +72,8 @@ def test_same_spec_parses_to_the_same_map(monkeypatch, spec):
     ("block_m=sixty-four", "sixty-four"),
     ("family_block_t=1.5", "is not an integer"),
     ("megastep_blockm=64", "unknown block name"),
+    ("block_t=2x", "is not an integer"),
+    ("block_t", "name=int"),
 ])
 def test_same_malformed_spec_raises(monkeypatch, spec, match):
     monkeypatch.setenv(jk._BLOCKS_ENV, spec)
@@ -138,19 +146,30 @@ def test_blocks_are_checked_before_the_cpu_branch(monkeypatch, call):
     bad = [dict(block_t=0), dict(block_m=-1), dict(block_m="4")]
     if call == "env":
         for spec in ("family_block_t=0", "megastep_block_m=-2",
-                     "family_block_t=x", "block_t=4"):
+                     "family_block_t=x", "block_n=4", "block_t=0",
+                     "block_t=-3"):
             monkeypatch.setenv(tk.BLOCKS_ENV, spec)
             with pytest.raises(ValueError):
                 if spec.startswith("megastep"):
                     tk.megastep_call(phi, g, w, ctl, ar, eps=0.1)
+                elif spec.startswith("block_t"):
+                    tk.gain_matvec(phi, g)
                 else:
                     tk.gain_family_stats(phi, g)
+            if spec.startswith("block_t"):
+                with pytest.raises(ValueError):
+                    tk.practical_gain(phi, g)
         return
     for kw in bad:
         with pytest.raises(ValueError):
             tk.gain_family_stats(phi, g, **kw)
         with pytest.raises(ValueError):
             tk.megastep_call(phi, g, w, ctl, ar, eps=0.1, **kw)
+    for bt in (0, -1, "4", 2.0):
+        with pytest.raises(ValueError):
+            tk.gain_matvec(phi, g, block_t=bt)
+        with pytest.raises(ValueError):
+            tk.practical_gain(phi, g, block_t=bt)
 
 
 def _jt(rng, shape):
@@ -201,3 +220,74 @@ def test_retiled_megastep_equals_the_interpret_kernel(monkeypatch, rng):
         np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
         _close(got[0], want[0])
         _close(got[2], want[2])
+
+
+# ---------------------------------------------------------------------------
+# gain_matvec's T-tile (block_t)
+# ---------------------------------------------------------------------------
+
+
+def test_matvec_precedence_per_call_then_env_then_default(monkeypatch):
+    geo = tk.matvec_geometry
+    default = tk.matvec_default_block_t(2048, torch.float32)
+    assert geo(4096, 2048, torch.float32).block_t == default
+    monkeypatch.setenv(tk.BLOCKS_ENV, "block_t=100,family_block_t=16")
+    assert geo(4096, 2048, torch.float32) == (100, 41)
+    assert geo(4096, 2048, torch.float32, 512) == (512, 8)
+    # block_t is the matvec's alone: the family kernel reads family_block_t
+    assert tk.family_geometry(4096, 2048, False).block_t == 16
+    monkeypatch.setenv(tk.BLOCKS_ENV, "family_block_t=16")
+    assert geo(4096, 2048, torch.float32).block_t == default
+    # the reference's own precedence, for comparison
+    monkeypatch.setenv(jk._BLOCKS_ENV, "block_t=64")
+    assert jk._block("block_t", None, jk.BLOCK_T) == 64
+    assert jk._block("block_t", 32, jk.BLOCK_T) == 32
+
+
+@pytest.mark.parametrize("T,n,dtype,bt,want", [
+    (4096, 2048, torch.float32, None, (16, 256)),
+    (4096, 2048, torch.float16, None, (32, 128)),
+    (4096, 2048, torch.bfloat16, None, (32, 128)),
+    (1024, 512, torch.float16, None, (128, 8)),
+    (4097, 1030, torch.float32, None, (24, 171)),
+    (128, 256, torch.float32, None, (128, 1)),
+    (1000, 6, torch.float32, None, (5456, 1)),
+    (8, 10, torch.float32, None, (3272, 1)),
+    (0, 10, torch.float32, None, (3272, 1)),
+    (4096, 2048, torch.float32, 4096, (4096, 1)),
+    (4097, 1030, torch.float32, 200, (200, 21)),
+    (37, 23, torch.float32, 5, (5, 8)),
+    (37, 23, torch.float64, None, (712, 1)),
+])
+def test_matvec_geometry(T, n, dtype, bt, want):
+    """The tiling is a pure function of (T, n, dtype, block_t): by default
+    rows of about MATVEC_TILE_BYTES of phi in whole steps of
+    MATVEC_ROW_STEP rows, so a sweep's agents (T <= 128) keep one tile."""
+    g = tk.matvec_geometry(T, n, dtype, bt)
+    assert tuple(g) == want
+    assert g.tiles * g.block_t >= T and (g.tiles - 1) * g.block_t < max(T, 1)
+    if bt is None:
+        assert g.block_t % tk.MATVEC_ROW_STEP == 0
+        assert g.block_t * n * dtype.itemsize <= max(
+            tk.MATVEC_TILE_BYTES, tk.MATVEC_ROW_STEP * n * dtype.itemsize)
+    assert tk.matvec_geometry(T, n, dtype, bt) == g
+
+
+@pytest.mark.parametrize("bt", [48, 128])
+def test_tiled_matvec_equals_the_interpret_kernel(monkeypatch, rng, bt):
+    """gain_matvec and practical_gain on seeded inputs at two block_t
+    values, per call and through the env, against the Pallas kernel in
+    interpret mode at the same T-tile (the reference's practical_gain at
+    its own), within tests/parity.py's WEIGHT_TOL of |want| + 1."""
+    T, n = 300, 40
+    jphi, tphi = _jt(rng, (T, n))
+    jg, tg = _jt(rng, (n,))
+    want = jk.gain_matvec(jphi, jg, interpret=True, block_t=bt, block_n=16)
+    want_gain = jk.practical_gain(jphi, jg, 0.5, interpret=True)
+    _close(tk.gain_matvec(tphi, tg, block_t=bt), want, WEIGHT_TOL)
+    _close(tk.practical_gain(tphi, tg, 0.5, block_t=bt), want_gain,
+           WEIGHT_TOL)
+    monkeypatch.setenv(tk.BLOCKS_ENV, f"block_t={bt}")
+    assert tk.matvec_geometry(T, n, tphi.dtype).block_t == bt
+    _close(tk.gain_matvec(tphi, tg), want, WEIGHT_TOL)
+    _close(tk.practical_gain(tphi, tg, 0.5), want_gain, WEIGHT_TOL)

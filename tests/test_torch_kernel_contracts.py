@@ -129,11 +129,11 @@ def _aligned_pair(D, dtype, offset):
 @pytest.mark.parametrize("dtype,D,offset,route", [
     (torch.bfloat16, 64, 0, "WGMMA"), (torch.bfloat16, 64, 1, "SIMT"),
     (torch.bfloat16, 128, 2, "SIMT"), (torch.bfloat16, 96, 0, "WGMMA"),
-    (torch.float16, 64, 0, "F16"), (torch.float16, 128, 1, "F16"),
-    (torch.float16, 16, 0, "F16"), (torch.float32, 128, 1, "SIMT"),
-    (torch.float32, 40, 0, "PADDED"), (torch.bfloat16, 80, 0, "PADDED"),
-    (torch.float16, 1, 0, "PADDED"), (torch.float16, 200, 0, "PADDED"),
-    (torch.bfloat16, 256, 0, "PADDED"), (torch.float32, 257, 0, "WIDE"),
+    (torch.float16, 64, 0, "WGMMA_F16"), (torch.float16, 128, 1, "F16"),
+    (torch.float16, 16, 0, "WGMMA_F16"), (torch.float32, 128, 1, "SIMT"),
+    (torch.float32, 40, 0, "PADDED"), (torch.bfloat16, 80, 0, "WGMMA_PADDED"),
+    (torch.float16, 1, 0, "PADDED"), (torch.float16, 200, 0, "WGMMA_F16"),
+    (torch.bfloat16, 256, 0, "WGMMA_PADDED"), (torch.float32, 257, 0, "WIDE"),
     (torch.float32, 320, 0, "WIDE"), (torch.bfloat16, 512, 0, "WIDE")])
 def test_flash_route_table(dtype, D, offset, route):
     q, k, v = _aligned_pair(D, dtype, offset)
@@ -384,9 +384,9 @@ def test_every_probe_input_is_taken():
     """Flash d 40 float16, d 320 float32, d 80 bf16; the SSD tile at Q
     256, N 192, P 6 with float16 B and C, and its pass; float16 phi with
     float32 g: each has a route."""
-    for D, dt, want in ((40, torch.float16, tflash.PADDED),
+    for D, dt, want in ((40, torch.float16, tflash.WGMMA_F16),
                         (320, torch.float32, tflash.WIDE),
-                        (80, torch.bfloat16, tflash.PADDED)):
+                        (80, torch.bfloat16, tflash.WGMMA_PADDED)):
         q = torch.zeros((1, 16, 4, D), dtype=dt)
         assert tflash.cuda_route(q, q[:, :, :2].contiguous(),
                                  q[:, :, :2].contiguous()) == want

@@ -4,8 +4,9 @@
 ``flash_wgmma_kernel`` multiplies P by V as a hi/lo pair of bf16 (O +=
 P_hi V + P_lo V), which keeps P to about 16 bits at 1.5x the tensor-core
 products of a single bf16 P.  This script builds a copy of
-``csrc/flash_attention.cu`` whose P V drops the P_lo product (a single
-bf16 P, as FA2 and FA3 do) into a temporary directory, and holds that
+``csrc/flash_attention.cu`` and ``csrc/flash_contract.cu`` whose
+``csrc/flash_wgmma.cuh`` drops bf16's P_lo product (a single bf16 P, as
+FA2 and FA3 do) into a temporary directory, and holds that
 variant and the package's kernel against the reference computed in float32
 on the same bf16 inputs, under both of chip_smoke.py's checks of the
 tensor-core route: ``bf16_ulps`` (limit ``FLASH_ULP_LIMIT``) and the
@@ -34,23 +35,29 @@ sys.path.insert(0, os.path.join(REPO, "src"))
 
 import chip_smoke as S  # noqa: E402
 
-P_LO_PRODUCT = "      mma_rs<D>(acc, p_lo[kk], bv, 1);\n"
+# bf16's P_lo product (float16 keeps its own, a tile's P V apart)
+P_LO_PRODUCT = "        mma_rs_t<E, W>(acc, p_lo[kk], bv, 1);\n"
 
 
 def build_single_p(tmp):
     """The tensor-core kernel with its P_lo product removed, as a library."""
+    import shutil
+
     from repro_torch.kernels import build
-    src = (build.CSRC / "flash_attention.cu").read_text()
+    src = (build.CSRC / "flash_wgmma.cuh").read_text()
     if src.count(P_LO_PRODUCT) != 1:
-        raise SystemExit("flash_attention.cu: the P_lo product line moved; "
+        raise SystemExit("flash_wgmma.cuh: the P_lo product line moved; "
                          "update P_LO_PRODUCT")
-    cu = os.path.join(tmp, "flash_single_p.cu")
-    with open(cu, "w") as f:
+    with open(os.path.join(tmp, "flash_wgmma.cuh"), "w") as f:
         f.write(src.replace(P_LO_PRODUCT, ""))
+    # the copy of flash_attention.cu includes the edited header beside it
+    # first, hopper.cuh and flash_simt.cuh from the package's csrc/
+    cu = os.path.join(tmp, "flash_attention.cu")
+    shutil.copy(build.CSRC / "flash_attention.cu", cu)
     lib = os.path.join(tmp, "libflash_single_p.so")
-    # the copy includes csrc/hopper.cuh from the package's csrc/
     subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I",
-                    str(build.CSRC), "-shared", "-o", lib, cu], check=True,
+                    str(build.CSRC), "-shared", "-o", lib, cu,
+                    str(build.CSRC / "flash_contract.cu")], check=True,
                    capture_output=True, text=True)
     dll = ctypes.CDLL(lib)
     p, i = ctypes.c_void_p, ctypes.c_int

@@ -11,8 +11,15 @@ trees), and the outputs must be equal bit for bit.  The cases are the main paths
 at ``chip_smoke``'s shapes: flash attention on both routes (the
 reference's cases, Lk != Lq, head dim 96, the yi-6b slice), the SSD tile
 on its three fixed-shape routes (dtx formed on load too), the state pass
-on both, ``ssd_chunked``, and the gain kernels at wide-192's and
-``chip_smoke.FAMILY_TIMED``'s shapes in float32 and bf16.
+on both, ``ssd_chunked``, the gain kernels at wide-192's and
+``chip_smoke.FAMILY_TIMED``'s shapes in float32 and bf16, and
+``gain_matvec`` / ``practical_gain`` at the kernel suite's one agent
+(``chip_smoke.MATVEC_LONG[0]``) in float32 and float16.
+
+A tree whose library has no ``gain_matvec_tiles_launch`` (before the
+matvec took its T-tiles, one block an agent) runs its matvec cases
+through that tree's C entry, ``gain_matvec_launch``, called as that
+tree's wrapper called it (``legacy_matvec``).
 
 Needs one GPU with sm_90a and nvcc.  Run from the repository root:
 
@@ -44,8 +51,47 @@ def other_library(src):
     return mod.build()
 
 
+# gain_matvec_launch's arguments in a tree without the T-tiled entry:
+# phi, g, dtype, agents, T, n, eps, vector, proj, gain, stream
+_LEGACY_MATVEC = ("p", "p", "i", "i", "i", "i", "d", "i", "p", "p", "p")
+
+
+def legacy_matvec(path, phi, g, eps, want_proj):
+    """gain_matvec (``want_proj``) or practical_gain through the
+    one-block-per-agent C entry of the library at ``path``, as its tree's
+    wrapper launched it (same-dtype phi and g)."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import gain as K
+    types = {"p": ctypes.c_void_p, "i": ctypes.c_int, "d": ctypes.c_double}
+    fn = ctypes.CDLL(str(path)).gain_matvec_launch
+    fn.argtypes = [types[c] for c in _LEGACY_MATVEC]
+    fn.restype = ctypes.c_int
+    *batch, T, n = phi.shape
+    agents = phi.numel() // max(T * n, 1)
+    proj = gain = None
+    if want_proj:
+        proj = torch.empty(tuple(batch) + (T,), dtype=torch.float32,
+                           device=phi.device)
+    else:
+        gain = torch.empty(tuple(batch), dtype=torch.float32,
+                           device=phi.device)
+    vec = K.matvec_vector_pass(n, phi.dtype, phi.data_ptr(), g.data_ptr())
+    ptr = lambda t: None if t is None else t.data_ptr()
+    code = fn(ptr(phi), ptr(g), K._DTYPES[phi.dtype], agents, T, n,
+              float(eps), int(vec), ptr(proj), ptr(gain),
+              torch.cuda.current_stream(phi.device).cuda_stream)
+    if code:
+        raise RuntimeError(f"gain_matvec_launch failed: CUDA error {code}")
+    return proj if want_proj else gain
+
+
 def cases(dev):
-    """(label, fn) pairs; fn() runs this tree's wrapper on fixed inputs."""
+    """(label, fn, legacy) triples; fn() runs this tree's wrapper on fixed
+    inputs, legacy(path) the same function through an older library's
+    entry (None where the entries agree)."""
     import torch
 
     import chip_smoke as S
@@ -60,6 +106,8 @@ def cases(dev):
     for c in flash:
         for dt in (torch.float32, torch.bfloat16):
             q, k, v = S._flash_inputs(gen, dev, c, dt)
+            if FA.cuda_route(q, k, v) not in (FA.WGMMA, FA.SIMT):
+                continue   # bf16 at d 16 and 32: a route this tree added
             kw = dict(causal=c["causal"], window=c["window"])
             out.append((f"flash {c} {dt} {FA.cuda_route(q, k, v).kernel}",
                         lambda q=q, k=k, v=v, kw=kw:
@@ -103,9 +151,13 @@ def cases(dev):
         for dt in (torch.float32, torch.bfloat16):
             x = dict(inp, phi=inp["phi"].to(dt), g=inp["g"].to(dt))
             out.append((f"gain_matvec {label} {dt}",
-                        lambda x=x: K.gain_matvec(x["phi"], x["g"])))
+                         lambda x=x: K.gain_matvec(x["phi"], x["g"]),
+                         lambda path, x=x: legacy_matvec(
+                             path, x["phi"], x["g"], 1.0, True)))
             out.append((f"practical_gain {label} {dt}",
-                        lambda x=x: K.practical_gain(x["phi"], x["g"], 0.5)))
+                         lambda x=x: K.practical_gain(x["phi"], x["g"], 0.5),
+                         lambda path, x=x: legacy_matvec(
+                             path, x["phi"], x["g"], 0.5, False)))
             out.append((f"gain_family_stats {label} {dt}",
                         lambda x=x: K.gain_family_stats(
                             x["phi"], x["g"], x["gj"], x["pm"])))
@@ -115,7 +167,19 @@ def cases(dev):
                         lambda x=x: K.megastep_call(
                             x["phi"], x["g"], x["w"], x["ctl"], x["arand"],
                             x["gj"], x["pm"], eps=0.5)))
-    return out
+    T, n = S.MATVEC_LONG[0]
+    for dt in (torch.float32, torch.float16):
+        phi = torch.randn(T, n, generator=dgen, device=dev).to(dt)
+        g = torch.randn(n, generator=dgen, device=dev).to(dt)
+        out.append((f"gain_matvec kernel suite {T}x{n} {dt}",
+                    lambda phi=phi, g=g: K.gain_matvec(phi, g),
+                    lambda path, phi=phi, g=g: legacy_matvec(
+                        path, phi, g, 1.0, True)))
+        out.append((f"practical_gain kernel suite {T}x{n} {dt}",
+                    lambda phi=phi, g=g: K.practical_gain(phi, g, 0.5),
+                    lambda path, phi=phi, g=g: legacy_matvec(
+                        path, phi, g, 0.5, False)))
+    return [c if len(c) == 3 else c + (None,) for c in out]
 
 
 def main(argv=None):
@@ -141,11 +205,11 @@ def main(argv=None):
                       "other_library": str(other),
                       "this_library": str(this)}), flush=True)
     rows, differ = [], 0
-    for label, fn in cases(dev):
+    for label, fn, legacy in cases(dev):
         build.load(this)
         a = fn()
-        build.load(other)
-        b = fn()
+        tiled = hasattr(build.load(other), "gain_matvec_tiles_launch")
+        b = fn() if legacy is None or tiled else legacy(other)
         build.load(this)
         a = a if isinstance(a, tuple) else (a,)
         b = b if isinstance(b, tuple) else (b,)
