@@ -76,7 +76,7 @@ Phases, in order; any failed check exits non-zero and prints no ok line:
    and the float32 route is reported inside the flash record.  The
    tensor-core route is also held within one bf16 ulp of the reference
    computed in float32 (``bf16_ulps``), a check that a single bf16 P
-   fails (``tools/flash_single_p.py``).  The SSD tile has three routes:
+   fails (``tools/flash_copies.py single-p``).  The SSD tile has three routes:
    Q in {64, 128} with N, P in {64, 128} runs ``ssd_chunk_wgmma_kernel``
    (tensor cores; mamba2's main path), the same Q and P at N 16
    ``ssd_chunk_wgmma_n16_kernel`` (tensor cores; jamba's), the reference's
@@ -100,9 +100,12 @@ Phases, in order; any failed check exits non-zero and prints no ok line:
 4b. The reference kernels' whole contracts (``contract_phase``): every
    route that takes what only those contracts ask for, none on a main
    path (each record's ``launches`` must be 0): flash attention in
-   float16 (``flash_kernel<__half>``), at head dims 1-320 on the padded
-   ``flash_kernel`` and past 256 on ``flash_wide_kernel``, and on q, k, v
-   of mixed dtypes; the generic SSD tile and pass (widths past 128,
+   float16 and at other head dims on the tensor cores, on 16-bit inputs
+   TMA cannot read on their loaded route (offsets 1-7, head dims that are
+   not multiples of 8; bitwise equal to TMA's route where both run), in
+   float32 at head dims 1-256 on the padded ``flash_kernel``, past 256 on
+   ``flash_wide_kernel``, and on q, k, v of mixed dtypes; the generic SSD
+   tile and pass (widths past 128,
    ragged P and N, float16 B/C and output, unaligned inputs; each equal
    bitwise to the fixed-shape CUDA-core kernel, and timed beside it, at
    ``SSD_FIXED_VS_GENERIC``); the gain
@@ -2736,13 +2739,17 @@ def _chunked_inputs(gen, dev, c, dt):
 
 
 def bf16_ulps(got, want, mantissa=7, min_exp=-126):
-    """max |got - want| in bf16 ulps of |want| (``want`` in float32).  |want|
-    is floored at 1/16 of its row's rms over the head dim, so an element
-    that cancels to near zero is measured on its row's scale.  With
-    ``mantissa`` and ``min_exp`` another format's ulps (``f16_ulps``)."""
+    """max |got - want| in bf16 ulps of |want| (``want`` in float32, (..., L,
+    heads, d)).  |want| is floored at 1/16 of its row's rms over the head
+    dim, so an element that cancels to near zero is measured on its row's
+    scale.  A row of fewer than 8 elements is too short to give a scale (at
+    d 1 its rms is the element itself), so there the rms is over every row
+    of its head (and batch row).  With ``mantissa`` and ``min_exp`` another
+    format's ulps (``f16_ulps``)."""
     import torch
     want = want.float()
-    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    dims = (-1,) if want.shape[-1] >= 8 or want.dim() < 3 else (-3, -1)
+    rms = want.pow(2).mean(dims, keepdim=True).sqrt()
     scale = torch.maximum(want.abs(), rms / 16).clamp_min(1e-30)
     exp = torch.floor(torch.log2(scale)).clamp_min(min_exp)
     ulp = torch.exp2(exp - mantissa)
@@ -3565,16 +3572,21 @@ FLASH_CONTRACT_MASKS = (dict(L=70, causal=True, window=0),
                         dict(L=70, causal=True, window=16),
                         dict(L=70, Lk=40, causal=False, window=0))
 # published attention shapes on the routes no main path runs: yi-6b's in
-# float16 (32 heads over 4, d 128), phi-2's d 80 (32 heads), gemma-7b's d
-# 256 (16 heads), and d 40 / 320 / 512 at 1 x 512 with 4 heads over 2; the
-# tensor cores take the first four, so yi-6b's float16 and gemma-7b's
-# shape also run off 16-byte boundaries, on flash_kernel (its float16 and
-# padded routes).  (label, shape, dtype, element offset from a 16-byte
-# boundary)
+# float16 (32 heads over 4, d 128), phi-2's d 80 (32 heads, bf16 and
+# float32), gemma-7b's d 256 (16 heads), and d 40 / 320 / 512 at 1 x 512
+# with 4 heads over 2; the tensor cores take the 16-bit ones through TMA,
+# and yi-6b's float16 and gemma-7b's shape also run off 16-byte boundaries
+# on the loaded route, beside a d 100 bf16 slice (1 x 2048, 32 heads: no
+# published config has d 100; a row stride TMA cannot take).  Past 256,
+# d 512 bf16 also at 1 x 8192, 8 heads over 8 (no published config), which
+# gives flash_wide_kernel enough blocks to fill the card.  (label, shape,
+# dtype, element offset from a 16-byte boundary)
 FLASH_CONTRACT_SLICES = (
     ("yi-6b float16", dict(FLASH_SLICE), "float16", 0),
     ("phi-2 d80", dict(B=1, L=2048, H=32, KVH=32, D=80, causal=True,
                        window=0), "bfloat16", 0),
+    ("phi-2 d80 float32", dict(B=1, L=2048, H=32, KVH=32, D=80, causal=True,
+                               window=0), "float32", 0),
     ("gemma-7b d256", dict(B=1, L=8192, H=16, KVH=16, D=256, causal=True,
                            window=0), "bfloat16", 0),
     ("d40 windowed", dict(B=1, L=512, H=4, KVH=2, D=40, causal=True,
@@ -3583,19 +3595,33 @@ FLASH_CONTRACT_SLICES = (
      "float32", 0),
     ("d512", dict(B=1, L=512, H=4, KVH=2, D=512, causal=True, window=0),
      "bfloat16", 0),
+    ("d512 1x8192", dict(B=1, L=8192, H=8, KVH=8, D=512, causal=True,
+                         window=0), "bfloat16", 0),
     ("yi-6b float16 unaligned", dict(FLASH_SLICE), "float16", 1),
     ("gemma-7b d256 unaligned", dict(B=1, L=8192, H=16, KVH=16, D=256,
-                                     causal=True, window=0), "bfloat16", 1))
+                                     causal=True, window=0), "bfloat16", 1),
+    ("d100", dict(B=1, L=2048, H=32, KVH=32, D=100, causal=True, window=0),
+     "bfloat16", 0))
 # the slice each route's record is timed at
 FLASH_CONTRACT_TIMED = {"flash_attention_wgmma_f16": "yi-6b float16",
                         "flash_attention_wgmma_padded": "gemma-7b d256",
-                        "flash_attention_f16": "yi-6b float16 unaligned",
-                        "flash_attention_padded": "gemma-7b d256 unaligned",
+                        "flash_attention_wgmma_loaded":
+                            "yi-6b float16 unaligned",
+                        "flash_attention_padded": "phi-2 d80 float32",
                         "flash_attention_wide": "d512"}
-# off 16-byte boundaries, the 16-bit grid cases that take flash_kernel
-FLASH_CONTRACT_UNALIGNED = ((16, "float16"), (64, "float16"),
-                            (128, "float16"), (72, "bfloat16"),
-                            (200, "float16"))
+# 16-bit inputs TMA cannot read, on the loaded route: q, k and v 1, 3, 4 or
+# 7 elements off a 16-byte boundary, alike and each its own, and head dims
+# whose rows are not 16-byte multiples (1, 20, 100; on boundaries and
+# off).  (head dim, dtype, element offsets of q, k, v)
+FLASH_CONTRACT_UNALIGNED = (
+    (16, "float16", (1, 1, 1)), (64, "float16", (3, 3, 3)),
+    (128, "float16", (4, 4, 4)), (72, "bfloat16", (7, 7, 7)),
+    (200, "float16", (1, 1, 1)), (256, "bfloat16", (3, 0, 5)),
+    (128, "bfloat16", (0, 7, 0)), (64, "bfloat16", (0, 0, 4)),
+    (96, "float16", (1, 3, 0)), (1, "bfloat16", (0, 0, 0)),
+    (1, "float16", (3, 3, 3)), (20, "bfloat16", (0, 0, 0)),
+    (20, "float16", (7, 1, 4)), (100, "bfloat16", (0, 0, 0)),
+    (100, "float16", (4, 4, 4)))
 # the SSD tile at widths past 128, ragged P and N, in each dtype of B/C
 SSD_CONTRACT_TILES = ((256, 192, 6), (256, 128, 64), (96, 256, 130),
                       (32, 6, 3))
@@ -3642,7 +3668,7 @@ def _dtype(name):
 
 def _offset_copy(x, offset):
     """``x`` copied to a contiguous tensor ``offset`` elements past a
-    16-byte boundary (offset 0: ``x`` itself)."""
+    16-byte boundary (offset 0: ``x`` itself, a fresh allocation's)."""
     if not offset:
         return x
     import torch
@@ -3653,17 +3679,20 @@ def _offset_copy(x, offset):
 
 
 def flash_contract_phase(dev, gen, logs, timings):
-    """The flash routes no main path runs (``flash_wgmma_kernel`` on float16
-    and on bf16 at other head dims, ``flash_kernel`` on float16 and at a
-    padded width, ``flash_wide_kernel`` past 256) at
-    ``FLASH_CONTRACT_DIMS`` x dtypes x masks, 16-bit inputs off 16-byte
-    boundaries (``FLASH_CONTRACT_UNALIGNED``) and q, k, v of mixed dtypes,
-    then ``FLASH_CONTRACT_SLICES``: each against its plain version (float32
-    3e-4, bf16 3e-2, float16 ``CONTRACT_F16_TOL``; float16 outputs, and
-    bf16 ones of the tensor cores, within ``FLASH_ULP_LIMIT`` ulps of the
-    float32 reference), repeated bitwise, its route's one launch checked,
-    and timed beside the plain version and
-    ``scaled_dot_product_attention`` (median of 5)."""
+    """The flash routes no main path runs (``flash_wgmma_kernel`` on float16,
+    on bf16 at other head dims and, loaded by its own producer, on 16-bit
+    inputs TMA cannot read; ``flash_kernel`` at a padded width in float32;
+    ``flash_wide_kernel`` past 256) at ``FLASH_CONTRACT_DIMS`` x dtypes x
+    masks, 16-bit inputs off 16-byte boundaries or at head dims that are
+    not multiples of 8 (``FLASH_CONTRACT_UNALIGNED``) and q, k, v of mixed
+    dtypes, then ``FLASH_CONTRACT_SLICES``: each against its plain version
+    (float32 3e-4, bf16 3e-2, float16 ``CONTRACT_F16_TOL``; 16-bit outputs
+    of the tensor cores within ``FLASH_ULP_LIMIT`` ulps of the float32
+    reference), repeated bitwise, its route's one launch checked, and
+    timed beside the plain version and ``scaled_dot_product_attention``
+    (median of 5).  Off a boundary at a head dim that is a multiple of 8,
+    the loaded route's output must equal TMA's on the same values bit for
+    bit (``bitwise_vs_tma``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
@@ -3672,22 +3701,28 @@ def flash_contract_phase(dev, gen, logs, timings):
     tol = dict(FLASH_TOL, float16=CONTRACT_F16_TOL)
     names = {FA.WGMMA_F16: "flash_attention_wgmma_f16",
              FA.WGMMA_PADDED: "flash_attention_wgmma_padded",
-             FA.F16: "flash_attention_f16", FA.PADDED: "flash_attention_padded",
+             FA.WGMMA_LOADED: "flash_attention_wgmma_loaded",
+             FA.PADDED: "flash_attention_padded",
              FA.WIDE: "flash_attention_wide"}
     flogs = {n: KernelLog() for n in names.values()}
-    for name, log in flogs.items():
-        # float16 outputs on every route that takes float16, bf16 ones on
-        # the tensor cores' padded route
-        check_name = ("bf16_ulp_check" if name == names[FA.WGMMA_PADDED]
-                      else "f16_ulp_check")
-        log.extra[check_name] = dict(max_ulps=0.0, cases=0,
-                                     limit=FLASH_ULP_LIMIT)
+    # float16 outputs on every route that takes float16, bf16 ones on the
+    # tensor cores' routes
+    ulp_checks = {"flash_attention_wgmma_f16": ("f16",),
+                  "flash_attention_wgmma_padded": ("bf16",),
+                  "flash_attention_wgmma_loaded": ("f16", "bf16"),
+                  "flash_attention_wide": ("f16",)}
+    for name, kinds in ulp_checks.items():
+        for kind in kinds:
+            flogs[name].extra[kind + "_ulp_check"] = dict(
+                max_ulps=0.0, cases=0, limit=FLASH_ULP_LIMIT)
+    loaded = flogs["flash_attention_wgmma_loaded"]
+    loaded.extra["bitwise_vs_tma"] = dict(cases=0, equal=True)
     mixed = KernelLog()
 
-    def run(label, c, dts, log, offset=0):
+    def run(label, c, dts, log, offsets=(0, 0, 0)):
         q, k, v = _flash_inputs(gen, dev, c, torch.float32)
-        q, k, v = (_offset_copy(x.to(_dtype(d)), offset)
-                   for x, d in zip((q, k, v), dts))
+        q, k, v = (_offset_copy(x.to(_dtype(d)), o)
+                   for x, d, o in zip((q, k, v), dts, offsets))
         kw = dict(causal=c["causal"], window=c["window"])
         r = FA.cuda_route(q, k, v)
         label = f"{label} {dts} ({r.kernel}, {r.counter})"
@@ -3697,18 +3732,26 @@ def flash_contract_phase(dev, gen, logs, timings):
         _flash_check(log, label, got, q, k, v, kw, tol[dts[0]])
         log.repeat(label, fn)
         log.cases += 1
+        if r is FA.WGMMA_LOADED and c["D"] % FA.WGMMA_DIM_STEP == 0:
+            aligned = [x.clone() for x in (q, k, v)]
+            check(FA.cuda_route(*aligned) in FA.TENSOR_CORE_ROUTES[:3],
+                  f"{label}: the aligned copy does not take TMA's route")
+            same = torch.equal(got, FA.flash_attention(*aligned, **kw))
+            check(same, f"{label}: differs from TMA's route on the same "
+                        "values on 16-byte boundaries")
+            loaded.extra["bitwise_vs_tma"]["cases"] += 1
         return r, (q, k, v, kw)
 
-    grid = [(D, d, 0) for D in FLASH_CONTRACT_DIMS
+    grid = [(D, d, (0, 0, 0)) for D in FLASH_CONTRACT_DIMS
             for d in ("float32", "bfloat16", "float16")]
-    grid += [(D, "float16", 0) for D in FA.HEAD_DIMS]
-    grid += [(D, d, 1) for D, d in FLASH_CONTRACT_UNALIGNED]
-    for D, d, offset in grid:
+    grid += [(D, "float16", (0, 0, 0)) for D in FA.HEAD_DIMS]
+    grid += list(FLASH_CONTRACT_UNALIGNED)
+    for D, d, offsets in grid:
         for m in FLASH_CONTRACT_MASKS:
             c = dict(B=1, H=4, KVH=2, D=D, **m)
-            r = FA.route(_dtype(d), D, aligned=not offset)
-            run(f"flash contract {c} offset {offset}", c, (d,) * 3,
-                flogs[names[r]], offset)
+            r = FA.route(_dtype(d), D, aligned=not any(offsets))
+            run(f"flash contract {c} offsets {offsets}", c, (d,) * 3,
+                flogs[names[r]], offsets)
     for D in (40, 128):                     # q bf16 / float16, k and v float32
         c = dict(B=1, H=4, KVH=2, D=D, **FLASH_CONTRACT_MASKS[1])
         for d in ("bfloat16", "float16"):
@@ -3718,7 +3761,7 @@ def flash_contract_phase(dev, gen, logs, timings):
         r = FA.route(_dtype(d), c["D"], aligned=not offset)
         check(r in names, f"{label}: route {r} is not a contract route")
         _, (q, k, v, kw) = run(f"flash slice {label}", c, (d,) * 3,
-                               flogs[names[r]], offset)
+                               flogs[names[r]], (offset,) * 3)
         itemsize = q.element_size()
         peak = PEAK_F32_FLOPS if itemsize == 4 else PEAK_BF16_FLOPS
         b_ms, b_by = bound(*flash_work(c, itemsize), peak)
@@ -3747,7 +3790,7 @@ def flash_contract_phase(dev, gen, logs, timings):
         flogs[name].extra.update(
             kernel=r.kernel,
             slices={k: s for k, s in slices.items() if s["route"] == r.counter})
-    logs["flash_attention_f16"].extra["mixed_dtypes"] = dict(
+    logs["flash_attention_padded"].extra["mixed_dtypes"] = dict(
         cases=mixed.cases, max_abs_err=mixed.max_abs, max_rel_err=mixed.max_rel,
         repeat_bitwise=mixed.repeat_bitwise,
         note="q, k, v of mixed dtypes cast to float32: the float32 route of "
@@ -5260,21 +5303,25 @@ RECORDS = {
                  "other than 64, 96 and 128 (multiples of 8 up to 256): "
                  "flash_wgmma_kernel<__nv_bfloat16, W> at the next width of "
                  "64, 128, 256, the head dim a run-time argument"),
-    "flash_attention_f16": Record(
-        **dict(_FLASH, tolerance=dict(float16=CONTRACT_F16_TOL,
+    "flash_attention_wgmma_loaded": Record(
+        **dict(_FLASH, tolerance=dict(bfloat16=FLASH_TOL["bfloat16"],
+                                      float16=CONTRACT_F16_TOL,
+                                      bf16_ulps=FLASH_ULP_LIMIT,
                                       f16_ulps=FLASH_ULP_LIMIT),
-               cuda_kernel="flash_kernel", source=CSRC + "flash_simt.cuh"),
-        main_path=False,
-        route_of="flash_attention's float16 CUDA-core route: "
-                 "flash_kernel<__half, D> at head dims 16-128 off 16-byte "
-                 "boundaries"),
+               source=CSRC + "flash_wgmma.cuh"), main_path=False,
+        route_of="flash_attention's tensor-core route on 16-bit inputs TMA "
+                 "cannot read (q, k or v off a 16-byte boundary, or a head "
+                 "dim up to 256 that is not a multiple of 8): "
+                 "flash_wgmma_kernel<E, W, true>, a producer warpgroup "
+                 "loading each row's aligned 16-byte words into registers "
+                 "(__ldg), funnel-shifting them and storing them into the "
+                 "swizzled atoms (flash_loaded.cu)"),
     "flash_attention_padded": Record(
         **dict(_FLASH, tolerance=dict(FLASH_TOL, float16=CONTRACT_F16_TOL),
                cuda_kernel="flash_kernel", source=CSRC + "flash_simt.cuh"),
         main_path=False,
-        route_of="flash_attention at any other head dim up to 256 that the "
-                 "tensor cores do not take (float32, 16-bit off 16-byte "
-                 "boundaries or at a head dim that is not a multiple of 8): "
+        route_of="flash_attention in float32 at any other head dim up to "
+                 "256 (and q, k, v of mixed dtypes, cast to float32): "
                  "flash_kernel at the next width of 16, 32, 64, 96, 128, "
                  "256, the head dim a run-time argument"),
     "flash_attention_wide": Record(
@@ -5282,7 +5329,8 @@ RECORDS = {
                cuda_kernel="flash_wide_kernel",
                source=CSRC + "flash_simt.cuh"), main_path=False,
         route_of="flash_attention past head dim 256: flash_wide_kernel, "
-                 "128 output columns a block"),
+                 "one block a (q tile, head) computing each score once, Q "
+                 "resident, K and V streamed by cp.async"),
     "ssd_chunk_tiles_generic": Record(
         **dict(_TILE, source=CSRC + "ssd_generic.cu"),
         tolerance=dict(tile=SSD_TILE_TOL),

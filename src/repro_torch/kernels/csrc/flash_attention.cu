@@ -15,11 +15,12 @@
 // float32, and the output is in q's dtype.  A row that sees no key (a
 // window with Lk < Lq) is outside the contract, as it is the Pallas
 // kernel's, whose output there differs from its reference's.
-// The wrapper routes 16-byte-aligned bf16 and float16 inputs with a head
-// dim that is a multiple of 8 up to 256 to flash_wgmma_kernel, head dims
-// above 256 to flash_wide_kernel and everything else (float32, 16-bit
-// inputs off a 16-byte boundary or at a head dim that is not a multiple of
-// 8) to flash_kernel; q, k and v of mixed dtypes arrive cast to float32.
+// The wrapper routes every bf16 and float16 input with a head dim up to 256
+// to flash_wgmma_kernel (fed by TMA where q, k and v sit on 16-byte
+// boundaries and the head dim is a multiple of 8, by a producer warpgroup
+// of its own otherwise), head dims above 256 to flash_wide_kernel and
+// float32 to flash_kernel; q, k and v of mixed dtypes arrive cast to
+// float32.
 //
 // What bounds them on an H100.  At yi-6b's prefill (B = 1, L = 8192, 32
 // query heads, 4 kv heads, d = 128) causal attention is about 5.5e11
@@ -75,8 +76,10 @@
 // the atoms that hold a column below d are loaded, the rest never.  S = Q
 // K^T takes only the k16 steps that cover d (six at d 96); P V runs at nW
 // (wgmma's MN-major V needs whole 64-column atoms) and output columns past
-// d are never stored.  The scale stays d^-1/2.  d must be a multiple of 8:
-// a TMA row stride is a multiple of 16 bytes.  At W 256 a block takes 64 KB
+// d are never stored.  The scale stays d^-1/2.  Through TMA d must be a
+// multiple of 8 (a tensor map's row stride is a multiple of 16 bytes, its
+// base 16-byte aligned); the loaded route below takes any d.  At W 256 a
+// block takes 64 KB
 // of Q and 2 x 32 KB each of K and V (193 KB), so one block an SM, and a
 // warpgroup's 64 x 256 float32 O is 128 registers a thread; this was
 // chosen over two blocks of 128 output columns each that recompute S over
@@ -94,39 +97,91 @@
 // at a time, into a fresh accumulator that is added to O in float32 with
 // round to nearest: 32 more registers a thread.
 //
-// flash_kernel (float32, and bf16 or float16 off the tensor cores' inputs):
-// every product in float32 on CUDA cores (bf16 and float16 inputs are
-// widened on load; float32 inputs get true float32, never TF32), so it
-// cannot beat the 8.2 ms floor; it is the checked float32 route.  It is
-// instantiated at widths D of 16, 32, 64, 96, 128 and 256; any head dim up
-// to 256 runs the next width, the true dim a run-time argument: columns
-// past it load as zeros (each adds an exact 0 to a score, so a dim that is
-// a width gets the same bits as before the argument existed) and are not
-// stored.  At D = 256 a block takes 213,760 bytes of float32 shared memory,
-// one block an SM.  One block per (q tile of 64 rows, query head,
-// batch row), 256 threads in a 16 x 16 grid; thread (ty, tx) owns score
-// rows ty + 16 r and columns tx + 16 c (r, c < 4) and output columns
-// tx + 16 c (c < d / 16), so neighbouring threads read neighbouring
-// shared-memory words and the 16 threads of one row are one half-warp,
-// which reduces the row's max and sum with a fixed xor butterfly.  The
-// sequential kv axis of the Pallas grid is the loop inside the block: a
-// 64-row K and V tile is staged in shared memory, the 64 x 64 scores stay
-// in registers, the probabilities go through shared memory into P V.
-// Causal and window masks let the loop skip kv tiles that no row of the q
-// tile can see (exact: every row sees its own position, so a skipped tile
-// would only have added terms that the online rescale multiplies by
-// exp(-1e30) = 0), which halves the causal work; q tiles are scheduled
-// longest first.  GQA reads the shared kv head in place, never expanded.
-// No atomics: two launches give bitwise-equal outputs.
+// The loaded route (flash_wgmma_kernel<E, W, true>, flash_loaded.cu):
+// 16-bit q, k and v that TMA cannot read, because one of them starts off a
+// 16-byte boundary (a view, or a slice of a packed buffer) or the head dim
+// is not a multiple of 8, so that rows start 2 bytes into a word.  A
+// tensor map needs a 16-byte base and 16-byte row strides, and cp.async a
+// source aligned to its copy size, so neither can copy such a row into
+// place; one 2-byte load an element would cost eight times the
+// instructions.  So a third warpgroup, the producer, reads each row as the
+// aligned 16-byte words that span it: thread t takes 16-byte chunk c = t %
+// (W / 8) of every (128 / (W / 8))-th row, loads words c and c + 1 (the
+// second an L1 hit, shared with the next lane's first; addresses clamped
+// to the row's last word, never past it), shifts the chunk into place with
+// funnel shifts (flash_load.cuh) and stores it into the same
+// 128-byte-swizzled atoms TMA writes, zeros past d and past L.  Two
+// batches of four rows a thread are in flight: the next batch's loads
+// overlap this one's shifts.  Its generic-proxy stores are made visible to
+// wgmma's async proxy (fence.proxy.async) before each producer warp
+// arrives on the stage's mbarrier (four arrivals in place of TMA's
+// expected bytes), and the consumers release a stage by a warp's arrival
+// on an "empty" barrier of their own (eight) in place of the block
+// barrier, which the producer no longer shares.  Three K/V stages up to
+// width 128 (the producer may run two tiles ahead), two at 256.  The
+// consumers' arithmetic is TMA's route's, so at a head dim that is a
+// multiple of 8 an input off a boundary gives the same bits as the same
+// values on one (at width 256 bf16's P V runs as four 64-column products,
+// each column's sums in the same order: the same bits, with 608 bytes of
+// spill stores where one 256-column product has 4552, and 4.3x faster at
+// gemma-7b's d 256 slice; PERF.md).  The output is stored column by column
+// below d, a pair in one 4-byte store where it starts on a 4-byte
+// boundary.  The block is 384 threads, so a thread gets at most 168
+// registers: enough at widths 64 and 128, while at 256 the consumers
+// (239-241 on TMA's route) spill; setmaxnreg, moving the producer's
+// registers to them, did not stop ptxas spilling on the H100's toolchain
+// (nvcc 12.9), nor did a one-warp producer (the register file is split
+// over four schedulers, so 288 threads are allotted as 384).  What the
+// producer costs beside TMA, and what was tried, is in PERF.md.
 //
-// flash_wide_kernel (head dims above 256, any dtype): Q and K no longer fit
-// a block beside V, so the block stages them in 64-column chunks and keeps
-// 128 output columns of its own (blocks of one row tile split the head
-// dim's columns); each recomputes the scores over the whole head dim, the
-// same ascending fmaf chain as flash_kernel's, so every slice sees the same
-// softmax.  82,688 bytes of shared memory a block.  At d = 512 the scores
-// are computed four times, so it does (d / 128 + 1) / 2 times flash_kernel's
-// work per output; a route no config takes.
+// flash_kernel (float32): every product in float32 on CUDA cores (never
+// TF32), so it cannot beat the 8.2 ms floor; it is the checked float32
+// route.  It is instantiated at widths D of 16, 32, 64, 96, 128 and 256;
+// any head dim up to 256 runs the next width, the true dim a run-time
+// argument: columns past it load as zeros (each adds an exact 0 to a
+// score, so a dim that is a width gets the same bits as before the
+// argument existed) and are not stored.  At D = 256 a block takes 213,760
+// bytes of float32 shared memory, one block an SM.  One block per (q tile
+// of 64 rows, query head, batch row), 256 threads in a 16 x 16 grid;
+// thread (ty, tx) owns score rows ty + 16 r and columns tx + 16 c (r, c <
+// 4) and output columns tx + 16 c (c < d / 16), so neighbouring threads
+// read neighbouring shared-memory words and the 16 threads of one row are
+// one half-warp, which reduces the row's max and sum with a fixed xor
+// butterfly.  The sequential kv axis of the Pallas grid is the loop inside
+// the block: a 64-row K and V tile is staged in shared memory, the 64 x 64
+// scores stay in registers, the probabilities go through shared memory
+// into P V.  Causal and window masks let the loop skip kv tiles that no
+// row of the q tile can see (exact: every row sees its own position, so a
+// skipped tile would only have added terms that the online rescale
+// multiplies by exp(-1e30) = 0), which halves the causal work; q tiles are
+// scheduled longest first.  GQA reads the shared kv head in place, never
+// expanded.  No atomics: two launches give bitwise-equal outputs.  (It
+// once also took the 16-bit inputs TMA cannot read, widened to float32:
+// 26-28 ms at yi-6b's and gemma-7b's prefill shapes on an H100 80GB HBM3 at
+// 700 W, against 1.5-2.1 ms on the tensor cores.)
+//
+// flash_wide_kernel (head dims above 256, any dtype, CUDA cores): one
+// block per (q tile, head, batch row) computes each score once.  A block
+// of 16 RT q rows (RT 4, 2, 1 for d up to 512, 1024, 2048) keeps Q
+// resident in shared memory (float32, pre-scaled, up to 132 KB) and all
+// 512 / 1024 / 2048 output columns in registers (128 floats a thread);
+// each kv tile of 64 keys is a stream of K chunks (64 keys x 64 columns:
+// S over all of d, each score the same ascending fmaf chain as
+// flash_kernel's) and V chunks (4 RT keys x every output column: P V,
+// each output's sum over keys in key order), double-buffered: chunk i + 1
+// is copied by cp.async (16 bytes where base and row stride allow, 4 for
+// float32 elsewhere) or by flash_load.cuh's byte-permute loads (16-bit off
+// 4-byte boundaries) while chunk i runs.  P goes through shared memory as
+// in flash_kernel; thread tx reads four neighbouring V columns a group
+// of 64 with one vector load.  An earlier design kept 128 output columns a
+// block and recomputed S over all of d in each, (d / 128)(d + 128) fmaf a
+// (q, key) pair against 2 d here (2.1x at d 320, 2.5x at d 512); the
+// arithmetic and its order are that design's, so its outputs are expected
+// bit for bit (tools/kernel_bits_vs_tree.py's wide cases hold them
+// against an older tree's).  Past 2048
+// the columns split over blocks again (Q then streams by chunk beside K),
+// each slice recomputing S: a head dim no model has.  Up to 215 KB of
+// shared memory, one block an SM.  No atomics.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -139,8 +194,8 @@
 
 namespace {
 
-// float32 and bf16 at head dims up to 128: each its own width or the next
-// of 16, 32, 64, 96 and 128 (flash_contract.cu launches the rest).
+// float32 at head dims up to 128: its own width or the next of 16, 32, 64,
+// 96 and 128 (flash_contract.cu launches the rest).
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, int B,
                      int Lq, int Lk, int H, int KVH, int D, int causal,
@@ -164,9 +219,10 @@ int flash_contract_launch(const void* q, const void* k, const void* v,
                           int D, int causal, int window, void* o,
                           void* stream);
 
-// dtype: 0 float32, 1 bfloat16, 2 float16 (q, k, v and o alike); any
-// head dim D >= 1.  float32 and bf16 up to D 128 launch flash_kernel here,
-// the rest go through flash_contract.cu.
+// dtype: 0 float32, 1 bfloat16, 2 float16 (q, k, v and o alike): float32
+// at any head dim D >= 1 (up to 128 flash_kernel here, the rest through
+// flash_contract.cu), 16-bit past 256 (flash_wide_kernel); 16-bit at D <=
+// 256 is refused (the tensor cores' routes take it).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            int dtype, int B, int Lq, int Lk, int H, int KVH,
                            int D, int causal, int window, void* o,
@@ -175,7 +231,6 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   if (KVH < 1 || H % KVH || Lk < 1) return (int)cudaErrorInvalidValue;
 #define FLASH_ARGS q, k, v, B, Lq, Lk, H, KVH, D, causal, window, o, s
   if (dtype == 0 && D <= 128) return (int)dispatch<float>(FLASH_ARGS);
-  if (dtype == 1 && D <= 128) return (int)dispatch<__nv_bfloat16>(FLASH_ARGS);
 #undef FLASH_ARGS
   return flash_contract_launch(q, k, v, dtype, B, Lq, Lk, H, KVH, D, causal,
                                window, o, stream);

@@ -1,47 +1,37 @@
 // The flash-attention launches flash_attention.cu leaves (flash_simt.cuh
 // and flash_wgmma.cuh have the kernels, flash_attention.cu their notes):
-// flash_wgmma_kernel on float16 at widths 64, 128 and 256 and on bf16 at
-// width 256 (head dims 136-256), and the CUDA-core routes for what the
-// tensor cores do not take: flash_kernel on float16 at every head dim up to
-// 256 (the next of the widths 16, 32, 64, 96, 128 and 256, the true head
-// dim a run-time argument), flash_kernel at width 256 for float32 and bf16
-// head dims 129-256, and flash_wide_kernel past 256.  They replace the
-// Pallas TPU kernel src/repro/kernels/flash_attention.py::flash_attention
+// TMA's flash_wgmma_kernel on float16 at widths 64, 128 and 256 and on bf16
+// at width 256 (head dims 136-256), flash_kernel at width 256 for float32
+// head dims 129-256, and flash_wide_kernel past 256 in every dtype.  16-bit
+// inputs TMA cannot read (off a 16-byte boundary, or a head dim that is not
+// a multiple of 8) take flash_loaded.cu's route: the same tensor-core
+// kernel with a producer warpgroup of its own in place of TMA, since a
+// tensor map needs a 16-byte base and 16-byte row strides.  They replace
+// the Pallas TPU kernel src/repro/kernels/flash_attention.py::flash_attention
 // on the inputs it takes that no config of this repository gives it.  A
 // source of its own, so that nvcc builds it beside flash_attention.cu.
+
+#include <type_traits>
 
 #include "flash_simt.cuh"
 #include "flash_wgmma.cuh"
 
 namespace {
 
-// Past 128: width 256 up to kMaxWidth, flash_wide_kernel beyond.
-// (float32 and bf16 come here only past 128: flash_attention.cu launches
-// every head dim up to 128 itself.)
+// float32 past 128 (flash_attention.cu launches every float32 head dim up
+// to 128 itself): flash_kernel at width 256 up to kMaxWidth; every dtype
+// past kMaxWidth: flash_wide_kernel.  16-bit inputs up to kMaxWidth run on
+// the tensor cores (flash_wgmma.cuh), never here.
 template <typename T>
 cudaError_t dispatch_wide(const void* q, const void* k, const void* v, int B,
                           int Lq, int Lk, int H, int KVH, int D, int causal,
                           int window, void* o, cudaStream_t s) {
 #define FLASH_ARGS q, k, v, B, Lq, Lk, H, KVH, D, causal, window, o, s
-  if (D <= 128) return cudaErrorInvalidValue;
-  if (D <= kMaxWidth) return launch<T, kMaxWidth>(FLASH_ARGS);
-  return launch_wide<T>(FLASH_ARGS);
-#undef FLASH_ARGS
-}
-
-// float16 at every head dim: its own width of 16, 32, 64, 96, 128, or the
-// next of them, then as dispatch_wide.
-cudaError_t dispatch_f16(const void* q, const void* k, const void* v, int B,
-                         int Lq, int Lk, int H, int KVH, int D, int causal,
-                         int window, void* o, cudaStream_t s) {
-#define FLASH_ARGS q, k, v, B, Lq, Lk, H, KVH, D, causal, window, o, s
-  if (D < 1) return cudaErrorInvalidValue;
-  if (D <= 16) return launch<__half, 16>(FLASH_ARGS);
-  if (D <= 32) return launch<__half, 32>(FLASH_ARGS);
-  if (D <= 64) return launch<__half, 64>(FLASH_ARGS);
-  if (D <= 96) return launch<__half, 96>(FLASH_ARGS);
-  if (D <= 128) return launch<__half, 128>(FLASH_ARGS);
-  return dispatch_wide<__half>(FLASH_ARGS);
+  if (D > kMaxWidth) return launch_wide<T>(FLASH_ARGS);
+  if constexpr (std::is_same<T, float>::value) {
+    if (D > 128) return launch<T, kMaxWidth>(FLASH_ARGS);
+  }
+  return cudaErrorInvalidValue;
 #undef FLASH_ARGS
 }
 
@@ -61,7 +51,7 @@ int flash_contract_launch(const void* q, const void* k, const void* v,
   switch (dtype) {
     case 0: return (int)dispatch_wide<float>(FLASH_ARGS);
     case 1: return (int)dispatch_wide<__nv_bfloat16>(FLASH_ARGS);
-    case 2: return (int)dispatch_f16(FLASH_ARGS);
+    case 2: return (int)dispatch_wide<__half>(FLASH_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FLASH_ARGS

@@ -1,9 +1,12 @@
 // flash_wgmma_kernel, the tensor-core route of the port's flash attention:
-// its notes are flash_attention.cu's.  Included by flash_attention.cu (bf16
-// at widths 64 and 128, the main paths' instantiations) and
-// flash_contract.cu (bf16 at width 256 and float16 at every width), so that
-// nvcc builds the two beside each other; each source instantiates what it
-// launches.
+// its notes are flash_attention.cu's.  Two loaders feed one body: TMA
+// (kLoaded false: 16-byte-aligned inputs at a head dim that is a multiple
+// of 8) and a producer warpgroup's own loads (kLoaded true: any 2-byte
+// boundary, any head dim up to 256).  Included by flash_attention.cu (TMA's
+// bf16 at widths 64 and 128, the main paths' instantiations),
+// flash_contract.cu (TMA's bf16 at width 256 and float16 at every width)
+// and flash_loaded.cu (the loaded route), so that nvcc builds them beside
+// each other; each source instantiates what it launches.
 
 #pragma once
 
@@ -15,6 +18,7 @@
 
 #include <type_traits>
 
+#include "flash_load.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -40,14 +44,31 @@ __host__ __device__ constexpr int width_of(int d) {
 // every 8 rows).  A (rows x W) 16-bit tile is W / 64 column blocks
 // ("atoms") of rows x 128 bytes, one TMA box each, as wgmma's
 // 128-byte-swizzled layouts want them.
-template <int W>
+template <int W, bool kLoaded = false>
 struct Layout {
+  // K/V stages: the loaded route takes a third where shared memory allows
+  // (W up to 128), so that its producer runs up to two tiles ahead
+  static constexpr int kNStages = kLoaded && W <= 2 * kAtom ? 3 : kStages;
   static constexpr int kQBytes = kQRows * W * 2;
   static constexpr int kTileBytes = kBlockN * W * 2;
   static constexpr int kK = kQBytes;
-  static constexpr int kV = kK + kStages * kTileBytes;
-  static constexpr int kBar = kV + kStages * kTileBytes;   // q, full[kStages]
-  static constexpr int kBytes = kBar + 8 * (1 + kStages) + 1024;  // + align
+  static constexpr int kV = kK + kNStages * kTileBytes;
+  // q, full[kNStages] and, on the loaded route, empty[kNStages]
+  static constexpr int kBar = kV + kNStages * kTileBytes;
+  static constexpr int kBarriers = 1 + kNStages * (kLoaded ? 2 : 1);
+  static constexpr int kBytes = kBar + 8 * kBarriers + 1024;  // + align
+};
+
+// The loaded route (flash_attention.cu's notes): a producer warpgroup of
+// its own beside the kWarpgroups consumers.
+constexpr int kProducerThreads = 128;
+constexpr int kThreadsLoaded = kThreadsWg + kProducerThreads;
+
+// q, k and v of the loaded route (unused by TMA's, which reads tensor maps)
+struct Srcs {
+  const void* q;
+  const void* k;
+  const void* v;
 };
 
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
@@ -56,18 +77,30 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 __device__ __forceinline__ void store2(__half* p, float a, float b) {
   *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
 }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float a) {
+  *p = __float2bfloat16_rn(a);
+}
+__device__ __forceinline__ void store1(__half* p, float a) {
+  *p = __float2half_rn(a);
+}
 
 // q, o (B, Lq, H, d); k, v (B, Lk, KVH, d) of element type E (bf16 or
-// float16), all contiguous; the tensor maps describe q, k and v at their
-// true head dim d <= W.  Block (h, q tile, b), kWarpgroups warpgroups.
-template <typename E, int W>
-__global__ void __launch_bounds__(kThreadsWg)
+// float16), all contiguous.  TMA's route (kLoaded false): the tensor maps
+// describe q, k and v at their true head dim d <= W, a multiple of 8.  The
+// loaded route: `src` holds q, k and v at any 2-byte-aligned address, any
+// d <= W, and a producer warpgroup loads them.  Block (h, q tile, b),
+// kWarpgroups consumer warpgroups.
+// (No minimum of blocks an SM in the bounds: with one, ptxas gave the bf16
+// width-128 instantiation 161 registers and one block an SM, 1.2x slower
+// than its 128 and two.)
+template <typename E, int W, bool kLoaded = false>
+__global__ void __launch_bounds__(kLoaded ? kThreadsLoaded : kThreadsWg)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
-                   const __grid_constant__ CUtensorMap vmap, int Lq, int Lk,
-                   int H, int KVH, int d, int causal, int window,
-                   float scale_log2, E* __restrict__ o) {
-  using Lay = Layout<W>;
+                   const __grid_constant__ CUtensorMap vmap, Srcs src,
+                   int Lq, int Lk, int H, int KVH, int d, int causal,
+                   int window, float scale_log2, E* __restrict__ o) {
+  using Lay = Layout<W, kLoaded>;
   // float16 keeps each tile's P V apart before adding it to O (the notes
   // of flash_attention.cu say why); bf16 accumulates O on the tensor cores
   constexpr bool kSplitAcc = std::is_same<E, __half>::value;
@@ -76,6 +109,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const uint32_t sq = base, sk = base + Lay::kK, sv = base + Lay::kV;
   const uint32_t bar_q = base + Lay::kBar;
   auto bar_full = [&](int st) { return bar_q + 8u * (1 + st); };
+  constexpr int kNS = Lay::kNStages;
+  auto bar_empty = [&](int st) { return bar_q + 8u * (1 + kNS + st); };
   // atoms that hold a column below d (the rest are never loaded: S reads
   // none of them, and P V's columns there are never stored), and the k16
   // steps of S = Q K^T that cover d
@@ -106,169 +141,354 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   };
 
   if (tid == 0) {
-    mbar_init(bar_q, 1);
-    for (int st = 0; st < kStages; ++st) mbar_init(bar_full(st), 1);
+    // TMA's loads complete by bytes after one arrival, the loaded route's
+    // stages by an arrival from each producer warp, a stage's release by
+    // one from each consumer warp
+    const int producers = kLoaded ? kProducerThreads / 32 : 1;
+    mbar_init(bar_q, producers);
+    for (int st = 0; st < kNS; ++st) {
+      mbar_init(bar_full(st), producers);
+      if constexpr (kLoaded) mbar_init(bar_empty(st), kThreadsWg / 32);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  if (tid == 0) {
-    mbar_expect_tx(bar_q, atoms * kQRows * kAtomBytes);
-    for (int a = 0; a < atoms; ++a)
-      tma_load(sq + a * kQRows * kAtomBytes, &qmap, bar_q, a * kAtom, h, q0, b);
-    for (int st = 0; st < kStages && st < n_tiles; ++st)
-      load_kv(st, k_begin + st * kBlockN);
-  }
+  // the consumer warpgroups: S, the online softmax and P V over every
+  // kv tile, then the rows of O
+  auto consume = [&]() {
+    float acc[W / 2];
+#pragma unroll
+    for (int e = 0; e < W / 2; ++e) acc[e] = 0.f;
+    float m_run[2] = {kNegInfWg, kNegInfWg}, l_run[2] = {0.f, 0.f};
+    // rows of this warpgroup, for the test of a fully visible tile
+    const int wg_first = q0 + wgi * kRows, wg_last = wg_first + kRows - 1;
+    const uint32_t q_wg = sq + wgi * kRows * kAtomBytes;
 
-  float acc[W / 2];
-#pragma unroll
-  for (int e = 0; e < W / 2; ++e) acc[e] = 0.f;
-  float m_run[2] = {kNegInfWg, kNegInfWg}, l_run[2] = {0.f, 0.f};
-  // rows of this warpgroup, for the test of a fully visible tile
-  const int wg_first = q0 + wgi * kRows, wg_last = wg_first + kRows - 1;
-  const uint32_t q_wg = sq + wgi * kRows * kAtomBytes;
+    mbar_wait(bar_q, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int st = t % kNS;
+      const int k0 = k_begin + t * kBlockN;
+      mbar_wait(bar_full(st), (t / kNS) & 1);
+      const uint32_t k_st = sk + st * Lay::kTileBytes;
+      const uint32_t v_st = sv + st * Lay::kTileBytes;
 
-  mbar_wait(bar_q, 0);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int st = t % kStages;
-    const int k0 = k_begin + t * kBlockN;
-    mbar_wait(bar_full(st), (t / kStages) & 1);
-    const uint32_t k_st = sk + st * Lay::kTileBytes;
-    const uint32_t v_st = sv + st * Lay::kTileBytes;
-
-    // S = Q K^T over the real d in steps of 16 (32 bytes inside a 128-byte
-    // atom)
-    float s[kBlockN / 2];
+      // S = Q K^T over the real d in steps of 16 (32 bytes inside a 128-byte
+      // atom)
+      float s[kBlockN / 2];
 #pragma unroll
-    for (int e = 0; e < kBlockN / 2; ++e) s[e] = 0.f;
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < W / 16; ++kk) {
-      if (kk < ksteps) {
-        const uint32_t off = (kk % 4) * 32;
-        mma_ss_t<E>(s,
-                    desc(q_wg + (kk / 4) * kQRows * kAtomBytes + off, 16, 1024),
-                    desc(k_st + (kk / 4) * kBlockN * kAtomBytes + off, 16, 1024),
-                    kk > 0);
-      }
-    }
-    wg_commit();
-    wg_wait0();
-    fence_regs(s);
-
-    // scale (log2 domain) and mask; only tiles a row cannot fully see
-    const bool full = k0 + kBlockN <= Lk &&
-                      (!causal || k0 + kBlockN - 1 <= wg_first) &&
-                      (window <= 0 || k0 > wg_last - window);
-#pragma unroll
-    for (int e = 0; e < kBlockN / 2; ++e) {
-      float x = s[e] * scale_log2;
-      if (!full) {
-        const int i = row_a + 8 * ((e % 4) / 2);
-        const int j = k0 + 8 * (e / 4) + 2 * t4 + (e % 2);
-        bool vis = j < Lk;
-        if (causal) vis = vis && j <= i;
-        if (window > 0) vis = vis && j > i - window;
-        if (!vis) x = kNegInfWg;
-      }
-      s[e] = x;
-    }
-
-    // online softmax over the quad of each row, fixed xor order
-    float mx[2] = {m_run[0], m_run[1]};
-#pragma unroll
-    for (int e = 0; e < kBlockN / 2; ++e)
-      mx[(e % 4) / 2] = fmaxf(mx[(e % 4) / 2], s[e]);
-    float corr[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      corr[r] = exp2f(m_run[r] - mx[r]);
-      m_run[r] = mx[r];
-    }
-#pragma unroll
-    for (int e = 0; e < kBlockN / 2; ++e) {
-      const float p = exp2f(s[e] - mx[(e % 4) / 2]);
-      s[e] = p;
-      sum[(e % 4) / 2] += p;
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-      l_run[r] = l_run[r] * corr[r] + sum[r];
-    }
-#pragma unroll
-    for (int e = 0; e < W / 2; ++e) acc[e] *= corr[(e % 4) / 2];
-
-    // P as hi/lo E A fragments: k-step kk takes s[8 kk .. 8 kk + 7]
-    uint32_t p_hi[kBlockN / 16][4], p_lo[kBlockN / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        uint32_t pieces[2];
-        split_pair<E>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], pieces);
-        p_hi[kk][r] = pieces[0];
-        p_lo[kk][r] = pieces[1];
-      }
-
-    // O += P_hi V + P_lo V over the tile's keys in steps of 16 (W / 64
-    // atoms of 2 KB of V)
-    fence_regs(acc);
-    if constexpr (kSplitAcc) {
-      // float16: each atom's 64 columns of the tile's products in a fresh
-      // accumulator, added to acc in float32 (round to nearest)
-#pragma unroll
-      for (int a = 0; a < W / kAtom; ++a) {
-        if (a < atoms) {
-          float part[kAtom / 2];
-#pragma unroll
-          for (int e = 0; e < kAtom / 2; ++e) part[e] = 0.f;
-          wg_fence();
-#pragma unroll
-          for (int kk = 0; kk < kBlockN / 16; ++kk) {
-            const uint64_t bv =
-                desc(v_st + a * kBlockN * kAtomBytes + kk * 16 * kAtomBytes,
-                     kBlockN * kAtomBytes, 1024);
-            mma_rs_t<E, kAtom>(part, p_hi[kk], bv, kk > 0);
-            mma_rs_t<E, kAtom>(part, p_lo[kk], bv, 1);
-          }
-          wg_commit();
-          wg_wait0();
-          fence_regs(part);
-#pragma unroll
-          for (int e = 0; e < kAtom / 2; ++e) acc[a * kAtom / 2 + e] += part[e];
-        }
-      }
-    } else {
+      for (int e = 0; e < kBlockN / 2; ++e) s[e] = 0.f;
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBlockN / 16; ++kk) {
-        const uint64_t bv =
-            desc(v_st + kk * 16 * kAtomBytes, kBlockN * kAtomBytes, 1024);
-        mma_rs_t<E, W>(acc, p_hi[kk], bv, 1);
-        mma_rs_t<E, W>(acc, p_lo[kk], bv, 1);
+      for (int kk = 0; kk < W / 16; ++kk) {
+        if (kk < ksteps) {
+          const uint32_t off = (kk % 4) * 32;
+          mma_ss_t<E>(s,
+                      desc(q_wg + (kk / 4) * kQRows * kAtomBytes + off, 16, 1024),
+                      desc(k_st + (kk / 4) * kBlockN * kAtomBytes + off, 16, 1024),
+                      kk > 0);
+        }
       }
       wg_commit();
       wg_wait0();
+      fence_regs(s);
+
+      // scale (log2 domain) and mask; only tiles a row cannot fully see
+      const bool full = k0 + kBlockN <= Lk &&
+                        (!causal || k0 + kBlockN - 1 <= wg_first) &&
+                        (window <= 0 || k0 > wg_last - window);
+#pragma unroll
+      for (int e = 0; e < kBlockN / 2; ++e) {
+        float x = s[e] * scale_log2;
+        if (!full) {
+          const int i = row_a + 8 * ((e % 4) / 2);
+          const int j = k0 + 8 * (e / 4) + 2 * t4 + (e % 2);
+          bool vis = j < Lk;
+          if (causal) vis = vis && j <= i;
+          if (window > 0) vis = vis && j > i - window;
+          if (!vis) x = kNegInfWg;
+        }
+        s[e] = x;
+      }
+
+      // online softmax over the quad of each row, fixed xor order
+      float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+      for (int e = 0; e < kBlockN / 2; ++e)
+        mx[(e % 4) / 2] = fmaxf(mx[(e % 4) / 2], s[e]);
+      float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        corr[r] = exp2f(m_run[r] - mx[r]);
+        m_run[r] = mx[r];
+      }
+#pragma unroll
+      for (int e = 0; e < kBlockN / 2; ++e) {
+        const float p = exp2f(s[e] - mx[(e % 4) / 2]);
+        s[e] = p;
+        sum[(e % 4) / 2] += p;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+        l_run[r] = l_run[r] * corr[r] + sum[r];
+      }
+#pragma unroll
+      for (int e = 0; e < W / 2; ++e) acc[e] *= corr[(e % 4) / 2];
+
+      // P as hi/lo E A fragments: k-step kk takes s[8 kk .. 8 kk + 7]
+      uint32_t p_hi[kBlockN / 16][4], p_lo[kBlockN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          uint32_t pieces[2];
+          split_pair<E>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], pieces);
+          p_hi[kk][r] = pieces[0];
+          p_lo[kk][r] = pieces[1];
+        }
+
+      // O += P_hi V + P_lo V over the tile's keys in steps of 16 (W / 64
+      // atoms of 2 KB of V)
       fence_regs(acc);
+      if constexpr (kSplitAcc) {
+        // float16: each atom's 64 columns of the tile's products in a fresh
+        // accumulator, added to acc in float32 (round to nearest)
+#pragma unroll
+        for (int a = 0; a < W / kAtom; ++a) {
+          if (a < atoms) {
+            float part[kAtom / 2];
+#pragma unroll
+            for (int e = 0; e < kAtom / 2; ++e) part[e] = 0.f;
+            wg_fence();
+#pragma unroll
+            for (int kk = 0; kk < kBlockN / 16; ++kk) {
+              const uint64_t bv =
+                  desc(v_st + a * kBlockN * kAtomBytes + kk * 16 * kAtomBytes,
+                       kBlockN * kAtomBytes, 1024);
+              mma_rs_t<E, kAtom>(part, p_hi[kk], bv, kk > 0);
+              mma_rs_t<E, kAtom>(part, p_lo[kk], bv, 1);
+            }
+            wg_commit();
+            wg_wait0();
+            fence_regs(part);
+#pragma unroll
+            for (int e = 0; e < kAtom / 2; ++e) acc[a * kAtom / 2 + e] += part[e];
+          }
+        }
+      } else if constexpr (kLoaded && W == 4 * kAtom) {
+        // the loaded route at width 256: O as four 64-column products, each
+        // atom's columns taking the same accumulations in the same order
+        // as in one 256-column product (the same bits), with fewer
+        // registers live in one wgmma.  The launch's 168 registers a thread
+        // spill either way (the producer warpgroup shares the register
+        // file), but one 256-column product spills 4552 bytes where this
+        // spills 608, and runs 4.3x slower at gemma-7b's d 256 slice
+        // (PERF.md; tools/flash_copies.py's one_pv copy)
+        wg_fence();
+#pragma unroll
+        for (int a = 0; a < W / kAtom; ++a) {
+          if (a < atoms) {
+            float(&acc_a)[kAtom / 2] =
+                *reinterpret_cast<float(*)[kAtom / 2]>(acc + a * kAtom / 2);
+#pragma unroll
+            for (int kk = 0; kk < kBlockN / 16; ++kk) {
+              const uint64_t bv =
+                  desc(v_st + a * kBlockN * kAtomBytes + kk * 16 * kAtomBytes,
+                       kBlockN * kAtomBytes, 1024);
+              mma_rs_t<E, kAtom>(acc_a, p_hi[kk], bv, 1);
+              mma_rs_t<E, kAtom>(acc_a, p_lo[kk], bv, 1);
+            }
+          }
+        }
+        wg_commit();
+        wg_wait0();
+        fence_regs(acc);
+      } else {
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBlockN / 16; ++kk) {
+          const uint64_t bv =
+              desc(v_st + kk * 16 * kAtomBytes, kBlockN * kAtomBytes, 1024);
+          mma_rs_t<E, W>(acc, p_hi[kk], bv, 1);
+          mma_rs_t<E, W>(acc, p_lo[kk], bv, 1);
+        }
+        wg_commit();
+        wg_wait0();
+        fence_regs(acc);
+      }
+
+      if constexpr (kLoaded) {
+        __syncwarp();   // this warp is done with stage st
+        if (lane == 0) mbar_arrive(bar_empty(st));
+      } else {
+        __syncthreads();   // every warpgroup is done with stage st
+        if (tid == 0 && t + kStages < n_tiles) load_kv(st, k0 + kStages * kBlockN);
+      }
     }
 
-    __syncthreads();   // every warpgroup is done with stage st
-    if (tid == 0 && t + kStages < n_tiles) load_kv(st, k0 + kStages * kBlockN);
-  }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = row_a + 8 * r;
+      if (i >= Lq) continue;
+      const float l = fmaxf(l_run[r], 1e-30f);
+      if constexpr (kLoaded) {
+        // every column below any d; a pair in one 4-byte store only where
+        // it starts on a 4-byte boundary (at an odd d every other row
+        // starts 2 bytes into a word)
+        E* row = o + (((int64_t)b * Lq + i) * H + h) * d;
+#pragma unroll
+        for (int j = 0; j < W / 8; ++j) {
+          const int c = 8 * j + 2 * t4;
+          if (c < d) {
+            const float x0 = acc[4 * j + 2 * r] / l;
+            const float x1 = acc[4 * j + 2 * r + 1] / l;
+            if (c + 1 < d && (reinterpret_cast<uintptr_t>(row + c) & 3) == 0) {
+              store2(row + c, x0, x1);
+            } else {
+              store1(row + c, x0);
+              if (c + 1 < d) store1(row + c + 1, x1);
+            }
+          }
+        }
+      } else {
+        E* dst = o + (((int64_t)b * Lq + i) * H + h) * d + 2 * t4;
+#pragma unroll
+        for (int j = 0; j < W / 8; ++j)
+          if (j < d / 8)
+            store2(dst + 8 * j, acc[4 * j + 2 * r] / l, acc[4 * j + 2 * r + 1] / l);
+      }
+    }
+  };
 
+  if constexpr (kLoaded) {
+    if (tid >= kThreadsWg) {
+      // the producer warpgroup: Q once, then every K/V tile into the ring,
+      // each stage once all consumers have released it; generic-proxy
+      // stores, made visible to wgmma's async proxy before the arrival
+      constexpr int kCW = W / 8;                      // chunks of a full row
+      constexpr int kStep = kProducerThreads / kCW;   // rows between mine
+      constexpr int kPer = 4;                         // my rows of a batch
+      constexpr int kB = kStep * kPer;                // rows of a batch
+      const int t = tid - kThreadsWg;
+      // this thread's chunk c of rows t / kCW + kStep k
+      const int c = t % kCW, r_first = t / kCW;
+      const bool in_atoms = c < 8 * atoms;   // a chunk some wgmma reads
+      const bool live = 8 * c < d;           // ... holding a column below d
+      uint8_t* const tiles = smem_raw + (base - smem_u32(smem_raw));
+      // batches of kB rows: Q's kQRows / kB, then each kv tile's K and V
+      const int qb = kQRows / kB, kvb = kBlockN / kB;
+      const int n_batches = qb + n_tiles * 2 * kvb;
+      struct Batch {
+        uintptr_t p0;      // the batch's first row
+        int64_t stride;    // bytes between rows
+        int rows;          // rows before L
+        int tile_rows, tile_row0, tile;
+        uint8_t* dst;
+      };
+      auto batch = [&](int i) {
+        if (i < qb) {
+          const int r0 = q0 + i * kB;
+          return Batch{reinterpret_cast<uintptr_t>(
+                           static_cast<const E*>(src.q) +
+                           (((int64_t)b * Lq + r0) * H + h) * d),
+                       (int64_t)H * d * 2, Lq - r0, kQRows, i * kB, -1, tiles};
+        }
+        const int j = i - qb, tt = j / (2 * kvb), part = j % kvb;
+        const bool is_v = (j / kvb) % 2;
+        const int r0 = k_begin + tt * kBlockN + part * kB;
+        return Batch{reinterpret_cast<uintptr_t>(
+                         static_cast<const E*>(is_v ? src.v : src.k) +
+                         (((int64_t)b * Lk + r0) * KVH + kvh) * d),
+                     (int64_t)KVH * d * 2, Lk - r0, kBlockN, part * kB, tt,
+                     tiles + (is_v ? Lay::kV : Lay::kK) +
+                         (tt % kNS) * Lay::kTileBytes};
+      };
+      struct Words {
+        uint4 w0[kPer], w1[kPer];
+        uint32_t off[kPer];
+      };
+      // the aligned words c and c + 1 of each of my rows of batch i, into
+      // registers (rows past L repeat the batch's last row; word c + 1 past
+      // the row's last word repeats word c: what lies past the row is
+      // masked in the shift, and no load leaves the row's span)
+      auto load = [&](int i, Words& x) {
+        const Batch B = batch(i);
+        if (B.rows <= 0) return;
+        const uintptr_t p_first = B.p0 + r_first * B.stride;
+        const int64_t step = (int64_t)kStep * B.stride;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = row_a + 8 * r;
-    if (i >= Lq) continue;
-    const float l = fmaxf(l_run[r], 1e-30f);
-    E* dst = o + (((int64_t)b * Lq + i) * H + h) * d + 2 * t4;
+        for (int k = 0; k < kPer; ++k) {
+          const uintptr_t p =
+              r_first + kStep * k < B.rows ? p_first + k * step
+                                           : B.p0 + (B.rows - 1) * B.stride;
+          const uintptr_t a = (p & ~(uintptr_t)15) + 16 * c;
+          const uintptr_t last = (p + 2 * d - 1) & ~(uintptr_t)15;
+          const uintptr_t a0 = a < last ? a : last;
+          x.w0[k] = __ldg(reinterpret_cast<const uint4*>(a0));
+          x.w1[k] = __ldg(reinterpret_cast<const uint4*>(a0 < last ? a0 + 16 : a0));
+          x.off[k] = (uint32_t)(p & 15);
+        }
+      };
+      // this thread's swizzled chunk in each of its rows of a batch (rows
+      // of a batch start on a multiple of 8, so r % 8 is the thread's own)
+      uint32_t chunk_at[kPer];
 #pragma unroll
-    for (int j = 0; j < W / 8; ++j)
-      if (j < d / 8)
-        store2(dst + 8 * j, acc[4 * j + 2 * r] / l, acc[4 * j + 2 * r + 1] / l);
+      for (int k = 0; k < kPer; ++k) {
+        const int r = r_first + kStep * k;
+        chunk_at[k] = r * kAtomBytes + (((c % 8) ^ (r % 8)) << 4);
+      }
+      // batch i's chunks shifted into the swizzled tile, once the stage is
+      // free; after Q's or a kv tile's last batch, this thread's stores are
+      // made visible to wgmma's async proxy and its warp arrives
+      auto store = [&](int i, const Words& x) {
+        const Batch B = batch(i);
+        const int j = i - qb;
+        if (i >= qb && j % (2 * kvb) == 0 && B.tile >= kNS)
+          mbar_wait(bar_empty(B.tile % kNS), (B.tile / kNS - 1) & 1);
+        uint8_t* const dst = B.dst + (c / 8) * B.tile_rows * kAtomBytes +
+                             B.tile_row0 * kAtomBytes;
+        if (in_atoms) {
+#pragma unroll
+          for (int k = 0; k < kPer; ++k) {
+            uint4 v = make_uint4(0u, 0u, 0u, 0u);
+            if (live && r_first + kStep * k < B.rows)
+              v = flash_load::shift_chunk(x.w0[k], x.w1[k], x.off[k], d - 8 * c);
+            *reinterpret_cast<uint4*>(dst + chunk_at[k]) = v;
+          }
+        }
+        const bool q_done = i == qb - 1;
+        if (q_done || (i >= qb && j % (2 * kvb) == 2 * kvb - 1)) {
+          fence_proxy_async();
+          __syncwarp();
+          if (lane == 0) mbar_arrive(q_done ? bar_q : bar_full(B.tile % kNS));
+        }
+      };
+      // two batches in flight: batch i + 1's loads overlap batch i's shift
+      Words x0, x1;
+      load(0, x0);
+      for (int i = 0; i < n_batches; i += 2) {
+        if (i + 1 < n_batches) load(i + 1, x1);
+        store(i, x0);
+        if (i + 1 < n_batches) {
+          if (i + 2 < n_batches) load(i + 2, x0);
+          store(i + 1, x1);
+        }
+      }
+    } else {
+      consume();
+    }
+  } else {
+    if (tid == 0) {
+      mbar_expect_tx(bar_q, atoms * kQRows * kAtomBytes);
+      for (int a = 0; a < atoms; ++a)
+        tma_load(sq + a * kQRows * kAtomBytes, &qmap, bar_q, a * kAtom, h, q0, b);
+      for (int st = 0; st < kStages && st < n_tiles; ++st)
+        load_kv(st, k_begin + st * kBlockN);
+    }
+    consume();
   }
 }
 
@@ -346,8 +566,33 @@ cudaError_t launch(const void* q, const void* k, const void* v, int B, int Lq,
   const float scale_log2 = (float)(kLog2e / sqrt((double)D));
   dim3 grid(H, (Lq + kQRows - 1) / kQRows, B);
   flash_wgmma_kernel<E, W><<<grid, kThreadsWg, Lay::kBytes, s>>>(
-      qm, km, vm, Lq, Lk, H, KVH, D, causal, window, scale_log2,
-      static_cast<E*>(o));
+      qm, km, vm, Srcs{nullptr, nullptr, nullptr}, Lq, Lk, H, KVH, D, causal,
+      window, scale_log2, static_cast<E*>(o));
+  return cudaGetLastError();
+}
+
+// The loaded route: head dim D from 1 to W, q, k, v and o at any 2-byte
+// boundary (contiguous, as the wrapper checks); refused otherwise.
+template <typename E, int W>
+cudaError_t launch_loaded(const void* q, const void* k, const void* v, int B,
+                          int Lq, int Lk, int H, int KVH, int D, int causal,
+                          int window, void* o, cudaStream_t s) {
+  using Lay = Layout<W, true>;
+  if (D < 1 || D > W || KVH < 1 || H % KVH || Lk < 1)
+    return cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 2)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_wgmma_kernel<E, W, true>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::kBytes);
+  if (err != cudaSuccess) return err;
+  const float scale_log2 = (float)(kLog2e / sqrt((double)D));
+  dim3 grid(H, (Lq + kQRows - 1) / kQRows, B);
+  CUtensorMap none = {};
+  flash_wgmma_kernel<E, W, true><<<grid, kThreadsLoaded, Lay::kBytes, s>>>(
+      none, none, none, Srcs{q, k, v}, Lq, Lk, H, KVH, D, causal, window,
+      scale_log2, static_cast<E*>(o));
   return cudaGetLastError();
 }
 

@@ -67,6 +67,13 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// One count-based arrival (release): the arriving thread's earlier shared
+// memory stores are visible to the threads that wait on the phase.
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
 // One TMA box of a 4-D (d, heads, L, B) tensor map into shared memory.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int d0, int head,

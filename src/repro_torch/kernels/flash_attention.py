@@ -19,8 +19,8 @@ Routing (``route``), by dtype, head dim and alignment, never by a failed
 build or launch:
 
 - bf16 or float16 with a head dim that is a multiple of 8 up to 256, q,
-  k and v on 16-byte boundaries -> ``flash_wgmma_kernel``: both products
-  on the tensor cores (wgmma's bf16 or f16 kind), K/V tiles by TMA, P
+  k and v each on a 16-byte boundary -> ``flash_wgmma_kernel`` fed by
+  TMA: both products on the tensor cores (wgmma's bf16 or f16 kind), P
   entering P V as a hi/lo pair of the input's type, at a tile width of 64,
   128 or 256 columns (a head dim between runs the next width, the tensor
   maps' true d zero-filling the columns past it; the kernel's notes say
@@ -28,19 +28,25 @@ build or launch:
   dims 64, 96 and 128 (the main paths'), ``["flash_attention_wgmma_f16"]``
   for float16 and ``["flash_attention_wgmma_padded"]`` for bf16 at any
   other head dim.
-- float32 at head dims 16, 32, 64, 96, 128, and bf16 there off 16-byte
-  boundaries -> ``flash_kernel``: float32 on CUDA cores, never TF32, the
-  checked float32 route.  Counted in ``LAUNCHES["flash_attention_simt"]``.
-- float16 at those head dims off 16-byte boundaries -> ``flash_kernel`` on
-  ``__half`` loads and stores, ``LAUNCHES["flash_attention_f16"]``.
-- any other head dim up to 256 that the tensor cores do not take (float32,
-  16-bit off 16-byte boundaries, 16-bit at a head dim that is not a
-  multiple of 8) -> ``flash_kernel`` at the next of those widths or 256,
-  the true head dim a run-time argument (loads past it zero-filled, stores
-  skipped), ``LAUNCHES["flash_attention_padded"]``.
-- head dims above 256 -> ``flash_wide_kernel``: the output columns split
-  over blocks of 128, each recomputing the scores over d in chunks,
-  ``LAUNCHES["flash_attention_wide"]``.
+- every other bf16 or float16 input up to 256 (any of q, k and v off a
+  16-byte boundary, or a head dim that is not a multiple of 8) -> the same
+  kernel fed by a producer warpgroup of its own
+  (``LAUNCHES["flash_attention_wgmma_loaded"]``): it reads each row from
+  any 2-byte boundary as aligned 16-byte words shifted into place, and
+  writes the swizzled tiles TMA would have written, zeros past d and past
+  L.  A tensor map needs a 16-byte base and 16-byte row strides, and
+  cp.async a source aligned to its copy size, so neither can read these
+  inputs.  At a head dim that is a multiple of 8 the output equals, bit for
+  bit, TMA's on the same values.
+- float32 at head dims 16, 32, 64, 96, 128 -> ``flash_kernel``: float32 on
+  CUDA cores, never TF32, the checked float32 route,
+  ``LAUNCHES["flash_attention_simt"]``.
+- float32 at any other head dim up to 256 -> ``flash_kernel`` at the next
+  of those widths or 256, the true head dim a run-time argument (loads past
+  it zero-filled, stores skipped), ``LAUNCHES["flash_attention_padded"]``.
+- head dims above 256, any dtype -> ``flash_wide_kernel``: one block per
+  (q tile, head) computes each score once, Q resident, K and V streamed in
+  chunks, ``LAUNCHES["flash_attention_wide"]``.
 
 q, k and v of different dtypes (the Pallas kernel casts each to float32)
 are cast to float32 here, exactly, and take the float32 route of their
@@ -70,15 +76,16 @@ class Route(NamedTuple):
 WGMMA = Route("flash_wgmma_kernel", "flash_attention_wgmma")
 WGMMA_F16 = Route("flash_wgmma_kernel", "flash_attention_wgmma_f16")
 WGMMA_PADDED = Route("flash_wgmma_kernel", "flash_attention_wgmma_padded")
+WGMMA_LOADED = Route("flash_wgmma_kernel", "flash_attention_wgmma_loaded")
 SIMT = Route("flash_kernel", "flash_attention_simt")
-F16 = Route("flash_kernel", "flash_attention_f16")
 PADDED = Route("flash_kernel", "flash_attention_padded")
 WIDE = Route("flash_wide_kernel", "flash_attention_wide")
-ROUTES = (WGMMA, WGMMA_F16, WGMMA_PADDED, SIMT, F16, PADDED, WIDE)
-TENSOR_CORE_ROUTES = (WGMMA, WGMMA_F16, WGMMA_PADDED)
+ROUTES = (WGMMA, WGMMA_F16, WGMMA_PADDED, WGMMA_LOADED, SIMT, PADDED, WIDE)
+TENSOR_CORE_ROUTES = (WGMMA, WGMMA_F16, WGMMA_PADDED, WGMMA_LOADED)
 LAUNCHES = {r.counter: 0 for r in ROUTES}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+HALF_DTYPES = (torch.bfloat16, torch.float16)
 HEAD_DIMS = (16, 32, 64, 96, 128)   # flash_kernel's own widths
 WGMMA_HEAD_DIMS = (64, 96, 128)     # the main paths' tensor-core head dims
 MAX_PADDED = 256                    # widest flash_kernel and flash_wgmma_kernel
@@ -92,17 +99,22 @@ def reset_launches() -> None:
 
 def route(dtype: torch.dtype, head_dim: int, aligned: bool = True) -> Route:
     """The kernel a CUDA call with q, k and v of this dtype and head dim
-    launches (``aligned``: all three start on 16-byte boundaries)."""
+    launches (``aligned``: each of the three starts on a 16-byte
+    boundary)."""
     if head_dim > MAX_PADDED:
         return WIDE
-    if (dtype in (torch.bfloat16, torch.float16) and aligned
-            and head_dim % WGMMA_DIM_STEP == 0):
+    if dtype in HALF_DTYPES:
+        if not aligned or head_dim % WGMMA_DIM_STEP:
+            return WGMMA_LOADED
         if dtype == torch.float16:
             return WGMMA_F16
         return WGMMA if head_dim in WGMMA_HEAD_DIMS else WGMMA_PADDED
-    if head_dim not in HEAD_DIMS:
-        return PADDED
-    return F16 if dtype == torch.float16 else SIMT
+    return SIMT if head_dim in HEAD_DIMS else PADDED
+
+
+def element_offsets(*tensors: torch.Tensor) -> tuple:
+    """Each tensor's start, in its own elements, past a 16-byte boundary."""
+    return tuple(t.data_ptr() % 16 // t.element_size() for t in tensors)
 
 
 def compute_dtype(q: torch.Tensor, k: torch.Tensor,
@@ -131,7 +143,9 @@ def cuda_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Route:
     need(k, "k", (B, Lk, KVH, D), tuple(_DTYPES))
     need(v, "v", (B, Lk, KVH, D), tuple(_DTYPES))
     dt = compute_dtype(q, k, v)
-    aligned = dt == q.dtype and all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    # a cast copy (mixed dtypes) is fresh, so aligned; otherwise each
+    # tensor's own offset decides
+    aligned = dt != q.dtype or not any(element_offsets(q, k, v))
     return route(dt, D, aligned)
 
 
@@ -152,7 +166,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not out.numel():
         return out
     LAUNCHES[r.counter] += 1
-    if r in TENSOR_CORE_ROUTES:
+    if r is WGMMA_LOADED:
+        check(_build.load().flash_attention_wgmma_loaded_launch(
+            _DTYPES[q.dtype], ptr(q), ptr(k), ptr(v), B, Lq, Lk, H, KVH, D,
+            int(causal), int(window), ptr(out), stream(q)),
+            f"flash_attention (wgmma, {r.counter})")
+    elif r in TENSOR_CORE_ROUTES:
         lib = _build.load()
         launch = (lib.flash_attention_wgmma_f16_launch if r is WGMMA_F16
                   else lib.flash_attention_wgmma_launch)

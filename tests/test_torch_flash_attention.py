@@ -118,8 +118,8 @@ def test_cpu_tensors_never_count_launches(rng):
     assert tflash.LAUNCHES == {"flash_attention_wgmma": 0,
                                "flash_attention_wgmma_f16": 0,
                                "flash_attention_wgmma_padded": 0,
+                               "flash_attention_wgmma_loaded": 0,
                                "flash_attention_simt": 0,
-                               "flash_attention_f16": 0,
                                "flash_attention_padded": 0,
                                "flash_attention_wide": 0}
 
@@ -292,6 +292,74 @@ def test_tensor_core_arithmetic_at_every_width_and_kind(rng, elem, case):
     assert ulps <= smoke.FLASH_ULP_LIMIT
 
 
+# head dims TMA cannot take (a row stride that is not a multiple of 16
+# bytes): the loaded route's, whose consumers run the same arithmetic
+LOADED_CASES = [dict(B=1, Lq=70, Lk=70, H=4, KVH=2, D=D, causal=True,
+                     window=16 if D == 20 else 0) for D in (1, 20, 36)]
+LOADED_CASES.append(dict(B=1, Lq=40, Lk=90, H=2, KVH=1, D=100, causal=False,
+                         window=0))
+
+
+@pytest.mark.parametrize("elem,case", [(e, c) for e in ("bf16", "f16")
+                                       for c in LOADED_CASES],
+                         ids=lambda x: x if isinstance(x, str) else "-".join(
+                             f"{k}{v}" for k, v in x.items()))
+def test_loaded_route_arithmetic_at_head_dims_off_the_tma_stride(
+        rng, elem, case):
+    """The loaded route at head dims 1, 20, 36 and 100 (zeros past d in
+    every tile, scale d^-1/2 of the true d): the emulated float32 output is
+    within the float32 tolerance of both the reference and the Pallas
+    kernel (interpret mode) on the same inputs, and rounded to the input's
+    type within chip_smoke's ulp limit of the reference."""
+    smoke = _chip_smoke()
+    c = case
+    pairs = _elem_case(rng, c, elem)
+    kw = dict(causal=c["causal"], window=c["window"])
+    got = _emulate_wgmma(*(t for _, t in pairs), elem=ELEMS[elem][1], **kw)
+    qj, kj, vj = _jax_f32(pairs)
+    want = jref.flash_attention_ref(qj, kj, vj, **kw)
+    pallas = jflash(qj, kj, vj, block_q=32, block_k=32, interpret=True, **kw)
+    for other in (want, pallas):
+        np.testing.assert_allclose(got.numpy(), np.asarray(other), rtol=3e-4,
+                                   atol=3e-4)
+    ulps = (smoke.f16_ulps if elem == "f16" else smoke.bf16_ulps)(
+        got.to(ELEMS[elem][1]), torch.from_numpy(np.array(want)))
+    assert ulps <= smoke.FLASH_ULP_LIMIT
+    assert tflash.route(ELEMS[elem][1], c["D"]) == tflash.WGMMA_LOADED
+
+
+@pytest.mark.parametrize("elem", ["bf16", "f16"])
+@pytest.mark.parametrize("D", [1, 2, 4, 7])
+def test_ulp_check_at_rows_shorter_than_8_holds_on_every_seed(elem, D):
+    """The loaded route at head dims below 8, over 20 seeds and the smoke's
+    three contract masks: the emulated output, rounded to the input's type,
+    is within chip_smoke's ulp limit of the reference on every seed.  At
+    d 1 in bf16 the row's own rms (the element itself) would read past the
+    limit on some seed, which is why short rows take their head's scale."""
+    smoke = _chip_smoke()
+    tdt = ELEMS[elem][1]
+    ulps = smoke.f16_ulps if elem == "f16" else smoke.bf16_ulps
+    worst = worst_row_scale = 0.0
+    for seed in range(20):
+        rng = np.random.default_rng(seed)
+        for m in ({"Lk": 70, "causal": True, "window": 0},
+                  {"Lk": 70, "causal": True, "window": 16},
+                  {"Lk": 40, "causal": False, "window": 0}):
+            kw = dict(causal=m["causal"], window=m["window"])
+            xs = [torch.from_numpy(rng.normal(size=(1, length, heads, D))
+                                   .astype(np.float32)).to(tdt).float()
+                  for length, heads in ((70, 4), (m["Lk"], 2), (m["Lk"], 2))]
+            got = _emulate_wgmma(*xs, elem=tdt, **kw).to(tdt)
+            want = tref.flash_attention_ref(*xs, **kw)
+            worst = max(worst, ulps(got, want))
+            if D == 1:   # a one-element row is its own rms: no floor
+                worst_row_scale = max(worst_row_scale, ulps(
+                    got.reshape(-1, 1, 1, 1), want.reshape(-1, 1, 1, 1)))
+    assert worst <= smoke.FLASH_ULP_LIMIT
+    if D == 1 and elem == "bf16":
+        assert worst_row_scale > smoke.FLASH_ULP_LIMIT
+
+
 def test_f16_ulps_counts_float16_ulps():
     """chip_smoke.f16_ulps: one float16 ulp is 2^-10 of the value's binade,
     2^-24 below 2^-14 (subnormals); bf16_ulps keeps its 2^-7."""
@@ -315,7 +383,7 @@ def test_f16_ulps_counts_float16_ulps():
     (torch.bfloat16, 80, "WGMMA_PADDED"), (torch.float16, 80, "WGMMA_F16"),
     (torch.bfloat16, 200, "WGMMA_PADDED"), (torch.float16, 200, "WGMMA_F16"),
     (torch.bfloat16, 256, "WGMMA_PADDED"), (torch.float16, 256, "WGMMA_F16"),
-    (torch.bfloat16, 20, "PADDED"), (torch.float16, 20, "PADDED"),
+    (torch.bfloat16, 20, "WGMMA_LOADED"), (torch.float16, 20, "WGMMA_LOADED"),
     (torch.float32, 48, "PADDED"), (torch.float32, 80, "PADDED"),
     (torch.float32, 200, "PADDED"), (torch.float32, 256, "PADDED"),
     (torch.bfloat16, 320, "WIDE"), (torch.float16, 320, "WIDE"),
@@ -337,14 +405,14 @@ def test_routing_table(dtype, dim, route):
 
 
 @pytest.mark.parametrize("dtype,dim,route", [
-    (torch.bfloat16, 72, "PADDED"), (torch.float16, 72, "PADDED"),
-    (torch.bfloat16, 64, "SIMT"), (torch.float16, 128, "F16"),
-    (torch.float16, 16, "F16"), (torch.bfloat16, 256, "PADDED"),
+    (torch.bfloat16, 72, "WGMMA_LOADED"), (torch.float16, 72, "WGMMA_LOADED"),
+    (torch.bfloat16, 64, "WGMMA_LOADED"), (torch.float16, 128, "WGMMA_LOADED"),
+    (torch.float16, 16, "WGMMA_LOADED"), (torch.bfloat16, 256, "WGMMA_LOADED"),
     (torch.float32, 72, "PADDED"), (torch.float32, 64, "SIMT")])
 def test_routing_off_16_byte_boundaries(dtype, dim, route):
     """TMA takes 16-byte-aligned tensors only: 16-bit inputs off a
-    16-byte boundary take flash_kernel at any head dim, float32 its own
-    route there."""
+    16-byte boundary take the tensor cores' loaded route at any head dim up
+    to 256, float32 its own route there."""
     want = getattr(tflash, route)
     assert tflash.route(dtype, dim, aligned=False) == want
     n = 8 * 4 * dim
@@ -355,6 +423,54 @@ def test_routing_off_16_byte_boundaries(dtype, dim, route):
     assert tflash.cuda_route(q, kv, kv) == want
     assert tflash.cuda_route(kv, q[:, :, :2].contiguous(), kv) == \
         tflash.route(dtype, dim)   # a contiguous copy is aligned again
+
+
+def _off_boundary(shape, dtype, offset):
+    """A zero tensor of ``shape`` starting ``offset`` elements past a
+    16-byte boundary."""
+    flat = torch.zeros(int(np.prod(shape)) + offset, dtype=dtype)
+    assert flat.data_ptr() % 16 == 0
+    return flat[offset:].view(shape)
+
+
+@pytest.mark.parametrize("offset", range(1, 8))
+@pytest.mark.parametrize("which", ["q", "k", "v", "qkv"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_routing_by_each_tensors_offset(dtype, which, offset):
+    """Any one of q, k and v off a 16-byte boundary, by any element offset
+    1-7, sends a 16-bit call to the loaded route; each tensor's own offset
+    decides, and the same values on boundaries take TMA's route."""
+    dim = 64
+    shapes = {"q": (1, 8, 4, dim), "k": (1, 8, 2, dim), "v": (1, 8, 2, dim)}
+    t = {n: _off_boundary(sh, dtype, offset if n in which else 0)
+         for n, sh in shapes.items()}
+    want = {n: offset if n in which else 0 for n in shapes}
+    assert tflash.element_offsets(t["q"], t["k"], t["v"]) == \
+        (want["q"], want["k"], want["v"])
+    assert tflash.cuda_route(t["q"], t["k"], t["v"]) == tflash.WGMMA_LOADED
+    aligned = [x.contiguous().clone() for x in (t["q"], t["k"], t["v"])]
+    assert tflash.element_offsets(*aligned) == (0, 0, 0)
+    assert tflash.cuda_route(*aligned) == tflash.route(dtype, dim)
+    assert tflash.route(dtype, dim) in (tflash.WGMMA, tflash.WGMMA_F16)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_no_16_bit_input_reaches_flash_kernel(dtype, aligned):
+    """Every bf16 and float16 head dim up to 256, on or off a 16-byte
+    boundary, runs on the tensor cores (flash_wgmma_kernel); past 256,
+    flash_wide_kernel; flash_kernel keeps float32 alone."""
+    for dim in range(1, tflash.MAX_PADDED + 1):
+        r = tflash.route(dtype, dim, aligned=aligned)
+        assert r in tflash.TENSOR_CORE_ROUTES, (dim, r)
+        assert r.kernel == "flash_wgmma_kernel"
+        assert (r is tflash.WGMMA_LOADED) == (
+            not aligned or dim % tflash.WGMMA_DIM_STEP != 0)
+    assert tflash.route(dtype, tflash.MAX_PADDED + 1, aligned) == tflash.WIDE
+    flash_kernel = {r for r in tflash.ROUTES if r.kernel == "flash_kernel"}
+    assert flash_kernel == {tflash.SIMT, tflash.PADDED}
+    assert {tflash.route(torch.float32, d) for d in range(1, 257)} == \
+        flash_kernel
 
 
 def test_cuda_route_refuses_what_the_kernels_do_not_take():
@@ -402,8 +518,8 @@ def test_cuda_route_refuses_what_the_kernels_do_not_take():
     flat = torch.zeros(q.numel() + 8, dtype=torch.bfloat16)
     odd = flat[1:1 + q.numel()].view(q.shape)   # 2 bytes past an aligned start
     assert flat.data_ptr() % 16 == 0
-    # TMA needs 16-byte boundaries: unaligned bf16 takes flash_kernel
-    assert tflash.cuda_route(odd, kv, kv) == tflash.SIMT
+    # TMA needs 16-byte boundaries: unaligned bf16 takes the loaded route
+    assert tflash.cuda_route(odd, kv, kv) == tflash.WGMMA_LOADED
     # float32 takes flash_kernel, which has no alignment rule
     flat32 = torch.zeros(q.numel() + 1)
     odd32 = flat32[1:].view(q.shape)           # 4 bytes past an aligned start

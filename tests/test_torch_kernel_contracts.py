@@ -127,12 +127,12 @@ def _aligned_pair(D, dtype, offset):
 
 
 @pytest.mark.parametrize("dtype,D,offset,route", [
-    (torch.bfloat16, 64, 0, "WGMMA"), (torch.bfloat16, 64, 1, "SIMT"),
-    (torch.bfloat16, 128, 2, "SIMT"), (torch.bfloat16, 96, 0, "WGMMA"),
-    (torch.float16, 64, 0, "WGMMA_F16"), (torch.float16, 128, 1, "F16"),
+    (torch.bfloat16, 64, 0, "WGMMA"), (torch.bfloat16, 64, 1, "WGMMA_LOADED"),
+    (torch.bfloat16, 128, 2, "WGMMA_LOADED"), (torch.bfloat16, 96, 0, "WGMMA"),
+    (torch.float16, 64, 0, "WGMMA_F16"), (torch.float16, 128, 1, "WGMMA_LOADED"),
     (torch.float16, 16, 0, "WGMMA_F16"), (torch.float32, 128, 1, "SIMT"),
     (torch.float32, 40, 0, "PADDED"), (torch.bfloat16, 80, 0, "WGMMA_PADDED"),
-    (torch.float16, 1, 0, "PADDED"), (torch.float16, 200, 0, "WGMMA_F16"),
+    (torch.float16, 1, 0, "WGMMA_LOADED"), (torch.float16, 200, 0, "WGMMA_F16"),
     (torch.bfloat16, 256, 0, "WGMMA_PADDED"), (torch.float32, 257, 0, "WIDE"),
     (torch.float32, 320, 0, "WIDE"), (torch.bfloat16, 512, 0, "WIDE")])
 def test_flash_route_table(dtype, D, offset, route):
@@ -141,7 +141,8 @@ def test_flash_route_table(dtype, D, offset, route):
     assert tflash.cuda_route(q, k, v) == want
     assert tflash.route(dtype, D, aligned=offset == 0) == want
     assert tflash.LAUNCHES.keys() == {r.counter for r in tflash.ROUTES}
-    assert tflash.F16 == ("flash_kernel", "flash_attention_f16")
+    assert tflash.WGMMA_LOADED == ("flash_wgmma_kernel",
+                                   "flash_attention_wgmma_loaded")
     assert tflash.PADDED == ("flash_kernel", "flash_attention_padded")
     assert tflash.WIDE == ("flash_wide_kernel", "flash_attention_wide")
 

@@ -14,7 +14,8 @@ on its three fixed-shape routes (dtx formed on load too), the state pass
 on both, ``ssd_chunked``, the gain kernels at wide-192's and
 ``chip_smoke.FAMILY_TIMED``'s shapes in float32 and bf16, and
 ``gain_matvec`` / ``practical_gain`` at the kernel suite's one agent
-(``chip_smoke.MATVEC_LONG[0]``) in float32 and float16.
+(``chip_smoke.MATVEC_LONG[0]``) in float32 and float16.  Beside them, and
+counted apart (``wide_cases``), ``flash_wide_kernel`` past head dim 256.
 
 A tree whose library has no ``gain_matvec_tiles_launch`` (before the
 matvec took its T-tiles, one block an agent) runs its matvec cases
@@ -182,6 +183,35 @@ def cases(dev):
     return [c if len(c) == 3 else c + (None,) for c in out]
 
 
+def wide_cases(dev):
+    """(label, fn, None) triples of ``flash_wide_kernel`` (head dims past
+    256, which no main path runs): d 320 and 512 in float32, bf16 and
+    float16 under ``chip_smoke.FLASH_CONTRACT_MASKS``, and 16-bit inputs off
+    16-byte boundaries.  Counted apart from the main paths' cases."""
+    import torch
+
+    import chip_smoke as S
+    from repro_torch.kernels import flash_attention as FA
+
+    gen = torch.Generator().manual_seed(13)
+    grid = [(D, dt, m, 0) for D in (320, 512)
+            for dt in (torch.float32, torch.bfloat16, torch.float16)
+            for m in S.FLASH_CONTRACT_MASKS]
+    grid += [(320, torch.bfloat16, S.FLASH_CONTRACT_MASKS[0], 1),
+             (512, torch.float16, S.FLASH_CONTRACT_MASKS[2], 3)]
+    out = []
+    for D, dt, m, offset in grid:
+        c = dict(B=1, H=4, KVH=2, D=D, **m)
+        q, k, v = (S._offset_copy(x, offset)
+                   for x in S._flash_inputs(gen, dev, c, dt))
+        assert FA.cuda_route(q, k, v) is FA.WIDE
+        kw = dict(causal=c["causal"], window=c["window"])
+        out.append((f"flash wide {c} {dt} offset {offset}",
+                    lambda q=q, k=k, v=v, kw=kw:
+                    FA.flash_attention(q, k, v, **kw), None))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", required=True)
@@ -204,8 +234,8 @@ def main(argv=None):
     print(json.dumps({"other_src": os.path.abspath(args.src),
                       "other_library": str(other),
                       "this_library": str(this)}), flush=True)
-    rows, differ = [], 0
-    for label, fn, legacy in cases(dev):
+    rows, differ, wide = [], 0, wide_cases(dev)
+    for label, fn, legacy in cases(dev) + wide:
         build.load(this)
         a = fn()
         tiled = hasattr(build.load(other), "gain_matvec_tiles_launch")
@@ -218,7 +248,11 @@ def main(argv=None):
         row = {"case": label, "equal": equal}
         rows.append(row)
         print(json.dumps(row), flush=True)
-    summary = {"cases": len(rows), "differ": differ, "card": card}
+    n_wide = len(wide)
+    wide_differ = sum(not r["equal"] for r in rows[-n_wide:])
+    summary = {"cases": len(rows) - n_wide, "differ": differ - wide_differ,
+               "wide_cases": n_wide, "wide_differ": wide_differ,
+               "card": card}
     print(json.dumps(summary), flush=True)
     if args.out:
         with open(args.out, "w") as f:
