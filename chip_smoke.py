@@ -143,8 +143,8 @@ Phases, in order; any failed check exits non-zero and prints no ok line:
 6. Train the LM substrate (``TRAIN_CELLS``), random weights from a seeded
    generator, on the plain path (no kernel is on it: each entry run is
    driven with the kernel counts at 0 and must leave them there):
-   ``train-mamba2-370m-24l`` at full width (d 1024) with its depth cut to
-   24 of 48 layers runs ``launch.train.train`` for
+   ``train-mamba2-370m-12l`` at full width (d 1024) with its depth cut to
+   12 of 48 layers runs ``launch.train.train`` for
    20 steps (8 agents, 8 x 1024 tokens, adamw on the cosine schedule at
    lr 3e-4, the ``hvp`` gain, eps 1, lambda 1e-3; a checkpoint written
    and restored bitwise; the loss must fall), the reference's
@@ -364,12 +364,20 @@ class KernelLog:
         self.repeat_bitwise = True
         self.tie_flips = 0
         self.extra = {}        # kernel-specific fields of its record
+        self.nested = {}       # logs of routes that its record holds inside
 
     def close(self, name, got, want, tol, scale=None):
         rel, ab = rel_err(got, want, scale)
         self.max_rel = max(self.max_rel, rel)
         self.max_abs = max(self.max_abs, ab)
         check(rel <= tol, f"{name}: error {rel:.3g} over tolerance {tol}")
+
+    def summary(self):
+        """A nested route's entry in its record: its cases, errors, repeat
+        and own fields."""
+        return dict(cases=self.cases, max_abs_err=self.max_abs,
+                    max_rel_err=self.max_rel,
+                    repeat_bitwise=self.repeat_bitwise, **self.extra)
 
     def repeat(self, name, fn):
         import torch
@@ -2633,6 +2641,11 @@ FLASH_SUITE = dict(B=1, L=512, H=4, KVH=2, D=64, causal=True, window=0)
 # kernel that keeps float32 P's accuracy reads about 0.5 and one that
 # rounds P to a single bf16 reads well above 1 (PERF.md section 6).
 FLASH_ULP_LIMIT = 1.0
+# The float32 kind of the tensor-core route (three bf16 pieces of each
+# operand) against flash_kernel (float32 CUDA cores) on the same inputs:
+# its max abs distance from the reference computed in float64 may be at
+# most this multiple of flash_kernel's (``f32_vs_flash_kernel``).
+F32_VS_FLASH_KERNEL = 2.0
 SSD_TILE_CASE = dict(B=2, nc=3, Q=32, H=4, P=16, N=8)
 SSD_TILE_TOL = 1e-4
 SSD_CHUNKED_CASES = ((64, 32), (200, 64), (128, 128))
@@ -2777,6 +2790,113 @@ def flash_work(c, itemsize):
             4 * B * H * pairs * D)
 
 
+def flash_f32_bounds(c):
+    """The float32 kind's bounds at shape ``c``: float32 q, k, v and o
+    against the six bf16 piece products of each product on the tensor
+    cores (``bound_ms``, the kernel's least time) and against the
+    function's float32 operations on CUDA cores (``cuda_core_bound_ms``,
+    flash_kernel's)."""
+    moved, ops = flash_work(c, 4)
+    b_ms, b_by = bound(moved, 6 * ops, PEAK_BF16_FLOPS)
+    return dict(bound_ms=b_ms, bound_by=b_by,
+                bound_is="six bf16 piece products at 989 TFLOP/s",
+                cuda_core_bound_ms=bound(moved, ops)[0])
+
+
+def flash_ref64(q, k, v, causal=True, window=0, rows=2048):
+    """The reference's attention in float64, one batch row, head and block
+    of ``rows`` query rows at a time (a whole head's float64 scores are
+    0.5 GB at 8192 x 8192)."""
+    import torch
+    B, Lq, H, D = q.shape
+    Lk, KVH = k.shape[1], k.shape[2]
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    kp = torch.arange(Lk, device=q.device)[None, :]
+    for b in range(B):
+        for h in range(H):
+            kk = k[b, :, h // (H // KVH)].double()
+            vv = v[b, :, h // (H // KVH)].double()
+            for i0 in range(0, Lq, rows):
+                s = (q[b, i0:i0 + rows, h].double() @ kk.T) * D**-0.5
+                qp = torch.arange(i0, i0 + s.shape[0], device=q.device)[:, None]
+                vis = torch.ones_like(s, dtype=torch.bool)
+                if causal:
+                    vis &= kp <= qp
+                if window > 0:
+                    vis &= kp > qp - window
+                s = torch.where(vis, s, torch.full_like(s, -1e30))
+                out[b, i0:i0 + rows, h] = torch.softmax(s, dim=-1) @ vv
+    return out
+
+
+def f32_log():
+    """The float32 kind's log, with flash_kernel's nested in it as its
+    CUDA-core route (``f32_vs_flash_kernel``)."""
+    from repro_torch.kernels import flash_attention as FA
+    log = KernelLog()
+    simt = log.nested["cuda_core_route"] = KernelLog()
+    simt.extra.update(
+        kernel=FA.SIMT.kernel, routes=[FA.SIMT.counter, FA.PADDED.counter],
+        tolerance=dict(float32=FLASH_TOL["float32"]),
+        note="flash_kernel forced on every float32 case of the float32 kind "
+             "and on its own at float32 inputs off 16-byte boundaries, each "
+             "against the plain version and repeated bitwise")
+    return log
+
+
+def f32_vs_flash_kernel(log, label, got, q, k, v, kw):
+    """flash_kernel forced on the float32 kind's inputs: held against the
+    plain version at ``FLASH_TOL`` and repeated bitwise (into ``log``'s
+    nested ``cuda_core_route``), then both outputs against the reference in
+    float64: the kind's ``got`` may lie at most ``F32_VS_FLASH_KERNEL``
+    times as far (max abs) as flash_kernel's.  Both distances and the
+    seconds these checks take go into ``log``'s ``float64_distance``."""
+    from repro_torch.kernels import flash_attention as FA
+    t0 = time.perf_counter()
+    r = FA.flash_kernel_route(q.shape[-1])
+    simt = log.nested["cuda_core_route"]
+    label_fk = f"{label} (flash_kernel forced)"
+    fn = lambda: FA.flash_attention(q, k, v, force=FA.SIMT, **kw)  # noqa: E731
+    fk = _launched(FA, label_fk, {r.counter: 1}, fn)
+    _flash_check(simt, label_fk, fk, q, k, v, kw, FLASH_TOL["float32"])
+    simt.repeat(label_fk, fn)
+    simt.cases += 1
+    want = flash_ref64(q, k, v, **kw)
+    d_new = float((got.double() - want).abs().max())
+    d_fk = float((fk.double() - want).abs().max())
+    del want, fk
+    dist = log.extra.setdefault("float64_distance", dict(
+        limit=F32_VS_FLASH_KERNEL, worst_ratio=0.0, seconds=0.0,
+        cases={}, note="[the float32 kind, flash_kernel forced]: max abs "
+                       "distance from the reference in float64; seconds: "
+                       "flash_kernel's checks and the float64 references"))
+    dist["cases"][label] = [d_new, d_fk]
+    dist["worst_ratio"] = max(dist["worst_ratio"], d_new / max(d_fk, 1e-30))
+    check(d_new <= F32_VS_FLASH_KERNEL * d_fk,
+          f"{label}: {d_new:.3g} from the float64 reference, flash_kernel "
+          f"{d_fk:.3g} (limit {F32_VS_FLASH_KERNEL}x)")
+    dist["seconds"] += time.perf_counter() - t0
+
+
+def f32_timing(c, q, k, v, kw, reps=5):
+    """The float32 kind, flash_kernel forced and
+    scaled_dot_product_attention in float32 (none under a window) on the
+    same inputs at shape ``c``, timed (median of ``reps``), with both
+    bounds (``flash_f32_bounds``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=kw["causal"], enable_gqa=True)
+    return dict(ms=time_ms(lambda: FA.flash_attention(q, k, v, **kw),
+                           reps=reps, warmup=1),
+                flash_kernel_ms=time_ms(lambda: FA.flash_attention(
+                    q, k, v, force=FA.SIMT, **kw), reps=3, warmup=1),
+                library_ms=(time_ms(sdpa, reps=reps, warmup=1)
+                            if not kw["window"] else None),
+                **flash_f32_bounds(c))
+
+
 def ssd_work(c, bc_itemsize, x_itemsize=None):
     """Bytes (dtx, cum, B, C read once; y, states written once) and the
     function's float32 operations: C B^T once per chunk and y per head on
@@ -2852,7 +2972,11 @@ def lm_kernel_phase(dev):
     bf16, ``FLASH_MAIN_PATH``, at head dim 96, and with Lk != Lq and head
     dim 64 for seamless-m4t-medium, ``flash_cross_phase``), a bitwise
     repeat of every launch, and timings of kernel, plain version and
-    (flash) scaled_dot_product_attention."""
+    (flash) scaled_dot_product_attention.  Flash's float32 cases take the
+    tensor cores' float32 kind (the ``flash_attention_wgmma_f32`` record),
+    each held against flash_kernel forced on the same inputs in float64
+    (``f32_vs_flash_kernel``) and timed beside it at the slices
+    (``f32_timing``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
@@ -2860,12 +2984,13 @@ def lm_kernel_phase(dev):
 
     gen = torch.Generator().manual_seed(2)
     logs = {"flash_attention": KernelLog(), "ssd_chunk_tiles": KernelLog(),
-            "ssd_state_pass": KernelLog()}
+            "ssd_state_pass": KernelLog(),
+            "flash_attention_wgmma_f32": f32_log()}
     timings = {}
 
     # the flash_attention record is the tensor-core route's (the main path's);
-    # flash_kernel, the float32 route, is held and timed beside it
-    lf, simt = logs["flash_attention"], KernelLog()
+    # its float32 kind (the float32 checks' route) is held and timed beside it
+    lf, f32 = logs["flash_attention"], logs["flash_attention_wgmma_f32"]
     lf.extra["bf16_ulp_check"] = dict(max_ulps=0.0, cases=0,
                                       limit=FLASH_ULP_LIMIT)
     for c in FLASH_CASES + (FLASH_SLICE,):
@@ -2875,12 +3000,12 @@ def lm_kernel_phase(dev):
             tol = FLASH_TOL[str(dt).split(".")[-1]]
             label = f"flash {c} {dt}"
             # bf16 at d 64 and 128 on the main paths' tensor-core route, at
-            # d 16 and 32 on its padded one; float32 on flash_kernel
-            route = (FA.SIMT if dt == torch.float32 else
+            # d 16 and 32 on its padded one; float32 on its float32 kind
+            route = (FA.WGMMA_F32 if dt == torch.float32 else
                      FA.WGMMA if c["D"] in (64, 128) else FA.WGMMA_PADDED)
             check(route is FA.route(dt, c["D"]),
                   f"{label}: route {FA.route(dt, c['D'])}, expected {route}")
-            log = lf if route in FA.TENSOR_CORE_ROUTES else simt
+            log = f32 if route is FA.WGMMA_F32 else lf
             FA.reset_launches()
             got = FA.flash_attention(q, k, v, **kw)
             check(FA.LAUNCHES[route.counter] == 1
@@ -2889,17 +3014,24 @@ def lm_kernel_phase(dev):
             _flash_check(log, label, got, q, k, v, kw, tol)
             log.repeat(label, lambda: FA.flash_attention(q, k, v, **kw))
             log.cases += 1
+            if route is FA.WGMMA_F32:
+                f32_vs_flash_kernel(f32, label, got, q, k, v, kw)
             del got
             if c is FLASH_SLICE and dt == torch.float32:
-                b_ms, b_by = bound(*flash_work(FLASH_SLICE, 4))
-                simt_time = dict(ms=time_ms(lambda: FA.flash_attention(q, k, v),
-                                            reps=5, warmup=1),
-                                 bound_ms=b_ms, bound_by=b_by)
+                f32_time = f32_timing(c, q, k, v, kw)
+                timings["flash_attention_wgmma_f32"] = dict(
+                    {key: f32_time[key] for key in ("ms", "library_ms",
+                                                    "bound_ms", "bound_by")},
+                    plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v),
+                                     reps=3, warmup=1))
     lf.extra["float32_route"] = dict(
-        kernel=FA.SIMT.kernel, cases=simt.cases, max_abs_err=simt.max_abs,
-        max_rel_err=simt.max_rel, repeat_bitwise=simt.repeat_bitwise,
-        tolerance=dict(FLASH_TOL), slice_dtype="float32", **simt_time,
-        kernel_suite=flash_suite_timing(dev))
+        kernel=FA.WGMMA_F32.kernel, route=FA.WGMMA_F32.counter,
+        record="flash_attention_wgmma_f32", slice_dtype="float32",
+        **f32_time, kernel_suite=flash_suite_timing(dev, f32))
+    f32.extra.update(kernel=FA.WGMMA_F32.kernel, timed_at=dict(FLASH_SLICE),
+                     flash_kernel_ms=f32_time["flash_kernel_ms"],
+                     cuda_core_bound_ms=f32_time["cuda_core_bound_ms"],
+                     bound_is=f32_time["bound_is"])
     # timed at the slice shape in the serving cells' dtype (bf16, last above)
     sdpa = lambda: F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -2941,38 +3073,36 @@ def lm_kernel_phase(dev):
     return logs, timings
 
 
-def flash_suite_timing(dev):
-    """flash_kernel (the float32 route) at the kernel suite's shape,
-    FLASH_SUITE, against its plain version at FLASH_TOL, and timed beside
-    it and scaled_dot_product_attention in float32, with the float32
-    CUDA-core bound."""
+def flash_suite_timing(dev, f32):
+    """The float32 kind at the kernel suite's shape, FLASH_SUITE, against
+    its plain version at FLASH_TOL and flash_kernel in float64 (into the
+    float32 kind's log ``f32``), and timed beside flash_kernel, the plain
+    version and scaled_dot_product_attention in float32, with both
+    bounds."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref
     c = FLASH_SUITE
     q, k, v = _flash_inputs(torch.Generator().manual_seed(8), dev, c,
                             torch.float32)
+    kw = dict(causal=True, window=0)
     r = FA.cuda_route(q, k, v)
-    check(r is FA.SIMT, f"flash kernel suite: route {r}")
+    check(r is FA.WGMMA_F32, f"flash kernel suite: route {r}")
     got = _launched(FA, "flash kernel suite", {r.counter: 1},
                     lambda: FA.flash_attention(q, k, v))
     err = rel_err(got, ref.flash_attention_ref(q, k, v))[0]
     check(err <= FLASH_TOL["float32"], f"flash kernel suite: error {err:.3g}")
-    sdpa = lambda: F.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=True, enable_gqa=True)
-    b_ms, b_by = bound(*flash_work(c, 4))
-    return dict(shape=c, dtype="float32", kernel=r.kernel, max_rel_err=err,
-                ms=time_ms(lambda: FA.flash_attention(q, k, v)),
-                plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v)),
-                library_ms=time_ms(sdpa), bound_ms=b_ms, bound_by=b_by)
+    f32_vs_flash_kernel(f32, f"flash kernel suite {c}", got, q, k, v, kw)
+    return dict(shape=c, dtype="float32", kernel=r.kernel, route=r.counter,
+                max_rel_err=err, **f32_timing(c, q, k, v, kw, reps=20),
+                plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v)))
 
 
 def flash_d96_phase(dev, gen, logs, timings):
     """Head dim 96 on both routes (the ``flash_attention_d96`` record: the
     tensor-core route, ``flash_wgmma_kernel`` in tiles padded to 128
-    columns; ``flash_kernel`` nested as its float32 route):
+    columns; its float32 kind nested as its float32 route, the cases in
+    the ``flash_attention_wgmma_f32`` record):
     ``FLASH_D96_CASES`` and phi3-mini's prefill slice in float32 and bf16
     at ``FLASH_TOL``, the tensor-core cases within ``FLASH_ULP_LIMIT`` of
     the float32 reference, a bitwise repeat of each, each case's launch
@@ -2983,7 +3113,7 @@ def flash_d96_phase(dev, gen, logs, timings):
     from repro_torch.kernels import ref
 
     lf = logs["flash_attention_d96"] = KernelLog()
-    simt = KernelLog()
+    f32 = logs["flash_attention_wgmma_f32"]
     lf.extra["bf16_ulp_check"] = dict(max_ulps=0.0, cases=0,
                                       limit=FLASH_ULP_LIMIT)
     for c in FLASH_D96_CASES + (FLASH_SLICE_D96,):
@@ -2992,10 +3122,11 @@ def flash_d96_phase(dev, gen, logs, timings):
             kw = dict(causal=c["causal"], window=c["window"])
             tol = FLASH_TOL[str(dt).split(".")[-1]]
             route = FA.route(dt, c["D"])
-            check(route is (FA.WGMMA if dt == torch.bfloat16 else FA.SIMT),
-                  f"flash d96 {dt}: route {route.kernel}")
-            label = f"flash {c} {dt} ({route.kernel})"
-            log = lf if route is FA.WGMMA else simt
+            check(route is (FA.WGMMA if dt == torch.bfloat16
+                            else FA.WGMMA_F32),
+                  f"flash d96 {dt}: route {route.counter}")
+            label = f"flash {c} {dt} ({route.counter})"
+            log = lf if route is FA.WGMMA else f32
             FA.reset_launches()
             got = FA.flash_attention(q, k, v, **kw)
             check(FA.LAUNCHES[route.counter] == 1
@@ -3004,12 +3135,11 @@ def flash_d96_phase(dev, gen, logs, timings):
             _flash_check(log, label, got, q, k, v, kw, tol)
             log.repeat(label, lambda: FA.flash_attention(q, k, v, **kw))
             log.cases += 1
+            if route is FA.WGMMA_F32:
+                f32_vs_flash_kernel(f32, label, got, q, k, v, kw)
             del got
             if c is FLASH_SLICE_D96 and dt == torch.float32:
-                b_ms, b_by = bound(*flash_work(c, 4))
-                simt_time = dict(ms=time_ms(lambda: FA.flash_attention(q, k, v),
-                                            reps=5, warmup=1),
-                                 bound_ms=b_ms, bound_by=b_by)
+                f32_time = f32_timing(c, q, k, v, kw)
             if c is not FLASH_SLICE_D96 or dt == torch.float32:
                 del q, k, v
     from repro_torch.kernels import build
@@ -3021,9 +3151,9 @@ def flash_d96_phase(dev, gen, logs, timings):
                "over 96, P V at n128 with the last 32 columns never stored",
         dynamic_smem_bytes=lib.flash_attention_wgmma_smem_bytes(96),
         float32_route=dict(
-            kernel=FA.SIMT.kernel, cases=simt.cases, max_abs_err=simt.max_abs,
-            max_rel_err=simt.max_rel, repeat_bitwise=simt.repeat_bitwise,
-            tolerance=dict(FLASH_TOL), slice_dtype="float32", **simt_time))
+            kernel=FA.WGMMA_F32.kernel, route=FA.WGMMA_F32.counter,
+            record="flash_attention_wgmma_f32", slice_dtype="float32",
+            **f32_time))
     # timed at phi3-mini's slice in bf16 (the serving cells' dtype)
     sdpa = lambda: F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -3086,7 +3216,8 @@ def flash_cross_phase(dev, gen, logs, timings):
     each; then its three attention shapes in bf16 against the float32
     reference, one batch row at a time: the cross-attention
     (``flash_attention_cross``: Lq 8192 over Lk 1024, also in float32 on
-    ``flash_kernel``, the float32 checks' route), the decoder's causal and
+    the float32 kind, the float32 checks' route, timed beside
+    ``flash_kernel``), the decoder's causal and
     the encoder's bidirectional self-attention (``flash_attention_d64``).
     The cross-attention and the decoder's self-attention are timed beside
     the plain version (one batch row at a time: a whole batch's float32
@@ -3099,7 +3230,7 @@ def flash_cross_phase(dev, gen, logs, timings):
 
     cross = logs["flash_attention_cross"] = KernelLog()
     d64 = logs["flash_attention_d64"] = KernelLog()
-    simt = KernelLog()
+    f32 = logs["flash_attention_wgmma_f32"]
     for lf in (cross, d64):
         lf.extra["bf16_ulp_check"] = dict(max_ulps=0.0, cases=0,
                                           limit=FLASH_ULP_LIMIT)
@@ -3108,10 +3239,10 @@ def flash_cross_phase(dev, gen, logs, timings):
         q, k, v = _flash_inputs(gen, dev, c, dt)
         kw = dict(causal=c["causal"], window=c["window"])
         route = FA.route(dt, c["D"])
-        check(route is (FA.WGMMA if dt == torch.bfloat16 else FA.SIMT),
-              f"{label}: route {route.kernel}")
-        log = log if route is FA.WGMMA else simt
-        label = f"{label} {c} {dt} ({route.kernel})"
+        check(route is (FA.WGMMA if dt == torch.bfloat16 else FA.WGMMA_F32),
+              f"{label}: route {route.counter}")
+        log = log if route is FA.WGMMA else f32
+        label = f"{label} {c} {dt} ({route.counter})"
         FA.reset_launches()
         got = FA.flash_attention(q, k, v, **kw)
         check(FA.LAUNCHES[route.counter] == 1
@@ -3121,6 +3252,8 @@ def flash_cross_phase(dev, gen, logs, timings):
                      FLASH_TOL[str(dt).split(".")[-1]], rows)
         log.repeat(label, lambda: FA.flash_attention(q, k, v, **kw))
         log.cases += 1
+        if route is FA.WGMMA_F32:
+            f32_vs_flash_kernel(f32, label, got, q, k, v, kw)
         return q, k, v
 
     for c in FLASH_CROSS_CASES:
@@ -3128,11 +3261,8 @@ def flash_cross_phase(dev, gen, logs, timings):
             run(cross, "flash Lk != Lq", c, dt)
     q, k, v = run(cross, "flash cross slice", FLASH_CROSS_SLICE,
                   torch.float32, rows=True)
-    b_ms, b_by = bound(*flash_work(FLASH_CROSS_SLICE, 4))
-    simt_time = dict(ms=time_ms(lambda: FA.flash_attention(q, k, v,
-                                                           causal=False),
-                                reps=5, warmup=1),
-                     bound_ms=b_ms, bound_by=b_by)
+    f32_time = f32_timing(FLASH_CROSS_SLICE, q, k, v,
+                          dict(causal=False, window=0))
     del q, k, v
     empty_cache(dev)
     cross.extra.update(
@@ -3142,9 +3272,9 @@ def flash_cross_phase(dev, gen, logs, timings):
                "span Lq; keys visible iff j < Lk (and the causal and window "
                "masks from 0 on both sides)",
         float32_route=dict(
-            kernel=FA.SIMT.kernel, cases=simt.cases, max_abs_err=simt.max_abs,
-            max_rel_err=simt.max_rel, repeat_bitwise=simt.repeat_bitwise,
-            tolerance=dict(FLASH_TOL), slice_dtype="float32", **simt_time))
+            kernel=FA.WGMMA_F32.kernel, route=FA.WGMMA_F32.counter,
+            record="flash_attention_wgmma_f32", slice_dtype="float32",
+            **f32_time))
     d64.extra.update(kernel=FA.WGMMA.kernel, head_dim=64)
 
     def sdpa_fn(q, k, v, causal):
@@ -3573,7 +3703,8 @@ FLASH_CONTRACT_MASKS = (dict(L=70, causal=True, window=0),
                         dict(L=70, Lk=40, causal=False, window=0))
 # published attention shapes on the routes no main path runs: yi-6b's in
 # float16 (32 heads over 4, d 128), phi-2's d 80 (32 heads, bf16 and
-# float32), gemma-7b's d 256 (16 heads), and d 40 / 320 / 512 at 1 x 512
+# float32: on a 16-byte boundary the tensor cores' float32 kind, one
+# element off flash_kernel), gemma-7b's d 256 (16 heads), and d 40 / 320 / 512 at 1 x 512
 # with 4 heads over 2; the tensor cores take the 16-bit ones through TMA,
 # and yi-6b's float16 and gemma-7b's shape also run off 16-byte boundaries
 # on the loaded route, beside a d 100 bf16 slice (1 x 2048, 32 heads: no
@@ -3587,6 +3718,9 @@ FLASH_CONTRACT_SLICES = (
                        window=0), "bfloat16", 0),
     ("phi-2 d80 float32", dict(B=1, L=2048, H=32, KVH=32, D=80, causal=True,
                                window=0), "float32", 0),
+    ("phi-2 d80 float32 unaligned", dict(B=1, L=2048, H=32, KVH=32, D=80,
+                                         causal=True, window=0), "float32",
+     1),
     ("gemma-7b d256", dict(B=1, L=8192, H=16, KVH=16, D=256, causal=True,
                            window=0), "bfloat16", 0),
     ("d40 windowed", dict(B=1, L=512, H=4, KVH=2, D=40, causal=True,
@@ -3607,12 +3741,14 @@ FLASH_CONTRACT_TIMED = {"flash_attention_wgmma_f16": "yi-6b float16",
                         "flash_attention_wgmma_padded": "gemma-7b d256",
                         "flash_attention_wgmma_loaded":
                             "yi-6b float16 unaligned",
-                        "flash_attention_padded": "phi-2 d80 float32",
+                        "flash_attention_padded":
+                            "phi-2 d80 float32 unaligned",
                         "flash_attention_wide": "d512"}
 # 16-bit inputs TMA cannot read, on the loaded route: q, k and v 1, 3, 4 or
 # 7 elements off a 16-byte boundary, alike and each its own, and head dims
 # whose rows are not 16-byte multiples (1, 20, 100; on boundaries and
-# off).  (head dim, dtype, element offsets of q, k, v)
+# off); float32 one element off a boundary at d 64 and 128, on
+# flash_kernel.  (head dim, dtype, element offsets of q, k, v)
 FLASH_CONTRACT_UNALIGNED = (
     (16, "float16", (1, 1, 1)), (64, "float16", (3, 3, 3)),
     (128, "float16", (4, 4, 4)), (72, "bfloat16", (7, 7, 7)),
@@ -3621,10 +3757,16 @@ FLASH_CONTRACT_UNALIGNED = (
     (96, "float16", (1, 3, 0)), (1, "bfloat16", (0, 0, 0)),
     (1, "float16", (3, 3, 3)), (20, "bfloat16", (0, 0, 0)),
     (20, "float16", (7, 1, 4)), (100, "bfloat16", (0, 0, 0)),
-    (100, "float16", (4, 4, 4)))
-# the SSD tile at widths past 128, ragged P and N, in each dtype of B/C
+    (100, "float16", (4, 4, 4)), (64, "float32", (1, 1, 1)),
+    (128, "float32", (0, 1, 0)))
+# q, k, v of mixed dtypes (each cast to float32; a float32 q as it is)
+FLASH_CONTRACT_MIXED = (("bfloat16", "float32", "float32"),
+                        ("float16", "float32", "float32"),
+                        ("float32", "bfloat16", "bfloat16"))
+# the SSD tile at widths past 128, ragged P and N, in each dtype of B/C,
+# and a chunk of 520 (the generic tile's G in three windows of 256)
 SSD_CONTRACT_TILES = ((256, 192, 6), (256, 128, 64), (96, 256, 130),
-                      (32, 6, 3))
+                      (32, 6, 3), (520, 40, 72))
 # ssd_chunked on the generic routes: mamba2-370m's mixer widths (32 heads
 # of P 64, N 128) at 1 x 8192 with mamba_ssm's default chunk 256 in bf16
 # and with chunk 128 in float16, N 256, and P 6 / N 6 at 1 x 1000
@@ -3678,11 +3820,12 @@ def _offset_copy(x, offset):
     return out
 
 
-def flash_contract_phase(dev, gen, logs, timings):
+def flash_contract_phase(dev, gen, logs, timings, f32):
     """The flash routes no main path runs (``flash_wgmma_kernel`` on float16,
-    on bf16 at other head dims and, loaded by its own producer, on 16-bit
-    inputs TMA cannot read; ``flash_kernel`` at a padded width in float32;
-    ``flash_wide_kernel`` past 256) at ``FLASH_CONTRACT_DIMS`` x dtypes x
+    on bf16 at other head dims, loaded by its own producer on 16-bit inputs
+    TMA cannot read, and in its float32 kind; ``flash_kernel`` at a padded
+    width in float32; ``flash_wide_kernel`` past 256) at
+    ``FLASH_CONTRACT_DIMS`` x dtypes x
     masks, 16-bit inputs off 16-byte boundaries or at head dims that are
     not multiples of 8 (``FLASH_CONTRACT_UNALIGNED``) and q, k, v of mixed
     dtypes, then ``FLASH_CONTRACT_SLICES``: each against its plain version
@@ -3692,7 +3835,11 @@ def flash_contract_phase(dev, gen, logs, timings):
     timed beside the plain version and ``scaled_dot_product_attention``
     (median of 5).  Off a boundary at a head dim that is a multiple of 8,
     the loaded route's output must equal TMA's on the same values bit for
-    bit (``bitwise_vs_tma``)."""
+    bit (``bitwise_vs_tma``).  Float32 outputs of the float32 kind are held
+    against flash_kernel forced on the same inputs in float64
+    (``f32_vs_flash_kernel``), and its slices timed beside it; its cases,
+    flash_kernel's on float32 off a boundary and the mixed dtypes' go into
+    the lm phase's log of the kind, ``f32``, and the logs nested in it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
@@ -3702,9 +3849,15 @@ def flash_contract_phase(dev, gen, logs, timings):
     names = {FA.WGMMA_F16: "flash_attention_wgmma_f16",
              FA.WGMMA_PADDED: "flash_attention_wgmma_padded",
              FA.WGMMA_LOADED: "flash_attention_wgmma_loaded",
+             FA.WGMMA_F32: "flash_attention_wgmma_f32",
              FA.PADDED: "flash_attention_padded",
              FA.WIDE: "flash_attention_wide"}
     flogs = {n: KernelLog() for n in names.values()}
+    flogs["flash_attention_wgmma_f32"] = f32
+    # flash_kernel at its own widths (float32 off a 16-byte boundary) is the
+    # float32 kind's nested CUDA-core route
+    route_log = {r: flogs[n] for r, n in names.items()}
+    route_log[FA.SIMT] = f32.nested["cuda_core_route"]
     # float16 outputs on every route that takes float16, bf16 ones on the
     # tensor cores' routes
     ulp_checks = {"flash_attention_wgmma_f16": ("f16",),
@@ -3717,7 +3870,10 @@ def flash_contract_phase(dev, gen, logs, timings):
                 max_ulps=0.0, cases=0, limit=FLASH_ULP_LIMIT)
     loaded = flogs["flash_attention_wgmma_loaded"]
     loaded.extra["bitwise_vs_tma"] = dict(cases=0, equal=True)
-    mixed = KernelLog()
+    mixed = f32.nested["mixed_dtypes"] = KernelLog()
+    mixed.extra["note"] = ("q, k, v of mixed dtypes cast to float32 (fresh, "
+                           "on 16-byte boundaries; a float32 input as it "
+                           "is): the float32 route of the head dim")
 
     def run(label, c, dts, log, offsets=(0, 0, 0)):
         q, k, v = _flash_inputs(gen, dev, c, torch.float32)
@@ -3732,6 +3888,8 @@ def flash_contract_phase(dev, gen, logs, timings):
         _flash_check(log, label, got, q, k, v, kw, tol[dts[0]])
         log.repeat(label, fn)
         log.cases += 1
+        if r is FA.WGMMA_F32 and got.dtype == torch.float32:
+            f32_vs_flash_kernel(f32, label, got, q, k, v, kw)
         if r is FA.WGMMA_LOADED and c["D"] % FA.WGMMA_DIM_STEP == 0:
             aligned = [x.clone() for x in (q, k, v)]
             check(FA.cuda_route(*aligned) in FA.TENSOR_CORE_ROUTES[:3],
@@ -3751,50 +3909,54 @@ def flash_contract_phase(dev, gen, logs, timings):
             c = dict(B=1, H=4, KVH=2, D=D, **m)
             r = FA.route(_dtype(d), D, aligned=not any(offsets))
             run(f"flash contract {c} offsets {offsets}", c, (d,) * 3,
-                flogs[names[r]], offsets)
-    for D in (40, 128):                     # q bf16 / float16, k and v float32
+                route_log[r], offsets)
+    for D in (40, 128):
         c = dict(B=1, H=4, KVH=2, D=D, **FLASH_CONTRACT_MASKS[1])
-        for d in ("bfloat16", "float16"):
-            run(f"flash mixed {c}", c, (d, "float32", "float32"), mixed)
+        for dts in FLASH_CONTRACT_MIXED:
+            run(f"flash mixed {c}", c, dts, mixed)
     slices = {}
     for label, c, d, offset in FLASH_CONTRACT_SLICES:
         r = FA.route(_dtype(d), c["D"], aligned=not offset)
         check(r in names, f"{label}: route {r} is not a contract route")
         _, (q, k, v, kw) = run(f"flash slice {label}", c, (d,) * 3,
-                               flogs[names[r]], (offset,) * 3)
+                               route_log[r], (offset,) * 3)
         itemsize = q.element_size()
         peak = PEAK_F32_FLOPS if itemsize == 4 else PEAK_BF16_FLOPS
         b_ms, b_by = bound(*flash_work(c, itemsize), peak)
+        # SDPA on copies on 16-byte boundaries: its float32 kernel faults
+        # (misaligned address) on inputs 4 bytes off one
+        qa, ka, va = ((x.clone() for x in (q, k, v)) if offset
+                      else (q, k, v))
         sdpa = lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            qa.transpose(1, 2), ka.transpose(1, 2), va.transpose(1, 2),
             is_causal=kw["causal"], enable_gqa=True)
-        t = dict(ms=time_ms(lambda: FA.flash_attention(q, k, v, **kw), reps=5,
-                            warmup=1),
-                 plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v,
-                                                                  **kw),
-                                  reps=5, warmup=1),
-                 library_ms=(time_ms(sdpa, reps=5, warmup=1)
-                             if not kw["window"] else None),
-                 bound_ms=b_ms, bound_by=b_by)
+        plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
+                           reps=5, warmup=1)
+        if r is FA.WGMMA_F32:
+            t = dict(f32_timing(c, q, k, v, kw), plain_ms=plain_ms)
+        else:
+            t = dict(ms=time_ms(lambda: FA.flash_attention(q, k, v, **kw),
+                                reps=5, warmup=1),
+                     plain_ms=plain_ms,
+                     library_ms=(time_ms(sdpa, reps=5, warmup=1)
+                                 if not kw["window"] else None),
+                     bound_ms=b_ms, bound_by=b_by)
         slices[label] = dict(t, shape=c, dtype=d, offset=offset,
-                             kernel=r.kernel, route=r.counter)
+                             kernel=r.kernel, route=r.counter,
+                             library_inputs="aligned copies" if offset
+                             else "the same tensors")
         for name, want in FLASH_CONTRACT_TIMED.items():
             if want == label:
                 timings[name] = {k: t[k] for k in ("ms", "plain_ms",
                                                    "library_ms", "bound_ms",
                                                    "bound_by")}
-        del q, k, v
+        del q, k, v, qa, ka, va
         empty_cache(dev)
     for r, name in names.items():
         logs[name] = flogs[name]
         flogs[name].extra.update(
             kernel=r.kernel,
             slices={k: s for k, s in slices.items() if s["route"] == r.counter})
-    logs["flash_attention_padded"].extra["mixed_dtypes"] = dict(
-        cases=mixed.cases, max_abs_err=mixed.max_abs, max_rel_err=mixed.max_rel,
-        repeat_bitwise=mixed.repeat_bitwise,
-        note="q, k, v of mixed dtypes cast to float32: the float32 route of "
-             "their head dim")
 
 
 def ssd_contract_phase(dev, gen, logs, timings):
@@ -4067,15 +4229,16 @@ def gain_contract_phase(dev, logs, timings):
             inp["gj"], inp["pm"], eps=0.5), reps=5, warmup=1))
 
 
-def contract_phase(dev):
+def contract_phase(dev, f32):
     """Every route that takes what only the reference's contracts ask for
     (``flash_contract_phase``, ``ssd_contract_phase``,
     ``gain_contract_phase``): one record each, 0 launches on every main
-    path.  Returns (logs, timings)."""
+    path; the float32 flash kind's cases join the lm phase's log of it,
+    ``f32``.  Returns (logs, timings)."""
     import torch
     gen = torch.Generator().manual_seed(7)
     logs, timings = {}, {}
-    flash_contract_phase(dev, gen, logs, timings)
+    flash_contract_phase(dev, gen, logs, timings, f32)
     ssd_contract_phase(dev, gen, logs, timings)
     gain_contract_phase(dev, logs, timings)
     return logs, timings
@@ -4750,10 +4913,11 @@ class TrainCell(NamedTuple):
 
 # launch/train.py's run: adamw on its cosine schedule, eps 1, the hvp gain;
 # lambda 1e-3 is tests/test_system.py:24's.  mamba2-370m's depth is cut to
-# 24 of 48 layers to keep the whole smoke inside its time limit beside the
-# serving cells of later slices (its step's time is linear in the depth).
+# 12 of 48 layers to keep the whole smoke well inside its time limit beside
+# the serving cells (its step's time, the comm_savings study's and the
+# profiled step's are linear in the depth).
 TRAIN_CELLS = (
-    TrainCell("train-mamba2-370m-24l", "mamba2-370m", 24, 8, 8, 1024, 20,
+    TrainCell("train-mamba2-370m-12l", "mamba2-370m", 12, 8, 8, 1024, 20,
               1e-3),
     TrainCell("train-yi-6b-4l", "yi-6b", 4, 4, 8, 1024, 5, 1e-3),
 )
@@ -5316,14 +5480,26 @@ RECORDS = {
                  "loading each row's aligned 16-byte words into registers "
                  "(__ldg), funnel-shifting them and storing them into the "
                  "swizzled atoms (flash_loaded.cu)"),
+    "flash_attention_wgmma_f32": Record(
+        **dict(_FLASH, tolerance=dict(float32=FLASH_TOL["float32"],
+                                      float64_vs_flash_kernel=
+                                      F32_VS_FLASH_KERNEL)),
+        main_path=False,
+        route_of="flash_attention in float32 on 16-byte boundaries at head "
+                 "dims that are multiples of 4 up to 128 (and q, k, v of "
+                 "mixed dtypes, cast to float32): flash_wgmma_kernel<float, "
+                 "W, true> (flash_f32.cu), a producer warpgroup splitting "
+                 "each float32 row into three bf16 pieces, six piece "
+                 "products a product on the tensor cores"),
     "flash_attention_padded": Record(
         **dict(_FLASH, tolerance=dict(FLASH_TOL, float16=CONTRACT_F16_TOL),
                cuda_kernel="flash_kernel", source=CSRC + "flash_simt.cuh"),
         main_path=False,
-        route_of="flash_attention in float32 at any other head dim up to "
-                 "256 (and q, k, v of mixed dtypes, cast to float32): "
-                 "flash_kernel at the next width of 16, 32, 64, 96, 128, "
-                 "256, the head dim a run-time argument"),
+        route_of="flash_attention in float32 at head dims other than 16, "
+                 "32, 64, 96, 128 up to 256 that the float32 kind does not "
+                 "take (off a 16-byte boundary, not a multiple of 4, or "
+                 "past 128): flash_kernel at the next width of 16, 32, 64, "
+                 "96, 128, 256, the head dim a run-time argument"),
     "flash_attention_wide": Record(
         **dict(_FLASH, tolerance=dict(FLASH_TOL, float16=CONTRACT_F16_TOL),
                cuda_kernel="flash_wide_kernel",
@@ -5362,9 +5538,12 @@ def kernel_lines(logs, timings, launches):
     ``launches`` sums the kernel's launches over every cell's main path
     (a record with ``main_path`` False, a route no main path runs, is
     named by its counter and must count 0).
-    A log's ``extra`` fields join its record: the flash record nests its
-    float32 route (``flash_kernel``), which the main path never launches,
-    and its bf16 ulp check; the SSD tile's nests its float32 route
+    A log's ``extra`` fields join its record: the flash records nest their
+    float32 route's times (the tensor cores' float32 kind, which the main
+    path never launches, beside ``flash_kernel`` forced), the float32
+    kind's record its nested logs (``KernelLog.nested``: flash_kernel's
+    cases as its CUDA-core route, with main-path launches, and the mixed
+    dtypes'), the flash record its bf16 ulp check; the SSD tile's nests its float32 route
     (``ssd_chunk_kernel``), its float32 CUDA-core bound and the whole
     ``ssd_chunked``'s times at the slice; the state pass's nests its
     CUDA-core route (``ssd_state_pass_kernel``: cases, time and bound at
@@ -5383,6 +5562,11 @@ def kernel_lines(logs, timings, launches):
         nested = logs[name].extra.get("cuda_core_route")
         if nested is not None:
             nested["launches"] = launches.get(counter, 0)
+    f32 = logs.get("flash_attention_wgmma_f32")
+    if f32 is not None:
+        f32.nested["cuda_core_route"].extra["launches"] = sum(
+            launches.get(c, 0) for c in ("flash_attention_simt",
+                                         "flash_attention_padded"))
     for name, log in logs.items():
         t = timings[name]
         rec = RECORDS[name]
@@ -5397,7 +5581,8 @@ def kernel_lines(logs, timings, launches):
             decision_tie_flips=log.tie_flips, cases=log.cases,
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
-            main_path=rec.main_path, **log.extra))
+            main_path=rec.main_path, **log.extra,
+            **{k: n.summary() for k, n in log.nested.items()}))
     return kernels
 
 
@@ -5448,6 +5633,12 @@ def main():
                     "flash_wgmma_f16_blocks_per_sm": {
                         d: lib.flash_wgmma_contract_blocks_per_sm(2, d)
                         for d in (64, 128, 256)},
+                    "flash_wgmma_f32_dynamic_smem_bytes": {
+                        d: lib.flash_wgmma_f32_smem_bytes(d)
+                        for d in (64, 128)},
+                    "flash_wgmma_f32_blocks_per_sm": {
+                        d: lib.flash_wgmma_f32_blocks_per_sm(d)
+                        for d in (64, 128)},
                     "ssd_chunk_wgmma_dynamic_smem_bytes":
                         lib.ssd_chunk_wgmma_smem_bytes(128, 128, 64, 1),
                     "ssd_chunk_wgmma_n16_dynamic_smem_bytes": {
@@ -5513,7 +5704,7 @@ def main():
     logs.update(lm_logs)
     timings.update(lm_timings)
     t0 = time.perf_counter()
-    c_logs, c_timings = contract_phase(dev)
+    c_logs, c_timings = contract_phase(dev, logs["flash_attention_wgmma_f32"])
     seconds["contract"] = time.perf_counter() - t0
     logs.update(c_logs)
     timings.update(c_timings)

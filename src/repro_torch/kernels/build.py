@@ -24,7 +24,7 @@ from typing import NamedTuple, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("gain.cu", "ssd_scan.cu", "ssd_generic.cu", "flash_attention.cu",
-           "flash_contract.cu", "flash_loaded.cu")
+           "flash_contract.cu", "flash_loaded.cu", "flash_f32.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -134,6 +134,10 @@ def _signatures() -> dict:
         "flash_attention_wgmma_loaded_launch": [i, p, p, p, i, i, i, i, i, i,
                                                 i, i, p, p],
         "flash_wgmma_loaded_blocks_per_sm": [i, i],
+        "flash_attention_wgmma_f32_launch": [p, p, p, i, i, i, i, i, i, i, i,
+                                             p, p],
+        "flash_wgmma_f32_smem_bytes": [i],
+        "flash_wgmma_f32_blocks_per_sm": [i],
     }
 
 

@@ -2,11 +2,13 @@
 // its notes are flash_attention.cu's.  Two loaders feed one body: TMA
 // (kLoaded false: 16-byte-aligned inputs at a head dim that is a multiple
 // of 8) and a producer warpgroup's own loads (kLoaded true: any 2-byte
-// boundary, any head dim up to 256).  Included by flash_attention.cu (TMA's
-// bf16 at widths 64 and 128, the main paths' instantiations),
-// flash_contract.cu (TMA's bf16 at width 256 and float16 at every width)
-// and flash_loaded.cu (the loaded route), so that nvcc builds them beside
-// each other; each source instantiates what it launches.
+// boundary, any head dim up to 256).  The float32 kind (E = float, always
+// loaded: flash_f32.cu) runs the same body on three bf16 pieces of every
+// float32 operand.  Included by flash_attention.cu (TMA's bf16 at widths
+// 64 and 128, the main paths' instantiations), flash_contract.cu (TMA's
+// bf16 at width 256 and float16 at every width), flash_loaded.cu (the
+// loaded route) and flash_f32.cu (float32), so that nvcc builds them
+// beside each other; each source instantiates what it launches.
 
 #pragma once
 
@@ -64,6 +66,50 @@ struct Layout {
 constexpr int kProducerThreads = 128;
 constexpr int kThreadsLoaded = kThreadsWg + kProducerThreads;
 
+// The float32 kind (flash_f32.cu's notes): every float32 operand as
+// kPieces bf16 pieces in shared memory; kv tiles of kF32BlockN keys.  Q's
+// pieces are three tiles of Layout's shape; a K or V tile is one 16-bit
+// tile whose atoms hold kPieces x kF32BlockN rows, piece p in rows p
+// kF32BlockN .. (p + 1) kF32BlockN - 1, so that the pieces 0 .. n - 1 of
+// K are one operand of n kF32BlockN rows.  Its stages hold 128 keys at
+// width 64 and 64 at width 128 (two stages of 32 keys: the 96 KB of Q's
+// pieces and 48 KB of K's and V's a stage leave no room for a third).
+constexpr int kPieces = 3;
+constexpr int kF32BlockN = 32;
+template <int W>
+struct LayoutF32 {
+  static constexpr int kNStages = (W <= kAtom ? 128 : 64) / kF32BlockN;
+  static constexpr int kQPiece = kQRows * W * 2;
+  static constexpr int kAtomRows = kPieces * kF32BlockN;   // a K or V atom's
+  static constexpr int kQBytes = kPieces * kQPiece;
+  static constexpr int kTileBytes = kAtomRows * W * 2;   // a stage of K or V
+  static constexpr int kK = kQBytes;
+  static constexpr int kV = kK + kNStages * kTileBytes;
+  static constexpr int kBar = kV + kNStages * kTileBytes;
+  static constexpr int kBarriers = 1 + 2 * kNStages;
+  static constexpr int kBytes = kBar + 8 * kBarriers + 1024;  // + align
+};
+
+// The pieces (a, b) of P V's products P_a V_b with a + b < 3 but the main
+// one (0, 0), smallest first: (0, 2), (1, 1), (2, 0), (0, 1), (1, 0).
+constexpr int kSmallPairs = 5;
+__host__ __device__ constexpr int piece_a(int pr) { return pr < 3 ? pr : pr - 3; }
+__host__ __device__ constexpr int piece_b(int pr) { return pr < 3 ? 2 - pr : 4 - pr; }
+
+// d (+)= A B for a 64 x N tile, both operands K-major in shared memory:
+// S's products Q_a [K_0 .. K_{2-a}]^T of the float32 kind, N = (3 - a)
+// kF32BlockN (32, 64 or 96; 64, 128 or 192 at 64-key tiles).
+template <int N>
+__device__ __forceinline__ void mma_ss_cols(float* d, uint64_t a, uint64_t b,
+                                            int accumulate) {
+  float(&dn)[N / 2] = *reinterpret_cast<float(*)[N / 2]>(d);
+  if constexpr (N == 32) mma_ss_n32(dn, a, b, accumulate);
+  else if constexpr (N == 64) mma_ss(dn, a, b, accumulate);
+  else if constexpr (N == 96) mma_ss_n96(dn, a, b, accumulate);
+  else if constexpr (N == 128) mma_ss_n128(dn, a, b, accumulate);
+  else mma_ss_n192(dn, a, b, accumulate);
+}
+
 // q, k and v of the loaded route (unused by TMA's, which reads tensor maps)
 struct Srcs {
   const void* q;
@@ -83,13 +129,18 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float a) {
 __device__ __forceinline__ void store1(__half* p, float a) {
   *p = __float2half_rn(a);
 }
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store1(float* p, float a) { *p = a; }
 
-// q, o (B, Lq, H, d); k, v (B, Lk, KVH, d) of element type E (bf16 or
-// float16), all contiguous.  TMA's route (kLoaded false): the tensor maps
-// describe q, k and v at their true head dim d <= W, a multiple of 8.  The
-// loaded route: `src` holds q, k and v at any 2-byte-aligned address, any
-// d <= W, and a producer warpgroup loads them.  Block (h, q tile, b),
-// kWarpgroups consumer warpgroups.
+// q, o (B, Lq, H, d); k, v (B, Lk, KVH, d) of element type E (bf16,
+// float16 or float32), all contiguous.  TMA's route (kLoaded false): the
+// tensor maps describe q, k and v at their true head dim d <= W, a
+// multiple of 8.  The loaded route: `src` holds q, k and v at any
+// 2-byte-aligned address, any d <= W, and a producer warpgroup loads them;
+// float32 (always loaded) on 16-byte boundaries at a d that is a multiple
+// of 4.  Block (h, q tile, b), kWarpgroups consumer warpgroups.
 // (No minimum of blocks an SM in the bounds: with one, ptxas gave the bf16
 // width-128 instantiation 161 registers and one block an SM, 1.2x slower
 // than its 128 and two.)
@@ -100,7 +151,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap vmap, Srcs src,
                    int Lq, int Lk, int H, int KVH, int d, int causal,
                    int window, float scale_log2, E* __restrict__ o) {
-  using Lay = Layout<W, kLoaded>;
+  // float32 runs on kPieces bf16 pieces of each operand (flash_f32.cu)
+  constexpr bool kF32 = std::is_same<E, float>::value;
+  static_assert(kLoaded || !kF32, "float32 has a producer warpgroup");
+  using Lay = typename std::conditional<kF32, LayoutF32<W>,
+                                        Layout<W, kLoaded>>::type;
+  constexpr int kBN = kF32 ? kF32BlockN : kBlockN;   // keys of a kv tile
   // float16 keeps each tile's P V apart before adding it to O (the notes
   // of flash_attention.cu say why); bf16 accumulates O on the tensor cores
   constexpr bool kSplitAcc = std::is_same<E, __half>::value;
@@ -128,8 +184,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   // kv tiles that some row of the block's q tile can see
   const int q_last = min(q0 + kQRows, Lq) - 1;
   const int k_end = causal ? min(q_last + 1, Lk) : Lk;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) / kBlockN * kBlockN : 0;
-  const int n_tiles = (k_end - k_begin + kBlockN - 1) / kBlockN;
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) / kBN * kBN : 0;
+  const int n_tiles = (k_end - k_begin + kBN - 1) / kBN;
 
   auto load_kv = [&](int st, int k0) {
     mbar_expect_tx(bar_full(st), 2 * atoms * kBlockN * kAtomBytes);
@@ -167,37 +223,72 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     mbar_wait(bar_q, 0);
     for (int t = 0; t < n_tiles; ++t) {
       const int st = t % kNS;
-      const int k0 = k_begin + t * kBlockN;
+      const int k0 = k_begin + t * kBN;
       mbar_wait(bar_full(st), (t / kNS) & 1);
       const uint32_t k_st = sk + st * Lay::kTileBytes;
       const uint32_t v_st = sv + st * Lay::kTileBytes;
 
-      // S = Q K^T over the real d in steps of 16 (32 bytes inside a 128-byte
-      // atom)
-      float s[kBlockN / 2];
+      float s[kBN / 2];
+      if constexpr (kF32) {
+        // S = Q K^T as the six piece products a + b < 3 over the real d in
+        // steps of 16: Q_a [K_0 .. K_{2-a}]^T, one wgmma of (3 - a) kBN
+        // columns a step, into columns a kBN .. 3 kBN - 1 of blocks, so
+        // that block b (columns b kBN ..) sums the products of order b:
+        // block 0 the main one, block 1 Q_1 K_0 + Q_0 K_1, block 2 Q_2 K_0
+        // + Q_1 K_1 + Q_0 K_2, in that order (smallest first; flash_f32.cu)
+        float blocks[kPieces * kBN / 2];
 #pragma unroll
-      for (int e = 0; e < kBlockN / 2; ++e) s[e] = 0.f;
-      wg_fence();
+        for (int e = 0; e < kPieces * kBN / 2; ++e) blocks[e] = 0.f;
+        wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < W / 16; ++kk) {
-        if (kk < ksteps) {
-          const uint32_t off = (kk % 4) * 32;
-          mma_ss_t<E>(s,
-                      desc(q_wg + (kk / 4) * kQRows * kAtomBytes + off, 16, 1024),
-                      desc(k_st + (kk / 4) * kBlockN * kAtomBytes + off, 16, 1024),
-                      kk > 0);
+        for (int a = kPieces - 1; a >= 0; --a) {
+#pragma unroll
+          for (int kk = 0; kk < W / 16; ++kk) {
+            if (kk < ksteps) {
+              const uint32_t off = (kk % 4) * 32;
+              const uint64_t da = desc(q_wg + a * Lay::kQPiece +
+                                       (kk / 4) * kQRows * kAtomBytes + off, 16, 1024);
+              const uint64_t db = desc(k_st + (kk / 4) * Lay::kAtomRows * kAtomBytes + off,
+                                       16, 1024);
+              if (a == 2) mma_ss_cols<kBN>(blocks + kBN, da, db, 1);
+              else if (a == 1) mma_ss_cols<2 * kBN>(blocks + kBN / 2, da, db, 1);
+              else mma_ss_cols<3 * kBN>(blocks, da, db, 1);
+            }
+          }
         }
+        wg_commit();
+        wg_wait0();
+        fence_regs(blocks);
+#pragma unroll
+        for (int e = 0; e < kBN / 2; ++e)
+          s[e] = blocks[e] + (blocks[kBN + e] + blocks[kBN / 2 + e]);
+      } else {
+        // S = Q K^T over the real d in steps of 16 (32 bytes inside a
+        // 128-byte atom)
+#pragma unroll
+        for (int e = 0; e < kBN / 2; ++e) s[e] = 0.f;
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < W / 16; ++kk) {
+          if (kk < ksteps) {
+            const uint32_t off = (kk % 4) * 32;
+            mma_ss_t<E>(s,
+                        desc(q_wg + (kk / 4) * kQRows * kAtomBytes + off, 16, 1024),
+                        desc(k_st + (kk / 4) * kBN * kAtomBytes + off, 16, 1024),
+                        kk > 0);
+          }
+        }
+        wg_commit();
+        wg_wait0();
+        fence_regs(s);
       }
-      wg_commit();
-      wg_wait0();
-      fence_regs(s);
 
       // scale (log2 domain) and mask; only tiles a row cannot fully see
-      const bool full = k0 + kBlockN <= Lk &&
-                        (!causal || k0 + kBlockN - 1 <= wg_first) &&
+      const bool full = k0 + kBN <= Lk &&
+                        (!causal || k0 + kBN - 1 <= wg_first) &&
                         (window <= 0 || k0 > wg_last - window);
 #pragma unroll
-      for (int e = 0; e < kBlockN / 2; ++e) {
+      for (int e = 0; e < kBN / 2; ++e) {
         float x = s[e] * scale_log2;
         if (!full) {
           const int i = row_a + 8 * ((e % 4) / 2);
@@ -213,7 +304,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       // online softmax over the quad of each row, fixed xor order
       float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
-      for (int e = 0; e < kBlockN / 2; ++e)
+      for (int e = 0; e < kBN / 2; ++e)
         mx[(e % 4) / 2] = fmaxf(mx[(e % 4) / 2], s[e]);
       float corr[2], sum[2] = {0.f, 0.f};
 #pragma unroll
@@ -224,7 +315,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         m_run[r] = mx[r];
       }
 #pragma unroll
-      for (int e = 0; e < kBlockN / 2; ++e) {
+      for (int e = 0; e < kBN / 2; ++e) {
         const float p = exp2f(s[e] - mx[(e % 4) / 2]);
         s[e] = p;
         sum[(e % 4) / 2] += p;
@@ -238,24 +329,24 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
       for (int e = 0; e < W / 2; ++e) acc[e] *= corr[(e % 4) / 2];
 
-      // P as hi/lo E A fragments: k-step kk takes s[8 kk .. 8 kk + 7]
-      uint32_t p_hi[kBlockN / 16][4], p_lo[kBlockN / 16][4];
+      if constexpr (kF32) {
+        // P (float32, in the accumulator layout, which is the A-fragment
+        // layout) as three bf16 pieces: k-step kk takes s[8 kk .. 8 kk + 7]
+        uint32_t pp[kPieces][kBN / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < kBlockN / 16; ++kk)
+        for (int kk = 0; kk < kBN / 16; ++kk)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          uint32_t pieces[2];
-          split_pair<E>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], pieces);
-          p_hi[kk][r] = pieces[0];
-          p_lo[kk][r] = pieces[1];
-        }
-
-      // O += P_hi V + P_lo V over the tile's keys in steps of 16 (W / 64
-      // atoms of 2 KB of V)
-      fence_regs(acc);
-      if constexpr (kSplitAcc) {
-        // float16: each atom's 64 columns of the tile's products in a fresh
-        // accumulator, added to acc in float32 (round to nearest)
+          for (int r = 0; r < 4; ++r) {
+            uint32_t pieces[kPieces];
+            split_bf16<kPieces>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], pieces);
+#pragma unroll
+            for (int a = 0; a < kPieces; ++a) pp[a][kk][r] = pieces[a];
+          }
+        // O += P V: for each atom of 64 columns, the tile's six piece
+        // products (P's piece a, V's piece b), smallest first, in a fresh
+        // accumulator, added to acc in float32 (round to nearest); one
+        // 128-column product for both atoms spills at 168 registers
+        fence_regs(acc);
 #pragma unroll
         for (int a = 0; a < W / kAtom; ++a) {
           if (a < atoms) {
@@ -264,12 +355,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
             for (int e = 0; e < kAtom / 2; ++e) part[e] = 0.f;
             wg_fence();
 #pragma unroll
-            for (int kk = 0; kk < kBlockN / 16; ++kk) {
-              const uint64_t bv =
-                  desc(v_st + a * kBlockN * kAtomBytes + kk * 16 * kAtomBytes,
-                       kBlockN * kAtomBytes, 1024);
-              mma_rs_t<E, kAtom>(part, p_hi[kk], bv, kk > 0);
-              mma_rs_t<E, kAtom>(part, p_lo[kk], bv, 1);
+            for (int pr = 0; pr <= kSmallPairs; ++pr) {
+              const int pa = pr < kSmallPairs ? piece_a(pr) : 0;
+              const int pb = pr < kSmallPairs ? piece_b(pr) : 0;
+#pragma unroll
+              for (int kk = 0; kk < kBN / 16; ++kk)
+                mma_rs<kAtom>(part, pp[pa][kk],
+                              desc(v_st + (a * Lay::kAtomRows + pb * kBN + kk * 16) *
+                                              kAtomBytes,
+                                   Lay::kAtomRows * kAtomBytes, 1024), 1);
             }
             wg_commit();
             wg_wait0();
@@ -278,46 +372,88 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
             for (int e = 0; e < kAtom / 2; ++e) acc[a * kAtom / 2 + e] += part[e];
           }
         }
-      } else if constexpr (kLoaded && W == 4 * kAtom) {
-        // the loaded route at width 256: O as four 64-column products, each
-        // atom's columns taking the same accumulations in the same order
-        // as in one 256-column product (the same bits), with fewer
-        // registers live in one wgmma.  The launch's 168 registers a thread
-        // spill either way (the producer warpgroup shares the register
-        // file), but one 256-column product spills 4552 bytes where this
-        // spills 608, and runs 4.3x slower at gemma-7b's d 256 slice
-        // (PERF.md; tools/flash_copies.py's one_pv copy)
-        wg_fence();
+      } else {
+        // P as hi/lo E A fragments: k-step kk takes s[8 kk .. 8 kk + 7]
+        uint32_t p_hi[kBN / 16][4], p_lo[kBN / 16][4];
 #pragma unroll
-        for (int a = 0; a < W / kAtom; ++a) {
-          if (a < atoms) {
-            float(&acc_a)[kAtom / 2] =
-                *reinterpret_cast<float(*)[kAtom / 2]>(acc + a * kAtom / 2);
+        for (int kk = 0; kk < kBN / 16; ++kk)
 #pragma unroll
-            for (int kk = 0; kk < kBlockN / 16; ++kk) {
-              const uint64_t bv =
-                  desc(v_st + a * kBlockN * kAtomBytes + kk * 16 * kAtomBytes,
-                       kBlockN * kAtomBytes, 1024);
-              mma_rs_t<E, kAtom>(acc_a, p_hi[kk], bv, 1);
-              mma_rs_t<E, kAtom>(acc_a, p_lo[kk], bv, 1);
+          for (int r = 0; r < 4; ++r) {
+            uint32_t pieces[2];
+            split_pair<E>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], pieces);
+            p_hi[kk][r] = pieces[0];
+            p_lo[kk][r] = pieces[1];
+          }
+
+        // O += P_hi V + P_lo V over the tile's keys in steps of 16 (W / 64
+        // atoms of 2 KB of V)
+        fence_regs(acc);
+        if constexpr (kSplitAcc) {
+          // float16: each atom's 64 columns of the tile's products in a fresh
+          // accumulator, added to acc in float32 (round to nearest)
+#pragma unroll
+          for (int a = 0; a < W / kAtom; ++a) {
+            if (a < atoms) {
+              float part[kAtom / 2];
+#pragma unroll
+              for (int e = 0; e < kAtom / 2; ++e) part[e] = 0.f;
+              wg_fence();
+#pragma unroll
+              for (int kk = 0; kk < kBN / 16; ++kk) {
+                const uint64_t bv =
+                    desc(v_st + a * kBN * kAtomBytes + kk * 16 * kAtomBytes,
+                         kBN * kAtomBytes, 1024);
+                mma_rs_t<E, kAtom>(part, p_hi[kk], bv, kk > 0);
+                mma_rs_t<E, kAtom>(part, p_lo[kk], bv, 1);
+              }
+              wg_commit();
+              wg_wait0();
+              fence_regs(part);
+#pragma unroll
+              for (int e = 0; e < kAtom / 2; ++e) acc[a * kAtom / 2 + e] += part[e];
             }
           }
-        }
-        wg_commit();
-        wg_wait0();
-        fence_regs(acc);
-      } else {
-        wg_fence();
+        } else if constexpr (kLoaded && W == 4 * kAtom) {
+          // the loaded route at width 256: O as four 64-column products, each
+          // atom's columns taking the same accumulations in the same order
+          // as in one 256-column product (the same bits), with fewer
+          // registers live in one wgmma.  The launch's 168 registers a thread
+          // spill either way (the producer warpgroup shares the register
+          // file), but one 256-column product spills 4552 bytes where this
+          // spills 608, and runs 4.3x slower at gemma-7b's d 256 slice
+          // (PERF.md; tools/flash_copies.py's one_pv copy)
+          wg_fence();
 #pragma unroll
-        for (int kk = 0; kk < kBlockN / 16; ++kk) {
-          const uint64_t bv =
-              desc(v_st + kk * 16 * kAtomBytes, kBlockN * kAtomBytes, 1024);
-          mma_rs_t<E, W>(acc, p_hi[kk], bv, 1);
-          mma_rs_t<E, W>(acc, p_lo[kk], bv, 1);
+          for (int a = 0; a < W / kAtom; ++a) {
+            if (a < atoms) {
+              float(&acc_a)[kAtom / 2] =
+                  *reinterpret_cast<float(*)[kAtom / 2]>(acc + a * kAtom / 2);
+#pragma unroll
+              for (int kk = 0; kk < kBN / 16; ++kk) {
+                const uint64_t bv =
+                    desc(v_st + a * kBN * kAtomBytes + kk * 16 * kAtomBytes,
+                         kBN * kAtomBytes, 1024);
+                mma_rs_t<E, kAtom>(acc_a, p_hi[kk], bv, 1);
+                mma_rs_t<E, kAtom>(acc_a, p_lo[kk], bv, 1);
+              }
+            }
+          }
+          wg_commit();
+          wg_wait0();
+          fence_regs(acc);
+        } else {
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < kBN / 16; ++kk) {
+            const uint64_t bv =
+                desc(v_st + kk * 16 * kAtomBytes, kBN * kAtomBytes, 1024);
+            mma_rs_t<E, W>(acc, p_hi[kk], bv, 1);
+            mma_rs_t<E, W>(acc, p_lo[kk], bv, 1);
+          }
+          wg_commit();
+          wg_wait0();
+          fence_regs(acc);
         }
-        wg_commit();
-        wg_wait0();
-        fence_regs(acc);
       }
 
       if constexpr (kLoaded) {
@@ -325,7 +461,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         if (lane == 0) mbar_arrive(bar_empty(st));
       } else {
         __syncthreads();   // every warpgroup is done with stage st
-        if (tid == 0 && t + kStages < n_tiles) load_kv(st, k0 + kStages * kBlockN);
+        if (tid == 0 && t + kStages < n_tiles) load_kv(st, k0 + kStages * kBN);
       }
     }
 
@@ -335,9 +471,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       if (i >= Lq) continue;
       const float l = fmaxf(l_run[r], 1e-30f);
       if constexpr (kLoaded) {
-        // every column below any d; a pair in one 4-byte store only where
-        // it starts on a 4-byte boundary (at an odd d every other row
-        // starts 2 bytes into a word)
+        // every column below any d; a pair in one store only where it
+        // starts on a boundary of the pair's size (at an odd d every other
+        // 16-bit row starts 2 bytes into a word)
         E* row = o + (((int64_t)b * Lq + i) * H + h) * d;
 #pragma unroll
         for (int j = 0; j < W / 8; ++j) {
@@ -345,7 +481,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
           if (c < d) {
             const float x0 = acc[4 * j + 2 * r] / l;
             const float x1 = acc[4 * j + 2 * r + 1] / l;
-            if (c + 1 < d && (reinterpret_cast<uintptr_t>(row + c) & 3) == 0) {
+            if (c + 1 < d &&
+                reinterpret_cast<uintptr_t>(row + c) % (2 * sizeof(E)) == 0) {
               store2(row + c, x0, x1);
             } else {
               store1(row + c, x0);
@@ -363,7 +500,118 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     }
   };
 
-  if constexpr (kLoaded) {
+  if constexpr (kF32) {
+    if (tid >= kThreadsWg) {
+      // the float32 kind's producer warpgroup: Q once, then every K/V tile
+      // into the ring, each stage once all consumers have released it.
+      // Thread t reads float32 columns 8 c .. 8 c + 7 (two 16-byte loads)
+      // of every kStep-th row, splits them into kPieces bf16 pieces and
+      // stores each piece's 16-byte chunk into that piece's swizzled tile,
+      // zeros past d and past L
+      constexpr int kCW = W / 8;                      // chunks of a piece row
+      constexpr int kStep = kProducerThreads / kCW;   // rows between mine
+      constexpr int kPer = kBN / kStep < 4 ? kBN / kStep : 4;   // my rows
+      constexpr int kB = kStep * kPer;                // rows of a batch
+      static_assert(kQRows % kB == 0 && kBN % kB == 0, "whole batches");
+      const int t = tid - kThreadsWg;
+      const int c = t % kCW, r_first = t / kCW;
+      const bool read = c < 8 * atoms;   // a chunk some wgmma reads
+      uint8_t* const tiles = smem_raw + (base - smem_u32(smem_raw));
+      const int qb = kQRows / kB, kvb = kBN / kB;
+      const int n_batches = qb + n_tiles * 2 * kvb;
+      struct Rows {
+        const float* p0;   // the batch's first row
+        int64_t stride;    // floats between rows
+        int rows;          // rows before L
+        int tile_rows, tile_row0, tile;   // rows of an atom, my first, tile
+        uint8_t* dst;      // the tile (piece 0's rows)
+        int piece;         // bytes between the pieces' rows
+      };
+      auto batch = [&](int i) {
+        if (i < qb) {
+          const int r0 = q0 + i * kB;
+          return Rows{static_cast<const float*>(src.q) +
+                          (((int64_t)b * Lq + r0) * H + h) * d,
+                      (int64_t)H * d, Lq - r0, kQRows, i * kB, -1, tiles,
+                      Lay::kQPiece};
+        }
+        const int j = i - qb, tt = j / (2 * kvb), part = j % kvb;
+        const bool is_v = (j / kvb) % 2;
+        const int r0 = k_begin + tt * kBN + part * kB;
+        return Rows{static_cast<const float*>(is_v ? src.v : src.k) +
+                        (((int64_t)b * Lk + r0) * KVH + kvh) * d,
+                    (int64_t)KVH * d, Lk - r0, Lay::kAtomRows, part * kB, tt,
+                    tiles + (is_v ? Lay::kV : Lay::kK) +
+                        (tt % kNS) * Lay::kTileBytes,
+                    kBN * kAtomBytes};
+      };
+      struct Vals {
+        float4 lo[kPer], hi[kPer];
+      };
+      // my columns of my rows of batch i into registers
+      auto fetch = [&](int i, Vals& x) {
+        const Rows R = batch(i);
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) {
+          const int r = r_first + kStep * k;
+          x.lo[k] = x.hi[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (r < R.rows && 8 * c < d) {
+            const float* p = R.p0 + r * R.stride + 8 * c;
+            x.lo[k] = __ldg(reinterpret_cast<const float4*>(p));
+            if (8 * c + 4 < d) x.hi[k] = __ldg(reinterpret_cast<const float4*>(p + 4));
+          }
+        }
+      };
+      uint32_t chunk_at[kPer];
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const int r = r_first + kStep * k;
+        chunk_at[k] = r * kAtomBytes + (((c % 8) ^ (r % 8)) << 4);
+      }
+      // batch i's pieces into the swizzled tiles, once the stage is free;
+      // after Q's or a kv tile's last batch, this thread's stores are made
+      // visible to wgmma's async proxy and its warp arrives
+      auto put = [&](int i, const Vals& x) {
+        const Rows R = batch(i);
+        const int j = i - qb;
+        if (i >= qb && j % (2 * kvb) == 0 && R.tile >= kNS)
+          mbar_wait(bar_empty(R.tile % kNS), (R.tile / kNS - 1) & 1);
+        uint8_t* const dst = R.dst + (c / 8) * R.tile_rows * kAtomBytes +
+                             R.tile_row0 * kAtomBytes;
+        if (read) {
+#pragma unroll
+          for (int k = 0; k < kPer; ++k) {
+            const float v[8] = {x.lo[k].x, x.lo[k].y, x.lo[k].z, x.lo[k].w,
+                                x.hi[k].x, x.hi[k].y, x.hi[k].z, x.hi[k].w};
+            uint4 pieces[kPieces];
+            split8<kPieces>(v, pieces);
+#pragma unroll
+            for (int a = 0; a < kPieces; ++a)
+              *reinterpret_cast<uint4*>(dst + a * R.piece + chunk_at[k]) = pieces[a];
+          }
+        }
+        const bool q_done = i == qb - 1;
+        if (q_done || (i >= qb && j % (2 * kvb) == 2 * kvb - 1)) {
+          fence_proxy_async();
+          __syncwarp();
+          if (lane == 0) mbar_arrive(q_done ? bar_q : bar_full(R.tile % kNS));
+        }
+      };
+      // two batches in flight: batch i + 1's loads overlap batch i's split
+      Vals x0, x1;
+      fetch(0, x0);
+      for (int i = 0; i < n_batches; i += 2) {
+        if (i + 1 < n_batches) fetch(i + 1, x1);
+        put(i, x0);
+        if (i + 1 < n_batches) {
+          if (i + 2 < n_batches) fetch(i + 2, x0);
+          put(i + 1, x1);
+        }
+      }
+    } else {
+      consume();
+    }
+  } else if constexpr (kLoaded) {
     if (tid >= kThreadsWg) {
       // the producer warpgroup: Q once, then every K/V tile into the ring,
       // each stage once all consumers have released it; generic-proxy
@@ -594,6 +842,47 @@ cudaError_t launch_loaded(const void* q, const void* k, const void* v, int B,
       none, none, none, Srcs{q, k, v}, Lq, Lk, H, KVH, D, causal, window,
       scale_log2, static_cast<E*>(o));
   return cudaGetLastError();
+}
+
+// The float32 kind: head dim D a multiple of 4 up to W, q, k, v and o on
+// 16-byte boundaries (contiguous, as the wrapper checks); refused
+// otherwise.
+template <int W>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, int B,
+                       int Lq, int Lk, int H, int KVH, int D, int causal,
+                       int window, void* o, cudaStream_t s) {
+  using Lay = LayoutF32<W>;
+  if (D < 1 || D > W || D % 4 != 0 || KVH < 1 || H % KVH || Lk < 1)
+    return cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_wgmma_kernel<float, W, true>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::kBytes);
+  if (err != cudaSuccess) return err;
+  const float scale_log2 = (float)(kLog2e / sqrt((double)D));
+  dim3 grid(H, (Lq + kQRows - 1) / kQRows, B);
+  CUtensorMap none = {};
+  flash_wgmma_kernel<float, W, true><<<grid, kThreadsLoaded, Lay::kBytes, s>>>(
+      none, none, none, Srcs{q, k, v}, Lq, Lk, H, KVH, D, causal, window,
+      scale_log2, static_cast<float*>(o));
+  return cudaGetLastError();
+}
+
+// Blocks of the float32 kind at width W an SM holds at once; -1 if the
+// query failed.
+template <int W>
+int blocks_per_sm_f32() {
+  int n = -1;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_wgmma_kernel<float, W, true>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, LayoutF32<W>::kBytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, flash_wgmma_kernel<float, W, true>, kThreadsLoaded,
+        LayoutF32<W>::kBytes);
+  return err == cudaSuccess ? n : -1;
 }
 
 // Blocks of flash_wgmma_kernel<E, W> an SM holds at once; -1 if the query

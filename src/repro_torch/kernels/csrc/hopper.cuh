@@ -192,6 +192,32 @@ __device__ __forceinline__ void mma_ss_n32(float (&d)[16], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d (+)= A B for a 64 x N tile (N 96, 128 or 192), A and B from shared
+// memory, both K-major.
+#define WG_D48 WG_D32, WG_D8(32), WG_D8(40)
+#define WG_R48                                                            \
+  WG_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47"
+#define WG_D96 WG_D64, WG_D8(64), WG_D8(72), WG_D8(80), WG_D8(88)
+#define WG_R96 \
+  WG_R64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, " \
+  "%76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, " \
+  "%90, %91, %92, %93, %94, %95"
+#define HOPPER_MMA_SS_K(NAME, N, DN, RN, A, B, P)                         \
+  __device__ __forceinline__ void NAME(float(&d)[N / 2], uint64_t a,      \
+                                       uint64_t b, int accumulate) {      \
+    asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %" P ", 0;\n"       \
+                 " wgmma.mma_async.sync.aligned.m64n" #N                  \
+                 "k16.f32.bf16.bf16 {" RN "}, %" A ", %" B                \
+                 ", p, 1, 1, 0, 0;\n}\n"                                   \
+                 : DN                                                     \
+                 : "l"(a), "l"(b), "r"(accumulate));                      \
+  }
+HOPPER_MMA_SS_K(mma_ss_n96, 96, WG_D48, WG_R48, "48", "49", "50")
+HOPPER_MMA_SS_K(mma_ss_n128, 128, WG_D64, WG_R64, "64", "65", "66")
+HOPPER_MMA_SS_K(mma_ss_n192, 192, WG_D96, WG_R96, "96", "97", "98")
+#undef HOPPER_MMA_SS_K
+
 // d (+)= A B for a 64 x N tile, A and B from shared memory, both MN-major
 // (both transpose bits set).
 template <int N>

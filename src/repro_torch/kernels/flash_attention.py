@@ -38,9 +38,17 @@ build or launch:
   cp.async a source aligned to its copy size, so neither can read these
   inputs.  At a head dim that is a multiple of 8 the output equals, bit for
   bit, TMA's on the same values.
-- float32 at head dims 16, 32, 64, 96, 128 -> ``flash_kernel``: float32 on
-  CUDA cores, never TF32, the checked float32 route,
-  ``LAUNCHES["flash_attention_simt"]``.
+- float32 with a head dim that is a multiple of 4 up to 128, q, k and v
+  each on a 16-byte boundary -> ``flash_wgmma_kernel``'s float32 kind
+  (``csrc/flash_f32.cu``): every float32 operand as three bf16 pieces, each
+  product the six piece products with a + b < 3 on the tensor cores (never
+  TF32), fed by a producer warpgroup that splits the rows it loads,
+  ``LAUNCHES["flash_attention_wgmma_f32"]``.
+- any other float32 input at head dims 16, 32, 64, 96, 128 ->
+  ``flash_kernel``: float32 on CUDA cores, never TF32,
+  ``LAUNCHES["flash_attention_simt"]``; a call can ask for it on any
+  float32 input up to 256 (``force=SIMT``), to hold and time it beside the
+  tensor cores.
 - float32 at any other head dim up to 256 -> ``flash_kernel`` at the next
   of those widths or 256, the true head dim a run-time argument (loads past
   it zero-filled, stores skipped), ``LAUNCHES["flash_attention_padded"]``.
@@ -49,8 +57,10 @@ build or launch:
   chunks, ``LAUNCHES["flash_attention_wide"]``.
 
 q, k and v of different dtypes (the Pallas kernel casts each to float32)
-are cast to float32 here, exactly, and take the float32 route of their
-head dim; the output is cast once to q's dtype.
+are cast to float32 here, exactly: a 16-bit one into a fresh (aligned)
+tensor, a float32 one passed on as it is.  The three take the float32
+route of their head dim and the float32 inputs' offsets; the output is
+cast once to q's dtype.
 
 The reference's ``block_q`` / ``block_k`` are TPU tile sizes; the CUDA
 kernels' tiles are fixed and the results do not depend on them, so the
@@ -77,11 +87,13 @@ WGMMA = Route("flash_wgmma_kernel", "flash_attention_wgmma")
 WGMMA_F16 = Route("flash_wgmma_kernel", "flash_attention_wgmma_f16")
 WGMMA_PADDED = Route("flash_wgmma_kernel", "flash_attention_wgmma_padded")
 WGMMA_LOADED = Route("flash_wgmma_kernel", "flash_attention_wgmma_loaded")
+WGMMA_F32 = Route("flash_wgmma_kernel", "flash_attention_wgmma_f32")
 SIMT = Route("flash_kernel", "flash_attention_simt")
 PADDED = Route("flash_kernel", "flash_attention_padded")
 WIDE = Route("flash_wide_kernel", "flash_attention_wide")
-ROUTES = (WGMMA, WGMMA_F16, WGMMA_PADDED, WGMMA_LOADED, SIMT, PADDED, WIDE)
-TENSOR_CORE_ROUTES = (WGMMA, WGMMA_F16, WGMMA_PADDED, WGMMA_LOADED)
+ROUTES = (WGMMA, WGMMA_F16, WGMMA_PADDED, WGMMA_LOADED, WGMMA_F32, SIMT,
+          PADDED, WIDE)
+TENSOR_CORE_ROUTES = (WGMMA, WGMMA_F16, WGMMA_PADDED, WGMMA_LOADED, WGMMA_F32)
 LAUNCHES = {r.counter: 0 for r in ROUTES}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -90,6 +102,8 @@ HEAD_DIMS = (16, 32, 64, 96, 128)   # flash_kernel's own widths
 WGMMA_HEAD_DIMS = (64, 96, 128)     # the main paths' tensor-core head dims
 MAX_PADDED = 256                    # widest flash_kernel and flash_wgmma_kernel
 WGMMA_DIM_STEP = 8                  # a TMA row stride: 16 bytes of 16-bit
+F32_DIM_STEP = 4                    # a float32 row of 16-byte words
+MAX_F32 = 128                       # widest float32 kind of flash_wgmma_kernel
 
 
 def reset_launches() -> None:
@@ -109,6 +123,14 @@ def route(dtype: torch.dtype, head_dim: int, aligned: bool = True) -> Route:
         if dtype == torch.float16:
             return WGMMA_F16
         return WGMMA if head_dim in WGMMA_HEAD_DIMS else WGMMA_PADDED
+    if aligned and head_dim % F32_DIM_STEP == 0 and head_dim <= MAX_F32:
+        return WGMMA_F32
+    return flash_kernel_route(head_dim)
+
+
+def flash_kernel_route(head_dim: int) -> Route:
+    """``flash_kernel``'s route for a float32 call of this head dim (up to
+    ``MAX_PADDED``)."""
     return SIMT if head_dim in HEAD_DIMS else PADDED
 
 
@@ -143,30 +165,45 @@ def cuda_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Route:
     need(k, "k", (B, Lk, KVH, D), tuple(_DTYPES))
     need(v, "v", (B, Lk, KVH, D), tuple(_DTYPES))
     dt = compute_dtype(q, k, v)
-    # a cast copy (mixed dtypes) is fresh, so aligned; otherwise each
-    # tensor's own offset decides
-    aligned = dt != q.dtype or not any(element_offsets(q, k, v))
-    return route(dt, D, aligned)
+    # a cast copy (mixed dtypes) is fresh, so aligned; a tensor that is
+    # not cast keeps its own offset
+    kept = [t for t in (q, k, v) if t.dtype == dt]
+    return route(dt, D, not any(element_offsets(*kept)))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: (B, Lq, H, d); k/v: (B, Lk, KVH, d), KVH | H.  Returns (B, Lq, H, d)."""
+                    causal: bool = True, window: int = 0,
+                    force: Route | None = None) -> torch.Tensor:
+    """q: (B, Lq, H, d); k/v: (B, Lk, KVH, d), KVH | H.  Returns (B, Lq, H, d).
+
+    ``force=SIMT`` runs a float32 CUDA call on ``flash_kernel`` (counted in
+    its own route's counter, SIMT or PADDED by head dim) wherever its route
+    would be another; no other route can be forced."""
     if not on_cuda(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     r = cuda_route(q, k, v)
     dt = compute_dtype(q, k, v)
-    if dt != q.dtype:
+    if not q.dtype == k.dtype == v.dtype:
         out = flash_attention(q.float(), k.float(), v.float(), causal=causal,
-                              window=window)
+                              window=window, force=force)
         return out.to(q.dtype)
+    if force is not None:
+        if force is not SIMT or dt != torch.float32 or r is WIDE:
+            raise ValueError(f"flash_attention: cannot force {force} on "
+                             f"{dt} at head dim {q.shape[-1]}")
+        r = flash_kernel_route(q.shape[-1])
     B, Lq, H, D = q.shape
     Lk, KVH = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     if not out.numel():
         return out
     LAUNCHES[r.counter] += 1
-    if r is WGMMA_LOADED:
+    if r is WGMMA_F32:
+        check(_build.load().flash_attention_wgmma_f32_launch(
+            ptr(q), ptr(k), ptr(v), B, Lq, Lk, H, KVH, D, int(causal),
+            int(window), ptr(out), stream(q)),
+            f"flash_attention (wgmma, {r.counter})")
+    elif r is WGMMA_LOADED:
         check(_build.load().flash_attention_wgmma_loaded_launch(
             _DTYPES[q.dtype], ptr(q), ptr(k), ptr(v), B, Lq, Lk, H, KVH, D,
             int(causal), int(window), ptr(out), stream(q)),

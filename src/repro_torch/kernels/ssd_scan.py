@@ -29,9 +29,10 @@ alignment:
   ``LAUNCHES["ssd_chunk_tiles_simt"]``; a call can ask for it
   (``force=SIMT``) to time it where the tensor cores would run.
 - any other Q, N, P (above ``MAX_DIM``) or float16 B/C ->
-  ``ssd_chunk_generic_kernel``: float32 on CUDA cores in 128 x 128 output
-  tiles, N and Q streamed through shared memory, each output the same
-  fmaf chain as ``ssd_chunk_kernel``'s.  Counted in
+  ``ssd_chunk_generic_kernel``: float32 on CUDA cores, a block a (chunk,
+  128-row tile) and eight heads, G = C B^T made once for them over a window
+  of up to 256 positions, each output the same fmaf chain as
+  ``ssd_chunk_kernel``'s.  Counted in
   ``LAUNCHES["ssd_chunk_tiles_generic"]``; it takes every shape
   (``force=GENERIC``).
 

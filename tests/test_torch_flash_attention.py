@@ -21,6 +21,16 @@ bf16) must agree with the reference on the same bf16-rounded inputs at the
 float32 tolerance; a single bf16 P must not.  The emulation also shows
 that chip_smoke.py's bf16 ulp check of the kernel can fail: rounded to
 bf16, the hi/lo split passes it and a single bf16 P does not.
+
+The float32 kind of the same kernel (float32 q, k and v on 16-byte
+boundaries at head dims that are multiples of 4 up to 128) is emulated
+too: every float32 operand as three bf16 pieces, each product the six
+piece products with a + b < 3 in the kernel's order (S's products summed
+by order, the main one apart and added last; P V's smallest first),
+32-key tiles, and each tile's P V added to O in float32.  It must agree
+with the Pallas kernel and the reference at the float32 tolerance and lie
+no farther from a float64 reference than twice the plain float32 path; a
+hi/lo pair of pieces does not.
 """
 
 import importlib.util
@@ -119,6 +129,7 @@ def test_cpu_tensors_never_count_launches(rng):
                                "flash_attention_wgmma_f16": 0,
                                "flash_attention_wgmma_padded": 0,
                                "flash_attention_wgmma_loaded": 0,
+                               "flash_attention_wgmma_f32": 0,
                                "flash_attention_simt": 0,
                                "flash_attention_padded": 0,
                                "flash_attention_wide": 0}
@@ -135,13 +146,34 @@ def test_non_cpu_tensors_raise_instead_of_falling_back():
 WGMMA_CASES = [c for c in CASES if c["D"] in tflash.WGMMA_HEAD_DIMS]
 
 
+def _bf16_pieces(x, n):
+    """x (float32) as n bf16 pieces, each held as float32: p0 = bf16(x),
+    p_k = bf16(x - p0 - ... - p_{k-1}) (each remainder exact)."""
+    out, r = [], x.float()
+    for _ in range(n):
+        out.append(r.bfloat16().float())
+        r = r - out[-1]
+    return out
+
+
+def _small_pairs(n):
+    """The piece products (a, b) with a + b < n but the main one (0, 0),
+    smallest first, in the order the float32 kind runs P V's."""
+    return [(a, o - a) for o in range(n - 1, 0, -1) for a in range(o + 1)]
+
+
 def _emulate_wgmma(q, k, v, *, causal, window, split=True, block_k=64,
-                   elem=torch.bfloat16):
+                   elem=torch.bfloat16, pieces=3):
     """float32 output of flash_wgmma_kernel's arithmetic before its final
     rounding to ``elem`` (bf16, or float16 for its f16 kind); q, k, v hold
     ``elem`` values (as any float dtype); q (B, Lq, H, D), k and v (B, Lk,
     KVH, D).  Any head dim: the kernel's columns past D are zeros, which
-    add exact zeros to the scores and are never stored."""
+    add exact zeros to the scores and are never stored.  ``elem`` float32
+    is the float32 kind (``_emulate_pieces``): q, k, v and P as ``pieces``
+    bf16 pieces."""
+    if elem == torch.float32:
+        return _emulate_pieces(q, k, v, causal=causal, window=window,
+                               pieces=pieces)
     B, Lq, H, D = q.shape
     Lk = k.shape[1]
     rep = H // k.shape[2]
@@ -174,6 +206,73 @@ def _emulate_wgmma(q, k, v, *, causal, window, split=True, block_k=64,
             acc = acc + torch.einsum("bhqk,bkhd->bhqd", part, v[:, kv])
         m = m_new
     return (acc / l.clamp_min(1e-30)).permute(0, 2, 1, 3)
+
+
+def _emulate_pieces(q, k, v, *, causal, window, pieces, block_k=32):
+    """The float32 kind's arithmetic, each wgmma product a float32 einsum:
+    32-key tiles; S = main + (block_{n-1} + ... + block_1), where block o
+    sums the products Q_a K_{o-a} of order o from a = o down to 0 (the
+    kernel's wgmmas Q_a [K_0 .. K_{n-1-a}]^T, a from n - 1 down) and main
+    is Q_0 K_0; P split into pieces; each tile's P V (the small products,
+    smallest first, then the main one) added to O."""
+    B, Lq, H, D = q.shape
+    Lk = k.shape[1]
+    rep = H // k.shape[2]
+    qp = _bf16_pieces(q, pieces)
+    kp = _bf16_pieces(k.repeat_interleave(rep, dim=2), pieces)
+    vp = _bf16_pieces(v.repeat_interleave(rep, dim=2), pieces)
+    m = torch.full((B, H, Lq, 1), -1e30)
+    l = torch.zeros((B, H, Lq, 1))
+    acc = torch.zeros((B, H, Lq, D))
+    qpos = torch.arange(Lq)[:, None]
+    scale_log2 = D**-0.5 * 1.4426950408889634
+    for k0 in range(0, Lk, block_k):
+        kv = slice(k0, min(k0 + block_k, Lk))
+
+        def score(a, b):
+            return torch.einsum("bqhd,bkhd->bhqk", qp[a], kp[b][:, kv])
+        small = torch.zeros(())
+        for o in range(pieces - 1, 0, -1):
+            block = torch.zeros(())
+            for a in range(o, -1, -1):
+                block = block + score(a, o - a)
+            small = small + block
+        s = (score(0, 0) + small) * scale_log2
+        j = torch.arange(kv.start, kv.stop)[None, :]
+        vis = torch.ones((Lq, j.shape[1]), dtype=torch.bool)
+        if causal:
+            vis &= j <= qpos
+        if window > 0:
+            vis &= j > qpos - window
+        s = torch.where(vis, s, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        pp = _bf16_pieces(p, pieces)
+        part = torch.zeros(())
+        for a, b in _small_pairs(pieces) + [(0, 0)]:
+            part = part + torch.einsum("bhqk,bkhd->bhqd", pp[a], vp[b][:, kv])
+        acc = acc * corr + part
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).permute(0, 2, 1, 3)
+
+
+def _ref64(q, k, v, *, causal, window):
+    """The reference's attention in float64."""
+    B, Lq, H, D = q.shape
+    Lk, KVH = k.shape[1], k.shape[2]
+    k = k.double().repeat_interleave(H // KVH, dim=2)
+    v = v.double().repeat_interleave(H // KVH, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k) * D**-0.5
+    qp, kp = torch.arange(Lq)[:, None], torch.arange(Lk)[None, :]
+    vis = torch.ones((Lq, Lk), dtype=torch.bool)
+    if causal:
+        vis &= kp <= qp
+    if window > 0:
+        vis &= kp > qp - window
+    s = torch.where(vis, s, torch.full_like(s, -1e30))
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
 
 
 def _bf16_case(rng, c):
@@ -218,6 +317,69 @@ def test_single_bf16_p_leaves_the_float32_tolerance(rng, case):
            for split in (True, False)}
     assert err[False] > 3e-4
     assert err[False] > 10 * err[True]
+
+
+# the float32 kind's head dims: every case above (d 16 to 128, causal,
+# window, GQA, Lk != Lq) and d 80 and 100 (multiples of 4, not of 8)
+F32_CASES = CASES + [
+    dict(B=1, Lq=70, Lk=70, H=4, KVH=2, D=80, causal=True, window=16),
+    dict(B=1, Lq=40, Lk=90, H=2, KVH=1, D=100, causal=False, window=0),
+    dict(B=2, Lq=100, Lk=100, H=4, KVH=2, D=100, causal=True, window=0)]
+
+
+def _f32_case(rng, c):
+    """float32 q, k, v as (jax, torch) pairs of the same values."""
+    return [_pair(rng, (c["B"], length, h, c["D"]), "f32")
+            for length, h in ((c["Lq"], c["H"]), (c["Lk"], c["KVH"]),
+                              (c["Lk"], c["KVH"]))]
+
+
+def _dist(got, want):
+    return float((got.double() - want).abs().max())
+
+
+@pytest.mark.parametrize("case", F32_CASES, ids=lambda c: "-".join(
+    f"{k}{v}" for k, v in c.items()))
+def test_float32_tensor_core_arithmetic_matches_reference(rng, case):
+    """The float32 kind (three bf16 pieces, six products a product) agrees
+    with the Pallas kernel (interpret mode) and the reference at the
+    float32 tolerance (3e-4, tests/test_kernels.py), and lies no farther
+    from a float64 reference than twice the plain float32 path."""
+    c = case
+    pairs = _f32_case(rng, c)
+    kw = dict(causal=c["causal"], window=c["window"])
+    q, k, v = (t for _, t in pairs)
+    assert tflash.route(torch.float32, c["D"]) is tflash.WGMMA_F32
+    assert tflash.cuda_route(q, k, v) is tflash.WGMMA_F32
+    got = _emulate_wgmma(q, k, v, elem=torch.float32, **kw)
+    qj, kj, vj = (j for j, _ in pairs)
+    pallas = jflash(qj, kj, vj, block_q=32, block_k=32, interpret=True, **kw)
+    for want in (pallas, jref.flash_attention_ref(qj, kj, vj, **kw)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-4,
+                                   atol=3e-4)
+    want64 = _ref64(q, k, v, **kw)
+    plain = _dist(tref.flash_attention_ref(q, k, v, **kw), want64)
+    assert _dist(got, want64) <= 2 * plain
+
+
+@pytest.mark.parametrize("case", F32_CASES[1::3], ids=lambda c: "-".join(
+    f"{k}{v}" for k, v in c.items()))
+def test_fewer_float32_pieces_lose_float32_accuracy(rng, case):
+    """A hi/lo pair of bf16 pieces (about 16 bits of each operand, three
+    products a product) stays inside the 3e-4 tolerance on these inputs
+    but lands more than five times as far from a float64 reference as the
+    plain float32 path (the card's check allows two); three pieces land
+    within it, and a single bf16 piece is outside the tolerance."""
+    c = case
+    q, k, v = (t for _, t in _f32_case(rng, c))
+    kw = dict(causal=c["causal"], window=c["window"])
+    want64 = _ref64(q, k, v, **kw)
+    plain = _dist(tref.flash_attention_ref(q, k, v, **kw), want64)
+    dist = {n: _dist(_emulate_wgmma(q, k, v, elem=torch.float32, pieces=n,
+                                    **kw), want64) for n in (1, 2, 3)}
+    assert dist[3] <= 2 * plain
+    assert 5 * plain < dist[2] <= 3e-4
+    assert dist[1] > 3e-4
 
 
 def _chip_smoke():
@@ -374,17 +536,20 @@ def test_f16_ulps_counts_float16_ulps():
 
 @pytest.mark.parametrize("dtype,dim,route", [
     (torch.bfloat16, 64, "WGMMA"), (torch.bfloat16, 96, "WGMMA"),
-    (torch.bfloat16, 128, "WGMMA"), (torch.float32, 96, "SIMT"),
+    (torch.bfloat16, 128, "WGMMA"), (torch.float32, 96, "WGMMA_F32"),
     (torch.bfloat16, 16, "WGMMA_PADDED"), (torch.bfloat16, 32, "WGMMA_PADDED"),
-    (torch.float32, 16, "SIMT"), (torch.float32, 32, "SIMT"),
-    (torch.float32, 64, "SIMT"), (torch.float32, 128, "SIMT"),
+    (torch.float32, 16, "WGMMA_F32"), (torch.float32, 32, "WGMMA_F32"),
+    (torch.float32, 64, "WGMMA_F32"), (torch.float32, 128, "WGMMA_F32"),
+    (torch.float32, 4, "WGMMA_F32"), (torch.float32, 100, "WGMMA_F32"),
+    (torch.float32, 6, "PADDED"), (torch.float32, 130, "PADDED"),
+    (torch.float32, 132, "PADDED"),
     (torch.float16, 128, "WGMMA_F16"), (torch.float16, 64, "WGMMA_F16"),
     (torch.bfloat16, 48, "WGMMA_PADDED"), (torch.float16, 48, "WGMMA_F16"),
     (torch.bfloat16, 80, "WGMMA_PADDED"), (torch.float16, 80, "WGMMA_F16"),
     (torch.bfloat16, 200, "WGMMA_PADDED"), (torch.float16, 200, "WGMMA_F16"),
     (torch.bfloat16, 256, "WGMMA_PADDED"), (torch.float16, 256, "WGMMA_F16"),
     (torch.bfloat16, 20, "WGMMA_LOADED"), (torch.float16, 20, "WGMMA_LOADED"),
-    (torch.float32, 48, "PADDED"), (torch.float32, 80, "PADDED"),
+    (torch.float32, 48, "WGMMA_F32"), (torch.float32, 80, "WGMMA_F32"),
     (torch.float32, 200, "PADDED"), (torch.float32, 256, "PADDED"),
     (torch.bfloat16, 320, "WIDE"), (torch.float16, 320, "WIDE"),
     (torch.float32, 320, "WIDE")])
@@ -400,6 +565,8 @@ def test_routing_table(dtype, dim, route):
                                 "flash_attention_wgmma_f16")
     assert tflash.WGMMA_PADDED == ("flash_wgmma_kernel",
                                    "flash_attention_wgmma_padded")
+    assert tflash.WGMMA_F32 == ("flash_wgmma_kernel",
+                                "flash_attention_wgmma_f32")
     assert tflash.SIMT == ("flash_kernel", "flash_attention_simt")
     assert set(tflash.LAUNCHES) == {r.counter for r in tflash.ROUTES}
 
@@ -408,11 +575,13 @@ def test_routing_table(dtype, dim, route):
     (torch.bfloat16, 72, "WGMMA_LOADED"), (torch.float16, 72, "WGMMA_LOADED"),
     (torch.bfloat16, 64, "WGMMA_LOADED"), (torch.float16, 128, "WGMMA_LOADED"),
     (torch.float16, 16, "WGMMA_LOADED"), (torch.bfloat16, 256, "WGMMA_LOADED"),
-    (torch.float32, 72, "PADDED"), (torch.float32, 64, "SIMT")])
+    (torch.float32, 72, "PADDED"), (torch.float32, 64, "SIMT"),
+    (torch.float32, 128, "SIMT"), (torch.float32, 100, "PADDED")])
 def test_routing_off_16_byte_boundaries(dtype, dim, route):
     """TMA takes 16-byte-aligned tensors only: 16-bit inputs off a
     16-byte boundary take the tensor cores' loaded route at any head dim up
-    to 256, float32 its own route there."""
+    to 256; float32 off a boundary takes flash_kernel (the float32 kind's
+    producer reads 16-byte words), on one the tensor cores."""
     want = getattr(tflash, route)
     assert tflash.route(dtype, dim, aligned=False) == want
     n = 8 * 4 * dim
@@ -459,7 +628,8 @@ def test_routing_by_each_tensors_offset(dtype, which, offset):
 def test_no_16_bit_input_reaches_flash_kernel(dtype, aligned):
     """Every bf16 and float16 head dim up to 256, on or off a 16-byte
     boundary, runs on the tensor cores (flash_wgmma_kernel); past 256,
-    flash_wide_kernel; flash_kernel keeps float32 alone."""
+    flash_wide_kernel; flash_kernel keeps float32 alone: off a boundary,
+    or at a head dim that is not a multiple of 4 or is past 128."""
     for dim in range(1, tflash.MAX_PADDED + 1):
         r = tflash.route(dtype, dim, aligned=aligned)
         assert r in tflash.TENSOR_CORE_ROUTES, (dim, r)
@@ -469,8 +639,12 @@ def test_no_16_bit_input_reaches_flash_kernel(dtype, aligned):
     assert tflash.route(dtype, tflash.MAX_PADDED + 1, aligned) == tflash.WIDE
     flash_kernel = {r for r in tflash.ROUTES if r.kernel == "flash_kernel"}
     assert flash_kernel == {tflash.SIMT, tflash.PADDED}
-    assert {tflash.route(torch.float32, d) for d in range(1, 257)} == \
-        flash_kernel
+    assert {tflash.route(torch.float32, d, aligned=False)
+            for d in range(1, 257)} == flash_kernel
+    for d in range(1, 257):
+        r = tflash.route(torch.float32, d)
+        assert (r is tflash.WGMMA_F32) == (d % 4 == 0 and d <= 128), (d, r)
+        assert r is tflash.WGMMA_F32 or r in flash_kernel
 
 
 def test_cuda_route_refuses_what_the_kernels_do_not_take():
@@ -480,6 +654,8 @@ def test_cuda_route_refuses_what_the_kernels_do_not_take():
     q = torch.zeros((1, 8, 4, 64), dtype=torch.bfloat16)
     kv = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
     assert tflash.cuda_route(*(torch.zeros((1, 8, 2, 48)),) * 3) == \
+        tflash.WGMMA_F32
+    assert tflash.cuda_route(*(torch.zeros((1, 8, 2, 50)),) * 3) == \
         tflash.PADDED
     with pytest.raises(ValueError, match="head dims"):
         tflash.cuda_route(*(torch.zeros((1, 8, 2, 0)),) * 3)
@@ -492,7 +668,7 @@ def test_cuda_route_refuses_what_the_kernels_do_not_take():
         other = torch.zeros((1, lk, 2, 64), dtype=torch.bfloat16)
         assert tflash.cuda_route(q, other, other) == tflash.WGMMA
         assert tflash.cuda_route(q.float(), other.float(),
-                                 other.float()) == tflash.SIMT
+                                 other.float()) == tflash.WGMMA_F32
     with pytest.raises(ValueError, match="shape"):
         tflash.cuda_route(q, kv, kv[:, :4].contiguous())
     with pytest.raises(ValueError, match="shape"):
@@ -505,9 +681,9 @@ def test_cuda_route_refuses_what_the_kernels_do_not_take():
                                            dtype=torch.bfloat16),) * 2)
     with pytest.raises(ValueError, match="at least one key"):
         tflash.cuda_route(q, kv[:, :0], kv[:, :0])
-    # mixed dtypes run the float32 route; float16 the tensor cores' f16
-    # kind; float64 none
-    assert tflash.cuda_route(q, kv.float(), kv.float()) == tflash.SIMT
+    # mixed dtypes run the float32 route (fresh casts: on a boundary);
+    # float16 the tensor cores' f16 kind; float64 none
+    assert tflash.cuda_route(q, kv.float(), kv.float()) == tflash.WGMMA_F32
     assert tflash.cuda_route(q.half(), kv.half(), kv.half()) == \
         tflash.WGMMA_F16
     with pytest.raises(TypeError, match="dtype"):
@@ -520,12 +696,60 @@ def test_cuda_route_refuses_what_the_kernels_do_not_take():
     assert flat.data_ptr() % 16 == 0
     # TMA needs 16-byte boundaries: unaligned bf16 takes the loaded route
     assert tflash.cuda_route(odd, kv, kv) == tflash.WGMMA_LOADED
-    # float32 takes flash_kernel, which has no alignment rule
+    # float32 off a boundary takes flash_kernel, which has no alignment rule
     flat32 = torch.zeros(q.numel() + 1)
     odd32 = flat32[1:].view(q.shape)           # 4 bytes past an aligned start
     assert tflash.cuda_route(odd32, kv.float(), kv.float()) == tflash.SIMT
     with pytest.raises(RuntimeError, match="forward-only"):
         tflash.cuda_route(q.float().requires_grad_(), kv.float(), kv.float())
+
+
+@pytest.mark.parametrize("dts,offset,route", [
+    (("f32", "bf16", "bf16"), 0, "WGMMA_F32"),
+    (("f32", "bf16", "bf16"), 1, "SIMT"),
+    (("bf16", "f32", "f32"), 0, "WGMMA_F32"),
+    (("f16", "f32", "bf16"), 0, "WGMMA_F32"),
+    (("f32", "f32", "f16"), 0, "WGMMA_F32"),
+    (("bf16", "f16", "f16"), 0, "WGMMA_F32")])
+def test_mixed_dtypes_reach_the_kernel_in_float32(monkeypatch, dts, offset,
+                                                  route):
+    """q, k and v of mixed dtypes reach the launch as float32 tensors,
+    whichever of them is float32: a 16-bit one is cast into a fresh
+    tensor, a float32 one is passed on as it is (so a float32 q off a
+    16-byte boundary takes flash_kernel).  The launch is faked, so this
+    runs on the CPU; the output takes q's dtype."""
+    dtypes = dict(f32=torch.float32, bf16=torch.bfloat16, f16=torch.float16)
+    shapes = ((1, 8, 4, 64), (1, 8, 2, 64), (1, 8, 2, 64))
+    q, k, v = (torch.zeros(s, dtype=dtypes[d]) for s, d in zip(shapes, dts))
+    if offset:
+        flat = torch.zeros(q.numel() + offset, dtype=q.dtype)
+        assert flat.data_ptr() % 16 == 0
+        q = flat[offset:].view(q.shape)
+    want = getattr(tflash, route)
+    assert tflash.cuda_route(q, k, v) is want
+    passed = []
+
+    def fake_ptr(t):
+        passed.append(t)
+        return 0 if t is None else t.data_ptr()
+
+    class FakeLib:
+        def __getattr__(self, name):
+            return lambda *args: 0
+
+    monkeypatch.setattr(tflash, "on_cuda", lambda *t: True)
+    monkeypatch.setattr(tflash, "stream", lambda t: 0)
+    monkeypatch.setattr(tflash, "ptr", fake_ptr)
+    monkeypatch.setattr(tflash._build, "load", lambda: FakeLib())
+    tflash.reset_launches()
+    out = tflash.flash_attention(q, k, v)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert {n: c for n, c in tflash.LAUNCHES.items() if c} == {want.counter: 1}
+    assert len(passed) == 4        # q, k, v and the output
+    assert all(t.dtype == torch.float32 for t in passed)
+    for t, x in zip(passed, (q, k, v)):
+        assert (t.data_ptr() == x.data_ptr()) == (x.dtype == torch.float32)
+    tflash.reset_launches()
 
 
 @pytest.mark.cuda
@@ -535,10 +759,13 @@ def test_cuda_kernel_refuses_what_it_does_not_take():
     q = torch.zeros((1, 8, 2, 0), device="cuda")
     with pytest.raises(ValueError, match="head dims"):
         tflash.flash_attention(q, q, q)
-    q = torch.zeros((1, 8, 2, 48), device="cuda")
+    q = torch.zeros((1, 8, 2, 50), device="cuda")
     tflash.reset_launches()
     assert tflash.flash_attention(q, q, q).shape == q.shape   # any head dim
     assert tflash.LAUNCHES[tflash.PADDED.counter] == 1
+    with pytest.raises(ValueError, match="cannot force"):
+        tflash.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16(),
+                               force=tflash.SIMT)
     q = torch.zeros((1, 8, 2, 16), device="cuda", requires_grad=True)
     with pytest.raises(RuntimeError, match="forward-only"):
         tflash.flash_attention(q, q, q)

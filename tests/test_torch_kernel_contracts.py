@@ -98,7 +98,8 @@ def test_flash_any_head_dim_and_dtype_matches_pallas(rng, D, i, dt):
 
 
 @pytest.mark.parametrize("dts", [("bf16", "f32", "f32"),
-                                 ("f16", "f32", "bf16")])
+                                 ("f16", "f32", "bf16"),
+                                 ("f32", "bf16", "bf16")])
 def test_flash_mixed_dtypes_match_pallas(rng, dts):
     """The Pallas kernel casts q, k and v to float32 each; so does the
     port (the float32 route of the head dim), and the output takes q's
@@ -111,7 +112,7 @@ def test_flash_mixed_dtypes_match_pallas(rng, dts):
     assert got.dtype == TORCH[dts[0]] and want.dtype == JNP[dts[0]]
     _close(got, want, FLASH_TOL[dts[0]])
     assert tflash.compute_dtype(q[1], k[1], v[1]) == torch.float32
-    assert tflash.cuda_route(q[1], k[1], v[1]) == tflash.PADDED
+    assert tflash.cuda_route(q[1], k[1], v[1]) == tflash.WGMMA_F32
 
 
 def _aligned_pair(D, dtype, offset):
@@ -131,7 +132,9 @@ def _aligned_pair(D, dtype, offset):
     (torch.bfloat16, 128, 2, "WGMMA_LOADED"), (torch.bfloat16, 96, 0, "WGMMA"),
     (torch.float16, 64, 0, "WGMMA_F16"), (torch.float16, 128, 1, "WGMMA_LOADED"),
     (torch.float16, 16, 0, "WGMMA_F16"), (torch.float32, 128, 1, "SIMT"),
-    (torch.float32, 40, 0, "PADDED"), (torch.bfloat16, 80, 0, "WGMMA_PADDED"),
+    (torch.float32, 40, 0, "WGMMA_F32"), (torch.float32, 40, 1, "PADDED"),
+    (torch.float32, 42, 0, "PADDED"), (torch.float32, 136, 0, "PADDED"),
+    (torch.bfloat16, 80, 0, "WGMMA_PADDED"),
     (torch.float16, 1, 0, "WGMMA_LOADED"), (torch.float16, 200, 0, "WGMMA_F16"),
     (torch.bfloat16, 256, 0, "WGMMA_PADDED"), (torch.float32, 257, 0, "WIDE"),
     (torch.float32, 320, 0, "WIDE"), (torch.bfloat16, 512, 0, "WIDE")])

@@ -38,6 +38,21 @@ values on 16-byte boundaries, at the smoke's slices:
   minimum of one block an SM in its launch bounds, beside the package's TMA
   route (``tma``), at bf16's main-path widths.
 
+``f32``: where the time of the float32 kind (``flash_wgmma_kernel<float,
+W, true>``, ``csrc/flash_f32.cu``: three bf16 pieces of every float32
+operand, split by the producer warpgroup) goes, and the choice of its kv
+tile.  Timed beside the package's kind and ``flash_kernel`` (forced) at
+the float32 slices of yi-6b, phi3-mini (d 96) and phi-2 (d 80):
+
+- ``package``: the package's float32 kind (32-key tiles, two stages at
+  width 128);
+- ``f32_kv64``: 64-key tiles (one stage at width 128, two at 64; its
+  output is right, not the same bits);
+- ``f32_consumers_alone``: the producer loads and splits but stores nothing
+  (the consumers' arithmetic and the barriers alone);
+- ``f32_producer_alone``: the consumers skip every tile's arithmetic (the
+  producer's loads, splits and stores alone).
+
 It also prints each copy's ptxas registers and spills for the kernel.
 Prints the card's name and power limit and one JSON object per slice.
 
@@ -45,6 +60,7 @@ Needs one GPU with sm_90a and nvcc.  Run from the repository root:
 
     python3 tools/flash_copies.py single-p
     python3 tools/flash_copies.py loaded
+    python3 tools/flash_copies.py f32
 """
 
 from __future__ import annotations
@@ -67,7 +83,7 @@ import chip_smoke as S  # noqa: E402
 COPIES = {
     # bf16's P_lo product (float16 keeps its own, a tile's P V apart)
     "single_p": (("flash_attention.cu", "flash_contract.cu"), (
-        ("          mma_rs_t<E, W>(acc, p_lo[kk], bv, 1);\n", ""),)),
+        ("            mma_rs_t<E, W>(acc, p_lo[kk], bv, 1);\n", ""),)),
     "no_shift": (("flash_loaded.cu",), (
         ("        if (in_atoms) {\n", "        if (in_atoms && kPer < 0) {\n"),)),
     "producer_alone": (("flash_loaded.cu",), (
@@ -80,20 +96,35 @@ COPIES = {
          "      }\n"),)),
     # width 256's P V as one 256-column product, as TMA's route runs it
     "one_pv": (("flash_loaded.cu",), (
-        ("      } else if constexpr (kLoaded && W == 4 * kAtom) {\n",
-         "      } else if constexpr (kLoaded && W < 0) {\n"),)),
+        ("        } else if constexpr (kLoaded && W == 4 * kAtom) {\n",
+         "        } else if constexpr (kLoaded && W < 0) {\n"),)),
     "tma_min_blocks_1": (("flash_attention.cu", "flash_contract.cu"), (
         ("__global__ void __launch_bounds__(kLoaded ? kThreadsLoaded : "
          "kThreadsWg)",
          "__global__ void __launch_bounds__(kLoaded ? kThreadsLoaded : "
          "kThreadsWg, 1)"),)),
+    # the float32 kind's kv tile, and its two sides alone
+    "f32_kv64": (("flash_f32.cu",), (
+        ("constexpr int kF32BlockN = 32;", "constexpr int kF32BlockN = 64;"),)),
+    "f32_consumers_alone": (("flash_f32.cu",), (
+        ("        if (read) {\n", "        if (read && kPer < 0) {\n"),)),
+    "f32_producer_alone": (("flash_f32.cu",), (
+        ("      mbar_wait(bar_full(st), (t / kNS) & 1);\n",
+         "      mbar_wait(bar_full(st), (t / kNS) & 1);\n"
+         "      if constexpr (kLoaded) {\n"
+         "        __syncwarp();\n"
+         "        if (lane == 0) mbar_arrive(bar_empty(st));\n"
+         "        continue;\n"
+         "      }\n"),)),
 }
 LOADED_COPIES = ("no_shift", "producer_alone", "one_pv", "tma_min_blocks_1")
+F32_COPIES = ("f32_kv64", "f32_consumers_alone", "f32_producer_alone")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTRIES = {  # C entry: argument types
     "flash_attention_wgmma_launch": [_P, _P, _P] + [_I] * 8 + [_P, _P],
     "flash_attention_wgmma_loaded_launch": [_I, _P, _P, _P] + [_I] * 8
                                            + [_P, _P],
+    "flash_attention_wgmma_f32_launch": [_P, _P, _P] + [_I] * 8 + [_P, _P],
 }
 # (label, shape, dtype, element offset of q, k and v from a 16-byte boundary)
 LOADED_SLICES = (
@@ -236,17 +267,64 @@ def loaded(dev, tmp):
     return 0
 
 
+# (label, shape) of the float32 kind's slices
+F32_SLICES = (("yi-6b float32", dict(S.FLASH_SLICE)),
+              ("phi3 d96 float32", dict(S.FLASH_SLICE_D96)),
+              ("phi-2 d80 float32", dict(B=1, L=2048, H=32, KVH=32, D=80,
+                                         causal=True, window=0)))
+
+
+def f32(dev, tmp):
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.common import check, stream
+
+    S.emit({"copy": "package", "ptxas": ptxas_lines(build.build(force=True).log)})
+    copies = build_copies(tmp, F32_COPIES)
+    for name, (_, ptxas) in copies.items():
+        S.emit({"copy": name, "ptxas": ptxas})
+    gen = torch.Generator().manual_seed(6)
+    for label, c in F32_SLICES:
+        q, k, v = S._flash_inputs(gen, dev, c, torch.float32)
+        kw = dict(causal=c["causal"], window=c["window"])
+        B, L, H, D = q.shape
+        if FA.cuda_route(q, k, v) is not FA.WGMMA_F32:
+            raise SystemExit(f"{label}: not the float32 kind's route")
+        row = {"slice": label, "shape": c}
+        run = lambda: FA.flash_attention(q, k, v, **kw)  # noqa: E731
+        row["package"] = S.time_ms(run)
+        row["flash_kernel"] = S.time_ms(
+            lambda: FA.flash_attention(q, k, v, force=FA.SIMT, **kw), reps=5)
+        want = run()
+        o = torch.empty_like(q)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), B, L, L, H,
+                k.shape[2], D, int(kw["causal"]), int(kw["window"]),
+                o.data_ptr(), stream(q))
+        for name, (dll, _) in copies.items():
+            fn = dll.flash_attention_wgmma_f32_launch
+            row[name] = S.time_ms(lambda fn=fn, name=name: check(fn(*args), name))
+            # f32_kv64: a right output, not the same bits
+            row[name + "_max_abs_vs_package"] = float((o - want).abs().max())
+        row["package_again"] = S.time_ms(run)
+        S.emit(row)
+        del q, k, v, o, want
+        S.empty_cache(dev)
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("mode", choices=("single-p", "loaded"))
+    ap.add_argument("mode", choices=("single-p", "loaded", "f32"))
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("needs a GPU")
     dev = torch.device("cuda", 0)
     S.device_line()
+    modes = {"single-p": single_p, "loaded": loaded, "f32": f32}
     with tempfile.TemporaryDirectory() as tmp:
-        return (single_p if args.mode == "single-p" else loaded)(dev, tmp)
+        return modes[args.mode](dev, tmp)
 
 
 if __name__ == "__main__":

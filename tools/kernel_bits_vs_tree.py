@@ -14,8 +14,15 @@ on its three fixed-shape routes (dtx formed on load too), the state pass
 on both, ``ssd_chunked``, the gain kernels at wide-192's and
 ``chip_smoke.FAMILY_TIMED``'s shapes in float32 and bf16, and
 ``gain_matvec`` / ``practical_gain`` at the kernel suite's one agent
-(``chip_smoke.MATVEC_LONG[0]``) in float32 and float16.  Beside them, and
-counted apart (``wide_cases``), ``flash_wide_kernel`` past head dim 256.
+(``chip_smoke.MATVEC_LONG[0]``) in float32 and float16; flash's float32
+cases run ``flash_kernel`` (forced) on both trees.  Beside them, and
+counted apart: ``flash_wide_kernel`` past head dim 256 (``wide_cases``)
+and ``ssd_chunk_generic_kernel`` forced at ``chip_smoke``'s
+``SSD_FIXED_VS_GENERIC`` and ``SSD_CONTRACT_TILES`` shapes
+(``generic_cases``), both bitwise; and the float32 cases on this tree's
+route (the tensor cores' float32 kind, ``flash_attention_wgmma_f32``)
+against the other tree's ``flash_kernel`` on the same inputs
+(``float32_cases``): not bitwise, each case's max abs distance listed.
 
 A tree whose library has no ``gain_matvec_tiles_launch`` (before the
 matvec took its T-tiles, one block an agent) runs its matvec cases
@@ -27,7 +34,8 @@ Needs one GPU with sm_90a and nvcc.  Run from the repository root:
     python3 tools/kernel_bits_vs_tree.py --src DIR [--out FILE]
 
 Prints the card's name and power limit, one JSON line per case
-(``equal``: bitwise) and a summary line; exits 1 if any case differs.
+(``equal``: bitwise; ``group``) and a summary line; exits 1 if any case
+but a ``float32_cases`` one differs.
 """
 
 from __future__ import annotations
@@ -107,10 +115,16 @@ def cases(dev):
     for c in flash:
         for dt in (torch.float32, torch.bfloat16):
             q, k, v = S._flash_inputs(gen, dev, c, dt)
-            if FA.cuda_route(q, k, v) not in (FA.WGMMA, FA.SIMT):
-                continue   # bf16 at d 16 and 32: a route this tree added
+            r = FA.cuda_route(q, k, v)
+            if r not in (FA.WGMMA, FA.WGMMA_F32):
+                continue   # bf16 at d 16 and 32: the padded route
             kw = dict(causal=c["causal"], window=c["window"])
-            out.append((f"flash {c} {dt} {FA.cuda_route(q, k, v).kernel}",
+            if r is FA.WGMMA_F32:   # flash_kernel, the other tree's route
+                out.append((f"flash {c} {dt} flash_kernel (forced)",
+                            lambda q=q, k=k, v=v, kw=kw: FA.flash_attention(
+                                q, k, v, force=FA.SIMT, **kw)))
+                continue
+            out.append((f"flash {c} {dt} {r.kernel}",
                         lambda q=q, k=k, v=v, kw=kw:
                         FA.flash_attention(q, k, v, **kw)))
     tiles = ((S.SSD_TILE_CASE, S.SSD_SLICE, S.JAMBA_SSD_SMALL)
@@ -212,6 +226,55 @@ def wide_cases(dev):
     return out
 
 
+def generic_cases(dev):
+    """(label, fn, None) triples of ``ssd_chunk_generic_kernel`` forced at
+    ``chip_smoke.SSD_FIXED_VS_GENERIC``'s shapes and at
+    ``SSD_CONTRACT_TILES`` in float32, bf16 and float16 B/C (1 x 2 chunks,
+    3 heads), which no main path runs.  Counted apart."""
+    import torch
+
+    import chip_smoke as S
+    from repro_torch.kernels import ssd_scan as SS
+
+    gen = torch.Generator().manual_seed(17)
+    shapes = [(label, c, d) for label, c, d in S.SSD_FIXED_VS_GENERIC]
+    shapes += [(f"contract {Q}x{N}x{P}", dict(B=1, nc=2, Q=Q, H=3, P=P, N=N),
+                d) for Q, N, P in S.SSD_CONTRACT_TILES
+               for d in ("float32", "bfloat16", "float16")]
+    out = []
+    for label, c, d in shapes:
+        a = S._ssd_inputs(gen, dev, c, getattr(torch, d))
+        out.append((f"ssd generic tile {label} {c} {d}",
+                    lambda a=a: SS.ssd_chunk_tiles(*a, force=SS.GENERIC),
+                    None))
+    return out
+
+
+def float32_cases(dev):
+    """(label, fn, other) triples of flash's float32 cases (the reference's,
+    head dim 96, Lk != Lq, the yi-6b slice): ``fn`` runs this tree's route
+    (the tensor cores' float32 kind), ``other`` flash_kernel forced, run on
+    the other tree's library.  Not bitwise: the distances are listed."""
+    import torch
+
+    import chip_smoke as S
+    from repro_torch.kernels import flash_attention as FA
+
+    gen = torch.Generator().manual_seed(11)
+    out = []
+    for c in (S.FLASH_CASES + S.FLASH_D96_CASES + S.FLASH_CROSS_CASES
+              + (S.FLASH_SLICE,)):
+        q, k, v = S._flash_inputs(gen, dev, c, torch.float32)
+        kw = dict(causal=c["causal"], window=c["window"])
+        r = FA.cuda_route(q, k, v)
+        out.append((f"flash {c} float32 {r.counter} vs flash_kernel",
+                    lambda q=q, k=k, v=v, kw=kw: FA.flash_attention(q, k, v,
+                                                                    **kw),
+                    lambda q=q, k=k, v=v, kw=kw: FA.flash_attention(
+                        q, k, v, force=FA.SIMT, **kw)))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", required=True)
@@ -234,30 +297,45 @@ def main(argv=None):
     print(json.dumps({"other_src": os.path.abspath(args.src),
                       "other_library": str(other),
                       "this_library": str(this)}), flush=True)
-    rows, differ, wide = [], 0, wide_cases(dev)
-    for label, fn, legacy in cases(dev) + wide:
-        build.load(this)
-        a = fn()
-        tiled = hasattr(build.load(other), "gain_matvec_tiles_launch")
-        b = fn() if legacy is None or tiled else legacy(other)
-        build.load(this)
-        a = a if isinstance(a, tuple) else (a,)
-        b = b if isinstance(b, tuple) else (b,)
-        equal = all(torch.equal(x, y) for x, y in zip(a, b))
-        differ += not equal
-        row = {"case": label, "equal": equal}
-        rows.append(row)
-        print(json.dumps(row), flush=True)
-    n_wide = len(wide)
-    wide_differ = sum(not r["equal"] for r in rows[-n_wide:])
-    summary = {"cases": len(rows) - n_wide, "differ": differ - wide_differ,
-               "wide_cases": n_wide, "wide_differ": wide_differ,
-               "card": card}
+    groups = (("main", cases(dev)), ("wide", wide_cases(dev)),
+              ("generic", generic_cases(dev)),
+              ("float32", float32_cases(dev)))
+    rows = []
+    for group, triples in groups:
+        for label, fn, other_fn in triples:
+            build.load(this)
+            a = fn()
+            tiled = hasattr(build.load(other), "gain_matvec_tiles_launch")
+            if group == "float32":
+                b = other_fn()
+            else:
+                b = fn() if other_fn is None or tiled else other_fn(other)
+            build.load(this)
+            a = a if isinstance(a, tuple) else (a,)
+            b = b if isinstance(b, tuple) else (b,)
+            equal = all(torch.equal(x, y) for x, y in zip(a, b))
+            row = {"group": group, "case": label, "equal": equal}
+            if group == "float32":
+                row["max_abs_vs_other"] = max(float((x.double() - y).abs().max())
+                                              for x, y in zip(a, b))
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    summary = {"card": card}
+    for group, _ in groups:
+        mine = [r for r in rows if r["group"] == group]
+        key = "cases" if group == "main" else f"{group}_cases"
+        summary[key] = len(mine)
+        summary[key.replace("cases", "differ")] = sum(not r["equal"]
+                                                      for r in mine)
+    summary["float32_max_abs_vs_other"] = max(
+        (r["max_abs_vs_other"] for r in rows if r["group"] == "float32"),
+        default=0.0)
     print(json.dumps(summary), flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"summary": summary, "rows": rows}, f, indent=1)
-    return 1 if differ else 0
+    return 1 if any(not r["equal"] for r in rows
+                    if r["group"] != "float32") else 0
 
 
 if __name__ == "__main__":
